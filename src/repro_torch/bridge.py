@@ -1,0 +1,34 @@
+"""Weight bridge: a nested dict of numpy arrays with the JAX package's
+parameter names and layouts (``jax.tree.map(np.asarray, params)``) →
+the port's nested dict of tensors, same names, same layouts.
+
+Only the type changes.  bf16 arrays arrive as ``ml_dtypes.bfloat16``,
+which ``torch.from_numpy`` rejects; they cross bit-exactly as their raw
+16 bits (viewed as int16, then ``.view(torch.bfloat16)``).  Tests use
+the bridge; the serving path never imports it.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+PyTree = Any
+
+
+def tensor_from_numpy(arr, device, dtype: Optional[torch.dtype] = None):
+    arr = np.array(arr, copy=True, order="C")    # owned and writable
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    t = t.to(device)
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+
+def params_from_numpy(tree: PyTree, device, dtype: Optional[torch.dtype] = None) -> PyTree:
+    """Convert every leaf; ``dtype`` casts floating leaves when given."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device, dtype)

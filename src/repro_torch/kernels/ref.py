@@ -1,0 +1,92 @@
+"""Plain PyTorch versions of the kernels (the counterpart of
+``repro/kernels/ref.py``): numerics ground truth, no tiling.
+
+The kernel wrappers in ``ops`` take these only for tensors on the CPU;
+``chip_smoke.py`` holds each CUDA kernel against them on the card, and
+``tests/test_torch_kernels.py`` holds them against the JAX oracles and
+the interpret-mode Pallas kernels.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
+    """q/k/v: (B, Sq/Sk, H, hd), K/V already expanded to H heads."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    q_pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = k_pos <= q_pos
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
+    """The plain version of ``ops.flash_attention``: k/v (B, Sk, KV, hd)
+    expanded to H heads with a repeat, as the JAX wrapper does, then
+    ``attention_ref``."""
+    rep = q.shape[2] // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    return attention_ref(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+
+
+def decode_slot_positions(pos, cache_len, *, ring=False, device=None):
+    """Position held by each cache slot at decode step ``pos``.
+
+    Linear cache: slot i holds position i.  Ring cache (sliding-window
+    buffer): slot i holds the latest p ≤ pos with p % cache_len == i —
+    slots not yet written come out negative and must be masked.  Shared
+    by the einsum decode path, the flash_decode wrapper and this oracle,
+    so the three can never disagree on ring semantics.  (``torch``'s
+    ``%`` floors like Python's and ``jnp``'s.)"""
+    idx = torch.arange(cache_len, dtype=torch.int64, device=device)
+    if ring:
+        return pos - ((pos - idx) % cache_len)
+    return idx
+
+
+def decode_valid(pos, cache_len, *, window=0, ring=False, device=None):
+    """(S,) bool: cache slots the query at ``pos`` may attend to."""
+    k_pos = decode_slot_positions(pos, cache_len, ring=ring, device=device)
+    valid = (k_pos >= 0) & (k_pos <= pos)
+    if window:
+        valid = valid & (k_pos > pos - window)
+    return valid
+
+
+def decode_attention_ref(q, k, v, pos, *, window=0, softcap=0.0,
+                         ring=False):
+    """Single-query decode attention (the ``flash_decode`` ground truth).
+    q: (B, H, hd) — ONE query token per sequence; k/v: (B, KV, S, hd)
+    cache layout (kv head i serves q heads [i·G, (i+1)·G)); pos: int
+    position of the query token.  Returns (B, H, hd)."""
+    B, H, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    rep = H // KV
+    kk = k.repeat_interleave(rep, dim=1).float()            # (B, H, S, hd)
+    vv = v.repeat_interleave(rep, dim=1).float()
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bhd,bhsd->bhs", q.float(), kk) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    valid = decode_valid(pos, S, window=window, ring=ring, device=q.device)
+    s = torch.where(valid[None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhs,bhsd->bhd", p, vv)
+    return out.to(q.dtype)

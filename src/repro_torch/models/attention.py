@@ -1,0 +1,247 @@
+"""Attention: GQA + RoPE + (optional) QK-norm / bias / sliding window
+(the counterpart of ``repro/models/attention.py``, dense paths).
+
+Three execution paths:
+  * ``einsum``  — plain softmax(QK^T)V for short sequences,
+  * ``chunked`` — a loop over query blocks (never materializes the full
+                  S×S score matrix; default for S >= CHUNK_THRESHOLD),
+  * ``kernel``  — the hand-written CUDA kernels (``kernels.ops``):
+                  ``flash_attention`` in prefill, ``flash_decode`` in
+                  decode; ``backend="auto"`` takes them for CUDA tensors.
+
+Decode operates on a KV cache of layout (B, KV, S_cache, hd); for
+sliding-window attention the cache may be a ring buffer of window size.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import layers
+from ..kernels import ops as kops
+
+CHUNK_THRESHOLD = 2048
+Q_CHUNK = 512
+NEG_INF = -1e30
+
+
+def init_attention(cfg, dtype, *, generator, device, stack=()):
+    d, hd = cfg.d_model, cfg.head_dim
+    kw = dict(generator=generator, device=device, stack=stack)
+    p = {
+        "wq": layers.dense_init((d, cfg.num_heads * hd), 0, dtype, **kw),
+        "wk": layers.dense_init((d, cfg.num_kv_heads * hd), 0, dtype, **kw),
+        "wv": layers.dense_init((d, cfg.num_kv_heads * hd), 0, dtype, **kw),
+        "wo": layers.dense_init((cfg.num_heads * hd, d), 0, dtype, **kw),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((*stack, cfg.num_heads * hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((*stack, cfg.num_kv_heads * hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((*stack, cfg.num_kv_heads * hd), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = layers.init_norm("rmsnorm", hd, device=device, stack=stack)
+        p["k_norm"] = layers.init_norm("rmsnorm", hd, device=device, stack=stack)
+    return p
+
+
+def _project_qkv(params, cfg, x, positions, rope: bool = True):
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(B, S, cfg.num_heads, hd)
+    k = k.reshape(B, S, cfg.num_kv_heads, hd)
+    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = layers.apply_norm(params["q_norm"], q, "rmsnorm")
+        k = layers.apply_norm(params["k_norm"], k, "rmsnorm")
+    if rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _expand_kv(k, num_heads):
+    """(B, S, KV, hd) -> (B, S, H, hd) by repeating each kv head."""
+    rep = num_heads // k.shape[2]
+    return k.repeat_interleave(rep, dim=2) if rep > 1 else k
+
+
+def _mask_bias(q_pos, k_pos, causal, window, prefix_len):
+    """Additive fp32 mask bias (Sq, Sk) from position vectors."""
+    ok = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok = k_pos[None, :] <= q_pos[:, None]
+        if prefix_len:
+            ok = ok | (k_pos[None, :] < prefix_len)
+    if window:
+        ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
+
+
+def _softcap(scores, cap):
+    if cap and cap > 0:
+        return torch.tanh(scores / cap) * cap
+    return scores
+
+
+def _attend_einsum(q, k, v, bias, scale, softcap=0.0):
+    """q: (B,Sq,H,hd); k,v: (B,Sk,H,hd); bias: (Sq,Sk) additive."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    scores = _softcap(scores, softcap) + bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _attend_chunked(q, k, v, q_pos, k_pos, causal, window, prefix_len, scale,
+                    softcap=0.0):
+    """Streaming softmax over query chunks (memory O(Sq_blk*Sk)); a Python
+    loop in place of the JAX ``lax.scan``."""
+    Sq = q.shape[1]
+    nblk = max(1, Sq // Q_CHUNK)
+    blk = Sq // nblk
+    if nblk * blk != Sq:
+        raise ValueError(f"chunked attention: {Sq} query rows do not split "
+                         f"into {nblk} equal blocks")
+    outs = []
+    for i in range(nblk):
+        rows = slice(i * blk, (i + 1) * blk)
+        bias = _mask_bias(q_pos[rows], k_pos, causal, window, prefix_len)
+        outs.append(_attend_einsum(q[:, rows], k, v, bias, scale, softcap))
+    return torch.cat(outs, dim=1)
+
+
+def attend(q, k, v, *, q_pos, k_pos, causal=True, window=0, prefix_len=0,
+           softcap=0.0, backend="auto"):
+    """Full attention dispatch.  q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd) with
+    KV dividing H.  The kernel reads the kv heads in place; the plain
+    paths expand them to H heads first, as the JAX package does."""
+    backend = kops.resolve_backend(backend, q)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    Sq, Sk = q.shape[1], k.shape[1]
+    if backend == "kernel":
+        if softcap or prefix_len:
+            # the prefill kernel expresses neither logit softcap nor a
+            # bidirectional prefix; on the card nothing falls back to the
+            # plain paths (the decode kernel does take a softcap)
+            raise NotImplementedError(
+                "flash_attention (prefill kernel) has no logit softcap or "
+                f"bidirectional prefix (softcap={softcap}, "
+                f"prefix_len={prefix_len})")
+        return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=int(k_pos.shape[0] - q_pos.shape[0]))
+    H = q.shape[2]
+    k, v = _expand_kv(k, H), _expand_kv(v, H)
+    if backend == "einsum" or (backend == "auto" and max(Sq, Sk) <= CHUNK_THRESHOLD):
+        bias = _mask_bias(q_pos, k_pos, causal, window, prefix_len)
+        return _attend_einsum(q, k, v, bias, scale, softcap)
+    return _attend_chunked(q, k, v, q_pos, k_pos, causal, window, prefix_len,
+                           scale, softcap)
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill) self-attention
+# ---------------------------------------------------------------------------
+
+def self_attention(params, cfg, x, *, positions=None, causal=True,
+                   prefix_len=0, rope=True, window=None, backend="auto",
+                   kv_cache=None):
+    """``kv_cache``: a layer's {"k", "v"} cache to fill with this call's
+    K/V from slot 0 (prefill), so K/V are projected once per layer."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, cfg, x, positions, rope=rope)
+    if kv_cache is not None:
+        prefill_into_cache(kv_cache, k, v)
+    win = cfg.sliding_window if window is None else window
+    out = attend(q, k, v, q_pos=positions, k_pos=positions, causal=causal,
+                 window=win, prefix_len=prefix_len,
+                 softcap=cfg.attn_logit_softcap, backend=backend)
+    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    return out @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# KV cache (decode)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg, batch, cache_len, dtype, *, device, stack=()):
+    """Cache layout: (*stack, B, KV, S_cache, hd)."""
+    shape = (*stack, batch, cfg.num_kv_heads, cache_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill_into_cache(cache, k, v, start=0):
+    """k,v: (B, S, KV, hd) -> cache[..., start:start+S, :], written in
+    place.  Where the JAX update would clamp a slice that runs past the
+    cache, this raises."""
+    S, S_cache = k.shape[1], cache["k"].shape[2]
+    if start < 0 or start + S > S_cache:
+        raise ValueError(f"prefill of {S} positions at {start} overflows a "
+                         f"cache of {S_cache} slots")
+    cache["k"][:, :, start:start + S] = k.transpose(1, 2)
+    cache["v"][:, :, start:start + S] = v.transpose(1, 2)
+    return cache
+
+
+def decode_self_attention(params, cfg, x, cache, pos, *, ring=False,
+                          rope=True, window=0, backend="auto"):
+    """One-token decode step.
+
+    x: (B, 1, d); pos: int — current position (same for the batch).
+    cache: dict(k,v) with layout (B, KV, S_cache, hd).
+    The new K/V are written IN PLACE into the cache slot: the JAX update
+    is functional (it returns new arrays); writing in place here avoids
+    copying every layer's cache on every step.  The returned cache is the
+    same dict.  On a linear cache a ``pos`` past the last slot raises
+    (the JAX update would clamp it silently onto the last slot).
+    ``backend="kernel"`` (or ``"auto"`` on the card) runs the attention
+    in the ``flash_decode`` kernel, reading the cache in place.
+    Returns (out (B,1,d), cache).
+    """
+    B = x.shape[0]
+    hd = cfg.head_dim
+    pos = int(pos)
+    S_cache = cache["k"].shape[2]
+    if ring:
+        slot = pos % S_cache
+    elif not 0 <= pos < S_cache:
+        raise ValueError(f"decode position {pos} outside a linear cache of "
+                         f"{S_cache} slots")
+    else:
+        slot = pos
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, cfg, x, positions, rope=rope)
+    cache["k"][:, :, slot] = k[:, 0]
+    cache["v"][:, :, slot] = v[:, 0]
+
+    backend = kops.resolve_backend(backend, x)
+    if backend == "kernel":
+        out = kops.flash_decode(q[:, 0], cache["k"], cache["v"], pos,
+                                window=window,
+                                softcap=cfg.attn_logit_softcap or 0.0,
+                                ring=ring)
+        out = out.reshape(B, 1, cfg.num_heads * hd) @ params["wo"]
+        return out, cache
+
+    # positions held in each cache slot (shared ring semantics with the
+    # flash_decode wrapper and its plain version — kernels/ref.py)
+    bias = kops.decode_bias(pos, S_cache, window=window, ring=ring,
+                            device=x.device)[None, :]            # (1, S_cache)
+
+    rep = cfg.num_heads // cfg.num_kv_heads
+    kk = cache["k"].repeat_interleave(rep, dim=1) if rep > 1 else cache["k"]
+    vv = cache["v"].repeat_interleave(rep, dim=1) if rep > 1 else cache["v"]
+    scores = torch.einsum("bqhd,bhsd->bhqs", q, kk).float()
+    scores = scores * (1.0 / (hd ** 0.5))
+    scores = _softcap(scores, cfg.attn_logit_softcap) + bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqs,bhsd->bqhd", probs, vv)
+    out = out.reshape(B, 1, cfg.num_heads * hd) @ params["wo"]
+    return out, cache

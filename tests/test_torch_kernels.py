@@ -1,0 +1,177 @@
+"""The port's plain kernel versions and attention dispatch, held against
+the JAX package on the CPU.
+
+The same numpy-seeded inputs go through ``repro.kernels.ref`` (the JAX
+oracles), ``repro.kernels.ops`` (the Pallas kernels, which run their
+kernel bodies in interpret mode off-TPU) and the port's
+``repro_torch.kernels`` / ``repro_torch.models.attention``.  fp32
+throughout, atol 1e-5: the same fp32 arithmetic in two frameworks.
+The CUDA kernels themselves run only on the card (``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import attention as jattn
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import attention as tattn
+
+ATOL = 1e-5
+
+
+def _randn(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _close(got, want, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=atol,
+                               rtol=0)
+
+
+# (B, Sq, Sk, H, KV, hd, causal, window, q_offset)
+FA_CASES = [
+    (2, 16, 16, 2, 2, 64, True, 0, 0),        # causal
+    (1, 13, 13, 4, 2, 64, True, 0, 0),        # ragged S, GQA
+    (2, 24, 24, 2, 1, 64, True, 6, 0),        # causal + window, GQA
+    (1, 8, 24, 2, 2, 64, True, 0, 16),        # q_offset (decode-style tail)
+    (1, 10, 14, 2, 2, 64, False, 0, 0),       # non-causal, ragged Sk
+    (1, 20, 20, 2, 2, 128, True, 5, 0),       # hd 128 + window
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window,q_offset", FA_CASES)
+def test_flash_attention_plain_matches_jax(B, Sq, Sk, H, KV, hd, causal,
+                                           window, q_offset):
+    rng = np.random.default_rng(Sq * 31 + Sk)
+    q, k, v = (_randn(rng, B, Sq, H, hd), _randn(rng, B, Sk, KV, hd),
+               _randn(rng, B, Sk, KV, hd))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    rep = H // KV
+    want_ref = jref.attention_ref(jnp.asarray(q), jnp.repeat(k, rep, 2),
+                                  jnp.repeat(v, rep, 2), **kw)
+    want_pallas = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), **kw)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got_ref = tref.attention_ref(tq, tk.repeat_interleave(rep, 2),
+                                 tv.repeat_interleave(rep, 2), **kw)
+    got_wrapper = tops.flash_attention(tq, tk, tv, **kw)   # CPU: plain version
+    for got in (got_ref, got_wrapper):
+        _close(got, want_ref)
+        _close(got, want_pallas)
+    assert tops.flash_attention.launches == 0     # no kernel ran on the CPU
+
+
+@pytest.mark.parametrize("pos,S,ring", [(5, 8, False), (5, 8, True),
+                                        (13, 8, True), (0, 4, True),
+                                        (100, 37, True), (36, 37, False)])
+def test_decode_slot_positions_match_jax(pos, S, ring):
+    want = jref.decode_slot_positions(jnp.int32(pos), S, ring=ring)
+    got = tref.decode_slot_positions(pos, S, ring=ring)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# (B, KV, G, S, hd, pos, kwargs, q_scale)
+FD_CASES = [
+    (2, 2, 2, 40, 64, 30, {}, 1.0),                               # linear
+    (2, 2, 2, 40, 64, 100, dict(ring=True, window=40), 1.0),      # ring, full
+    (1, 2, 3, 40, 64, 25, dict(ring=True), 1.0),                  # ring, unwritten
+    (1, 2, 2, 300, 64, 290, dict(window=50), 1.0),                # pages before window
+    (1, 1, 4, 300, 64, 20, {}, 1.0),                              # pages past pos
+    (2, 2, 2, 40, 128, 39, dict(softcap=50.0), 30.0),             # softcap
+]
+
+
+@pytest.mark.parametrize("B,KV,G,S,hd,pos,kw,q_scale", FD_CASES)
+def test_flash_decode_plain_matches_jax(B, KV, G, S, hd, pos, kw, q_scale):
+    rng = np.random.default_rng(S * 7 + pos)
+    q = _randn(rng, B, KV * G, hd, scale=q_scale)
+    k, v = _randn(rng, B, KV, S, hd), _randn(rng, B, KV, S, hd)
+    want_ref = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), jnp.int32(pos), **kw)
+    want_pallas = jops.flash_decode(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.int32(pos), **kw)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got_ref = tref.decode_attention_ref(tq, tk, tv, pos, **kw)
+    got_wrapper = tops.flash_decode(tq[:, None], tk, tv, pos, **kw)
+    for got in (got_ref, got_wrapper):
+        _close(got, want_ref)
+        _close(got, want_pallas)
+    assert tops.flash_decode.launches == 0
+
+
+@pytest.mark.parametrize("backend,Sq,window,softcap", [
+    ("einsum", 16, 0, 0.0), ("einsum", 16, 5, 30.0),
+    ("chunked", 1024, 0, 0.0), ("auto", 2304, 0, 0.0)])
+def test_attend_paths_match_jax(backend, Sq, window, softcap):
+    """The einsum and chunked attention paths (GQA expanded inside the
+    port's ``attend``) against JAX's ``attend`` on the same inputs."""
+    rng = np.random.default_rng(Sq)
+    B, H, KV, hd = 1, 2, 1, 64
+    q = _randn(rng, B, Sq, H, hd)
+    k, v = _randn(rng, B, Sq, KV, hd), _randn(rng, B, Sq, KV, hd)
+    pos = np.arange(Sq, dtype=np.int32)
+    jb = "chunked" if backend == "chunked" else backend
+    want = jattn.attend(jnp.asarray(q), jnp.repeat(k, H // KV, 2),
+                        jnp.repeat(v, H // KV, 2), q_pos=jnp.asarray(pos),
+                        k_pos=jnp.asarray(pos), window=window,
+                        softcap=softcap, backend=jb)
+    tb = "auto" if backend == "chunked" else backend
+    if backend == "chunked":
+        got = tattn._attend_chunked(
+            torch.from_numpy(q), *(torch.from_numpy(x).repeat_interleave(H // KV, 2)
+                                   for x in (k, v)),
+            torch.from_numpy(pos), torch.from_numpy(pos), True, window, 0,
+            1.0 / hd ** 0.5, softcap)
+    else:
+        got = tattn.attend(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), q_pos=torch.from_numpy(pos),
+                           k_pos=torch.from_numpy(pos), window=window,
+                           softcap=softcap, backend=tb)
+    _close(got, want, atol=2e-5)
+
+
+def test_kernel_backend_raises_on_cpu_tensors():
+    x = torch.zeros(1, 4, 2, 64)
+    pos = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tops.resolve_backend("kernel", x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tattn.attend(x, x, x, q_pos=pos, k_pos=pos, backend="kernel")
+    with pytest.raises(ValueError, match="unknown backend"):
+        tops.resolve_backend("pallas", x)
+    # auto stays on the plain paths for CPU tensors; kernel is the card's
+    assert tops.preferred_backend(x) == "einsum"
+    assert tops.resolve_backend("auto", x) == "auto"
+    assert tops.preferred_backend(torch.empty(0, device="meta")) == "einsum"
+
+
+@pytest.mark.parametrize("kw", [dict(softcap=30.0), dict(prefix_len=2)])
+def test_kernel_backend_refuses_softcap_and_prefix(monkeypatch, kw):
+    """Where ``attend`` takes the prefill kernel (CUDA tensors), a logit
+    softcap or a bidirectional prefix raises instead of rerouting to the
+    plain paths.  The resolved backend is forced to ``kernel`` here, as
+    on the card, and the kernel must not be reached."""
+    x = torch.zeros(1, 4, 2, 64)
+    pos = torch.arange(4, dtype=torch.int32)
+    monkeypatch.setattr(tops, "resolve_backend", lambda backend, t: "kernel")
+
+    def no_kernel(*a, **k):
+        raise AssertionError("flash_attention reached")
+
+    monkeypatch.setattr(tops, "flash_attention", no_kernel)
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        tattn.attend(x, x, x, q_pos=pos, k_pos=pos, backend="kernel", **kw)
+
+
+def test_cpu_wrappers_check_shapes():
+    q = torch.zeros(1, 4, 3, 64)
+    kv = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="kv heads"):
+        tops.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError):
+        tops.flash_decode(torch.zeros(1, 4, 64), torch.zeros(1, 2, 8, 32),
+                          torch.zeros(1, 2, 8, 32), 3)
