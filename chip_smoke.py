@@ -9,23 +9,38 @@ result.  Phases, each of which fails the run by raising:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
      TF32 off for matmuls and cuDNN.
-  2. build: ``nvcc`` of every kernel source of the serving path, one
-     process per source, all started together.
+  2. build: ``nvcc`` of every kernel source, one process per source, all
+     started together.
   3. kernels vs their plain PyTorch versions on the card, at the shapes
-     the serving path gives them and at edge cases, in fp32 and bf16;
-     timed with CUDA events beside one PyTorch library call and the
-     card's bound for the same work.
-  4. the main path: ``repro_torch.launch.serve`` serves granite-8b at
-     full width and depth (36 layers, bf16) from seeded random weights,
-     batch 4, prompt 512, 32 generated tokens; every attention call of
-     prefill and decode must have launched a kernel (launch counts).
+     the main paths give them and at edge cases, in fp32 and bf16, and
+     the gradients of the two autograd Functions (``flash_attention``,
+     ``ssd_scan``) against the gradients of plain versions written apart
+     from the ones their backward passes recompute; timed with
+     CUDA events and profiler device time beside one PyTorch library
+     call (where there is one) and the card's bound for the same work.
+  4. serving path: ``repro_torch.launch.serve`` serves granite-8b at full
+     width and depth (36 layers, bf16) from seeded random weights, batch
+     4, prompt 512, 32 generated tokens; every attention call of prefill
+     and decode must have launched a kernel (launch counts).
   5. kernel path vs plain path end to end: granite-8b at full width cut
      to 4 layers, prefill and 4 decode steps, ``--backend kernel`` vs
      ``--backend einsum`` in bf16.
-  6. where the time goes: the same 36-layer model, warm prefill and
-     decode steps timed untraced, then traced with ``torch.profiler``
-     for device time by kernel and the device's idle share (tables in
-     ``build/chip_smoke/profile_*.txt``).
+  6. where the time goes in serving: the same 36-layer model, warm
+     prefill and decode steps timed untraced, then traced with
+     ``torch.profiler`` (tables in ``build/chip_smoke/profile_*.txt``).
+  7. training path: ``repro_torch.launch.train`` trains mamba2-780m at
+     full width and depth (48 layers, bf16), batch 4 x seq 2048, 6 steps;
+     the losses must be finite and fall, and every SSM layer must have
+     launched ``ssd_scan`` in the forward and in the remat recompute.
+  8. where the time goes in a warm mamba2-780m train step (profiler,
+     table in ``build/chip_smoke/profile_train.txt``).
+  9. kernel path vs plain path in training: mamba2-780m width cut to 4
+     layers, fp32, 3 steps from the same weights and batches with
+     ``--backend kernel`` and ``--backend einsum``.
+ 10. SSM serving: mamba2-780m, 48 layers, batch 4, prompt 512, 32 tokens;
+     one ``ssd_scan`` per layer in the prefill.
+ 11. dense training through ``flash_attention``'s gradient: qwen1.5-0.5b
+     at full size, batch 2 x seq 1024, 3 steps.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.
@@ -34,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -71,10 +87,53 @@ E2E_REL_L2 = 3e-2
 E2E_MAX_ABS = 0.25
 E2E_MIN_AGREE = 3                    # greedy tokens equal on >= 3 of 4 steps
 
+# ssd_scan against ssd_ref: both read the same inputs (bf16 ones too) and
+# compute in fp32, the kernel chunk by chunk and the reference position by
+# position, so fp32's tolerance holds for both input types (as
+# tests/test_kernels.py: rtol 1e-3, atol 1e-4).
+SSD_TOL = (1e-4, 1e-3)
+# Gradients of an autograd Function against an independent plain
+# version's: both differentiate fp32 math (flash_attention: against
+# ``plain_attention`` below, written apart from ``ref``; ssd_scan: the
+# chunked form against the sequential ``ref.ssd_ref``), so they agree to
+# fp32 rounding, or to one bf16 step of the gradient; atol as a share of
+# the largest entry.
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# Training, kernel path vs einsum path in fp32 (phase 8): the SSD forward
+# differs in summation order only (~1e-6 relative), and three AdamW steps
+# keep that size: losses within 1e-4 relative, per-leaf gradient norms
+# at step 1 within 1e-3 relative.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GNORM_RTOL = 1e-3
+
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FD_SOURCE = "src/repro_torch/kernels/csrc/flash_decode.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:31"
 FD_REPLACES = "src/repro/kernels/flash_decode.py:49"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan.py:27"
+
+# (label, b, S, h, p, g, n, chunk)
+SSD_TRAIN = ("training: b4 S2048 h48 p64 g1 n128", 4, 2048, 48, 64, 1, 128, 256)
+SSD_CASES = [
+    ("prefill: b4 S512 h48 p64 g1 n128", 4, 512, 48, 64, 1, 128, 256),
+    ("g 2, S = chunk 128, p32 n64", 2, 128, 8, 32, 2, 64, 128),
+    ("smoke: S96 chunk 32, p32 n16", 2, 96, 4, 32, 1, 16, 32),
+]
+SSD_GRAD = ("grad: b1 S512 h48 p64 g1 n128", 1, 512, 48, 64, 1, 128, 256)
+FA_GRAD = [
+    ("grad: qwen B2 S1024 H16 hd64", 2, 1024, 1024, 16, 16, 64, True, 0, 0),
+    ("grad: window 96, q_offset 64, GQA 8/2", 1, 256, 320, 8, 2, 128, True, 96, 64),
+]
+
+TRAIN_ARGS = ["--arch", "mamba2_780m", "--batch", "4", "--seq", "2048",
+              "--steps", "6", "--backend", "auto", "--device", "cuda",
+              "--log-every", "1"]
+SSM_SERVE_ARGS = ["--arch", "mamba2_780m", "--batch", "4", "--prompt-len", "512",
+                  "--gen", "32", "--backend", "auto", "--device", "cuda"]
+DENSE_TRAIN_ARGS = ["--arch", "qwen1p5_0p5b", "--batch", "2", "--seq", "1024",
+                    "--steps", "3", "--backend", "auto", "--device", "cuda",
+                    "--log-every", "1"]
 
 # (label, B, Sq, Sk, H, KV, hd, causal, window, q_offset)
 FA_CASES = [
@@ -439,6 +498,375 @@ def phase_profile():
     torch.cuda.empty_cache()
 
 
+def ssd_inputs(case, dtype, gen):
+    import torch
+    import torch.nn.functional as F
+    _, b, S, h, p, g, n, _ = case
+    mk = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    x = mk(b, S, h, p).to(dtype)
+    dt = F.softplus(mk(b, S, h)) * 0.5
+    A = -torch.exp(mk(h) * 0.3)
+    Bm = (mk(b, S, g, n) * 0.3).to(dtype)
+    Cm = (mk(b, S, g, n) * 0.3).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+def ssd_bound(case, x_bytes):
+    """(bound ms, what bounds it) of one ssd_scan call: each input read
+    once and each output written once; operations as the chunked form
+    needs them, at the bf16 tensor-core peak: C·Bᵀ once per group and
+    L·X per head over the lower triangle of each chunk (diagonal
+    included), and the carried term and state update per head."""
+    _, b, S, h, p, g, n, chunk = case
+    nbytes = (x_bytes * b * S * (h * p + 2 * g * n)    # x, B, C
+              + 4 * b * S * h + 4 * h                  # dt, A
+              + 4 * b * S * h * p + 4 * b * h * p * n)  # y, final state
+    tri = chunk * (chunk + 1)                  # 2 x the (i, j <= i) pairs
+    flops = b * (S // chunk) * (g * tri * n + h * (tri * p + 4 * chunk * n * p))
+    return bound(flops, nbytes)
+
+
+def phase_ssd_kernel():
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    err = 0.0
+    for case in [SSD_TRAIN] + SSD_CASES:
+        label, *_, chunk = case
+        for dname, dt_ in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x, dt, A, Bm, Cm = ssd_inputs(case, dt_, gen)
+            y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+            torch.cuda.synchronize()
+            yr, fr = ref.ssd_ref(x, dt, A, Bm, Cm)
+            e = max(compare(y, yr, dname, f"ssd_scan y [{label}, {dname}]", tol=SSD_TOL),
+                    compare(fin, fr, dname, f"ssd_scan state [{label}, {dname}]",
+                            tol=SSD_TOL))
+            log(f"  ssd_scan        {label:36s} {dname:9s} max_abs_err={e:.3e} "
+                f"(|y| <= {float(yr.abs().max()):.2f})")
+            err = max(err, e)
+    # B and C as column slices of one tensor, read in place (the model's layout)
+    label, b, S, h, p, g, n, chunk = SSD_CASES[0]
+    x, dt, A, _, _ = ssd_inputs(SSD_CASES[0], torch.bfloat16, gen)
+    BC = torch.randn(b, S, 2 * g * n, generator=gen, device="cuda").to(torch.bfloat16) * 0.3
+    Bm, Cm = BC[..., :g * n].view(b, S, g, n), BC[..., g * n:].view(b, S, g, n)
+    y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    yr, fr = ref.ssd_ref(x, dt, A, Bm, Cm)
+    e = max(compare(y, yr, "bfloat16", "ssd_scan, strided B/C", tol=SSD_TOL),
+            compare(fin, fr, "bfloat16", "ssd_scan state, strided B/C", tol=SSD_TOL))
+    log(f"  ssd_scan        {'B/C column slices of one tensor':36s} bfloat16  "
+        f"max_abs_err={e:.3e}")
+
+    # per call at the prefill shape, and the row's times at the training
+    # shape, bf16 x/B/C as in the model
+    label, *_, chunk = SSD_CASES[0]
+    x, dt, A, Bm, Cm = ssd_inputs(SSD_CASES[0], torch.bfloat16, gen)
+    pre_ms = time_ms(lambda i: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk), 20)
+    log(f"  ssd_scan per call [{label}, bf16], CUDA events: kernel {pre_ms:.4f} ms; "
+        f"bound {ssd_bound(SSD_CASES[0], 2)[0]:.4f} ms")
+    label, *_, chunk = SSD_TRAIN
+    x, dt, A, Bm, Cm = ssd_inputs(SSD_TRAIN, torch.bfloat16, gen)
+    b_ms, b_by = ssd_bound(SSD_TRAIN, 2)
+    kern = lambda i: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    plain = lambda i: ref.ssd_ref(x, dt, A, Bm, Cm)
+    dev = device_ms(kern, 10)
+    row = dict(name="ssd_scan", route="cuda", source=SSD_SOURCE,
+               replaces=SSD_REPLACES, max_abs_err=err, bound_ms=b_ms,
+               bound_by=b_by, ms=time_ms(kern, 10), plain_ms=time_ms(plain, 2, warmup=1),
+               library_ms=None, device_ms=summed(dev, "ssd_fwd"),
+               wrapper_device_ms=summed(dev))
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    log(f"  ssd_scan per call [{label}, bf16], CUDA events: kernel {row['ms']:.4f} ms, "
+        f"plain ssd_ref {row['plain_ms']:.4f} ms, no single PyTorch call; bound "
+        f"{b_ms:.4f} ms ({b_by}); device time {fmt(row['device_ms'])} "
+        f"(whole wrapper {fmt(row['wrapper_device_ms'])})")
+    return row
+
+
+def grad_compare(got, want, dtype_name, what):
+    import torch
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g is None or not bool(g.float().isfinite().all()):
+            raise AssertionError(f"{what}: a gradient is missing or not finite")
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        if err > GRAD_TOL[dtype_name] * max(scale, 1e-6):
+            raise AssertionError(f"{what}: max abs err {err:.3e} over a largest "
+                                 f"entry of {scale:.3e} (tol {GRAD_TOL[dtype_name]})")
+        worst = max(worst, err / max(scale, 1e-6))
+    return worst
+
+
+def plain_attention(q, k, v, causal, window, q_offset):
+    """Softmax attention written apart from ``ref.flash_attention_ref``
+    (the function ``flash_attention``'s backward differentiates), so a
+    wrong mask or head mapping in that backward shows: GQA by
+    ``repeat_interleave``, the mask from explicit positions, fp32 math."""
+    import torch
+    r = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(r, dim=2).float(), v.repeat_interleave(r, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(q.shape[-1])
+    qpos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= qpos - kpos < window
+    s = s.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v).to(q.dtype)
+
+
+def phase_grads():
+    """The gradients of the two autograd Functions (kernel forward,
+    recomputed plain backward) against autograd through plain versions
+    written apart from the ones their backward passes differentiate, on
+    the same inputs."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for case in FA_GRAD:
+        label, *_, causal, window, q_offset = case
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        for dname, dt_ in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            q, k, v = [t.requires_grad_() for t in fa_inputs(case, dt_, gen)]
+            go = torch.randn(q.shape, generator=gen, device="cuda").to(dt_)
+            out = ops.flash_attention(q, k, v, **kw)
+            if out.grad_fn is None:
+                raise AssertionError("flash_attention: the output has no grad_fn")
+            got = torch.autograd.grad(out, (q, k, v), go)
+            want = torch.autograd.grad(plain_attention(q, k, v, **kw), (q, k, v), go)
+            e = grad_compare(got, want, dname, f"flash_attention grad [{label}, {dname}]")
+            log(f"  flash_attention grad {label:38s} {dname:9s} "
+                f"worst err / max = {e:.3e}")
+    label, *_, chunk = SSD_GRAD
+    x, dt, A, Bm, Cm = [t.requires_grad_() for t in
+                        ssd_inputs(SSD_GRAD, torch.float32, gen)]
+    ins = (x, dt, A, Bm, Cm)
+    y, fin = ops.ssd_scan(*ins, chunk=chunk)
+    gy = torch.randn(y.shape, generator=gen, device="cuda")
+    gf = torch.randn(fin.shape, generator=gen, device="cuda")
+    got = torch.autograd.grad((y, fin), ins, (gy, gf))
+    yr, fr = ref.ssd_ref(*ins)
+    want = torch.autograd.grad((yr, fr), ins, (gy, gf))
+    e = grad_compare(got, want, "float32", f"ssd_scan grad [{label}]")
+    log(f"  ssd_scan grad        {label:38s} float32   worst err / max = {e:.3e}")
+
+
+def phase_train():
+    """The training path: mamba2-780m, 48 layers, full width, bf16."""
+    import statistics
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    run_dir = os.path.join(ROOT, "build", "chip_smoke", "train_mamba2_780m")
+    ops.reset_launches()
+    res = train.main(TRAIN_ARGS + ["--run-dir", run_dir])
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    L, losses, times = res["num_layers"], res["losses"], res["step_times_s"]
+    steps = len(losses)
+    if L != 48:
+        raise AssertionError(f"mamba2-780m trained {L} layers, expected 48")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses} are not finite and falling")
+    # each layer's forward launches ssd_scan once, and the remat recompute
+    # of the layer in the backward once more; the backward itself
+    # differentiates the chunked form and launches none
+    if launches["ssd_scan"] != 2 * L * steps:
+        raise AssertionError(f"ssd_scan launched {launches['ssd_scan']} times in "
+                             f"{steps} steps, expected {2 * L} a step")
+    p50 = statistics.median(times[1:])
+    log(f"  losses: {', '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  launches: {launches} over {steps} steps = "
+        f"{launches['ssd_scan'] // steps} ssd_scan a step")
+    log(f"  step time p50 over steps 2-{steps}: {p50 * 1e3:.1f} ms "
+        f"(all: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms); "
+        f"{res['tokens_per_step'] / p50:.0f} tok/s; peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB")
+    return launches, res["state"]
+
+
+def phase_train_kernel_vs_plain():
+    """mamba2-780m width, 4 layers, fp32: the kernel path against the
+    einsum (chunked) path, three steps from the same weights and batches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.train_step import make_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("mamba2_780m"), num_layers=4,
+                              dtype="float32")
+    B, S, steps = 4, 2048, 3
+    opt = AdamWConfig(lr=3e-4, total_steps=steps, warmup_steps=5)
+    out = {}
+    for backend in ("kernel", "einsum"):
+        state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                                 device=dev)
+        loader = make_loader(cfg, DataConfig(batch_size=B, seq_len=S, seed=1234),
+                             device=dev)
+        batch = next(loader)
+        leaves = tree_leaves(state.params)
+        loss, _ = M.loss_fn(state.params, cfg, batch, backend=backend)
+        norms = [float(g.norm()) for g in torch.autograd.grad(loss, leaves)]
+        step = make_train_step(cfg, opt, backend=backend)
+        losses = []
+        for i in range(steps):
+            state, m = step(state, batch if i == 0 else next(loader))
+            losses.append(float(m["loss"]))
+        out[backend] = (norms, losses)
+        del state, leaves
+    (nk, lk), (ne, le) = out["kernel"], out["einsum"]
+    worst = max(abs(a - b) / max(b, 1e-12) for a, b in zip(nk, ne))
+    rel = max(abs(a - b) / b for a, b in zip(lk, le))
+    log(f"  losses kernel {', '.join(f'{x:.6f}' for x in lk)}; "
+        f"einsum {', '.join(f'{x:.6f}' for x in le)}; worst rel diff {rel:.2e} "
+        f"(limit {TRAIN_LOSS_RTOL})")
+    log(f"  step-1 gradients: worst relative per-leaf norm difference "
+        f"{worst:.2e} over {len(nk)} leaves (limit {TRAIN_GNORM_RTOL})")
+    if rel > TRAIN_LOSS_RTOL or worst > TRAIN_GNORM_RTOL:
+        raise AssertionError("training: kernel path and einsum path disagree")
+    torch.cuda.empty_cache()
+
+
+def phase_ssm_serve():
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    run_dir = os.path.join(ROOT, "build", "chip_smoke", "serve_mamba2_780m")
+    ops.reset_launches()
+    res = serve.main(SSM_SERVE_ARGS + ["--run-dir", run_dir])
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    L = res["num_layers"]
+    if launches["ssd_scan"] != L or L != 48:
+        raise AssertionError(f"ssd_scan launched {launches['ssd_scan']} times in a "
+                             f"{L}-layer prefill, expected one a layer (48)")
+    for key in ("prefill_logits", "last_logits"):
+        if not bool(res[key].float().isfinite().all()):
+            raise AssertionError(f"{key} are not finite")
+    toks = res["tokens"]
+    if toks.shape != (4, 32) or int(toks.min()) < 0 \
+            or int(toks.max()) >= res["vocab_size"]:
+        raise AssertionError(f"tokens of shape {tuple(toks.shape)} "
+                             f"outside [0, {res['vocab_size']})")
+    log(f"  launches: {launches} over 1 prefill + {res['decode_calls']} decode calls")
+    log(f"  prefill {res['prefill_s'] * 1e3:.2f} ms, decode p50 "
+        f"{res['decode_p50_s'] * 1e3:.3f} ms p95 {res['decode_p95_s'] * 1e3:.3f} ms, "
+        f"{res['decode_tok_per_s']:.1f} tok/s, peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB")
+    del res
+    torch.cuda.empty_cache()
+
+
+def phase_dense_train():
+    import statistics
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    run_dir = os.path.join(ROOT, "build", "chip_smoke", "train_qwen1p5_0p5b")
+    ops.reset_launches()
+    res = train.main(DENSE_TRAIN_ARGS + ["--run-dir", run_dir])
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    L, losses = res["num_layers"], res["losses"]
+    steps = len(losses)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"losses {losses} are not finite")
+    if launches["flash_attention"] != 2 * L * steps:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times in {steps} "
+                             f"steps, expected {2 * L} a step")
+    # the repaired gradient reaches the attention weights
+    wq = res["state"].opt_state["m"]["blocks"]["attn"]["wq"]
+    if not float(wq.abs().max()) > 0:
+        raise AssertionError("no gradient reached the attention weights")
+    p50 = statistics.median(res["step_times_s"][1:])
+    log(f"  losses: {', '.join(f'{x:.4f}' for x in losses)}; launches {launches} = "
+        f"{launches['flash_attention'] // steps} flash_attention a step")
+    log(f"  step time p50 over steps 2-{steps}: {p50 * 1e3:.1f} ms, "
+        f"{res['tokens_per_step'] / p50:.0f} tok/s, peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB")
+    del res
+    torch.cuda.empty_cache()
+
+
+def phase_train_profile(state):
+    """Where the time goes in a warm mamba2-780m train step (the state
+    phase 7 left): one step timed untraced, one traced with the CPU
+    activity too, so the ``ssd_scan.backward`` range gets its device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config("mamba2_780m")
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4, total_steps=10, warmup_steps=5))
+    loader = make_loader(cfg, DataConfig(batch_size=4, seq_len=2048, seed=99),
+                         device=dev)
+    state, _ = step(state, next(loader))              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, next(loader))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    batch = next(loader)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3
+    kernels, bwd = {}, None
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0) or 0
+        if e.key == "ssd_scan.backward":
+            # the named range: its span on the device, over its kernels
+            bwd = dev_us / 1e3
+        elif dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            # with CPU activity on, an operator's row repeats its kernels'
+            # device time: sum the kernels' own rows only
+            kernels[e.key] = kernels.get(e.key, 0.0) + dev_us / 1e3
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])
+    with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
+        for name, ms in top:
+            f.write(f"{ms:12.4f} ms  {name}\n")
+    if not kernels:
+        log(f"  train step: {wall:.1f} ms untraced; device time not measured "
+            "(the profiler recorded none)")
+        return
+    busy = sum(kernels.values())
+    ssd = sum(v for k, v in kernels.items() if "ssd_fwd" in k)
+    gemm = sum(v for k, v in kernels.items()
+               if any(t in k.lower() for t in ("gemm", "cutlass", "xmma", "nvjet")))
+    log(f"  train step: {wall:.1f} ms untraced, {traced:.1f} ms traced; device busy "
+        f"{busy:.1f} ms = {100 * busy / wall:.1f}% of the untraced step "
+        f"(idle share {100 * (1 - busy / wall):.1f}%)")
+    log(f"    ssd_scan kernel (ssd_fwd, 96 launches) {ssd:.1f} ms "
+        f"({100 * ssd / busy:.1f}%); chunked SSD backward (its recompute "
+        "included) "
+        + ("not measured" if bwd is None else f"{bwd:.1f} ms ({100 * bwd / busy:.1f}%)")
+        + f"; every other kernel {busy - ssd - (bwd or 0):.1f} ms; GEMMs anywhere "
+        f"(the backward's included) {gemm:.1f} ms ({100 * gemm / busy:.1f}%)")
+    for name, ms in top[:8]:
+        log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  {name[:90]}")
+    del state
+    torch.cuda.empty_cache()
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -466,8 +894,10 @@ def main() -> int:
 
     log("== 3. kernels vs plain versions")
     rows = phase_kernels()
+    rows["ssd_scan"] = phase_ssd_kernel()
+    phase_grads()
 
-    log("== 4. main path: serve granite-8b, 36 layers, bf16")
+    log("== 4. serving path: serve granite-8b, 36 layers, bf16")
     launches = phase_main_path()
 
     log("== 5. kernel path vs einsum path, granite-8b width, 4 layers")
@@ -476,8 +906,25 @@ def main() -> int:
     log("== 6. where the time goes: granite-8b, 36 layers, traced")
     phase_profile()
 
+    log("== 7. training path: train mamba2-780m, 48 layers, bf16, b4 x S2048")
+    train_launches, state = phase_train()
+    launches["ssd_scan"] = train_launches["ssd_scan"]
+
+    log("== 8. where the time goes: a warm mamba2-780m train step, traced")
+    phase_train_profile(state)
+    del state
+
+    log("== 9. training, kernel path vs einsum path: mamba2-780m width, 4 layers, fp32")
+    phase_train_kernel_vs_plain()
+
+    log("== 10. SSM serving: mamba2-780m, 48 layers, bf16")
+    phase_ssm_serve()
+
+    log("== 11. dense training through flash_attention: qwen1.5-0.5b, b2 x S1024")
+    phase_dense_train()
+
     kernels = []
-    for name in ("flash_attention", "flash_decode"):
+    for name in ("flash_attention", "flash_decode", "ssd_scan"):
         r = dict(rows[name])
         r["launches"] = launches[name]
         kernels.append({k: r[k] for k in (

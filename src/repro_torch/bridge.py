@@ -4,8 +4,10 @@ the port's nested dict of tensors, same names, same layouts.
 
 Only the type changes.  bf16 arrays arrive as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` rejects; they cross bit-exactly as their raw
-16 bits (viewed as int16, then ``.view(torch.bfloat16)``).  Tests use
-the bridge; the serving path never imports it.
+16 bits (viewed as int16, then ``.view(torch.bfloat16)``).  A JAX
+``TrainState`` (params, opt_state, step) crosses the same way into the
+port's ``TrainState``.  Tests use the bridge; the launchers never import
+it.
 """
 from __future__ import annotations
 
@@ -32,3 +34,11 @@ def params_from_numpy(tree: PyTree, device, dtype: Optional[torch.dtype] = None)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     return tensor_from_numpy(tree, device, dtype)
+
+
+def train_state_from_numpy(params, opt_state, step, device):
+    """A JAX ``TrainState``'s parts as numpy trees (``jax.tree.map(
+    np.asarray, ...)``) and its step -> the port's ``TrainState``."""
+    from .training.train_step import train_state_from
+    return train_state_from(params_from_numpy(params, device),
+                            params_from_numpy(opt_state, device), int(step))

@@ -2,13 +2,15 @@
 ``repro/data/pipeline.py``'s ``DataConfig`` and ``SyntheticTokens``; that
 module imports jax, so the port keeps its own copy).  The stream is
 bit-identical to the JAX package's for the same config and seed.
+``make_loader`` yields its batches as tensors on a device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
 from ..models.config import ModelConfig
 
@@ -71,3 +73,14 @@ class SyntheticTokens:
 def _unit_noise(shape, seed) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return rng.standard_normal(shape).astype(np.float32)
+
+
+def make_loader(cfg: ModelConfig, dcfg: DataConfig, *, device
+                ) -> Iterator[Dict[str, torch.Tensor]]:
+    """The ``SyntheticTokens`` batches of the JAX loader, in the same
+    order, as tensors on ``device``.  No prefetch thread: a batch is a
+    few KB of host sampling, small beside a training step."""
+    source = SyntheticTokens(cfg, dcfg)
+    while True:
+        yield {k: torch.from_numpy(v).to(device)
+               for k, v in source.next_batch().items()}

@@ -33,6 +33,8 @@ ENTRY_POINTS = {
                         (P, P, P, P, I, I, I, I, I, I, I, I, I, I, P)),
     "flash_decode": ("repro_flash_decode",
                      (P, P, P, P, P, I, I, I, I, I, LL, F, I, P)),
+    "ssd_scan": ("repro_ssd_scan",
+                 (P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, LL, I, P)),
 }
 
 _lock = threading.Lock()

@@ -14,6 +14,15 @@ and raises if the launch returned a CUDA error.  Each wrapper counts its
 launches in a plain integer attribute (``flash_attention.launches``),
 incremented only where the kernel is launched, so a run can show that
 its path went through the kernel.
+
+The training kernels (``flash_attention``, ``ssd_scan``) run inside a
+``torch.autograd.Function``, the port of the JAX package's
+``custom_vjp``s (``recompute_vjp``): the forward is the kernel, the
+backward recomputes a plain version under autograd and returns its VJP
+(there is no backward kernel, in either package).  The Function takes
+its forward body as an argument, so a CPU test can put the plain version
+in the kernel's place and still run the backward.  ``flash_decode`` is
+inference only.
 """
 from __future__ import annotations
 
@@ -76,21 +85,47 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
-    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) with H % KV == 0.
-    Returns (B, Sq, H, hd) in q's dtype.  The kernel reads kv head
-    h // (H / KV) in place; the plain path expands GQA with a repeat, as
-    the JAX wrapper does before its kernel."""
+class _RecomputeVJP(torch.autograd.Function):
+    """Forward: ``body(*inputs, **static)`` (the kernel on the card).
+    Backward: recompute ``plain(*inputs, **static)`` under autograd and
+    return its VJP, as the JAX package's ``custom_vjp`` backward passes do.
+    The backward runs in a profiler range called ``name``."""
+
+    @staticmethod
+    def forward(ctx, name, body, plain, static, *inputs):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs)
+        ctx.name, ctx.plain, ctx.static = name, plain, static
+        return body(*inputs, **static)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[4:])]
+        outs = [i for i, g in enumerate(gouts) if g is not None]
+        wanted = [t for t in inputs if t.requires_grad]
+        if not outs or not wanted:
+            return (None,) * (4 + len(inputs))
+        with torch.profiler.record_function(ctx.name), torch.enable_grad():
+            ys = ctx.plain(*inputs, **ctx.static)
+            ys = (ys,) if isinstance(ys, torch.Tensor) else ys
+            grads = iter(torch.autograd.grad([ys[i] for i in outs], wanted,
+                                             [gouts[i] for i in outs],
+                                             allow_unused=True))
+        return (None,) * 4 + tuple(next(grads) if t.requires_grad else None
+                                   for t in inputs)
+
+
+def recompute_vjp(name, body, plain, inputs, **static):
+    """``body(*inputs, **static)``, differentiable through ``plain``
+    (see ``_RecomputeVJP``).  A CPU test passes a plain body in the
+    kernel's place to run the backward."""
+    return _RecomputeVJP.apply(f"{name}.backward", body, plain, static, *inputs)
+
+
+def _flash_attention_kernel(q, k, v, *, causal, window, q_offset):
     B, Sq, H, hd = q.shape
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     Sk, KV = k.shape[1], k.shape[2]
-    if H % KV:
-        raise ValueError(f"flash_attention: {H} heads over {KV} kv heads")
-    if q.device.type == "cpu":
-        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                        q_offset=q_offset)
     _check("flash_attention", (q, k, v))
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
@@ -100,6 +135,25 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
             int(window), int(q_offset), DTYPE_CODES[q.dtype], _stream())
     flash_attention.launches += 1
     return out
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) with H % KV == 0.
+    Returns (B, Sq, H, hd) in q's dtype, differentiable.  The kernel
+    reads kv head h // (H / KV) in place; the plain path expands GQA
+    with a repeat, as the JAX wrapper does before its kernel."""
+    B, Sq, H, hd = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"flash_attention: {H} heads over {k.shape[2]} kv heads")
+    if q.device.type == "cpu":
+        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                        q_offset=q_offset)
+    return recompute_vjp("flash_attention", _flash_attention_kernel,
+                         _ref.flash_attention_ref, (q, k, v), causal=causal,
+                         window=window, q_offset=q_offset)
 
 
 flash_attention.launches = 0
@@ -153,7 +207,94 @@ def flash_decode(q, k, v, pos, *, window=0, softcap=0.0, ring=False):
 
 flash_decode.launches = 0
 
-KERNELS = (flash_attention, flash_decode)
+SSD_MAX_HEAD_DIM, SSD_MAX_STATE, SSD_MAX_CHUNK = 64, 128, 256
+
+
+def _ssd_chunked(x, dt, A, Bm, Cm, *, chunk):
+    """The plain version ``ssd_scan``'s backward differentiates: the
+    CHUNKED form ``models.ssm.ssd_chunked``.  The JAX package's
+    ``_ssd_core_bwd`` differentiates the sequential ``ref.ssd_ref``; both
+    compute the same function from a zero state (``tests/test_kernels.py``
+    holds the two equal to 1e-4), but on the card a loop over every
+    position would be ~10^5 small launches a training step, where the
+    chunked form is a few dozen products."""
+    from ..models.ssm import ssd_chunked       # models import this module
+    return ssd_chunked(x, dt, A, Bm, Cm, chunk)
+
+
+def _row_strided(t):
+    """``t`` (b, S, heads, d) as the kernel reads it: the last two dims
+    dense and the batch stride S times the row stride, so a column slice
+    of a (b, S, k) tensor is read in place.  Returns (t, row stride)."""
+    b, S, nh, d = t.shape
+    if not (t.stride(3) == 1 and t.stride(2) == d and t.stride(1) >= nh * d
+            and t.stride(0) == S * t.stride(1)):
+        t = t.contiguous()
+    return t, t.stride(1)
+
+
+def _ssd_scan_kernel(x, dt, A, Bm, Cm, *, chunk):
+    b, S, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    dev = x.device
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", Bm), ("C", Cm)):
+        if t.device != dev:
+            raise ValueError(f"ssd_scan: {name} on {t.device}, x on {dev}")
+    if x.dtype not in DTYPE_CODES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"ssd_scan: x/B/C dtypes {x.dtype}, {Bm.dtype}, "
+                        f"{Cm.dtype}; expected one of {list(DTYPE_CODES)}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: dt {dt.dtype} and A {A.dtype} must be float32")
+    if p > SSD_MAX_HEAD_DIM or n > SSD_MAX_STATE or chunk > SSD_MAX_CHUNK:
+        raise ValueError(f"ssd_scan: head_dim {p}, state {n}, chunk {chunk} "
+                         f"exceed the kernel's {SSD_MAX_HEAD_DIM}, "
+                         f"{SSD_MAX_STATE}, {SSD_MAX_CHUNK}")
+    x, x_rs = _row_strided(x)
+    Bm, b_rs = _row_strided(Bm)
+    Cm, c_rs = _row_strided(Cm)
+    dt, A = dt.contiguous(), A.contiguous()
+    y = torch.empty((b, S, h, p), dtype=torch.float32, device=dev)
+    fin = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    _launch("ssd_scan", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), fin.data_ptr(),
+            b, S, h, g, p, n, chunk, x_rs, b_rs, c_rs, DTYPE_CODES[x.dtype],
+            _stream())
+    ssd_scan.launches += 1
+    return y, fin
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None):
+    """Chunked SSD scan; the signature mirrors ``models.ssm.ssd_chunked``.
+
+    x: (b, S, h, p) fp32 or bf16; dt: (b, S, h) fp32; A: (h,) fp32;
+    Bm/Cm: (b, S, g, n) in x's dtype, g dividing h.  ``chunk`` is cut to
+    S, and S must be a multiple of it.  Returns (y (b, S, h, p) fp32,
+    final state (b, h, p, n) fp32), differentiable.
+
+    The kernel starts from a zero state: an ``initial_state`` on the card
+    raises (the JAX wrapper drops it silently).  On CPU tensors this is
+    the plain ``ref.ssd_ref``, which takes one."""
+    b, S, h, p = x.shape
+    if dt.shape != (b, S, h) or A.shape != (h,) or Bm.dim() != 4 \
+            or Bm.shape != Cm.shape or Bm.shape[:2] != (b, S) or h % Bm.shape[2]:
+        raise ValueError(f"ssd_scan: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"A {tuple(A.shape)}, B {tuple(Bm.shape)}, "
+                         f"C {tuple(Cm.shape)}")
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"ssd_scan: sequence {S} is not a multiple of chunk {chunk}")
+    if x.device.type == "cpu":
+        return _ref.ssd_ref(x, dt, A, Bm, Cm, initial_state)
+    if initial_state is not None:
+        raise ValueError("ssd_scan: the kernel starts from a zero state; "
+                         "an initial_state goes through ssd_chunked")
+    return recompute_vjp("ssd_scan", _ssd_scan_kernel, _ssd_chunked,
+                         (x, dt, A, Bm, Cm), chunk=chunk)
+
+
+ssd_scan.launches = 0
+
+KERNELS = (flash_attention, flash_decode, ssd_scan)
 
 
 def reset_launches() -> None:

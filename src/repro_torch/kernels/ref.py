@@ -3,8 +3,8 @@
 
 The kernel wrappers in ``ops`` take these only for tensors on the CPU;
 ``chip_smoke.py`` holds each CUDA kernel against them on the card, and
-``tests/test_torch_kernels.py`` holds them against the JAX oracles and
-the interpret-mode Pallas kernels.
+``tests/test_torch_kernels.py`` / ``tests/test_torch_ssm.py`` hold them
+against the JAX oracles and the interpret-mode Pallas kernels.
 """
 from __future__ import annotations
 
@@ -90,3 +90,29 @@ def decode_attention_ref(q, k, v, pos, *, window=0, softcap=0.0,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhs,bhsd->bhd", p, vv)
     return out.to(q.dtype)
+
+
+def ssd_ref(x, dt, A, Bm, Cm, initial_state=None):
+    """Sequential (non-chunked) SSD recurrence: the ground truth of the
+    ``ssd_scan`` kernel and of ``models.ssm.ssd_chunked``.  A Python loop
+    over positions in place of the JAX ``lax.scan``.
+
+    x: (b, S, h, p); dt: (b, S, h); A: (h,); Bm/Cm: (b, S, g, n).
+    Returns (y (b, S, h, p) fp32, final_state (b, h, p, n) fp32).
+    """
+    b, S, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    rep = h // g
+    Bh = Bm.repeat_interleave(rep, dim=2).float()
+    Ch = Cm.repeat_interleave(rep, dim=2).float()
+    xf, dtf = x.float(), dt.float()
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) \
+        if initial_state is None else initial_state
+    ys = []
+    for t in range(S):
+        decay = torch.exp(A[None, :] * dtf[:, t])                 # (b, h)
+        xd = xf[:, t] * dtf[:, t, :, None]                        # (b, h, p)
+        state = state * decay[..., None, None] + \
+            torch.einsum("bhp,bhn->bhpn", xd, Bh[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    return torch.stack(ys, dim=1), state

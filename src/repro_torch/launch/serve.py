@@ -8,8 +8,10 @@ counterpart of ``repro/launch/serve.py``).
 Runs on the card unless ``--device cpu`` is given; without a card and
 without ``--device cpu`` it raises.  ``--backend`` picks the attention
 path for both prefill and decode: ``auto`` takes the CUDA kernels
-(``flash_attention``, ``flash_decode``) on the card and the plain paths
-on the CPU; ``kernel`` forces the kernels (and raises on the CPU).
+(``flash_attention``, ``flash_decode``; ``ssd_scan`` in an ssm prefill)
+on the card and the plain paths on the CPU; ``kernel`` forces the
+kernels (and raises on the CPU).  An ssm model decodes with the
+recurrent update (no kernel, no KV cache).
 Weights are random, drawn from ``--seed``.  Decode reports per-step
 p50/p95 latency and tokens/s; the same numbers land as histogram/gauge
 rows in ``<run-dir>/metrics.jsonl``.  ``main`` also returns them, with
@@ -31,6 +33,7 @@ from ..kernels.ops import BACKENDS
 from ..models import model as M
 from ..obs.metrics import MetricsLogger, MetricsRegistry
 from ..training import serve_step as SS
+from ..tree import tree_map
 
 
 def parse_args(argv=None):
@@ -115,7 +118,10 @@ def _serve(args, dev, cfg, total, metrics):
         # cache is written in place, so this call writes slot plen; that is
         # harmless because the first timed step writes the same K/V (same
         # token, same position, same cache prefix) to the same slot.
-        decode(params, cache, tok, plen)
+        # an ssm layer's recurrent state advances with every call, so its
+        # warm-up runs on a copy of the cache
+        decode(params, tree_map(torch.clone, cache) if cfg.family == "ssm"
+               else cache, tok, plen)
         devices.synchronize(dev)
         decode_calls = 1
         hist = reg.histogram("decode_latency_s")

@@ -1,20 +1,22 @@
-"""Top-level model API for serving: init / cache / prefill / decode (the
-counterpart of ``repro/models/model.py`` for the dense family).
+"""Top-level model API: init / forward / loss / cache / prefill / decode
+(the counterpart of ``repro/models/model.py`` for the dense and ssm
+families).
 
-Other families (moe, ssm, hybrid, vlm, audio) raise
-``NotImplementedError`` when a model is built.
+Other families (moe, hybrid, vlm, audio) raise ``NotImplementedError``
+when a model is built.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from . import attention, layers, transformer as tfm
+from . import attention, layers, ssm as ssm_lib, transformer as tfm
 from .config import ModelConfig
 
 PyTree = Any
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "ssm")
 
 
 def _require_family(cfg: ModelConfig):
@@ -50,14 +52,100 @@ def param_count(params: PyTree) -> int:
 
 
 # ---------------------------------------------------------------------------
+# forward (training / full-sequence)
+# ---------------------------------------------------------------------------
+
+def forward(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            *, remat: bool = True, backend: str = "auto", unembed: bool = True):
+    """Returns (logits, metrics); with ``unembed=False`` returns the
+    final-norm hidden states instead (used by the chunked loss)."""
+    _require_family(cfg)
+    tokens = batch["tokens"]
+    x = layers.embed_tokens(params["embed"], tokens)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x, aux = tfm.run_stacked(params["blocks"], cfg, x, cfg.block_kind,
+                             remat=remat, backend=backend, positions=positions)
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm)
+    metrics = {"aux_loss": aux}
+    if not unembed:
+        return x, metrics
+    return layers.unembed(params["embed"], x), metrics
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+LOSS_CHUNK = 1024
+
+
+def _ce_chunk(embed_params, x_c, t_c, m_c):
+    """CE over one sequence chunk; fp32 math, logits never leave the chunk."""
+    lg = layers.unembed(embed_params, x_c).float()
+    logz = torch.logsumexp(lg, dim=-1)
+    tgt = torch.gather(lg, -1, t_c[..., None].long())[..., 0]
+    return torch.sum((logz - tgt) * m_c)
+
+
+def chunked_ce(embed_params, hidden, targets, mask, chunk=LOSS_CHUNK):
+    """Sum of CE over sequence chunks, each checkpointed: peak memory is
+    one chunk's logits instead of the full (B, S, V) fp32 tensor."""
+    S = hidden.shape[1]
+    if S % chunk or S <= chunk:
+        return _ce_chunk(embed_params, hidden, targets, mask)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, chunk):
+        sl = slice(i, i + chunk)
+        total = total + checkpoint(_ce_chunk, embed_params, hidden[:, sl],
+                                   targets[:, sl], mask[:, sl],
+                                   use_reentrant=False)
+    return total
+
+
+def loss_fn(params, cfg, batch, *, remat=True, backend="auto"):
+    """Mean next-token CE over the text positions (the last one masked)
+    plus the auxiliary loss.  Returns (total, metrics)."""
+    hidden, metrics = forward(params, cfg, batch, remat=remat,
+                              backend=backend, unembed=False)
+    tokens = batch["tokens"]
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    mask = batch.get("loss_mask")
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device) \
+        if mask is None else mask.float().clone()
+    mask[:, -1] = 0.0
+    ce_sum = chunked_ce(params["embed"], hidden, targets, mask)
+    loss = ce_sum / torch.clamp(mask.sum(), min=1.0)
+    total = loss + metrics.get("aux_loss", 0.0)
+    return total, dict(metrics, ce_loss=loss)
+
+
+# ---------------------------------------------------------------------------
 # serving: prefill + single-token decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, cache_len: int, *, device, ring: bool = False):
-    """{"k", "v"} of shape (L, B, KV, cache_len, hd)."""
+    """dense: {"k", "v"} of shape (L, B, KV, cache_len, hd); ssm: {"conv"
+    (L, B, W-1, conv_dim), "state" (L, B, h, p, n) fp32}."""
     _require_family(cfg)
-    return attention.init_kv_cache(cfg, batch, cache_len, layers.dtype_of(cfg),
+    dtype = layers.dtype_of(cfg)
+    if cfg.family == "ssm":
+        return ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device,
+                                      stack=(cfg.num_layers,))
+    return attention.init_kv_cache(cfg, batch, cache_len, dtype,
                                    device=device, stack=(cfg.num_layers,))
+
+
+def _prefill_ssm(params, cfg, x, cache, backend):
+    """Each layer's mamba2 forward; its cache gets the final ssm state and
+    the last W-1 positions of the conv input (before the conv)."""
+    for i, p in enumerate(tfm.unstack(params["blocks"], cfg.num_layers)):
+        h = layers.apply_norm(p["ln1"], x, cfg.norm)
+        y, final, conv_tail = ssm_lib.mamba2_forward(p["ssm"], cfg, h,
+                                                     backend=backend)
+        cache["conv"][i] = conv_tail
+        cache["state"][i] = final
+        x = x + y
+    return x
 
 
 def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache_len: int, *,
@@ -73,9 +161,13 @@ def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache_len: int, *,
     B, S = tokens.shape
     cache = init_cache(cfg, B, cache_len, device=tokens.device)
     x = layers.embed_tokens(params["embed"], tokens)
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    x = tfm.run_stacked(params["blocks"], cfg, x, cfg.block_kind,
-                        positions=positions, backend=backend, caches=cache)
+    if cfg.family == "ssm":
+        x = _prefill_ssm(params, cfg, x, cache, backend)
+    else:
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        x, _ = tfm.run_stacked(params["blocks"], cfg, x, cfg.block_kind,
+                               positions=positions, backend=backend,
+                               caches=cache)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     logits = layers.unembed(params["embed"], x[:, -1:])[:, 0]
     return cache, logits, S
@@ -86,8 +178,8 @@ def decode_step(params, cfg, tokens, cache, pos: int, *, ring: bool = False,
     """One decode step.  tokens: (B, 1) int; pos: int position of this
     token.  ``backend`` routes the per-layer attention to the
     ``flash_decode`` kernel (``"kernel"``, or ``"auto"`` on the card) or
-    the einsum cache path.  The cache is updated in place.  Returns
-    (logits (B, V), cache)."""
+    the einsum cache path; ssm layers take the recurrent update.  The
+    cache is updated in place.  Returns (logits (B, V), cache)."""
     _require_family(cfg)
     x = layers.embed_tokens(params["embed"], tokens)
     x, cache = tfm.run_stacked_decode(params["blocks"], cfg, x, cache, pos,

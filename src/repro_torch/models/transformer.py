@@ -1,21 +1,28 @@
-"""Block-level composition for the dense family: stacked-param init
-(leading layer dim) and the layer loops of forward and decode (the
+"""Block-level composition for the dense and ssm families: stacked-param
+init (leading layer dim) and the layer loops of forward and decode (the
 counterpart of ``repro/models/transformer.py``).
 
   dense : [norm -> self-attn -> +res] [norm -> mlp -> +res]
+  ssm   : [norm -> mamba2 -> +res]
 
-A Python loop over the stacked leaves takes the place of ``lax.scan``;
-there is no remat, since the port serves only.  Other block kinds raise
-``NotImplementedError``.
+A Python loop over the stacked leaves takes the place of ``lax.scan``.
+With ``remat=True`` (training) each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+``jax.checkpoint``: only the layer's input is kept, and the backward
+recomputes the layer, so every kernel of a layer runs twice a step.
+Other block kinds raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import Any
 
-from . import attention, layers
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from . import attention, layers, ssm as ssm_lib
 
 PyTree = Any
-KINDS = ("dense",)
+KINDS = ("dense", "ssm")
 
 
 def _require(kind: str):
@@ -31,6 +38,9 @@ def _require(kind: str):
 def init_block(cfg, kind: str, dtype, *, generator, device, stack=()) -> PyTree:
     _require(kind)
     kw = dict(device=device, stack=stack)
+    if kind == "ssm":
+        return {"ln1": layers.init_norm(cfg.norm, cfg.d_model, **kw),
+                "ssm": ssm_lib.init_ssm(cfg, dtype, generator=generator, **kw)}
     return {"ln1": layers.init_norm(cfg.norm, cfg.d_model, **kw),
             "attn": attention.init_attention(cfg, dtype, generator=generator, **kw),
             "ln2": layers.init_norm(cfg.norm, cfg.d_model, **kw),
@@ -51,6 +61,16 @@ def layer(tree: PyTree, i: int) -> PyTree:
     return tree[i]
 
 
+def unstack(tree: PyTree, n: int):
+    """The ``n`` layers of a stacked tree, by one ``unbind`` per leaf: its
+    backward stacks the layers' gradients once, where indexing layer by
+    layer would add a full-size zero-padded gradient per layer."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
 # ---------------------------------------------------------------------------
 # per-block forward / decode
 # ---------------------------------------------------------------------------
@@ -60,6 +80,10 @@ def block_forward(p, cfg, x, kind: str, *, positions=None, causal=True,
     """One block.  Returns (x, metrics); ``kv_cache`` is filled in place
     with the block's K/V (prefill)."""
     _require(kind)
+    if kind == "ssm":
+        h = layers.apply_norm(p["ln1"], x, cfg.norm)
+        y, _, _ = ssm_lib.mamba2_forward(p["ssm"], cfg, h, backend=backend)
+        return x + y, {}
     h = layers.apply_norm(p["ln1"], x, cfg.norm)
     a = attention.self_attention(p["attn"], cfg, h, positions=positions,
                                  causal=causal, prefix_len=prefix_len,
@@ -70,20 +94,31 @@ def block_forward(p, cfg, x, kind: str, *, positions=None, causal=True,
     return x + layers.apply_mlp(p["mlp"], h, cfg.mlp), {}
 
 
-def run_stacked(blocks: PyTree, cfg, x, kind: str, *, backend="auto",
-                caches=None, **fwd_kw):
-    """Loop over the stacked block params; ``caches`` (stacked like the
-    blocks) is filled in place when given."""
-    for i in range(cfg.num_layers):
+def run_stacked(blocks: PyTree, cfg, x, kind: str, *, remat=False,
+                backend="auto", caches=None, **fwd_kw):
+    """Loop over the stacked block params.  Returns (x, aux): aux is the
+    summed MoE auxiliary loss, 0 for the ported kinds.  ``caches``
+    (stacked like the blocks) is filled in place when given; ``remat``
+    checkpoints each layer."""
+    per_layer = unstack(blocks, cfg.num_layers)
+    for i, p in enumerate(per_layer):
         kv = layer(caches, i) if caches is not None else None
-        x, _ = block_forward(layer(blocks, i), cfg, x, kind, backend=backend,
-                             kv_cache=kv, **fwd_kw)
-    return x
+        fn = lambda x, p=p, kv=kv: block_forward(
+            p, cfg, x, kind, backend=backend, kv_cache=kv, **fwd_kw)[0]
+        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_decode(p, cfg, x, cache, pos, kind: str, *, ring=False, window=0,
                  backend="auto"):
+    """One block, one token.  The attention cache is updated in place;
+    the ssm cache is returned anew (its conv window shifts).  Returns
+    (x, cache)."""
     _require(kind)
+    if kind == "ssm":
+        h = layers.apply_norm(p["ln1"], x, cfg.norm)
+        y, cache = ssm_lib.mamba2_decode_step(p["ssm"], cfg, h, cache)
+        return x + y, cache
     h = layers.apply_norm(p["ln1"], x, cfg.norm)
     a, cache = attention.decode_self_attention(
         p["attn"], cfg, h, cache, pos, ring=ring, window=window,
@@ -95,8 +130,13 @@ def block_decode(p, cfg, x, cache, pos, kind: str, *, ring=False, window=0,
 
 def run_stacked_decode(blocks, cfg, x, caches, pos, kind: str, *, ring=False,
                        window=0, backend="auto"):
-    """Loop over (stacked blocks, stacked caches); caches update in place."""
+    """Loop over (stacked blocks, stacked caches); each layer's cache is
+    written back into the stack in place."""
     for i in range(cfg.num_layers):
-        x, _ = block_decode(layer(blocks, i), cfg, x, layer(caches, i), pos,
-                            kind, ring=ring, window=window, backend=backend)
+        c = layer(caches, i)
+        x, new = block_decode(layer(blocks, i), cfg, x, c, pos, kind,
+                              ring=ring, window=window, backend=backend)
+        for key, t in new.items():
+            if t is not c[key]:
+                c[key].copy_(t)
     return x, caches

@@ -176,3 +176,51 @@ def test_metrics_copy_matches_jax():
     assert ht.summary() == hj.summary()
     with pytest.raises(ValueError):
         tmetrics.percentile([], 0.5)
+
+
+# the port's copies of JAX constants and config dataclasses: (port module,
+# JAX module, attribute)
+COPIES = [
+    ("repro_torch.models.model", "repro.models.model", "LOSS_CHUNK"),
+    ("repro_torch.optim.adamw", "repro.optim.adamw", "AdamWConfig"),
+    ("repro_torch.checkpointing.io", "repro.checkpointing.io", "_SHARD_BYTES"),
+    ("repro_torch.data.pipeline", "repro.data.pipeline", "DataConfig"),
+    ("repro_torch.training.serve_step", "repro.training.serve_step", "LONG_THRESHOLD"),
+]
+
+
+@pytest.mark.parametrize("tmod,jmod,attr", COPIES)
+def test_copied_constants_equal_jax(tmod, jmod, attr):
+    import importlib
+    got = getattr(importlib.import_module(tmod), attr)
+    want = getattr(importlib.import_module(jmod), attr)
+    if dataclasses.is_dataclass(want):
+        assert dataclasses.asdict(got()) == dataclasses.asdict(want())
+    else:
+        assert got == want
+
+
+def test_make_loader_yields_the_jax_batches():
+    cfg_j, cfg_t = jconfigs.get_smoke_config("mamba2_780m"), \
+        tconfigs.get_smoke_config("mamba2_780m")
+    dj = jpipe.DataConfig(batch_size=2, seq_len=33, seed=5)
+    jl = jpipe.make_loader(cfg_j, dj)
+    tl = tpipe.make_loader(cfg_t, tpipe.DataConfig(**dataclasses.asdict(dj)),
+                           device="cpu")
+    try:
+        for _ in range(3):
+            bj, bt = next(jl), next(tl)
+            assert bt["tokens"].dtype == torch.int32
+            np.testing.assert_array_equal(bt["tokens"].numpy(), np.asarray(bj["tokens"]))
+    finally:
+        jl.close()
+
+
+def test_serve_ssm_cpu_smoke(tmp_path):
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "mamba2_780m",
+         "--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "64",
+         "--gen", "5", "--run-dir", str(tmp_path / "run")],
+        capture_output=True, text=True, env=_env(), timeout=300, cwd=tmp_path)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "prefill:" in r.stdout and "decode:" in r.stdout
