@@ -13,9 +13,9 @@ result.  Phases, each of which fails the run by raising:
      started together.
   3. kernels vs their plain PyTorch versions on the card, at the shapes
      the main paths give them and at edge cases, in fp32 and bf16, and
-     the gradients of the two autograd Functions (``flash_attention``,
-     ``ssd_scan``) against the gradients of plain versions written apart
-     from the ones their backward passes recompute; timed with
+     the gradients of the three autograd Functions (``flash_attention``,
+     ``ssd_scan``, ``rmsnorm``) against the gradients of plain versions
+     written apart from the ones their backward passes recompute; timed with
      CUDA events and profiler device time beside one PyTorch library
      call (where there is one) and the card's bound for the same work.
   4. serving path: ``repro_torch.launch.serve`` serves granite-8b at full
@@ -41,6 +41,11 @@ result.  Phases, each of which fails the run by raising:
      one ``ssd_scan`` per layer in the prefill.
  11. dense training through ``flash_attention``'s gradient: qwen1.5-0.5b
      at full size, batch 2 x seq 1024, 3 steps.
+ 12. the measured auto-profiler: ``repro_torch.core.profiler.
+     measure_layer_profile`` times granite-8b at full width at seq 4096
+     through ``flash_attention``, ``rmsnorm`` and ``flash_decode`` (launch
+     counts), and the cost model and the schedule simulator price one
+     plan with and without those times laid over one chip type.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line, and last ``{"ok": true, "device": {...}}``.
@@ -112,6 +117,33 @@ FA_REPLACES = "src/repro/kernels/flash_attention.py:31"
 FD_REPLACES = "src/repro/kernels/flash_decode.py:49"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:27"
+RN_SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+RN_REPLACES = "src/repro/kernels/rmsnorm.py:17"
+
+# rmsnorm: (label, rows, d, misaligned x).  The profile's shape first
+# (t_rmsnorm at seq 4096, d_model 4096); then row counts that are no
+# multiple of any tile, d not a multiple of a 16-byte vector (an unaligned
+# head and a scalar tail in every row but some), narrow rows (one warp a
+# row), and x starting one element past a 16-byte boundary (scalar path).
+RN_PROFILE = ("profile: 4096 x 4096", 4096, 4096, False)
+RN_CASES = [
+    ("37 x 1000", 37, 1000, False),
+    ("37 x 1001", 37, 1001, False),
+    ("129 x 4100", 129, 4100, False),
+    ("3 x 20 (d < one vector of fp32 x 2)", 3, 20, False),
+    ("300 x 14336 (more than 8 vectors a thread)", 300, 14336, False),
+    ("65 x 2048, x misaligned", 65, 2048, True),
+]
+RN_GRAD = [("grad: 512 x 4096", 512, 4096, False), ("grad: 37 x 1001", 37, 1001, False)]
+
+# Phase 12: the profiler at the main path's model, and the plan it prices:
+# the A:4 + B:4 two-type plan of tests/test_dataparallel.py:351 at tp 1,
+# granite-8b's 36 layers split 18 / 18 over two stages a type, dp 2.
+# t_wgrad is t_bwd - t_dgrad, two means of ~50 ms calls on the host clock
+# that differ by the weight-gradient GEMMs (a few ms); one call stalled by
+# a busy host inflates one mean.  With 5 timed calls t_wgrad read 0.2 ms
+# in one run (PERF.md); 20 keep a stall well inside the margin.
+PROFILE_ARCH, PROFILE_SEQ, PROFILE_ITERS = "granite_8b", 4096, 20
 
 # (label, b, S, h, p, g, n, chunk)
 SSD_TRAIN = ("training: b4 S2048 h48 p64 g1 n128", 4, 2048, 48, 64, 1, 128, 256)
@@ -583,6 +615,83 @@ def phase_ssd_kernel():
     return row
 
 
+def rn_inputs(case, dtype, scale_dtype, gen):
+    import torch
+    _, rows, d, misaligned = case
+    buf = torch.randn(rows * d + 1, generator=gen, device="cuda").to(dtype)
+    x = buf[1:].view(rows, d) if misaligned else buf[:-1].view(rows, d)
+    scale = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(scale_dtype)
+    return x, scale
+
+
+def phase_rmsnorm_kernel():
+    """``rmsnorm`` against ``ref.rmsnorm_ref`` on the card, x in fp32 and
+    bf16 with the scale in either, and its row of times at the profile's
+    shape (bf16 x and bf16 scale, as the profiler times it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    err = 0.0
+    for case in [RN_PROFILE] + RN_CASES:
+        label = case[0]
+        for dname, dt in dtypes.items():
+            for sname, st in dtypes.items():
+                x, scale = rn_inputs(case, dt, st, gen)
+                got = ops.rmsnorm(x, scale)
+                torch.cuda.synchronize()
+                e = compare(got, ref.rmsnorm_ref(x, scale), dname,
+                            f"rmsnorm [{label}, x {dname}, scale {sname}]")
+                log(f"  rmsnorm         {label:44s} x {dname:9s} scale {sname:9s} "
+                    f"max_abs_err={e:.3e}")
+                err = max(err, e) if dname == "bfloat16" else err
+    x, _ = rn_inputs(RN_PROFILE, torch.float32, torch.float32, gen)
+    try:
+        ops.rmsnorm(x.t(), torch.ones(x.shape[0], device="cuda"))
+    except ValueError as e:
+        log(f"  rmsnorm refuses a non-contiguous x: {e}")
+    else:
+        raise AssertionError("rmsnorm took a non-contiguous x")
+
+    _, rows, d, _ = RN_PROFILE
+    # three inputs taken in turn (200 MB with the outputs, > the 50 MB L2),
+    # so every call reads x from device memory
+    xs = [rn_inputs(RN_PROFILE, torch.bfloat16, torch.bfloat16, gen)[0] for _ in range(3)]
+    scale = torch.ones(d, dtype=torch.bfloat16, device="cuda")
+    lib = F.rms_norm(xs[0], (d,), scale, 1e-6)
+    lib_err = float((lib.float() - ref.rmsnorm_ref(xs[0], scale).float()).abs().max())
+    b_ms, b_by = bound(4 * rows * d, 2 * 2 * rows * d + 2 * d)
+    n = len(xs)
+    row = dict(name="rmsnorm", route="cuda", source=RN_SOURCE, replaces=RN_REPLACES,
+               max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               **timed(lambda i: ops.rmsnorm(xs[i % n], scale),
+                       lambda i: ref.rmsnorm_ref(xs[i % n], scale),
+                       lambda i: F.rms_norm(xs[i % n], (d,), scale, 1e-6),
+                       "rmsnorm_fwd", iters=200))
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    log(f"  torch.nn.functional.rms_norm vs plain: max_abs_err={lib_err:.3e} "
+        "(a yardstick for time only)")
+    log(f"  rmsnorm per call [4096 x 4096 bf16], CUDA events: kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms; "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    log(f"  rmsnorm per call, device time (profiler): kernel {fmt(row['device_ms'])}, "
+        f"whole wrapper {fmt(row['wrapper_device_ms'])}, plain "
+        f"{fmt(row['plain_device_ms'])}, library {fmt(row['library_device_ms'])}")
+    return row
+
+
+def plain_rmsnorm(x, scale, eps=1e-6):
+    """RMSNorm written apart from ``ref.rmsnorm_ref`` (the function
+    ``rmsnorm``'s backward differentiates): the root mean square from a
+    vector norm, fp32 math."""
+    import torch
+    xf = x.float()
+    rms = torch.linalg.vector_norm(xf, dim=-1, keepdim=True) / math.sqrt(x.shape[-1])
+    return (xf / torch.sqrt(rms * rms + eps) * scale.float()).to(x.dtype)
+
+
 def grad_compare(got, want, dtype_name, what):
     import torch
     worst = 0.0
@@ -640,6 +749,20 @@ def phase_grads():
             want = torch.autograd.grad(plain_attention(q, k, v, **kw), (q, k, v), go)
             e = grad_compare(got, want, dname, f"flash_attention grad [{label}, {dname}]")
             log(f"  flash_attention grad {label:38s} {dname:9s} "
+                f"worst err / max = {e:.3e}")
+    for case in RN_GRAD:
+        label = case[0]
+        for dname, dt_ in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x, scale = [t.requires_grad_() for t in
+                        rn_inputs(case, dt_, torch.float32, gen)]
+            go = torch.randn(x.shape, generator=gen, device="cuda").to(dt_)
+            out = ops.rmsnorm(x, scale)
+            if out.grad_fn is None:
+                raise AssertionError("rmsnorm: the output has no grad_fn")
+            got = torch.autograd.grad(out, (x, scale), go)
+            want = torch.autograd.grad(plain_rmsnorm(x, scale), (x, scale), go)
+            e = grad_compare(got, want, dname, f"rmsnorm grad [{label}, {dname}]")
+            log(f"  rmsnorm grad         {label:38s} {dname:9s} "
                 f"worst err / max = {e:.3e}")
     label, *_, chunk = SSD_GRAD
     x, dt, A, Bm, Cm = [t.requires_grad_() for t in
@@ -865,6 +988,68 @@ def phase_train_profile(state):
     del state
     torch.cuda.empty_cache()
 
+def phase_profiler():
+    """The measured auto-profiler on the card: granite-8b at full width at
+    seq 4096 through the kernels, then one plan priced with and without
+    the card's times laid over chip type A."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import chips, cost_model, profiler, schedule
+    from repro_torch.kernels import ops
+
+    cfg = get_config(PROFILE_ARCH)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    meas = profiler.measure_layer_profile(cfg, PROFILE_SEQ, iters=PROFILE_ITERS,
+                                          backend="kernel")
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    torch.cuda.empty_cache()
+    log(f"  measure_layer_profile({cfg.name}, {PROFILE_SEQ}, iters={PROFILE_ITERS}, "
+        f"backend='kernel') in {wall:.1f} s: " + json.dumps(meas))
+    log(f"  launches: {launches}")
+    times = {k: v for k, v in meas.items() if k != "backend"}
+    bad = [k for k, v in times.items() if not (math.isfinite(v) and v > 0)]
+    if bad or meas["backend"] != "kernel":
+        raise AssertionError(f"profile fields {bad} are not finite and > 0, or the "
+                             f"backend is {meas['backend']!r}: {meas}")
+    calls = PROFILE_ITERS + 1                    # one warm call, then the timed ones
+    want = {"rmsnorm": calls,
+            # block forward, forward + full backward, forward + dgrad, attention
+            "flash_attention": 4 * calls,
+            "flash_decode": cfg.num_layers * calls,   # every layer of each decode step
+            "ssd_scan": 0}
+    if launches != want:
+        raise AssertionError(f"profiler launches {launches}, expected {want}")
+
+    analytic = profiler.analytic_layer_profile(chips.CHIPS["A"], cfg, 1, PROFILE_SEQ)
+    log(f"  chip A's analytic layer at tp 1 (the profile it replaces): "
+        f"t_fwd {analytic.t_fwd:.6f} s, t_bwd {analytic.t_bwd:.6f} s, "
+        f"wgrad_frac {analytic.wgrad_frac:.4f}")
+    group = lambda name: chips.ChipGroup(chips.CHIPS[name], 4)
+    half = cfg.num_layers // 2
+    plan = cost_model.ParallelPlan(
+        [cost_model.StagePlan(group("A"), 1, 2, half, False),
+         cost_model.StagePlan(group("B"), 1, 2, cfg.num_layers - half, False)],
+        dp=2, microbatches=4)
+    log(f"  plan {plan.describe()}: the card's profile laid over chip type A "
+        "only to show that measured numbers reach the ranker; this is not a "
+        "plan for an H100 cluster")
+    gbs = plan.batch_seqs * PROFILE_SEQ
+    measured = {"A": meas}
+    base = cost_model.evaluate(plan, cfg, PROFILE_SEQ, gbs)
+    over = cost_model.evaluate(plan, cfg, PROFILE_SEQ, gbs, measured=measured)
+    sim0 = schedule.simulate_plan(plan, cfg, PROFILE_SEQ)
+    sim1 = schedule.simulate_plan(plan, cfg, PROFILE_SEQ, measured=measured)
+    for label, c, r in (("analytic", base, sim0), ("measured on A", over, sim1)):
+        log(f"  {label:14s} evaluate: iter_time {c.iter_time:.6f} s, tgs {c.tgs:.3f}, "
+            f"t_comp {[round(t, 6) for t in c.t_comp]}, bubble {c.bubble_frac:.4f}, "
+            f"feasible {c.feasible}; simulate_plan makespan {r.makespan:.6f} s")
+    if not (math.isfinite(over.iter_time) and over.iter_time != base.iter_time
+            and sim1.makespan != sim0.makespan):
+        raise AssertionError("the measured profile did not reach evaluate and "
+                             "simulate_plan")
+    return launches
 
 
 def main() -> int:
@@ -895,6 +1080,7 @@ def main() -> int:
     log("== 3. kernels vs plain versions")
     rows = phase_kernels()
     rows["ssd_scan"] = phase_ssd_kernel()
+    rows["rmsnorm"] = phase_rmsnorm_kernel()
     phase_grads()
 
     log("== 4. serving path: serve granite-8b, 36 layers, bf16")
@@ -923,8 +1109,11 @@ def main() -> int:
     log("== 11. dense training through flash_attention: qwen1.5-0.5b, b2 x S1024")
     phase_dense_train()
 
+    log("== 12. the measured auto-profiler: granite-8b at full width, seq 4096")
+    launches["rmsnorm"] = phase_profiler()["rmsnorm"]
+
     kernels = []
-    for name in ("flash_attention", "flash_decode", "ssd_scan"):
+    for name in ("flash_attention", "flash_decode", "ssd_scan", "rmsnorm"):
         r = dict(rows[name])
         r["launches"] = launches[name]
         kernels.append({k: r[k] for k in (

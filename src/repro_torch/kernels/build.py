@@ -35,6 +35,7 @@ ENTRY_POINTS = {
                      (P, P, P, P, P, I, I, I, I, I, LL, F, I, P)),
     "ssd_scan": ("repro_ssd_scan",
                  (P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, LL, I, P)),
+    "rmsnorm": ("repro_rmsnorm", (P, P, P, I, I, F, I, I, P)),
 }
 
 _lock = threading.Lock()

@@ -15,7 +15,8 @@ launches in a plain integer attribute (``flash_attention.launches``),
 incremented only where the kernel is launched, so a run can show that
 its path went through the kernel.
 
-The training kernels (``flash_attention``, ``ssd_scan``) run inside a
+The differentiable kernels (``flash_attention``, ``ssd_scan``,
+``rmsnorm``) run inside a
 ``torch.autograd.Function``, the port of the JAX package's
 ``custom_vjp``s (``recompute_vjp``): the forward is the kernel, the
 backward recomputes a plain version under autograd and returns its VJP
@@ -294,7 +295,40 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None):
 
 ssd_scan.launches = 0
 
-KERNELS = (flash_attention, flash_decode, ssd_scan)
+RMSNORM_EPS = 1e-6
+
+
+def _rmsnorm_kernel(x, scale, *, eps):
+    _check("rmsnorm", (x,))
+    if scale.device != x.device or scale.dtype not in DTYPE_CODES:
+        raise TypeError(f"rmsnorm: scale {scale.dtype} on {scale.device}, x on "
+                        f"{x.device}; the scale must be one of {list(DTYPE_CODES)}")
+    scale = scale.contiguous()
+    d = x.shape[-1]
+    out = torch.empty_like(x)
+    _launch("rmsnorm", x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            x.numel() // d, d, float(eps), DTYPE_CODES[x.dtype],
+            DTYPE_CODES[scale.dtype], _stream())
+    rmsnorm.launches += 1
+    return out
+
+
+def rmsnorm(x, scale):
+    """Fused RMSNorm: x (..., d), scale (d,); fp32 statistics, eps 1e-6,
+    the result in x's dtype, differentiable.  On the card x must be
+    contiguous; the scale may be fp32 or bf16 whatever x's dtype (the
+    model keeps norm scales in fp32), and is read as it is."""
+    if scale.shape != x.shape[-1:] or x.numel() == 0:
+        raise ValueError(f"rmsnorm: x {tuple(x.shape)}, scale {tuple(scale.shape)}")
+    if x.device.type == "cpu":
+        return _ref.rmsnorm_ref(x, scale, eps=RMSNORM_EPS)
+    return recompute_vjp("rmsnorm", _rmsnorm_kernel, _ref.rmsnorm_ref,
+                         (x, scale), eps=RMSNORM_EPS)
+
+
+rmsnorm.launches = 0
+
+KERNELS = (flash_attention, flash_decode, ssd_scan, rmsnorm)
 
 
 def reset_launches() -> None:

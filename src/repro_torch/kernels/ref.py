@@ -116,3 +116,11 @@ def ssd_ref(x, dt, A, Bm, Cm, initial_state=None):
             torch.einsum("bhp,bhn->bhpn", xd, Bh[:, t])
         ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
     return torch.stack(ys, dim=1), state
+
+
+def rmsnorm_ref(x, scale, eps=1e-6):
+    """RMSNorm over the last dim in fp32, returned in x's dtype (the
+    ``rmsnorm`` ground truth, as ``ref.rmsnorm_ref`` of the JAX package)."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)

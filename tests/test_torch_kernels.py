@@ -4,10 +4,13 @@ the JAX package on the CPU.
 The same numpy-seeded inputs go through ``repro.kernels.ref`` (the JAX
 oracles), ``repro.kernels.ops`` (the Pallas kernels, which run their
 kernel bodies in interpret mode off-TPU) and the port's
-``repro_torch.kernels`` / ``repro_torch.models.attention``.  fp32
-throughout, atol 1e-5: the same fp32 arithmetic in two frameworks.
-The CUDA kernels themselves run only on the card (``chip_smoke.py``).
+``repro_torch.kernels`` / ``repro_torch.models.attention``.  Attention
+in fp32, atol 1e-5: the same fp32 arithmetic in two frameworks; rmsnorm
+in fp32 and bf16 within the JAX package's own kernel tolerances.  The
+CUDA kernels themselves run only on the card (``chip_smoke.py``; the
+``cuda``-marked tests skip without one).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -175,3 +178,88 @@ def test_cpu_wrappers_check_shapes():
     with pytest.raises(ValueError):
         tops.flash_decode(torch.zeros(1, 4, 64), torch.zeros(1, 2, 8, 32),
                           torch.zeros(1, 2, 8, 32), 3)
+
+
+# tests/test_kernels.py::TOL, the JAX package's own bound for its rmsnorm
+# kernel against rmsnorm_ref
+RN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("x_dtype,s_dtype", [("float32", "float32"),
+                                             ("bfloat16", "bfloat16"),
+                                             ("bfloat16", "float32")])
+@pytest.mark.parametrize("rows,d", [(64, 256), (128, 512), (37, 128)])
+def test_rmsnorm_plain_matches_jax(rows, d, x_dtype, s_dtype):
+    """``ref.rmsnorm_ref`` and the wrapper on CPU tensors against the JAX
+    oracle and its Pallas kernel (interpret mode), x and scale rounded to
+    their dtypes once, the same way, in both frameworks."""
+    rng = np.random.default_rng(rows * 3 + d)
+    x, s = _randn(rng, rows, d), _randn(rng, d)
+    jx, js = jnp.asarray(x).astype(JDT[x_dtype]), jnp.asarray(s).astype(JDT[s_dtype])
+    tx, ts = torch.from_numpy(x).to(TDT[x_dtype]), torch.from_numpy(s).to(TDT[s_dtype])
+    wants = [jref.rmsnorm_ref(jx, js), jops.rmsnorm(jx, js)]
+    gots = [tref.rmsnorm_ref(tx, ts), tops.rmsnorm(tx, ts)]
+    for got in gots:
+        assert got.dtype == TDT[x_dtype] and got.shape == (rows, d)
+        for want in wants:
+            err = np.abs(got.float().numpy() - np.asarray(want.astype(jnp.float32))).max()
+            assert err < RN_TOL[x_dtype], err
+    assert tops.rmsnorm.launches == 0         # no kernel ran on the CPU
+
+
+@pytest.mark.parametrize("rows,d", [(32, 256), (37, 128)])
+def test_rmsnorm_grad_matches_jax(rows, d):
+    """The autograd Function with its plain body in the kernel's place
+    (the kernel runs only on the card) against ``jax.grad`` of the JAX
+    ``custom_vjp`` around the Pallas kernel: x and scale gradients."""
+    rng = np.random.default_rng(rows + d)
+    x, s, go = _randn(rng, rows, d), _randn(rng, d), _randn(rng, rows, d)
+    want = jax.grad(lambda x, s: jnp.sum(jops.rmsnorm(x, s) * go),
+                    argnums=(0, 1))(jnp.asarray(x), jnp.asarray(s))
+    tx, ts = (torch.from_numpy(a).requires_grad_() for a in (x, s))
+    out = tops.recompute_vjp("rmsnorm", tref.rmsnorm_ref, tref.rmsnorm_ref,
+                             (tx, ts), eps=tops.RMSNORM_EPS)
+    got = torch.autograd.grad(out, (tx, ts), torch.from_numpy(go))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=1e-4)
+    out2 = tops.rmsnorm(tx, ts)                # CPU: the plain version
+    assert out2.grad_fn is not None
+    torch.testing.assert_close(out2, out, rtol=0, atol=0)
+
+
+def test_rmsnorm_checks_shapes():
+    with pytest.raises(ValueError, match="rmsnorm"):
+        tops.rmsnorm(torch.zeros(4, 8), torch.ones(7))
+    with pytest.raises(ValueError, match="rmsnorm"):
+        tops.rmsnorm(torch.zeros(0, 8), torch.ones(8))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the rmsnorm kernel runs only "
+                    "there (chip_smoke.py phase 3 runs these checks on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,dtype,atol,rtol", [
+    (4096, 4096, torch.bfloat16, 4e-3, 1e-2),   # the profile's shape
+    (37, 1000, torch.bfloat16, 4e-3, 1e-2),
+    (37, 1001, torch.float32, 1e-4, 0.0),       # d not a multiple of a vector
+])
+def test_rmsnorm_kernel_on_card(cuda_device, rows, d, dtype, atol, rtol):
+    """The CUDA kernel against its plain version on the card.  fp32: the
+    same arithmetic summed in another order; bf16: both round one fp32
+    result to bf16 once, so they may sit one bf16 step (< 1%) apart."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + d)
+    x = torch.randn(rows, d, generator=gen, device=cuda_device).to(dtype)
+    s = 1 + 0.1 * torch.randn(d, generator=gen, device=cuda_device)
+    before = tops.rmsnorm.launches
+    got = tops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert tops.rmsnorm.launches == before + 1
+    torch.testing.assert_close(got.float(), tref.rmsnorm_ref(x, s).float(),
+                               atol=atol, rtol=rtol)

@@ -102,6 +102,13 @@ def _banned(mod):
 
 def test_port_imports_no_jax_or_repro_ast():
     assert len(PORT_FILES) > 20
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    planning = {f"src/repro_torch/{m}.py" for m in (
+        "core/chips", "core/profiler", "core/cost_model", "core/schedule",
+        "core/resharding", "core/schedules/base", "core/schedules/library",
+        "core/schedules/simulator", "core/dataparallel/batch_domain",
+        "core/dataparallel/grad_sync", "comm/latency")}
+    assert planning <= scanned, planning - scanned
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in PORT_FILES
            for m in _imports(p) if _banned(m)]
     assert not bad, bad
@@ -186,6 +193,12 @@ COPIES = [
     ("repro_torch.checkpointing.io", "repro.checkpointing.io", "_SHARD_BYTES"),
     ("repro_torch.data.pipeline", "repro.data.pipeline", "DataConfig"),
     ("repro_torch.training.serve_step", "repro.training.serve_step", "LONG_THRESHOLD"),
+    ("repro_torch.core.profiler", "repro.core.profiler", "BYTES_ACT"),
+    ("repro_torch.core.profiler", "repro.core.profiler", "ACT_FACTOR"),
+    ("repro_torch.core.profiler", "repro.core.profiler", "ACT_BOUNDARY"),
+    ("repro_torch.core.profiler", "repro.core.profiler", "OPT_STEP_TIME"),
+    ("repro_torch.core.cost_model", "repro.core.cost_model", "MEM_SAFETY"),
+    ("repro_torch.core.cost_model", "repro.core.cost_model", "DEFAULT_BUCKET_BYTES"),
 ]
 
 
