@@ -12,7 +12,8 @@ result.  Phases, each of which fails the run by raising:
   2. build: ``nvcc`` of every kernel source, one process per source, all
      started together.
   3. kernels vs their plain PyTorch versions on the card, at the shapes
-     the main paths give them and at edge cases, in fp32 and bf16, and
+     the main paths give them (``flash_attention`` also at the profiler's
+     (1, 4096, 32/8, 128)) and at edge cases, in fp32 and bf16, and
      the gradients of the three autograd Functions (``flash_attention``,
      ``ssd_scan``, ``rmsnorm``) against the gradients of plain versions
      written apart from the ones their backward passes recompute; timed with
@@ -56,6 +57,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -177,6 +179,8 @@ FA_CASES = [
     ("window 50, GQA, hd 64", 1, 300, 300, 8, 4, 64, True, 50, 0),
 ]
 FA_SERVE = ("serving: B4 S512 H32 KV8 hd128", 4, 512, 512, 32, 8, 128, True, 0, 0)
+# t_attn of the profile (phase 12): granite-8b's heads at seq 4096
+FA_PROFILE = ("profile: B1 S4096 H32 KV8 hd128", 1, 4096, 4096, 32, 8, 128, True, 0, 0)
 
 # (label, B, KV, G, S, hd, pos, window, softcap, ring, q_scale)
 FD_CASES = [
@@ -204,6 +208,24 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(nvcc_output):
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: its
+    (mangled) name, registers, spills and static shared memory."""
+    lines, name, spills = [], None, ""
+    for line in nvcc_output.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
+            name, spills = None, ""
+        elif "error" in line or "warning" in line:
+            lines.append(line.strip())
+    return lines
 
 
 def compare(got, want, dtype_name, what, tol=None):
@@ -320,37 +342,50 @@ def phase_kernels():
             log(f"  flash_decode    {label:32s} {dname:9s} max_abs_err={e:.3e}")
             fd_err = max(fd_err, e) if dname == "bfloat16" else fd_err
 
-    # ---- times at the serving shapes, bf16 ----
+    # ---- times at the serving shapes (and the profile's), bf16 ----
     rows = {}
-    _, B, Sq, Sk, H, KV, hd, causal, window, q_offset = FA_SERVE
-    q, k, v = fa_inputs(FA_SERVE, torch.bfloat16, gen)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True).transpose(1, 2)
-    lib_err = compare(lib, ref.flash_attention_ref(q, k, v), "bfloat16",
-                      "scaled_dot_product_attention yardstick", tol=LIB_TOL)
-    pairs = B * H * (Sq * (Sq + 1) // 2)         # causal, q_offset 0, no window
-    b_ms, b_by = bound(4 * hd * pairs,
-                       2 * (q.numel() * 2 + k.numel() + v.numel()))
-    rows["flash_attention"] = dict(
-        name="flash_attention", route="cuda", source=FA_SOURCE,
-        replaces=FA_REPLACES, max_abs_err=fa_err, bound_ms=b_ms, bound_by=b_by,
-        **timed(lambda i: ops.flash_attention(q, k, v),
-                lambda i: ref.flash_attention_ref(q, k, v),
-                lambda i: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True),
-                "attn_fwd", iters=20))
-    log(f"  scaled_dot_product_attention vs plain: max_abs_err={lib_err:.3e}")
+    fa_rows = {}
+    for case in (FA_SERVE, FA_PROFILE):
+        label, B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
+        q, k, v = fa_inputs(case, torch.bfloat16, gen)
+        want = ref.flash_attention_ref(q, k, v)
+        err = compare(ops.flash_attention(q, k, v), want, "bfloat16",
+                      f"flash_attention [{label}, bfloat16]")
+        fa_err = max(fa_err, err)
+        log(f"  flash_attention {label:32s} bfloat16  max_abs_err={err:.3e}")
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True).transpose(1, 2)
+        lib_err = compare(lib, want, "bfloat16",
+                          "scaled_dot_product_attention yardstick", tol=LIB_TOL)
+        log(f"  scaled_dot_product_attention vs plain [{label}]: "
+            f"max_abs_err={lib_err:.3e}")
+        del lib, want
+        pairs = B * H * (Sq * (Sq + 1) // 2)     # causal, q_offset 0, no window
+        b_ms, b_by = bound(4 * hd * pairs,
+                           2 * (q.numel() * 2 + k.numel() + v.numel()))
+        fa_rows[label] = dict(
+            name="flash_attention", route="cuda", source=FA_SOURCE,
+            replaces=FA_REPLACES, bound_ms=b_ms, bound_by=b_by,
+            **timed(lambda i: ops.flash_attention(q, k, v),
+                    lambda i: ref.flash_attention_ref(q, k, v),
+                    lambda i: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True),
+                    "attn_fwd", iters=20))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    rows["flash_attention"] = dict(fa_rows[FA_SERVE[0]], max_abs_err=fa_err)
 
     _, B, KV, G, S, hd, pos, window, softcap, ring, _ = FD_SERVE
     # eight caches (71 MB > the 50 MB L2) taken in turn, so every call
     # reads its cache from device memory, as each layer's decode does
     q, caches = fd_inputs(FD_SERVE, torch.bfloat16, gen, n_caches=8)
     live = int(ref.decode_valid(pos, S, device="cuda").sum())
+    # the library call needs the mask as a bias; the kernel computes it
     bias = ops.decode_bias(pos, S, device="cuda").view(1, 1, 1, S)
     q4 = q.view(B, KV * G, 1, hd)
     b_ms, b_by = bound(4 * B * KV * G * live * hd,
-                       2 * 2 * B * KV * live * hd + 2 * 2 * q.numel() + 4 * S)
+                       2 * 2 * B * KV * live * hd + 2 * 2 * q.numel())
     n = len(caches)
     rows["flash_decode"] = dict(
         name="flash_decode", route="cuda", source=FD_SOURCE,
@@ -359,13 +394,17 @@ def phase_kernels():
                 lambda i: ref.decode_attention_ref(q, *caches[i % n], pos),
                 lambda i: F.scaled_dot_product_attention(
                     q4, *caches[i % n], attn_mask=bias, enable_gqa=True),
-                "decode_fwd", iters=200))
+                "decode_", iters=200))
+    log(f"  flash_decode splits the {S}-slot cache {ops.decode_splits(B * KV, S)} "
+        f"ways: {B * KV * ops.decode_splits(B * KV, S)} blocks in pass 1")
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
-    for r in rows.values():
-        log(f"  {r['name']} per call, CUDA events: kernel {r['ms']:.4f} ms, "
+    shown = [(FA_SERVE[0], fa_rows[FA_SERVE[0]]), (FA_PROFILE[0], fa_rows[FA_PROFILE[0]]),
+             (FD_SERVE[0], rows["flash_decode"])]
+    for label, r in shown:
+        log(f"  {r['name']} per call [{label}], CUDA events: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms; "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-        log(f"  {r['name']} per call, device time (profiler): kernel "
+        log(f"  {r['name']} per call [{label}], device time (profiler): kernel "
             f"{fmt(r['device_ms'])}, whole wrapper {fmt(r['wrapper_device_ms'])}, "
             f"plain {fmt(r['plain_device_ms'])}, library {fmt(r['library_device_ms'])}")
     return rows
@@ -1073,9 +1112,8 @@ def main() -> int:
     build.load()
     log(f"  built/loaded {list(build.ENTRY_POINTS)} in {time.perf_counter() - t0:.1f} s")
     for name, out in build.build_log.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  [{name}] {line.strip()}")
+        for line in ptxas_summary(out):
+            log(f"  [{name}] {line}")
 
     log("== 3. kernels vs plain versions")
     rows = phase_kernels()

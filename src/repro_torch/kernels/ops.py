@@ -27,6 +27,8 @@ inference only.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build
@@ -163,11 +165,30 @@ flash_attention.launches = 0
 def decode_bias(pos, cache_len, *, window=0, ring=False, device=None):
     """(S,) fp32 additive mask for the query at ``pos``: 0 where the slot
     may be attended, NEG_INF elsewhere (``ops.py:131-135`` of the JAX
-    package)."""
+    package).  The einsum decode path adds it; the ``flash_decode`` kernel
+    computes the same mask itself."""
     valid = _ref.decode_valid(pos, cache_len, window=window, ring=ring,
                               device=device)
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return torch.where(valid, zero, torch.full_like(zero, NEG_INF))
+
+
+DECODE_PAGE = 64                      # cache slots a page of the kernel
+H100_SMS = 132
+
+
+def decode_splits(batch_kv, cache_len, num_sms=H100_SMS):
+    """Splits of the cache for ``flash_decode``'s first pass: enough
+    (batch row, kv head, split) blocks to cover about two per SM, and at
+    least one 64-slot page a split.  9 at the serving shape (B 4 x KV 8,
+    544 slots: 288 blocks)."""
+    n_pages = -(-cache_len // DECODE_PAGE)
+    return max(1, min(n_pages, -(-2 * num_sms // batch_kv)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def flash_decode(q, k, v, pos, *, window=0, softcap=0.0, ring=False):
@@ -175,10 +196,11 @@ def flash_decode(q, k, v, pos, *, window=0, softcap=0.0, ring=False):
 
     q: (B, 1, H, hd) or (B, H, hd) — the current token's query heads;
     k/v: (B, KV, S, hd) cache layout, read in place; pos: int position
-    of the query token.  ``ring=True`` applies the ring-buffer slot →
-    position mapping.  The mask travels as one fp32 bias row shared by
-    the batch (one ``pos`` for every row, as in the JAX wrapper).
-    Returns (B, H, hd)."""
+    of the query token, one for the whole batch (as in the JAX wrapper).
+    ``ring=True`` applies the ring-buffer slot → position mapping.  The
+    kernel computes the mask from (pos, S, window, ring) itself and runs
+    split over the cache (``decode_splits``) with a combine pass; its
+    fp32 partials go to a scratch tensor.  Returns (B, H, hd)."""
     if q.dim() == 4:
         q = q[:, 0]
     B, H, hd = q.shape
@@ -196,12 +218,14 @@ def flash_decode(q, k, v, pos, *, window=0, softcap=0.0, ring=False):
     _check("flash_decode", (q, k, v))
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_decode: head_dim {hd} not in {HEAD_DIMS}")
-    bias = decode_bias(pos, S, window=window, ring=ring, device=q.device)
+    n_split = decode_splits(B * KV, S, _sm_count(q.device.index))
+    part = torch.empty((B * KV, n_split, G, hd + 2), dtype=torch.float32,
+                       device=q.device)
     out = torch.empty_like(q)
     _launch("flash_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), B, KV, G, S, hd,
-            0,                        # bias_stride: one row for the batch
-            float(softcap or 0.0), DTYPE_CODES[q.dtype], _stream())
+            part.data_ptr(), out.data_ptr(), B, KV, G, S, hd, n_split,
+            int(pos), int(window), int(bool(ring)), float(softcap or 0.0),
+            DTYPE_CODES[q.dtype], _stream())
     flash_decode.launches += 1
     return out
 

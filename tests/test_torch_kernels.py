@@ -8,8 +8,15 @@ kernel bodies in interpret mode off-TPU) and the port's
 in fp32, atol 1e-5: the same fp32 arithmetic in two frameworks; rmsnorm
 in fp32 and bf16 within the JAX package's own kernel tolerances.  The
 CUDA kernels themselves run only on the card (``chip_smoke.py``; the
-``cuda``-marked tests skip without one).
+``cuda``-marked tests skip without one); their arithmetic is rehearsed
+here in plain PyTorch: the bf16 tensor-core ``flash_attention`` (bf16
+P before P V) under chip_smoke's unchanged bf16 tolerance, and the
+split-K ``flash_decode`` (pass 1 and the combine) in fp32.
 """
+import importlib.util
+import math
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +31,19 @@ from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as tattn
 
 ATOL = 1e-5
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports only the standard library at
+    its top), for its case lists and tolerances."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()
 
 
 def _randn(rng, *shape, scale=1.0):
@@ -68,6 +88,99 @@ def test_flash_attention_plain_matches_jax(B, Sq, Sk, H, KV, hd, causal,
     assert tops.flash_attention.launches == 0     # no kernel ran on the CPU
 
 
+def _k_tile_range(q0, Sk, causal, window, q_offset, bq=64, bk=64):
+    """``k_tile_range`` of ``flash_attention.cu``: the 64-key tiles that
+    hold an unmasked key for some row of the q tile at q0."""
+    end = -(-Sk // bk)
+    q_hi = q0 + bq - 1 + q_offset
+    if causal:
+        end = min(end, 0 if q_hi < 0 else q_hi // bk + 1)
+    lo = q0 + q_offset - window + 1
+    begin = lo // bk if window > 0 and lo > 0 else 0
+    return begin, end
+
+
+def tc_attention_emulated(q, k, v, *, causal, window, q_offset, round_p=True,
+                          bq=64, bk=64):
+    """The bf16 tensor-core ``flash_attention``'s arithmetic in plain
+    PyTorch: per 64-row q tile, its visited 64-key tiles in order; S = Q K^T
+    summed in fp32 (products of bf16 inputs are exact); scores scaled into
+    the log2 domain and masked to -1e30; online softmax with fp32 (m, l)
+    and exp2; P rounded to bf16 (``round_p``) before P V, summed in fp32;
+    output / max(l, 1e-20) in the input dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    kf = k.repeat_interleave(H // KV, 2).float()
+    vf = v.repeat_interleave(H // KV, 2).float()
+    scale = math.log2(math.e) / math.sqrt(hd)
+    out = torch.zeros(B, Sq, H, hd)
+    for q0 in range(0, Sq, bq):
+        rows = slice(q0, min(q0 + bq, Sq))
+        qp = torch.arange(rows.start, rows.stop)[:, None] + q_offset
+        m = torch.full((B, H, rows.stop - q0, 1), tref.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, H, rows.stop - q0, hd)
+        for kt in range(*_k_tile_range(q0, Sk, causal, window, q_offset, bq, bk)):
+            keys = slice(kt * bk, min(kt * bk + bk, Sk))
+            kp = torch.arange(keys.start, keys.stop)[None, :]
+            ok = torch.ones(qp.shape[0], kp.shape[1], dtype=torch.bool)
+            if causal:
+                ok = kp <= qp
+            if window:
+                ok = ok & (kp > qp - window)
+            s = torch.einsum("bqhd,bkhd->bhqk", q[:, rows].float(), kf[:, keys])
+            x = torch.where(ok, s * scale, tref.NEG_INF)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha, p = torch.exp2(m - m_new), torch.exp2(x - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            if round_p:
+                p = p.bfloat16().float()
+            acc = alpha * acc + p @ vf[:, keys].permute(0, 2, 1, 3)
+            m = m_new
+        out[:, rows] = (acc / l.clamp_min(1e-20)).permute(0, 2, 1, 3)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("case", CS.FA_CASES, ids=[c[0] for c in CS.FA_CASES])
+def test_flash_attention_tensor_core_numerics_match_jax(case):
+    """bf16 inputs at chip_smoke's FA_CASES shapes: the tensor-core
+    arithmetic (bf16 P) against the JAX ``attention_ref`` under
+    chip_smoke's unchanged bf16 tolerance (TOL["bfloat16"], the bound the
+    kernel meets against its plain version on the card)."""
+    _, B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
+    rng = np.random.default_rng(Sq * 7 + Sk + H)
+    q, k, v = (torch.from_numpy(_randn(rng, *shape)).bfloat16()
+               for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    rep = H // KV
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v))
+    want = np.asarray(jref.attention_ref(jq, jnp.repeat(jk, rep, 2),
+                                         jnp.repeat(jv, rep, 2), **kw)
+                      .astype(jnp.float32))
+    got = tc_attention_emulated(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, hd)
+    atol, rtol = CS.TOL["bfloat16"]
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window,q_offset", FA_CASES)
+def test_flash_attention_emulation_without_rounding_is_exact(
+        B, Sq, Sk, H, KV, hd, causal, window, q_offset):
+    """With P kept in fp32 the emulation is the reference's arithmetic in
+    another order (fp32, atol 1e-5 against the JAX oracle): the bf16
+    rounding of P is the tensor-core design's only departure."""
+    rng = np.random.default_rng(Sq * 31 + Sk)
+    q, k, v = (_randn(rng, B, Sq, H, hd), _randn(rng, B, Sk, KV, hd),
+               _randn(rng, B, Sk, KV, hd))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    rep = H // KV
+    want = jref.attention_ref(jnp.asarray(q), jnp.repeat(k, rep, 2),
+                              jnp.repeat(v, rep, 2), **kw)
+    got = tc_attention_emulated(*map(torch.from_numpy, (q, k, v)),
+                                round_p=False, **kw)
+    _close(got, want)
+
+
 @pytest.mark.parametrize("pos,S,ring", [(5, 8, False), (5, 8, True),
                                         (13, 8, True), (0, 4, True),
                                         (100, 37, True), (36, 37, False)])
@@ -104,6 +217,125 @@ def test_flash_decode_plain_matches_jax(B, KV, G, S, hd, pos, kw, q_scale):
         _close(got, want_ref)
         _close(got, want_pallas)
     assert tops.flash_decode.launches == 0
+
+
+def split_decode_emulated(q, k, v, pos, n_split, *, window=0, softcap=0.0,
+                          ring=False, page=64):
+    """``flash_decode.cu`` in plain PyTorch, fp32: pass 1 per split over
+    its contiguous range of 64-slot pages (a page with no live slot
+    skipped before it is read), the mask from (pos, S, window, ring) as
+    the kernel computes it (C's truncating remainder, then + S), an online
+    softmax per page, and a partial (acc, m, l) per split; then the
+    combine, in which a split with no live page (m = -inf) adds nothing."""
+    B, H, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.float().view(B, KV, G, hd)
+    slots = torch.arange(S, dtype=torch.int64)
+    k_pos = slots
+    if ring:
+        r = torch.fmod(pos - slots, S)
+        k_pos = pos - torch.where(r < 0, r + S, r)
+    valid = (k_pos >= 0) & (k_pos <= pos)
+    if window > 0:
+        valid = valid & (k_pos > pos - window)
+    n_pages = -(-S // page)
+    parts = []
+    for split in range(n_split):
+        m = torch.full((B, KV, G, 1), -math.inf)
+        l = torch.zeros(B, KV, G, 1)
+        acc = torch.zeros(B, KV, G, hd)
+        for pg in range(split * n_pages // n_split, (split + 1) * n_pages // n_split):
+            sl = slice(pg * page, min(pg * page + page, S))
+            if not bool(valid[sl].any()):
+                continue
+            s = torch.einsum("bkgd,bksd->bkgs", qg, k[:, :, sl].float()) / math.sqrt(hd)
+            if softcap > 0:
+                s = torch.tanh(s / softcap) * softcap
+            s = torch.where(valid[sl], s, tref.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = alpha * acc + torch.einsum("bkgs,bksd->bkgd", p, v[:, :, sl].float())
+            m = m_new
+        parts.append((acc, m, l))
+    M = torch.stack([m for _, m, _ in parts]).amax(0)
+    num, den = torch.zeros(B, KV, G, hd), torch.zeros(B, KV, G, 1)
+    for acc, m, l in parts:
+        w = torch.where(m > -math.inf, torch.exp(m - M), torch.zeros_like(m))
+        num, den = num + w * acc, den + w * l
+    return (num / den.clamp_min(1e-20)).view(B, H, hd).to(q.dtype)
+
+
+# FD_CASES above plus splits whose every page is masked: pages before the
+# window, pages past pos, and a ring whose older half is unwritten
+FD_SPLIT_CASES = FD_CASES + [
+    (1, 2, 2, 600, 64, 580, dict(window=60), 1.0),
+    (2, 1, 3, 700, 128, 100, {}, 1.0),
+    (1, 2, 2, 640, 64, 200, dict(ring=True), 1.0),
+]
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 9])
+@pytest.mark.parametrize("B,KV,G,S,hd,pos,kw,q_scale", FD_SPLIT_CASES)
+def test_flash_decode_split_k_emulation_matches_jax(B, KV, G, S, hd, pos, kw,
+                                                    q_scale, n_split):
+    """The split-K decode, pass 1 and the combine, against the JAX
+    ``decode_attention_ref`` in fp32 at 1e-5, for every split count; at
+    1, 2 and 3 pages a run of 9 splits holds splits with no page at all."""
+    rng = np.random.default_rng(S * 7 + pos)
+    q = _randn(rng, B, KV * G, hd, scale=q_scale)
+    k, v = _randn(rng, B, KV, S, hd), _randn(rng, B, KV, S, hd)
+    want = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.int32(pos), **kw)
+    got = split_decode_emulated(*map(torch.from_numpy, (q, k, v)), pos, n_split, **kw)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("batch_kv,S,sms,want", [
+    (32, 544, 132, 9),        # serving: B 4 x KV 8, 544 slots -> 288 blocks
+    (8, 1024, 132, 16),       # the profiler's decode: every page its own split
+    (4, 40, 132, 1),          # one page
+    (512, 4096, 132, 1),      # the batch alone fills the card
+    (64, 4096, 132, 5),       # ceil(264 / 64)
+    (32, 544, 80, 5),         # a card with fewer SMs
+])
+def test_decode_splits(batch_kv, S, sms, want):
+    n = tops.decode_splits(batch_kv, S, sms)
+    assert n == want
+    assert 1 <= n <= -(-S // tops.DECODE_PAGE)
+    if n < -(-S // tops.DECODE_PAGE):         # pages to spare: the card is covered
+        assert batch_kv * n >= 2 * sms
+
+
+def test_flash_decode_kernel_path_builds_no_bias(monkeypatch):
+    """The wrapper's kernel path (driven here with meta tensors and the
+    launch captured): one output and one fp32 scratch of (B*KV, n_split,
+    G, hd + 2), the split count from ``decode_splits``, the mask
+    arguments passed through, and no bias row or valid mask built."""
+    B, KV, G, S, hd = 4, 8, 4, 544, 128
+
+    def refuse(*a, **k):
+        raise AssertionError("the kernel path built a mask on the host")
+
+    calls = []
+    monkeypatch.setattr(tops, "decode_bias", refuse)
+    monkeypatch.setattr(tref, "decode_valid", refuse)
+    monkeypatch.setattr(tops, "_check", lambda name, ts: None)
+    monkeypatch.setattr(tops, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(tops, "_stream", lambda: 0)
+    monkeypatch.setattr(tops, "_launch", lambda *a: calls.append(a))
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    q = torch.empty(B, 1, KV * G, hd, **meta)
+    k, v = torch.empty(B, KV, S, hd, **meta), torch.empty(B, KV, S, hd, **meta)
+    before = tops.flash_decode.launches
+    out = tops.flash_decode(q, k, v, 543, window=100, softcap=30.0, ring=True)
+    assert out.shape == (B, KV * G, hd) and out.dtype == torch.bfloat16
+    assert tops.flash_decode.launches == before + 1
+    (name, *args), = calls
+    assert name == "flash_decode"
+    assert args[5:17] == [B, KV, G, S, hd, 9, 543, 100, 1, 30.0,
+                          tops.DTYPE_CODES[torch.bfloat16], 0]
 
 
 @pytest.mark.parametrize("backend,Sq,window,softcap", [
