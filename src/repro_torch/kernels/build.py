@@ -34,7 +34,8 @@ ENTRY_POINTS = {
     "flash_decode": ("repro_flash_decode",
                      (P, P, P, P, P, I, I, I, I, I, I, LL, I, I, F, I, P)),
     "ssd_scan": ("repro_ssd_scan",
-                 (P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, LL, I, P)),
+                 (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL,
+                  LL, I, P)),
     "rmsnorm": ("repro_rmsnorm", (P, P, P, I, I, F, I, I, P)),
 }
 

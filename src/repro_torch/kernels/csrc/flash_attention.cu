@@ -720,7 +720,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       !make_map(&vm, v, B, Sk, KV, HD, BK))
     return (int)cudaErrorInvalidValue;
   const uint32_t smem = Smem<HD>::BYTES;
-  static const cudaError_t attr = cudaFuncSetAttribute(   // once a process
+  const cudaError_t attr = cudaFuncSetAttribute(   // the current card's opt-in
       attn_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(H, B, (Sq + BQB - 1) / BQB);

@@ -258,6 +258,38 @@ def _row_strided(t):
     return t, t.stride(1)
 
 
+SSD_COPY_BYTES = 16                   # the bf16 kernels copy 16-byte pieces
+
+
+def _ssd_check_copies(p, n, operands):
+    """The bf16 (tensor-core) kernels copy x, B and C rows in 16-byte
+    pieces: p and n must be multiples of 8, and each operand's base and
+    row stride multiples of 16 bytes.  Anything else raises (there is no
+    other path for bf16 on the card)."""
+    if p % 8 or n % 8:
+        raise ValueError(f"ssd_scan: bf16 needs head_dim {p} and state {n} "
+                         "to be multiples of 8")
+    for name, t, rs in operands:
+        if t.data_ptr() % SSD_COPY_BYTES or rs * t.element_size() % SSD_COPY_BYTES:
+            raise ValueError(
+                f"ssd_scan: {name} at byte offset {t.data_ptr() % SSD_COPY_BYTES} "
+                f"from a {SSD_COPY_BYTES}-byte boundary with a row stride of "
+                f"{rs} elements; the bf16 kernels need both {SSD_COPY_BYTES}-byte "
+                "aligned")
+
+
+def _ssd_scratch(b, S, h, p, n, chunk, device):
+    """The bf16 path's scratch: cum of A dt within each chunk (b, h, S)
+    and each chunk's own state (b, h, S / chunk, p, n), both fp32, and the
+    state entering each chunk as hi and lo bf16 tiles of the kernels'
+    largest (p, n) = (64, 128), (b, h, S / chunk, 2, 64, 128)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((b, h, S), **f32),
+            torch.empty((b, h, S // chunk, p, n), **f32),
+            torch.empty((b, h, S // chunk, 2, SSD_MAX_HEAD_DIM, SSD_MAX_STATE),
+                        dtype=torch.bfloat16, device=device))
+
+
 def _ssd_scan_kernel(x, dt, A, Bm, Cm, *, chunk):
     b, S, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
@@ -280,10 +312,15 @@ def _ssd_scan_kernel(x, dt, A, Bm, Cm, *, chunk):
     dt, A = dt.contiguous(), A.contiguous()
     y = torch.empty((b, S, h, p), dtype=torch.float32, device=dev)
     fin = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    scratch = ()                      # the fp32 (CUDA-core) kernel needs none
+    if x.dtype == torch.bfloat16:
+        _ssd_check_copies(p, n, (("x", x, x_rs), ("B", Bm, b_rs), ("C", Cm, c_rs)))
+        scratch = _ssd_scratch(b, S, h, p, n, chunk, dev)
+    ptrs = [t.data_ptr() for t in scratch] or [0, 0, 0]
     _launch("ssd_scan", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
             Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), fin.data_ptr(),
-            b, S, h, g, p, n, chunk, x_rs, b_rs, c_rs, DTYPE_CODES[x.dtype],
-            _stream())
+            *ptrs, b, S, h, g, p, n, chunk, x_rs, b_rs, c_rs,
+            DTYPE_CODES[x.dtype], _stream())
     ssd_scan.launches += 1
     return y, fin
 
@@ -297,8 +334,11 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None):
     final state (b, h, p, n) fp32), differentiable.
 
     The kernel starts from a zero state: an ``initial_state`` on the card
-    raises (the JAX wrapper drops it silently).  On CPU tensors this is
-    the plain ``ref.ssd_ref``, which takes one."""
+    raises (the JAX wrapper drops it silently).  bf16 runs the
+    tensor-core kernels (three passes, one C call, scratch from
+    ``_ssd_scratch``; operands as ``_ssd_check_copies`` asks), fp32 the
+    CUDA-core one.  On CPU tensors this is the plain ``ref.ssd_ref``,
+    which takes one."""
     b, S, h, p = x.shape
     if dt.shape != (b, S, h) or A.shape != (h,) or Bm.dim() != 4 \
             or Bm.shape != Cm.shape or Bm.shape[:2] != (b, S) or h % Bm.shape[2]:

@@ -468,6 +468,30 @@ def test_rmsnorm_checks_shapes():
         tops.rmsnorm(torch.zeros(0, 8), torch.ones(8))
 
 
+@pytest.mark.parametrize("x_dtype,s_dtype", [(torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.bfloat16)])
+def test_rmsnorm_kernel_path_launches_once(monkeypatch, x_dtype, s_dtype):
+    """The wrapper's kernel path on meta tensors, the launch captured: one
+    C call with rows, d, eps and both dtype codes (the kernel picks its
+    warp or block form and its grid from them), one launch counted, an
+    output like x."""
+    calls = []
+    monkeypatch.setattr(tops, "_check", lambda name, ts: None)
+    monkeypatch.setattr(tops, "_stream", lambda: 0)
+    monkeypatch.setattr(tops, "_launch", lambda *a: calls.append(a))
+    x = torch.empty(2, 2048, 4096, dtype=x_dtype, device="meta")
+    scale = torch.empty(4096, dtype=s_dtype, device="meta")
+    before = tops.rmsnorm.launches
+    out = tops.rmsnorm(x, scale)
+    assert out.shape == x.shape and out.dtype == x_dtype
+    assert tops.rmsnorm.launches == before + 1
+    (name, *args), = calls
+    assert name == "rmsnorm" and len(args) == len(tops.build.ENTRY_POINTS[name][1])
+    assert args[3:] == [4096, 4096, tops.RMSNORM_EPS, tops.DTYPE_CODES[x_dtype],
+                        tops.DTYPE_CODES[s_dtype], 0]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
