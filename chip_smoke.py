@@ -13,12 +13,13 @@ result.  Phases, each of which fails the run by raising:
      started together.
   3. kernels vs their plain PyTorch versions on the card, at the shapes
      the main paths give them (``flash_attention`` also at the profiler's
-     (1, 4096, 32/8, 128)) and at edge cases, in fp32 and bf16, and
-     the gradients of the three autograd Functions (``flash_attention``,
-     ``ssd_scan``, ``rmsnorm``) against the gradients of plain versions
-     written apart from the ones their backward passes recompute; timed with
-     CUDA events and profiler device time beside one PyTorch library
-     call (where there is one) and the card's bound for the same work.
+     (1, 4096, 32/8, 128); zamba2's head_dim 80 and (h 80, n 64) too) and
+     at edge cases, in fp32 and bf16, and the gradients of the three
+     autograd Functions (``flash_attention``, ``ssd_scan``, ``rmsnorm``)
+     against the gradients of plain versions written apart from the ones
+     their backward passes recompute; timed with CUDA events and profiler
+     device time beside one PyTorch library call (where there is one) and
+     the card's bound for the same work.
   4. serving path: ``repro_torch.launch.serve`` serves granite-8b at full
      width and depth (36 layers, bf16) from seeded random weights, batch
      4, prompt 512, 32 generated tokens; every attention call of prefill
@@ -48,9 +49,25 @@ result.  Phases, each of which fails the run by raising:
      through ``flash_attention``, ``rmsnorm`` and ``flash_decode`` (launch
      counts), and the cost model and the schedule simulator price one
      plan with and without those times laid over one chip type.
+ 13. hybrid training path: ``repro_torch.launch.train`` trains
+     zamba2-2.7b at full width and depth (54 ssm layers in 9 groups, each
+     followed by the shared attention block; bf16), batch 4 x seq 2048, 4
+     steps; the losses must be finite and fall, and each step must launch
+     2 x 54 ``ssd_scan`` and 2 x 9 ``flash_attention`` (one checkpoint a
+     group); then a warm step traced (``profile_train_hybrid.txt``).
+ 14. kernel path vs plain path, hybrid: zamba2 width cut to 12 layers (2
+     groups of 6), training as phase 9 (fp32 and bf16, phase 9's limits)
+     and prefill + 4 decode steps as phase 5 in fp32 and bf16 (phase 5's
+     limits, or the plain path's own spread where it is wider:
+     ``E2E_SPREAD``).
+ 15. hybrid serving: zamba2-2.7b, 54 layers, batch 4, prompt 512, 32
+     tokens; the prefill launches 54 ``ssd_scan`` and 9
+     ``flash_attention``, each decode call 9 ``flash_decode``.
 
-Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
-line, and last ``{"ok": true, "device": {...}}``.
+Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
+over the main paths that run it, phases 4, 7, 12, 13 and 15, each
+counted from 0), the ``nvidia-smi`` name/power line, and last
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -94,6 +111,21 @@ LIB_TOL = (3e-2, 2e-2)
 E2E_REL_L2 = 3e-2
 E2E_MAX_ABS = 0.25
 E2E_MIN_AGREE = 3                    # greedy tokens equal on >= 3 of 4 steps
+# Phase 14 (zamba2 width, 12 layers): the einsum path moved only by its
+# SSD chunk (the same fp32 sums in another order) lands 3.4e-2 to 8.8e-2
+# rel L2 and up to 0.76 max abs from itself in bf16, and its greedy
+# tokens agree with its own on 1 of 4 steps (measured on an H100, batch
+# 4 x prompt 512): every flipped bf16 rounding is carried through 12
+# layers, three times phase 5's depth, so phase 5's limits sit inside
+# the plain path's own spread.  There each logit limit is the larger of
+# phase 5's and E2E_SPREAD x that spread, measured in the same run at
+# chunk / 2 and / 4 (the kernel path read 0.55-1.14x it; a wrong tile or
+# mask moves the logits by O(1)), and the tokens are held to
+# E2E_MIN_AGREE only where the einsum path meets it against itself.  In
+# fp32, run beside it, the kernel path reads 1.1e-4 to 2.4e-4 and the
+# spread 7.2e-5 to 1.9e-4, and phase 5's limits hold, tokens included.
+# The multiple is phase 9's.
+E2E_SPREAD = 3.5
 
 # ssd_scan against ssd_ref: both read the same inputs (bf16 ones too) and
 # compute in fp32, the kernel chunk by chunk and the reference position by
@@ -184,6 +216,12 @@ SSD_GRAD = ("grad: b1 S512 h48 p64 g1 n128", 1, 512, 48, 64, 1, 128, 256)
 FA_GRAD = [
     ("grad: qwen B2 S1024 H16 hd64", 2, 1024, 1024, 16, 16, 64, True, 0, 0),
     ("grad: window 96, q_offset 64, GQA 8/2", 1, 256, 320, 8, 2, 128, True, 96, 64),
+    ("grad: zamba2 heads B1 S512 H32 hd80", 1, 512, 512, 32, 32, 80, True, 0, 0),
+]
+# zamba2-2.7b's ssd_scan shapes: h 80 heads of p 64, state n 64
+SSD_ZAMBA2 = [
+    ("zamba2 training: b4 S2048 h80 p64 g1 n64", 4, 2048, 80, 64, 1, 64, 256),
+    ("zamba2 prefill: b4 S512 h80 p64 g1 n64", 4, 512, 80, 64, 1, 64, 256),
 ]
 
 TRAIN_ARGS = ["--arch", "mamba2_780m", "--batch", "4", "--seq", "2048",
@@ -194,6 +232,13 @@ SSM_SERVE_ARGS = ["--arch", "mamba2_780m", "--batch", "4", "--prompt-len", "512"
 DENSE_TRAIN_ARGS = ["--arch", "qwen1p5_0p5b", "--batch", "2", "--seq", "1024",
                     "--steps", "3", "--backend", "auto", "--device", "cuda",
                     "--log-every", "1"]
+HYBRID_TRAIN_ARGS = ["--arch", "zamba2_2p7b", "--batch", "4", "--seq", "2048",
+                     "--steps", "4", "--backend", "auto", "--device", "cuda",
+                     "--log-every", "1"]
+HYBRID_SERVE_ARGS = ["--arch", "zamba2_2p7b", "--batch", "4", "--prompt-len", "512",
+                     "--gen", "32", "--backend", "auto", "--device", "cuda"]
+# Phase 14: zamba2 at full width cut to 2 groups of 6 ssm layers
+HYBRID_CUT_LAYERS = 12
 
 # (label, B, Sq, Sk, H, KV, hd, causal, window, q_offset)
 FA_CASES = [
@@ -203,10 +248,17 @@ FA_CASES = [
     ("q_offset 320", 1, 100, 420, 4, 2, 128, True, 0, 320),
     ("non-causal, ragged Sk", 2, 130, 150, 4, 4, 64, False, 0, 0),
     ("window 50, GQA, hd 64", 1, 300, 300, 8, 4, 64, True, 50, 0),
+    ("ragged S=200, hd 80", 2, 200, 200, 4, 4, 80, True, 0, 0),
+    ("window 96, GQA 8/4, hd 80", 2, 320, 320, 8, 4, 80, True, 96, 0),
 ]
 FA_SERVE = ("serving: B4 S512 H32 KV8 hd128", 4, 512, 512, 32, 8, 128, True, 0, 0)
 # t_attn of the profile (phase 12): granite-8b's heads at seq 4096
 FA_PROFILE = ("profile: B1 S4096 H32 KV8 hd128", 1, 4096, 4096, 32, 8, 128, True, 0, 0)
+# zamba2-2.7b's shared block: 32 heads of 2560 / 32 = 80, kv 32
+FA_ZAMBA2 = [
+    ("zamba2 prefill: B4 S512 H32 KV32 hd80", 4, 512, 512, 32, 32, 80, True, 0, 0),
+    ("zamba2 training: B4 S2048 H32 KV32 hd80", 4, 2048, 2048, 32, 32, 80, True, 0, 0),
+]
 
 # (label, B, KV, G, S, hd, pos, window, softcap, ring, q_scale)
 FD_CASES = [
@@ -218,8 +270,13 @@ FD_CASES = [
     ("pages before window masked", 4, 8, 4, 544, 128, 520, 100, 0.0, False, 1.0),
     ("hd 64, G 1", 2, 16, 1, 200, 64, 150, 0, 0.0, False, 1.0),
     ("G 9 (starcoder2 heads)", 2, 4, 9, 333, 128, 300, 0, 0.0, False, 1.0),
+    ("hd 80, G 4", 4, 8, 4, 544, 80, 520, 0, 0.0, False, 1.0),
+    ("hd 80, ring + window 300", 4, 8, 4, 544, 80, 1000, 300, 0.0, True, 1.0),
+    ("hd 80, G 25 (the most at hd 80)", 2, 4, 25, 333, 80, 300, 0, 0.0, False, 1.0),
 ]
 FD_SERVE = ("serving: B4 KV8 G4 hd128 S544", 4, 8, 4, 544, 128, 543, 0, 0.0, False, 1.0)
+FD_ZAMBA2 = ("zamba2 decode: B4 KV32 G1 hd80 S544", 4, 32, 1, 544, 80, 543, 0, 0.0, False,
+             1.0)
 
 SERVE_ARGS = ["--arch", "granite_8b", "--batch", "4", "--prompt-len", "512",
               "--gen", "32", "--backend", "auto", "--device", "cuda"]
@@ -349,7 +406,7 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     fa_err = fd_err = 0.0
-    for case in FA_CASES + [FA_SERVE]:
+    for case in FA_CASES + [FA_SERVE] + FA_ZAMBA2:
         label, *_, causal, window, q_offset = case
         for dname, dt in dtypes.items():
             q, k, v = fa_inputs(case, dt, gen)
@@ -361,7 +418,7 @@ def phase_kernels():
             e = compare(got, want, dname, f"flash_attention [{label}, {dname}]")
             log(f"  flash_attention {label:32s} {dname:9s} max_abs_err={e:.3e}")
             fa_err = max(fa_err, e) if dname == "bfloat16" else fa_err
-    for case in FD_CASES + [FD_SERVE]:
+    for case in FD_CASES + [FD_SERVE, FD_ZAMBA2]:
         label, *_, pos, window, softcap, ring, _ = case
         for dname, dt in dtypes.items():
             q, [(k, v)] = fd_inputs(case, dt, gen)
@@ -374,10 +431,10 @@ def phase_kernels():
             log(f"  flash_decode    {label:32s} {dname:9s} max_abs_err={e:.3e}")
             fd_err = max(fd_err, e) if dname == "bfloat16" else fd_err
 
-    # ---- times at the serving shapes (and the profile's), bf16 ----
+    # ---- times at the serving shapes (and the profile's, and zamba2's), bf16 ----
     rows = {}
     fa_rows = {}
-    for case in (FA_SERVE, FA_PROFILE):
+    for case in (FA_SERVE, FA_PROFILE, *FA_ZAMBA2):
         label, B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
         q, k, v = fa_inputs(case, torch.bfloat16, gen)
         want = ref.flash_attention_ref(q, k, v)
@@ -408,30 +465,10 @@ def phase_kernels():
         torch.cuda.empty_cache()
     rows["flash_attention"] = dict(fa_rows[FA_SERVE[0]], max_abs_err=fa_err)
 
-    _, B, KV, G, S, hd, pos, window, softcap, ring, _ = FD_SERVE
-    # eight caches (71 MB > the 50 MB L2) taken in turn, so every call
-    # reads its cache from device memory, as each layer's decode does
-    q, caches = fd_inputs(FD_SERVE, torch.bfloat16, gen, n_caches=8)
-    live = int(ref.decode_valid(pos, S, device="cuda").sum())
-    # the library call needs the mask as a bias; the kernel computes it
-    bias = ops.decode_bias(pos, S, device="cuda").view(1, 1, 1, S)
-    q4 = q.view(B, KV * G, 1, hd)
-    b_ms, b_by = bound(4 * B * KV * G * live * hd,
-                       2 * 2 * B * KV * live * hd + 2 * 2 * q.numel())
-    n = len(caches)
-    rows["flash_decode"] = dict(
-        name="flash_decode", route="cuda", source=FD_SOURCE,
-        replaces=FD_REPLACES, max_abs_err=fd_err, bound_ms=b_ms, bound_by=b_by,
-        **timed(lambda i: ops.flash_decode(q, *caches[i % n], pos),
-                lambda i: ref.decode_attention_ref(q, *caches[i % n], pos),
-                lambda i: F.scaled_dot_product_attention(
-                    q4, *caches[i % n], attn_mask=bias, enable_gqa=True),
-                "decode_", iters=200))
-    log(f"  flash_decode splits the {S}-slot cache {ops.decode_splits(B * KV, S)} "
-        f"ways: {B * KV * ops.decode_splits(B * KV, S)} blocks in pass 1")
+    fd_rows = {case[0]: fd_timed(case, gen, fd_err) for case in (FD_SERVE, FD_ZAMBA2)}
+    rows["flash_decode"] = fd_rows[FD_SERVE[0]]
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
-    shown = [(FA_SERVE[0], fa_rows[FA_SERVE[0]]), (FA_PROFILE[0], fa_rows[FA_PROFILE[0]]),
-             (FD_SERVE[0], rows["flash_decode"])]
+    shown = list(fa_rows.items()) + list(fd_rows.items())
     for label, r in shown:
         log(f"  {r['name']} per call [{label}], CUDA events: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms; "
@@ -440,6 +477,38 @@ def phase_kernels():
             f"{fmt(r['device_ms'])}, whole wrapper {fmt(r['wrapper_device_ms'])}, "
             f"plain {fmt(r['plain_device_ms'])}, library {fmt(r['library_device_ms'])}")
     return rows
+
+
+def fd_timed(case, gen, err):
+    """``flash_decode``'s row of times at ``case`` (bf16), beside its
+    plain version, ``scaled_dot_product_attention`` and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    _, B, KV, G, S, hd, pos, window, softcap, ring, _ = case
+    # eight caches (71 MB at the granite shape, 178 MB at zamba2's: more
+    # than the 50 MB L2) taken in turn, so every call reads its cache from
+    # device memory, as each layer's decode does
+    q, caches = fd_inputs(case, torch.bfloat16, gen, n_caches=8)
+    live = int(ref.decode_valid(pos, S, device="cuda").sum())
+    # the library call needs the mask as a bias; the kernel computes it
+    bias = ops.decode_bias(pos, S, device="cuda").view(1, 1, 1, S)
+    q4 = q.view(B, KV * G, 1, hd)
+    b_ms, b_by = bound(4 * B * KV * G * live * hd,
+                       2 * 2 * B * KV * live * hd + 2 * 2 * q.numel())
+    n = len(caches)
+    log(f"  flash_decode [{case[0]}] splits the {S}-slot cache "
+        f"{ops.decode_splits(B * KV, S)} ways: "
+        f"{B * KV * ops.decode_splits(B * KV, S)} blocks in pass 1")
+    return dict(
+        name="flash_decode", route="cuda", source=FD_SOURCE,
+        replaces=FD_REPLACES, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        **timed(lambda i: ops.flash_decode(q, *caches[i % n], pos),
+                lambda i: ref.decode_attention_ref(q, *caches[i % n], pos),
+                lambda i: F.scaled_dot_product_attention(
+                    q4, *caches[i % n], attn_mask=bias, enable_gqa=True),
+                "decode_", iters=200))
 
 
 def timed(kernel, plain, library, tag, iters):
@@ -456,24 +525,26 @@ def timed(kernel, plain, library, tag, iters):
         library_device_ms=summed(device_ms(library, iters)))
 
 
-def phase_main_path():
+def serve_and_check(args, run, layers, want):
+    """One ``repro_torch.launch.serve`` run: the model must have
+    ``layers`` layers, each kernel launch ``want(decode_calls)[name]``
+    times, the logits be finite and the tokens in the vocabulary.
+    Returns the launch counts."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    run_dir = os.path.join(ROOT, "build", "chip_smoke", "serve_granite_8b")
+    run_dir = os.path.join(ROOT, "build", "chip_smoke", run)
     ops.reset_launches()
-    res = serve.main(SERVE_ARGS + ["--run-dir", run_dir])
+    res = serve.main(args + ["--run-dir", run_dir])
     launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
     L, calls = res["num_layers"], res["decode_calls"]
-    if L != 36:
-        raise AssertionError(f"granite-8b ran {L} layers, expected 36")
-    if launches["flash_attention"] != L:
-        raise AssertionError(f"flash_attention launched "
-                             f"{launches['flash_attention']} times, expected {L}")
-    if launches["flash_decode"] != L * calls:
-        raise AssertionError(f"flash_decode launched {launches['flash_decode']} "
-                             f"times, expected {L} x {calls} decode calls")
+    if L != layers:
+        raise AssertionError(f"{res['arch']} ran {L} layers, expected {layers}")
+    for name, n in want(calls).items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times over 1 "
+                                 f"prefill + {calls} decode calls, expected {n}")
     for key in ("prefill_logits", "last_logits"):
         if not bool(res[key].float().isfinite().all()):
             raise AssertionError(f"{key} are not finite")
@@ -492,46 +563,84 @@ def phase_main_path():
     return launches
 
 
-def phase_end_to_end():
+def phase_main_path():
+    """granite-8b: every attention call of the prefill and of each decode
+    call launches a kernel."""
+    L = 36
+    return serve_and_check(SERVE_ARGS, "serve_granite_8b", L, lambda calls: {
+        "flash_attention": L, "flash_decode": L * calls})
+
+
+def serve_logits(params, cfg, batch, backend, steps, feed=None):
+    """Prefill and ``steps`` decode steps: the logits of each (the
+    prefill's last position first) and the tokens fed, ``feed`` or else
+    the run's own greedy tokens."""
+    import torch
+    from repro_torch.models import model as M
+
+    cache, lg, plen = M.prefill(params, cfg, batch, batch["tokens"].shape[1] + steps,
+                                backend=backend)
+    out, fed = [lg.float()], []
+    for i in range(steps):
+        tok = feed[i] if feed else torch.argmax(out[-1], -1).to(torch.int32)[:, None]
+        lg, _ = M.decode_step(params, cfg, tok, cache, plen + i, backend=backend)
+        out.append(lg.float())
+        fed.append(tok)
+    return out, fed
+
+
+def phase_end_to_end(arch="granite_8b", layers=4, dtype="bfloat16"):
+    """``arch`` at full width cut to ``layers`` layers: prefill and 4
+    decode steps through the kernels against the einsum paths, both fed
+    the einsum path's greedy tokens.  For a model with ssm layers each
+    limit is the larger of phase 5's and E2E_SPREAD x the einsum path's
+    own distance from itself at other chunks, measured on the same
+    weights and tokens (see E2E_SPREAD)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.models import model as M
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("granite_8b"), num_layers=4)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
     B, S, steps = 4, 512, 4
+    diff = lambda a, b: (float((a - b).norm() / b.norm()), float((a - b).abs().max()))
     with torch.inference_mode():
         params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                device=dev)
         toks = SyntheticTokens(cfg, DataConfig(batch_size=B, seq_len=S)).next_batch()
         batch = {"tokens": torch.from_numpy(toks["tokens"]).to(dev)}
-
-        def check(lk, le, what):
-            d = (lk.float() - le.float())
-            rel = float(d.norm() / le.float().norm())
-            mx = float(d.abs().max())
-            if not bool(lk.float().isfinite().all()) or rel > E2E_REL_L2 \
-                    or mx > E2E_MAX_ABS:
-                raise AssertionError(f"{what}: kernel vs einsum rel L2 {rel:.3e} "
-                                     f"(limit {E2E_REL_L2}), max abs {mx:.3e} "
-                                     f"(limit {E2E_MAX_ABS})")
-            log(f"  {what}: rel L2 {rel:.3e}, max abs {mx:.3e}")
-
-        cache_e, le, plen = M.prefill(params, cfg, batch, S + steps, backend="einsum")
-        cache_k, lk, _ = M.prefill(params, cfg, batch, S + steps, backend="kernel")
-        check(lk, le, "prefill last logits")
-        tok = torch.argmax(le, -1).to(torch.int32)[:, None]
-        agree = 0
-        for i in range(steps):
-            le, _ = M.decode_step(params, cfg, tok, cache_e, plen + i, backend="einsum")
-            lk, _ = M.decode_step(params, cfg, tok, cache_k, plen + i, backend="kernel")
-            check(lk, le, f"decode step {i} logits")
-            agree += int(torch.equal(le.argmax(-1), lk.argmax(-1)))
-            tok = torch.argmax(le, -1).to(torch.int32)[:, None]
-    if agree < E2E_MIN_AGREE:
-        raise AssertionError(f"greedy tokens agree on {agree} of {steps} steps")
-    log(f"  greedy tokens agree on {agree} of {steps} decode steps")
+        le, feed = serve_logits(params, cfg, batch, "einsum", steps)
+        lk, _ = serve_logits(params, cfg, batch, "kernel", steps, feed)
+        chunks = [cfg.ssm_chunk // k for k in TRAIN_BF16_CHUNK_DIVISORS] \
+            if cfg.family in ("ssm", "hybrid") else []
+        ys = [serve_logits(params, dataclasses.replace(cfg, ssm_chunk=c), batch,
+                           "einsum", steps, feed)[0] for c in chunks]
+    agree = lambda xs: sum(int(torch.equal(a.argmax(-1), b.argmax(-1)))
+                           for a, b in zip(xs[1:], le[1:]))
+    # a token criterion the plain path fails against itself judges nothing
+    gated = min([steps] + [agree(y) for y in ys]) >= E2E_MIN_AGREE
+    ok = True
+    for i, (k, e) in enumerate(zip(lk, le)):
+        what = "prefill last logits" if i == 0 else f"decode step {i - 1} logits"
+        rel, mx = diff(k, e)
+        own = [diff(y[i], e) for y in ys]
+        lim_rel = max([E2E_REL_L2] + [E2E_SPREAD * r for r, _ in own])
+        lim_mx = max([E2E_MAX_ABS] + [E2E_SPREAD * m for _, m in own])
+        good = bool(k.isfinite().all()) and rel <= lim_rel and mx <= lim_mx
+        ok = ok and good
+        log(f"  {dtype} {what}: kernel vs einsum rel L2 {rel:.3e} (limit {lim_rel:.3e}), "
+            f"max abs {mx:.3e} (limit {lim_mx:.3e})"
+            + "".join(f"; einsum at chunk {c}: {r:.3e}, {m:.3e}"
+                      for c, (r, m) in zip(chunks, own)) + ("" if good else "  OVER"))
+    log(f"  {dtype} greedy tokens agree on {agree(lk)} of {steps} decode steps ("
+        + (f"limit {E2E_MIN_AGREE}" if gated else "not held: the einsum path "
+           f"agrees with itself on fewer than {E2E_MIN_AGREE}")
+        + "".join(f"; einsum at chunk {c}: {agree(y)}" for c, y in zip(chunks, ys)) + ")")
+    if not ok or (gated and agree(lk) < E2E_MIN_AGREE):
+        raise AssertionError(f"serving ({dtype}): kernel path and einsum path disagree")
+    del params
+    torch.cuda.empty_cache()
 
 
 def phase_profile():
@@ -635,7 +744,7 @@ def phase_ssd_kernel():
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     err = 0.0
-    for case in [SSD_TRAIN] + SSD_CASES:
+    for case in [SSD_TRAIN] + SSD_CASES + SSD_ZAMBA2:
         label, *_, chunk = case
         for dname, dt_ in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             x, dt, A, Bm, Cm = ssd_inputs(case, dt_, gen)
@@ -670,9 +779,20 @@ def phase_ssd_kernel():
     log(f"  ssd_scan per call [{label}, bf16], CUDA events: kernel {pre_ms:.4f} ms; "
         f"device time {fmt(summed(pre_dev, 'ssd_fwd'))}; "
         f"bound {ssd_bound(SSD_CASES[0], 2)[0]:.4f} ms")
-    label, *_, chunk = SSD_TRAIN
-    x, dt, A, Bm, Cm = ssd_inputs(SSD_TRAIN, torch.bfloat16, gen)
-    b_ms, b_by = ssd_bound(SSD_TRAIN, 2)
+    rows = [ssd_timed(case, gen, err) for case in [SSD_TRAIN] + SSD_ZAMBA2]
+    return rows[0]
+
+
+def ssd_timed(case, gen, err):
+    """``ssd_scan``'s row of times at ``case`` (bf16 x/B/C as in the
+    model), beside the plain ``ssd_ref`` and the bound, with the device
+    time split over its kernels."""
+    from repro_torch.kernels import ops, ref
+    import torch
+
+    label, *_, chunk = case
+    x, dt, A, Bm, Cm = ssd_inputs(case, torch.bfloat16, gen)
+    b_ms, b_by = ssd_bound(case, 2)
     kern = lambda i: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     plain = lambda i: ref.ssd_ref(x, dt, A, Bm, Cm)
     dev = device_ms(kern, 10)
@@ -681,6 +801,7 @@ def phase_ssd_kernel():
                bound_by=b_by, ms=time_ms(kern, 10), plain_ms=time_ms(plain, 2, warmup=1),
                library_ms=None, device_ms=summed(dev, "ssd_fwd"),
                wrapper_device_ms=summed(dev))
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
     log(f"  ssd_scan per call [{label}, bf16], CUDA events: kernel {row['ms']:.4f} ms, "
         f"plain ssd_ref {row['plain_ms']:.4f} ms, no single PyTorch call; bound "
         f"{b_ms:.4f} ms ({b_by}); device time {fmt(row['device_ms'])} "
@@ -852,39 +973,55 @@ def phase_grads():
     log(f"  ssd_scan grad        {label:38s} float32   worst err / max = {e:.3e}")
 
 
-def phase_train():
-    """The training path: mamba2-780m, 48 layers, full width, bf16."""
+def train_and_check(args, run, layers, per_step):
+    """One ``repro_torch.launch.train`` run: the model must have
+    ``layers`` layers, its losses be finite and fall, and each kernel in
+    ``per_step`` launch that many times a step.  Returns (launches, the
+    final train state)."""
     import statistics
 
-    import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
-    run_dir = os.path.join(ROOT, "build", "chip_smoke", "train_mamba2_780m")
+    run_dir = os.path.join(ROOT, "build", "chip_smoke", run)
     ops.reset_launches()
-    res = train.main(TRAIN_ARGS + ["--run-dir", run_dir])
+    res = train.main(args + ["--run-dir", run_dir])
     launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
     L, losses, times = res["num_layers"], res["losses"], res["step_times_s"]
     steps = len(losses)
-    if L != 48:
-        raise AssertionError(f"mamba2-780m trained {L} layers, expected 48")
+    if L != layers:
+        raise AssertionError(f"{res['arch']} trained {L} layers, expected {layers}")
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses {losses} are not finite and falling")
-    # each layer's forward launches ssd_scan once, and the remat recompute
-    # of the layer in the backward once more; the backward itself
-    # differentiates the chunked form and launches none
-    if launches["ssd_scan"] != 2 * L * steps:
-        raise AssertionError(f"ssd_scan launched {launches['ssd_scan']} times in "
-                             f"{steps} steps, expected {2 * L} a step")
+    for name, n in per_step.items():
+        if launches[name] != n * steps:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"{steps} steps, expected {n} a step")
     p50 = statistics.median(times[1:])
     log(f"  losses: {', '.join(f'{x:.4f}' for x in losses)}")
-    log(f"  launches: {launches} over {steps} steps = "
-        f"{launches['ssd_scan'] // steps} ssd_scan a step")
+    log(f"  launches: {launches} over {steps} steps = " + ", ".join(
+        f"{launches[name] // steps} {name}" for name in per_step) + " a step")
     log(f"  step time p50 over steps 2-{steps}: {p50 * 1e3:.1f} ms "
         f"(all: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms); "
         f"{res['tokens_per_step'] / p50:.0f} tok/s; peak memory "
         f"{res['peak_mem_bytes'] / 2**30:.2f} GiB")
     return launches, res["state"]
+
+
+def phase_train():
+    """mamba2-780m: each layer's forward launches ssd_scan once, and the
+    remat recompute of the layer in the backward once more; the backward
+    itself differentiates the chunked form and launches none."""
+    return train_and_check(TRAIN_ARGS, "train_mamba2_780m", 48, {"ssd_scan": 2 * 48})
+
+
+def phase_hybrid_train():
+    """zamba2-2.7b: one checkpoint a group of 6 ssm layers and the shared
+    block (nothing checkpointed inside it), so each group's kernels run
+    in the forward and once more in the backward's recompute: 2 x 54
+    ``ssd_scan`` and 2 x 9 ``flash_attention`` a step."""
+    return train_and_check(HYBRID_TRAIN_ARGS, "train_zamba2_2p7b", 54,
+                           {"ssd_scan": 2 * 54, "flash_attention": 2 * 9})
 
 
 def bf16_gnorm_rows(names, got, want, yardsticks):
@@ -901,12 +1038,12 @@ def bf16_gnorm_rows(names, got, want, yardsticks):
     return rows
 
 
-def phase_train_kernel_vs_plain(dtype="float32"):
-    """mamba2-780m width, 4 layers: the kernel path against the einsum
-    (chunked) path, three steps from the same weights and batches, in
-    fp32 (the CUDA-core ``ssd_scan``) or bf16 (the tensor-core one; each
-    leaf's gradient held to the chunked path's own spread at other
-    chunks)."""
+def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4):
+    """``arch`` at full width cut to ``layers`` layers: the kernel path
+    against the einsum (chunked) path, three steps from the same weights
+    and batches, in fp32 (the CUDA-core kernels) or bf16 (the tensor-core
+    ones; each leaf's gradient held to the einsum path's own spread at
+    other chunks)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, make_loader
@@ -916,7 +1053,7 @@ def phase_train_kernel_vs_plain(dtype="float32"):
     from repro_torch.tree import flatten
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("mamba2_780m"), num_layers=4, dtype=dtype)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
     B, S, steps = 4, 2048, 3
     opt = AdamWConfig(lr=3e-4, total_steps=steps, warmup_steps=5)
 
@@ -935,6 +1072,8 @@ def phase_train_kernel_vs_plain(dtype="float32"):
         for i in range(steps):
             state, m = step(state, batch if i == 0 else next(loader))
             losses.append(float(m["loss"]))
+        del state, loader, batch
+        torch.cuda.empty_cache()
         return list(flat), norms, losses
 
     (names, nk, lk), (_, ne, le) = run(cfg, "kernel", steps), run(cfg, "einsum", steps)
@@ -957,7 +1096,7 @@ def phase_train_kernel_vs_plain(dtype="float32"):
             f"limit = {TRAIN_BF16_GNORM_SPREAD} x max(spread, "
             f"{TRAIN_BF16_GNORM_FLOOR:.0e})")
         for name, d, spread, limit in rows:
-            log(f"    {name:22s} {d:.2e}  spread {spread:.2e}  limit {limit:.2e}"
+            log(f"    {name:30s} {d:.2e}  spread {spread:.2e}  limit {limit:.2e}"
                 + ("  OVER" if d > limit else ""))
         grads_ok = all(d <= limit for _, d, _, limit in rows)
     if not all(map(math.isfinite, lk + nk)) or rel > loss_rtol or not grads_ok:
@@ -966,73 +1105,41 @@ def phase_train_kernel_vs_plain(dtype="float32"):
 
 
 def phase_ssm_serve():
-    import torch
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
+    """mamba2-780m: one ``ssd_scan`` a layer in the prefill; decode takes
+    the recurrent update."""
+    serve_and_check(SSM_SERVE_ARGS, "serve_mamba2_780m", 48,
+                    lambda calls: {"ssd_scan": 48})
 
-    run_dir = os.path.join(ROOT, "build", "chip_smoke", "serve_mamba2_780m")
-    ops.reset_launches()
-    res = serve.main(SSM_SERVE_ARGS + ["--run-dir", run_dir])
-    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
-    L = res["num_layers"]
-    if launches["ssd_scan"] != L or L != 48:
-        raise AssertionError(f"ssd_scan launched {launches['ssd_scan']} times in a "
-                             f"{L}-layer prefill, expected one a layer (48)")
-    for key in ("prefill_logits", "last_logits"):
-        if not bool(res[key].float().isfinite().all()):
-            raise AssertionError(f"{key} are not finite")
-    toks = res["tokens"]
-    if toks.shape != (4, 32) or int(toks.min()) < 0 \
-            or int(toks.max()) >= res["vocab_size"]:
-        raise AssertionError(f"tokens of shape {tuple(toks.shape)} "
-                             f"outside [0, {res['vocab_size']})")
-    log(f"  launches: {launches} over 1 prefill + {res['decode_calls']} decode calls")
-    log(f"  prefill {res['prefill_s'] * 1e3:.2f} ms, decode p50 "
-        f"{res['decode_p50_s'] * 1e3:.3f} ms p95 {res['decode_p95_s'] * 1e3:.3f} ms, "
-        f"{res['decode_tok_per_s']:.1f} tok/s, peak memory "
-        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB")
-    del res
-    torch.cuda.empty_cache()
+
+def phase_hybrid_serve():
+    """zamba2-2.7b: one ``ssd_scan`` a layer and one ``flash_attention``
+    a group (the shared block) in the prefill; one ``flash_decode`` a
+    group in each decode call."""
+    L, G = 54, 9
+    return serve_and_check(HYBRID_SERVE_ARGS, "serve_zamba2_2p7b", L, lambda calls: {
+        "ssd_scan": L, "flash_attention": G, "flash_decode": G * calls,
+        "rmsnorm": 0})
 
 
 def phase_dense_train():
-    import statistics
-
+    """qwen1.5-0.5b: each layer's forward and its remat recompute launch
+    ``flash_attention``; the gradient reaches the attention weights."""
     import torch
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train
 
-    run_dir = os.path.join(ROOT, "build", "chip_smoke", "train_qwen1p5_0p5b")
-    ops.reset_launches()
-    res = train.main(DENSE_TRAIN_ARGS + ["--run-dir", run_dir])
-    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
-    L, losses = res["num_layers"], res["losses"]
-    steps = len(losses)
-    if not all(map(math.isfinite, losses)):
-        raise AssertionError(f"losses {losses} are not finite")
-    if launches["flash_attention"] != 2 * L * steps:
-        raise AssertionError(f"flash_attention launched "
-                             f"{launches['flash_attention']} times in {steps} "
-                             f"steps, expected {2 * L} a step")
-    # the repaired gradient reaches the attention weights
-    wq = res["state"].opt_state["m"]["blocks"]["attn"]["wq"]
-    if not float(wq.abs().max()) > 0:
+    _, state = train_and_check(DENSE_TRAIN_ARGS, "train_qwen1p5_0p5b", 24,
+                               {"flash_attention": 2 * 24})
+    if not float(state.opt_state["m"]["blocks"]["attn"]["wq"].abs().max()) > 0:
         raise AssertionError("no gradient reached the attention weights")
-    p50 = statistics.median(res["step_times_s"][1:])
-    log(f"  losses: {', '.join(f'{x:.4f}' for x in losses)}; launches {launches} = "
-        f"{launches['flash_attention'] // steps} flash_attention a step")
-    log(f"  step time p50 over steps 2-{steps}: {p50 * 1e3:.1f} ms, "
-        f"{res['tokens_per_step'] / p50:.0f} tok/s, peak memory "
-        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB")
-    del res
+    del state
     torch.cuda.empty_cache()
 
 
-def phase_train_profile(state):
-    """Where the time goes in a warm mamba2-780m train step (the state
-    phase 7 left): one step timed untraced, one traced with the CPU
-    activity too, so the ``ssd_scan.backward`` range gets its device
-    time."""
+def phase_train_profile(state, args, out_name):
+    """Where the time goes in a warm train step of the model and batch of
+    ``args`` (the state its training phase left): one step timed
+    untraced, one traced with the CPU activity too, so the backward
+    ranges (``ssd_scan.backward``, ``flash_attention.backward``) get
+    their device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -1040,10 +1147,12 @@ def phase_train_profile(state):
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.training.train_step import make_train_step
 
+    flag = lambda name: args[args.index(name) + 1]
     dev = torch.device("cuda")
-    cfg = get_config("mamba2_780m")
+    cfg = get_config(flag("--arch"))
     step = make_train_step(cfg, AdamWConfig(lr=3e-4, total_steps=10, warmup_steps=5))
-    loader = make_loader(cfg, DataConfig(batch_size=4, seq_len=2048, seed=99),
+    loader = make_loader(cfg, DataConfig(batch_size=int(flag("--batch")),
+                                         seq_len=int(flag("--seq")), seed=99),
                          device=dev)
     state, _ = step(state, next(loader))              # warm-up
     torch.cuda.synchronize()
@@ -1052,24 +1161,25 @@ def phase_train_profile(state):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     batch = next(loader)
+    ranges = ("ssd_scan.backward", "flash_attention.backward")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, m = step(state, batch)
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3
-    kernels, bwd = {}, None
+    kernels, bwd = {}, {}
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0) or 0
-        if e.key == "ssd_scan.backward":
+        if e.key in ranges:
             # the named range: its span on the device, over its kernels
-            bwd = dev_us / 1e3
+            bwd[e.key] = dev_us / 1e3
         elif dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             # with CPU activity on, an operator's row repeats its kernels'
             # device time: sum the kernels' own rows only
             kernels[e.key] = kernels.get(e.key, 0.0) + dev_us / 1e3
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])
-    with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
+    with open(os.path.join(out_dir, out_name), "w") as f:
         for name, ms in top:
             f.write(f"{ms:12.4f} ms  {name}\n")
     if not kernels:
@@ -1077,22 +1187,25 @@ def phase_train_profile(state):
             "(the profiler recorded none)")
         return
     busy = sum(kernels.values())
+    pct = lambda v: f"{v:.1f} ms ({100 * v / busy:.1f}%)"
     ssd = sum(v for k, v in kernels.items() if "ssd_fwd" in k)
+    attn = sum(v for k, v in kernels.items() if "attn_fwd" in k)
     gemm = sum(v for k, v in kernels.items()
                if any(t in k.lower() for t in ("gemm", "cutlass", "xmma", "nvjet")))
     log(f"  train step: {wall:.1f} ms untraced, {traced:.1f} ms traced; device busy "
         f"{busy:.1f} ms = {100 * busy / wall:.1f}% of the untraced step "
         f"(idle share {100 * (1 - busy / wall):.1f}%)")
-    log(f"    ssd_scan kernels (ssd_fwd*: three a call in bf16; 96 calls) {ssd:.1f} ms "
-        f"({100 * ssd / busy:.1f}%); chunked SSD backward (its recompute "
-        "included) "
-        + ("not measured" if bwd is None else f"{bwd:.1f} ms ({100 * bwd / busy:.1f}%)")
-        + f"; every other kernel {busy - ssd - (bwd or 0):.1f} ms; GEMMs anywhere "
-        f"(the backward's included) {gemm:.1f} ms ({100 * gemm / busy:.1f}%)")
+    log(f"    ssd_scan kernels (ssd_fwd*: three a call in bf16) {pct(ssd)}; "
+        f"flash_attention kernel (attn_fwd*) {pct(attn)}; "
+        + "; ".join(f"{r} (its plain recompute included) "
+                    + (pct(bwd[r]) if r in bwd else "not measured") for r in ranges)
+        + f"; every other kernel {busy - ssd - attn - sum(bwd.values()):.1f} ms; "
+        f"GEMMs anywhere (the backward's included) {pct(gemm)}")
     for name, ms in top[:8]:
         log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  {name[:90]}")
     del state
     torch.cuda.empty_cache()
+
 
 def phase_profiler():
     """The measured auto-profiler on the card: granite-8b at full width at
@@ -1202,7 +1315,7 @@ def main() -> int:
     launches["ssd_scan"] = train_launches["ssd_scan"]
 
     log("== 8. where the time goes: a warm mamba2-780m train step, traced")
-    phase_train_profile(state)
+    phase_train_profile(state, TRAIN_ARGS, "profile_train.txt")
     del state
 
     log("== 9. training, kernel path vs einsum path: mamba2-780m width, 4 layers, "
@@ -1218,6 +1331,24 @@ def main() -> int:
 
     log("== 12. the measured auto-profiler: granite-8b at full width, seq 4096")
     launches["rmsnorm"] = phase_profiler()["rmsnorm"]
+
+    log("== 13. hybrid training path: train zamba2-2.7b, 54 layers, bf16, b4 x S2048")
+    hybrid_launches, state = phase_hybrid_train()
+    log("  where the time goes: a warm zamba2-2.7b train step, traced")
+    phase_train_profile(state, HYBRID_TRAIN_ARGS, "profile_train_hybrid.txt")
+    del state
+
+    log(f"== 14. kernel path vs einsum path, hybrid: zamba2 width, "
+        f"{HYBRID_CUT_LAYERS} layers; training and serving in fp32 and bf16")
+    phase_train_kernel_vs_plain("float32", "zamba2_2p7b", HYBRID_CUT_LAYERS)
+    phase_train_kernel_vs_plain("bfloat16", "zamba2_2p7b", HYBRID_CUT_LAYERS)
+    for dtype in ("float32", "bfloat16"):
+        phase_end_to_end("zamba2_2p7b", HYBRID_CUT_LAYERS, dtype)
+
+    log("== 15. hybrid serving: serve zamba2-2.7b, 54 layers, bf16")
+    serve_launches = phase_hybrid_serve()
+    for name in ("flash_attention", "flash_decode", "ssd_scan"):
+        launches[name] += hybrid_launches[name] + serve_launches[name]
 
     kernels = []
     for name in ("flash_attention", "flash_decode", "ssd_scan", "rmsnorm"):

@@ -32,7 +32,10 @@
 //   mask and the online softmax run on those fragments (a row's max and
 //   sum are shuffles over the 4 lanes that hold it); P is rounded to bf16
 //   in registers and P V is a second wgmma chain (m64n{hd}k16) with P from
-//   registers and V from shared memory (N-major).  A warpgroup skips the
+//   registers and V from shared memory (N-major).  hd 80 (zamba2) is held
+//   as two 64-column panels that TMA zero-fills past column 80: five k16
+//   steps of Q K^T, and P V as m64n128k16, the last 48 columns computed on
+//   zeros and never stored.  A warpgroup skips the
 //   tiles fully masked for its own 64 rows.  Rounding P to bf16 is the one
 //   departure from the fp32 reference (which keeps P in fp32): rehearsed
 //   on the CPU against the JAX reference (tests/test_torch_kernels.py) it
@@ -272,17 +275,24 @@ constexpr int PANEL = 64;            // bf16 columns in one 128-byte swizzle row
 constexpr uint32_t ROW_BYTES = 128;
 
 // Shared memory, from a 1024-byte aligned base: the block's Q rows, then
-// two stages of K and of V.  Each tile is stored as hd / 64 panels of
-// (rows x 64 columns), one 128-byte row per tile row, in the 128-byte
-// swizzle that TMA writes and wgmma reads.
+// two stages of K and of V.  Each tile is stored as ceil(hd / 64) panels
+// of (rows x 64 columns), one 128-byte row per tile row, in the 128-byte
+// swizzle that TMA writes and wgmma reads.  At hd 80 the second panel
+// holds columns 64-79 and TMA's zero fill past hd: Q K^T reads 5 k16 steps
+// and never the zeros; P V runs n128 over V's zero columns (37.5% of its
+// work), whose outputs are never stored.
 template <int HD>
 struct Smem {
-  static constexpr int NP = HD / PANEL;
+  static_assert(HD % 16 == 0, "Q K^T takes k16 steps");
+  static constexpr int NP = (HD + PANEL - 1) / PANEL;
+  static constexpr int ON = NP * PANEL;        // output columns P V computes
   static constexpr uint32_t Q = 0;
   static constexpr uint32_t K = Q + NP * BQB * ROW_BYTES;
   static constexpr uint32_t V = K + 2 * NP * BK * ROW_BYTES;
   static constexpr uint32_t BARS = V + 2 * NP * BK * ROW_BYTES;
   static constexpr uint32_t BYTES = BARS + 3 * 8 + 1024;   // + alignment slack
+  // the bytes TMA counts for a stage or for Q: whole boxes, the zero
+  // fill of columns past hd included
   static constexpr uint32_t TILE = NP * BK * ROW_BYTES;      // one K or V stage
   static constexpr uint32_t Q_TX = NP * BQB * ROW_BYTES;
 };
@@ -471,7 +481,7 @@ struct Tile {
 
   // o += P V for the tile in `stage`, issued and committed, not awaited
   // (the caller fences o before the first wgmma of the stage)
-  __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+  __device__ __forceinline__ void issue_pv(float (&o)[Smem<HD>::ON / 2],
                                            const uint32_t (&pa)[BK / 16][4],
                                            int stage) const {
     wgmma_fence();
@@ -479,7 +489,7 @@ struct Tile {
     for (int kk = 0; kk < BK / 16; ++kk) {   // 16 keys: two 8-row groups of V
       const uint64_t db = sw128_desc(v + stage * Smem<HD>::TILE + kk * 16 * ROW_BYTES,
                                      BK * ROW_BYTES, 1024);
-      if constexpr (HD == 64) wgmma_rs_n64(o, pa[kk], db, 1);
+      if constexpr (Smem<HD>::ON == 64) wgmma_rs_n64(o, pa[kk], db, 1);
       else wgmma_rs_n128(o, pa[kk], db, 1);
     }
     wgmma_commit();
@@ -622,9 +632,9 @@ attn_fwd_tc(const __grid_constant__ CUtensorMap q_map,
                       q0, Sk, causal, window, q_offset, scale_log2};
   const int row0 = 16 * warp + (lane >> 2);   // this thread's rows: row0, row0 + 8
   const int col0 = 2 * (lane & 3);
-  float o[HD / 2];
+  float o[L::ON / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < L::ON / 2; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
   float s[32];
   uint32_t pa[BK / 16][4];
@@ -657,7 +667,7 @@ attn_fwd_tc(const __grid_constant__ CUtensorMap q_map,
     const float inv = 1.f / fmaxf(l[r], 1e-20f);
     __nv_bfloat16* ob = out + (((long)b * Sq + q) * H + h) * HD + col0;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < HD / 8; ++j)     // the first hd of the ON columns
       *reinterpret_cast<__nv_bfloat162*>(ob + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
   }
@@ -745,10 +755,14 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64)
     return cuda_core::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, s);
+  if (dtype == 0 && hd == 80)
+    return cuda_core::launch<80>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, s);
   if (dtype == 0 && hd == 128)
     return cuda_core::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, s);
   if (dtype == 1 && hd == 64)
     return tc::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, s);
+  if (dtype == 1 && hd == 80)
+    return tc::launch<80>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, s);
   if (dtype == 1 && hd == 128)
     return tc::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, s);
   return (int)cudaErrorInvalidValue;

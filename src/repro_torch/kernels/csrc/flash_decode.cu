@@ -32,11 +32,14 @@
 //     converted to fp32 there: a thread holds one slot's whole K row for
 //     the scores (full dot products for its share of the G heads, no
 //     cross-lane reduction) and one 16-byte column chunk of JV V rows for
-//     P V (8 in bf16 at hd 128).  The softmax update is one warp a head.  Each thread
+//     P V (8 in bf16 at hd 128; at hd 80, whose 10 chunks do not divide
+//     128 threads, 12 subsets of 5 or 6 rows cover the page in bf16, 6 of
+//     10 or 11 in fp32, and 8 threads idle in P V).  The softmax update is one warp a head.  Each thread
 //     keeps its fp32 partial of P V in its own slice of shared memory, so
 //     G stays a runtime value; the block sums the slices and writes its
 //     partial (acc[G][hd], m, l) to scratch.
-//   * pass 2, decode_combine: one block of hd threads per (batch row,
+//   * pass 2, decode_combine: one block of hd threads (80 at hd 80: the
+//     threads share nothing, so a part-filled warp is harmless) per (batch row,
 //     head) computes sum_i e^(m_i - M) acc_i / max(sum_i e^(m_i - M) l_i,
 //     1e-20); a split that found no live page has m = -inf and adds nothing.
 //   * n_split is chosen by the wrapper (ops.decode_splits): about two
@@ -112,11 +115,15 @@ __device__ __forceinline__ bool slot_valid(long long i, long long pos, int S,
 template <typename T, int HD>
 struct Split {
   static constexpr int VEC = Vec<T>::N;
+  static_assert(HD % VEC == 0, "a row is whole 16-byte vectors");
   static constexpr int NV = HD / VEC;          // 16-byte vectors in a row
   // P V: a thread owns VEC columns (chunk c of NV) of the rows of its slot
-  // subset t (SUBS subsets, slots j = t, t + SUBS, ...)
+  // subset t (SUBS subsets, slots j = t, t + SUBS, ... below PAGE).  Where
+  // NV does not divide THREADS (hd 80: NV 10 in bf16, 20 in fp32) the
+  // THREADS - SUBS * NV threads left over take no part in P V, and the
+  // last subsets hold one row fewer than the first (JV rounds up)
   static constexpr int SUBS = THREADS / NV;
-  static constexpr int JV = PAGE / SUBS;       // V vectors a thread holds
+  static constexpr int JV = (PAGE + SUBS - 1) / SUBS;  // V vectors a thread holds
   // q, scores, (m, l, alpha), then each thread's fp32 partial P V
   static size_t smem_bytes(int G) {   // + up to 3 floats to align the float4s
     return sizeof(float) * (G * HD + G * PAGE + 3 * G + 3 + SUBS * G * HD);
@@ -146,6 +153,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
   const int bkv = blockIdx.x, split = blockIdx.y;   // bkv = b * KV + kv head
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = tid % NV, t = tid / NV;   // P V: columns [c VEC, c VEC + VEC), subset t
+  const bool pv = t < SUBS;               // the threads past SUBS * NV idle in P V
   const int n_pages = (S + PAGE - 1) / PAGE;
   const int pg_end = (int)((long long)(split + 1) * n_pages / n_split);
   const T* qb = q + (long long)bkv * G * HD;
@@ -177,8 +185,8 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
       kr[u] = j < n ? Vec<T>::load(kb + (long long)(p0 + j) * HD + u * VEC) : Raw{};
 #pragma unroll
     for (int u = 0; u < JV; ++u) {
-      const int jv = t + u * SUBS;
-      vr[u] = jv < n ? Vec<T>::load(vb + (long long)(p0 + jv) * HD) : Raw{};
+      const int jv = t + u * SUBS;      // < n <= PAGE: a row of the page
+      vr[u] = pv && jv < n ? Vec<T>::load(vb + (long long)(p0 + jv) * HD) : Raw{};
     }
     if (!q_ready) {                  // q's loads overlap the page's
       for (int i = tid * VEC; i < G * HD; i += THREADS * VEC) {
@@ -248,7 +256,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
     float vx[JV][VEC];
 #pragma unroll
     for (int u = 0; u < JV; ++u) Vec<T>::convert(vr[u], vx[u]);
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; pv && g < G; ++g) {
       const float* pr = p_s + g * PAGE + t;
       float4* acc = r_s + (t * G + g) * (HD / 4) + c;   // plane h at + h * NV
       const float alpha = a_s[g];
@@ -322,11 +330,12 @@ int launch(const void* q, const void* k, const void* v, void* part, void* out,
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16)
     return (int)cudaErrorMisalignedAddress;    // 16-byte loads
-  static const cudaError_t attr = cudaFuncSetAttribute(   // once, for G * hd = 2048
-      decode_split<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)P::smem_bytes(2048 / HD));
-  if (attr != cudaSuccess) return (int)attr;
+  // the opt-in is a property of the function on the current card: set it
+  // on every call, so a second card in the process gets it too
   const size_t smem = P::smem_bytes(G);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      decode_split<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
   decode_split<T, HD><<<dim3(B * KV, n_split), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(part), G, S, n_split, pos,
@@ -354,10 +363,14 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64)
     return launch<float, 64>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
+  if (dtype == 0 && hd == 80)
+    return launch<float, 80>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
   if (dtype == 0 && hd == 128)
     return launch<float, 128>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
   if (dtype == 1 && hd == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
+  if (dtype == 1 && hd == 80)
+    return launch<__nv_bfloat16, 80>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
   if (dtype == 1 && hd == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
   return (int)cudaErrorInvalidValue;

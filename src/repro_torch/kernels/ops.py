@@ -36,7 +36,7 @@ from . import ref as _ref
 
 NEG_INF = _ref.NEG_INF
 BACKENDS = ("auto", "einsum", "kernel")
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -11,7 +11,9 @@ path for both prefill and decode: ``auto`` takes the CUDA kernels
 (``flash_attention``, ``flash_decode``; ``ssd_scan`` in an ssm prefill)
 on the card and the plain paths on the CPU; ``kernel`` forces the
 kernels (and raises on the CPU).  An ssm model decodes with the
-recurrent update (no kernel, no KV cache).
+recurrent update (no kernel, no KV cache); a hybrid one (zamba2) takes
+the recurrent update in its ssm layers and ``flash_decode`` in its
+shared attention block.
 Weights are random, drawn from ``--seed``.  Decode reports per-step
 p50/p95 latency and tokens/s; the same numbers land as histogram/gauge
 rows in ``<run-dir>/metrics.jsonl``.  ``main`` also returns them, with
@@ -118,10 +120,10 @@ def _serve(args, dev, cfg, total, metrics):
         # cache is written in place, so this call writes slot plen; that is
         # harmless because the first timed step writes the same K/V (same
         # token, same position, same cache prefix) to the same slot.
-        # an ssm layer's recurrent state advances with every call, so its
-        # warm-up runs on a copy of the cache
-        decode(params, tree_map(torch.clone, cache) if cfg.family == "ssm"
-               else cache, tok, plen)
+        # an ssm layer's recurrent state (ssm and hybrid models) advances
+        # with every call, so their warm-up runs on a copy of the cache
+        decode(params, tree_map(torch.clone, cache)
+               if cfg.family in ("ssm", "hybrid") else cache, tok, plen)
         devices.synchronize(dev)
         decode_calls = 1
         hist = reg.histogram("decode_latency_s")

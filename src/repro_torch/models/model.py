@@ -1,9 +1,14 @@
 """Top-level model API: init / forward / loss / cache / prefill / decode
-(the counterpart of ``repro/models/model.py`` for the dense and ssm
-families).
+(the counterpart of ``repro/models/model.py`` for the dense, ssm and
+hybrid families).
 
-Other families (moe, hybrid, vlm, audio) raise ``NotImplementedError``
-when a model is built.
+A hybrid model (zamba2) is G = num_layers / hybrid_attn_every groups of
+``per`` = hybrid_attn_every ssm layers, each group followed by ONE dense
+block whose weights all groups share (``shared_attn``); its ssm blocks
+are stacked with leading dims (G, per).
+
+Other families (moe, vlm, audio) raise ``NotImplementedError`` when a
+model is built.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ from . import attention, layers, ssm as ssm_lib, transformer as tfm
 from .config import ModelConfig
 
 PyTree = Any
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _require_family(cfg: ModelConfig):
@@ -24,6 +29,15 @@ def _require_family(cfg: ModelConfig):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             f"(the port runs {FAMILIES})")
+
+
+def _hybrid_groups(cfg: ModelConfig):
+    """(G, per): the number of groups and the ssm layers in each."""
+    per = cfg.hybrid_attn_every
+    if per <= 0 or cfg.num_layers % per:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not split "
+                         f"into groups of {per}")
+    return cfg.num_layers // per, per
 
 
 # ---------------------------------------------------------------------------
@@ -37,12 +51,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     _require_family(cfg)
     dtype = layers.dtype_of(cfg)
     kw = dict(generator=generator, device=device)
-    return {
-        "embed": layers.init_embeddings(cfg, dtype, **kw),
-        "final_norm": layers.init_norm(cfg.norm, cfg.d_model, device=device),
-        "blocks": tfm.init_stacked_blocks(cfg, cfg.block_kind,
-                                          cfg.num_layers, dtype, **kw),
-    }
+    p = {"embed": layers.init_embeddings(cfg, dtype, **kw),
+         "final_norm": layers.init_norm(cfg.norm, cfg.d_model, device=device)}
+    if cfg.family == "hybrid":
+        p["blocks"] = tfm.init_block(cfg, "ssm", dtype,
+                                     stack=_hybrid_groups(cfg), **kw)
+        p["shared_attn"] = tfm.init_block(cfg, "dense", dtype, **kw)
+    else:
+        p["blocks"] = tfm.init_stacked_blocks(cfg, cfg.block_kind,
+                                              cfg.num_layers, dtype, **kw)
+    return p
 
 
 def param_count(params: PyTree) -> int:
@@ -63,13 +81,46 @@ def forward(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     x = layers.embed_tokens(params["embed"], tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x, aux = tfm.run_stacked(params["blocks"], cfg, x, cfg.block_kind,
-                             remat=remat, backend=backend, positions=positions)
+    if cfg.family == "hybrid":
+        x, aux = _hybrid_forward(params, cfg, x, positions, remat=remat,
+                                 backend=backend)
+    else:
+        x, aux = tfm.run_stacked(params["blocks"], cfg, x, cfg.block_kind,
+                                 remat=remat, backend=backend,
+                                 positions=positions)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     metrics = {"aux_loss": aux}
     if not unembed:
         return x, metrics
     return layers.unembed(params["embed"], x), metrics
+
+
+def _hybrid_forward(params, cfg, x, positions, *, remat, backend):
+    """Each group's ``per`` ssm layers, then the shared dense block; past
+    ``max_seq_len`` the shared block attends within the long-context
+    window (``repro/models/model.py:121-137``).
+
+    ``remat`` checkpoints each GROUP once, and nothing inside it again.
+    The JAX package also remats each ssm layer inside the group, which
+    costs nothing extra under XLA; nested ``torch.utils.checkpoint``s
+    would run every ssm layer's forward three times a step.  With one
+    checkpoint a group every kernel of the group runs twice a step (the
+    forward and the backward's recompute): 2·num_layers ``ssd_scan`` and
+    2·G ``flash_attention`` launches, and the backward's memory peak is
+    one group's activations."""
+    S = x.shape[1]
+    window = cfg.effective_long_window if S > cfg.max_seq_len else cfg.sliding_window
+    shared = params["shared_attn"]
+
+    def group(x, gp):
+        x, _ = tfm.run_stacked(gp, cfg, x, "ssm", backend=backend)
+        x, _ = tfm.block_forward(shared, cfg, x, "dense", positions=positions,
+                                 window=window, backend=backend)
+        return x
+
+    for gp in tfm.unstack(params["blocks"]):
+        x = checkpoint(group, x, gp, use_reentrant=False) if remat else group(x, gp)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -125,20 +176,28 @@ def loss_fn(params, cfg, batch, *, remat=True, backend="auto"):
 
 def init_cache(cfg, batch: int, cache_len: int, *, device, ring: bool = False):
     """dense: {"k", "v"} of shape (L, B, KV, cache_len, hd); ssm: {"conv"
-    (L, B, W-1, conv_dim), "state" (L, B, h, p, n) fp32}."""
+    (L, B, W-1, conv_dim), "state" (L, B, h, p, n) fp32}; hybrid: {"ssm":
+    the ssm cache with leading dims (G, per), "attn": the shared block's
+    {"k", "v"} for each group, leading dim G}."""
     _require_family(cfg)
     dtype = layers.dtype_of(cfg)
     if cfg.family == "ssm":
         return ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device,
                                       stack=(cfg.num_layers,))
+    if cfg.family == "hybrid":
+        G, per = _hybrid_groups(cfg)
+        return {"ssm": ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device,
+                                              stack=(G, per)),
+                "attn": attention.init_kv_cache(cfg, batch, cache_len, dtype,
+                                                device=device, stack=(G,))}
     return attention.init_kv_cache(cfg, batch, cache_len, dtype,
                                    device=device, stack=(cfg.num_layers,))
 
 
-def _prefill_ssm(params, cfg, x, cache, backend):
+def _prefill_ssm(blocks, cfg, x, cache, backend):
     """Each layer's mamba2 forward; its cache gets the final ssm state and
     the last W-1 positions of the conv input (before the conv)."""
-    for i, p in enumerate(tfm.unstack(params["blocks"], cfg.num_layers)):
+    for i, p in enumerate(tfm.unstack(blocks)):
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
         y, final, conv_tail = ssm_lib.mamba2_forward(p["ssm"], cfg, h,
                                                      backend=backend)
@@ -161,10 +220,20 @@ def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache_len: int, *,
     B, S = tokens.shape
     cache = init_cache(cfg, B, cache_len, device=tokens.device)
     x = layers.embed_tokens(params["embed"], tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     if cfg.family == "ssm":
-        x = _prefill_ssm(params, cfg, x, cache, backend)
+        x = _prefill_ssm(params["blocks"], cfg, x, cache, backend)
+    elif cfg.family == "hybrid":
+        # the shared block fills group g's KV cache.  No window is passed,
+        # so it attends within cfg.sliding_window as the JAX prefill does
+        # (repro/models/model.py:303), where forward switches to the
+        # long-context window past max_seq_len
+        for g, gp in enumerate(tfm.unstack(params["blocks"])):
+            x = _prefill_ssm(gp, cfg, x, tfm.layer(cache["ssm"], g), backend)
+            x, _ = tfm.block_forward(params["shared_attn"], cfg, x, "dense",
+                                     positions=positions, backend=backend,
+                                     kv_cache=tfm.layer(cache["attn"], g))
     else:
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         x, _ = tfm.run_stacked(params["blocks"], cfg, x, cfg.block_kind,
                                positions=positions, backend=backend,
                                caches=cache)
@@ -182,9 +251,20 @@ def decode_step(params, cfg, tokens, cache, pos: int, *, ring: bool = False,
     cache is updated in place.  Returns (logits (B, V), cache)."""
     _require_family(cfg)
     x = layers.embed_tokens(params["embed"], tokens)
-    x, cache = tfm.run_stacked_decode(params["blocks"], cfg, x, cache, pos,
-                                      cfg.block_kind, ring=ring, window=window,
-                                      backend=backend)
+    kw = dict(ring=ring, window=window, backend=backend)
+    if cfg.family == "hybrid":
+        # each group's recurrent ssm steps, then the shared block against
+        # the group's KV cache (both updated in place)
+        for g in range(tfm.depth(params["blocks"])):
+            x, _ = tfm.run_stacked_decode(tfm.layer(params["blocks"], g), cfg, x,
+                                          tfm.layer(cache["ssm"], g), pos,
+                                          "ssm", **kw)
+            x, _ = tfm.block_decode(params["shared_attn"], cfg, x,
+                                    tfm.layer(cache["attn"], g), pos, "dense",
+                                    **kw)
+    else:
+        x, cache = tfm.run_stacked_decode(params["blocks"], cfg, x, cache, pos,
+                                          cfg.block_kind, **kw)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     logits = layers.unembed(params["embed"], x)[:, 0]
     return logits, cache

@@ -1,12 +1,16 @@
-"""Block-level composition for the dense and ssm families: stacked-param
-init (leading layer dim) and the layer loops of forward and decode (the
-counterpart of ``repro/models/transformer.py``).
+"""Block-level composition for the dense, ssm and hybrid families:
+stacked-param init (leading layer dims) and the layer loops of forward
+and decode (the counterpart of ``repro/models/transformer.py``).
 
   dense : [norm -> self-attn -> +res] [norm -> mlp -> +res]
   ssm   : [norm -> mamba2 -> +res]
+  hybrid: groups of ssm blocks, each followed by one weight-shared dense
+          block (``models.model`` composes them from the two above)
 
-A Python loop over the stacked leaves takes the place of ``lax.scan``.
-With ``remat=True`` (training) each layer runs under
+A Python loop over the stacked leaves takes the place of ``lax.scan``;
+a loop runs over the leading dim of the tree it is given, so a hybrid
+group's (per, ...) slice of the (G, per, ...) stack loops like a plain
+stack.  With ``remat=True`` (training) each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
 ``jax.checkpoint``: only the layer's input is kept, and the backward
 recomputes the layer, so every kernel of a layer runs twice a step.
@@ -54,20 +58,28 @@ def init_stacked_blocks(cfg, kind: str, n: int, dtype, *, generator, device):
                       stack=(n,))
 
 
+def depth(tree: PyTree) -> int:
+    """The leading (layer) dim of a stacked tree."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
 def layer(tree: PyTree, i: int) -> PyTree:
-    """Layer ``i`` of a stacked tree: views, so writes reach the stack."""
+    """Entry ``i`` of a stacked tree's leading dim (a layer, or a hybrid
+    group's stack of layers): views, so writes reach the stack."""
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
     return tree[i]
 
 
-def unstack(tree: PyTree, n: int):
-    """The ``n`` layers of a stacked tree, by one ``unbind`` per leaf: its
-    backward stacks the layers' gradients once, where indexing layer by
-    layer would add a full-size zero-padded gradient per layer."""
+def unstack(tree: PyTree):
+    """The entries of a stacked tree's leading dim, by one ``unbind`` per
+    leaf: its backward stacks the layers' gradients once, where indexing
+    layer by layer would add a full-size zero-padded gradient per layer."""
     if isinstance(tree, dict):
-        per_key = {k: unstack(v, n) for k, v in tree.items()}
-        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+        per_key = {k: unstack(v) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(depth(tree))]
     return tree.unbind(0)
 
 
@@ -100,7 +112,7 @@ def run_stacked(blocks: PyTree, cfg, x, kind: str, *, remat=False,
     summed MoE auxiliary loss, 0 for the ported kinds.  ``caches``
     (stacked like the blocks) is filled in place when given; ``remat``
     checkpoints each layer."""
-    per_layer = unstack(blocks, cfg.num_layers)
+    per_layer = unstack(blocks)
     for i, p in enumerate(per_layer):
         kv = layer(caches, i) if caches is not None else None
         fn = lambda x, p=p, kv=kv: block_forward(
@@ -132,7 +144,7 @@ def run_stacked_decode(blocks, cfg, x, caches, pos, kind: str, *, ring=False,
                        window=0, backend="auto"):
     """Loop over (stacked blocks, stacked caches); each layer's cache is
     written back into the stack in place."""
-    for i in range(cfg.num_layers):
+    for i in range(depth(blocks)):
         c = layer(caches, i)
         x, new = block_decode(layer(blocks, i), cfg, x, c, pos, kind,
                               ring=ring, window=window, backend=backend)

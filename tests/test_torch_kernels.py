@@ -63,6 +63,8 @@ FA_CASES = [
     (1, 8, 24, 2, 2, 64, True, 0, 16),        # q_offset (decode-style tail)
     (1, 10, 14, 2, 2, 64, False, 0, 0),       # non-causal, ragged Sk
     (1, 20, 20, 2, 2, 128, True, 5, 0),       # hd 128 + window
+    (2, 70, 70, 4, 4, 80, True, 0, 0),        # hd 80 (zamba2), ragged S
+    (1, 24, 40, 4, 2, 80, True, 6, 16),       # hd 80, window, q_offset, GQA
 ]
 
 
@@ -101,25 +103,31 @@ def _k_tile_range(q0, Sk, causal, window, q_offset, bq=64, bk=64):
 
 
 def tc_attention_emulated(q, k, v, *, causal, window, q_offset, round_p=True,
-                          bq=64, bk=64):
+                          bq=64, bk=64, panel=64):
     """The bf16 tensor-core ``flash_attention``'s arithmetic in plain
     PyTorch: per 64-row q tile, its visited 64-key tiles in order; S = Q K^T
     summed in fp32 (products of bf16 inputs are exact); scores scaled into
     the log2 domain and masked to -1e30; online softmax with fp32 (m, l)
     and exp2; P rounded to bf16 (``round_p``) before P V, summed in fp32;
-    output / max(l, 1e-20) in the input dtype."""
+    output / max(l, 1e-20) in the input dtype.  As in shared memory, Q, K
+    and V are whole 64-column panels, zero past hd (hd 80: two panels, 48
+    zero columns), and P V computes every panel column; the first hd are
+    the output."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    kf = k.repeat_interleave(H // KV, 2).float()
-    vf = v.repeat_interleave(H // KV, 2).float()
+    on = -(-hd // panel) * panel
+    pad = lambda t: torch.nn.functional.pad(t.float(), (0, on - hd))
+    q = pad(q).to(q.dtype)
+    kf = pad(k.repeat_interleave(H // KV, 2))
+    vf = pad(v.repeat_interleave(H // KV, 2))
     scale = math.log2(math.e) / math.sqrt(hd)
-    out = torch.zeros(B, Sq, H, hd)
+    out = torch.zeros(B, Sq, H, on)
     for q0 in range(0, Sq, bq):
         rows = slice(q0, min(q0 + bq, Sq))
         qp = torch.arange(rows.start, rows.stop)[:, None] + q_offset
         m = torch.full((B, H, rows.stop - q0, 1), tref.NEG_INF)
         l = torch.zeros_like(m)
-        acc = torch.zeros(B, H, rows.stop - q0, hd)
+        acc = torch.zeros(B, H, rows.stop - q0, on)
         for kt in range(*_k_tile_range(q0, Sk, causal, window, q_offset, bq, bk)):
             keys = slice(kt * bk, min(kt * bk + bk, Sk))
             kp = torch.arange(keys.start, keys.stop)[None, :]
@@ -138,7 +146,8 @@ def tc_attention_emulated(q, k, v, *, causal, window, q_offset, round_p=True,
             acc = alpha * acc + p @ vf[:, keys].permute(0, 2, 1, 3)
             m = m_new
         out[:, rows] = (acc / l.clamp_min(1e-20)).permute(0, 2, 1, 3)
-    return out.to(q.dtype)
+    assert not out[..., hd:].any()            # V's zero columns stay zero
+    return out[..., :hd].to(q.dtype)
 
 
 @pytest.mark.parametrize("case", CS.FA_CASES, ids=[c[0] for c in CS.FA_CASES])
@@ -198,6 +207,8 @@ FD_CASES = [
     (1, 2, 2, 300, 64, 290, dict(window=50), 1.0),                # pages before window
     (1, 1, 4, 300, 64, 20, {}, 1.0),                              # pages past pos
     (2, 2, 2, 40, 128, 39, dict(softcap=50.0), 30.0),             # softcap
+    (2, 4, 1, 150, 80, 140, {}, 1.0),                             # hd 80, G 1 (zamba2)
+    (1, 2, 4, 200, 80, 190, dict(ring=True, window=70), 1.0),     # hd 80, G 4, ring
 ]
 
 
@@ -219,17 +230,48 @@ def test_flash_decode_plain_matches_jax(B, KV, G, S, hd, pos, kw, q_scale):
     assert tops.flash_decode.launches == 0
 
 
+def pv_partition(hd, vec, threads=128, page=64):
+    """``Split<T, HD>`` of ``flash_decode.cu``: P V gives each thread vec
+    columns of the rows of one slot subset.  Returns the rows of a page
+    that each of the SUBS = threads // (hd / vec) subsets sums: t, t +
+    SUBS, ..., JV = ceil(page / SUBS) of them, bounded by the page.  The
+    threads past SUBS · hd / vec take no part."""
+    nv = hd // vec
+    subs = threads // nv
+    jv = -(-page // subs)
+    return [[t + u * subs for u in range(jv) if t + u * subs < page]
+            for t in range(subs)]
+
+
+@pytest.mark.parametrize("vec", [4, 8], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_flash_decode_pv_partition_covers_every_row(hd, vec):
+    """Every row of a page is summed by exactly one subset, with no more
+    threads than the block has.  At hd 80 the vectors of a row (10 in
+    bf16, 20 in fp32) do not divide 128 threads; a row count of
+    floor(page / SUBS) a subset would leave 4 rows of every page out."""
+    subsets = pv_partition(hd, vec)
+    assert sorted(r for rows in subsets for r in rows) == list(range(64))
+    assert len(subsets) * (hd // vec) <= 128
+    if hd == 80:
+        assert len(subsets) * (64 // len(subsets)) == 60
+
+
 def split_decode_emulated(q, k, v, pos, n_split, *, window=0, softcap=0.0,
-                          ring=False, page=64):
+                          ring=False, page=64, vec=8):
     """``flash_decode.cu`` in plain PyTorch, fp32: pass 1 per split over
     its contiguous range of 64-slot pages (a page with no live slot
     skipped before it is read), the mask from (pos, S, window, ring) as
     the kernel computes it (C's truncating remainder, then + S), an online
-    softmax per page, and a partial (acc, m, l) per split; then the
-    combine, in which a split with no live page (m = -inf) adds nothing."""
+    softmax per page, P V summed per slot subset of ``pv_partition`` (the
+    kernel's partition for ``vec`` elements in 16 bytes: 8 in bf16, 4 in
+    fp32) into the subset's own accumulator and the subsets summed at the
+    end, and a partial (acc, m, l) per split; then the combine, in which
+    a split with no live page (m = -inf) adds nothing."""
     B, H, hd = q.shape
     KV, S = k.shape[1], k.shape[2]
     G = H // KV
+    subsets = pv_partition(hd, vec, page=page)
     qg = q.float().view(B, KV, G, hd)
     slots = torch.arange(S, dtype=torch.int64)
     k_pos = slots
@@ -244,7 +286,7 @@ def split_decode_emulated(q, k, v, pos, n_split, *, window=0, softcap=0.0,
     for split in range(n_split):
         m = torch.full((B, KV, G, 1), -math.inf)
         l = torch.zeros(B, KV, G, 1)
-        acc = torch.zeros(B, KV, G, hd)
+        accs = torch.zeros(len(subsets), B, KV, G, hd)
         for pg in range(split * n_pages // n_split, (split + 1) * n_pages // n_split):
             sl = slice(pg * page, min(pg * page + page, S))
             if not bool(valid[sl].any()):
@@ -256,9 +298,13 @@ def split_decode_emulated(q, k, v, pos, n_split, *, window=0, softcap=0.0,
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
             l = alpha * l + p.sum(-1, keepdim=True)
-            acc = alpha * acc + torch.einsum("bkgs,bksd->bkgd", p, v[:, :, sl].float())
+            vp = v[:, :, sl].float()
+            for t, rows in enumerate(subsets):
+                rows = [r for r in rows if r < vp.shape[2]]       # the ragged last page
+                accs[t] = alpha * accs[t] + torch.einsum(
+                    "bkgs,bksd->bkgd", p[..., rows], vp[:, :, rows])
             m = m_new
-        parts.append((acc, m, l))
+        parts.append((accs.sum(0), m, l))
     M = torch.stack([m for _, m, _ in parts]).amax(0)
     num, den = torch.zeros(B, KV, G, hd), torch.zeros(B, KV, G, 1)
     for acc, m, l in parts:
@@ -289,6 +335,23 @@ def test_flash_decode_split_k_emulation_matches_jax(B, KV, G, S, hd, pos, kw,
     want = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
                                      jnp.asarray(v), jnp.int32(pos), **kw)
     got = split_decode_emulated(*map(torch.from_numpy, (q, k, v)), pos, n_split, **kw)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("B,KV,G,S,hd,pos,kw,q_scale",
+                         [c for c in FD_SPLIT_CASES if c[4] == 80])
+def test_flash_decode_split_k_fp32_partition_at_hd80(B, KV, G, S, hd, pos, kw,
+                                                     q_scale, n_split):
+    """The hd-80 cases with the fp32 kernel's P V partition (6 subsets of
+    10 or 11 rows; the bf16 one, 12 of 5 or 6, runs above)."""
+    rng = np.random.default_rng(S * 7 + pos)
+    q = _randn(rng, B, KV * G, hd, scale=q_scale)
+    k, v = _randn(rng, B, KV, S, hd), _randn(rng, B, KV, S, hd)
+    want = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.int32(pos), **kw)
+    got = split_decode_emulated(*map(torch.from_numpy, (q, k, v)), pos, n_split,
+                                vec=4, **kw)
     _close(got, want)
 
 

@@ -205,12 +205,14 @@ def _bf16_ssd_inputs(seed, **kw):
 
 
 # (b, S, h, p, g, n, chunk): several chunks with g 1 and g 2, S = one chunk,
-# and chunks that are no multiple of the kernels' 64-row tiles
+# chunks that are no multiple of the kernels' 64-row tiles, and zamba2's
+# (p 64, n 64): a state half the kernels' 128 columns
 SSD_TC_CASES = [
     (2, 128, 4, 16, 1, 16, 32),
     (2, 128, 4, 16, 2, 16, 32),
     (1, 64, 4, 32, 1, 32, 64),
     (1, 192, 6, 8, 3, 24, 96),
+    (1, 128, 8, 64, 1, 64, 64),
 ]
 
 

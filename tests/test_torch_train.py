@@ -191,7 +191,7 @@ def _run_both(jcfg, tcfg, steps, accum=1, seed=0, B=4, S=64, gnorm_rtol=1e-4):
 
 
 @pytest.mark.parametrize("name,accum", [("mamba2_780m", 1), ("qwen1p5_0p5b", 1),
-                                        ("mamba2_780m", 2)])
+                                        ("mamba2_780m", 2), ("zamba2_2p7b", 1)])
 def test_train_steps_match_jax_fp32(name, accum):
     jcfg = exact_cfg(name)
     tcfg = TConfig(**dataclasses.asdict(jcfg))
