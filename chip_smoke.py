@@ -63,11 +63,33 @@ result.  Phases, each of which fails the run by raising:
  15. hybrid serving: zamba2-2.7b, 54 layers, batch 4, prompt 512, 32
      tokens; the prefill launches 54 ``ssd_scan`` and 9
      ``flash_attention``, each decode call 9 ``flash_decode``.
+ 16. HeteroPP on one card: ``repro_torch.launch.train --plan`` on two
+     ranks sharing the card (``--p2p host``: gloo through pinned host
+     memory), each plan two stages on different chip types with a
+     non-uniform split: (a) qwen1.5-0.5b at full size, layers 10 / 14,
+     recompute on / off, 4 microbatches of 2 x 1024, 4 steps under 1f1b
+     and again under zb_v (v 2: stage 0 hosts global stages 0 and 3),
+     4 x (10 x 2 + 14) = 136 ``flash_attention`` a step over both ranks;
+     (b) mamba2-780m at full size, 20 / 28, both recompute, 4
+     microbatches of 1 x 2048, 2 steps, 4 x 48 x 2 = 384 ``ssd_scan`` a
+     step; losses finite and falling; (c) both widths cut to 4 layers
+     (1 / 3), every library schedule against the single-device loss and
+     gradient in fp32 and bf16 at phase 9's limits, the single-chunk
+     schedules' losses equal bit for bit and the chunked ones equal to
+     them.
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
-over the main paths that run it, phases 4, 7, 12, 13 and 15, each
-counted from 0), the ``nvidia-smi`` name/power line, and last
-``{"ok": true, "device": {...}}``.
+over the main paths that run it, phases 4, 7, 12, 13, 15 and 16, each
+counted from 0; phase 16's in each rank's own process, summed over the
+ranks), the ``nvidia-smi`` name/power line, and last ``{"ok": true,
+"device": {...}}``.
+
+    python3 chip_smoke.py --transports
+
+needs two cards and runs phases 1, 2 and phase 16 (a)'s 1f1b run only,
+with one card a rank, once through each stage-to-stage transport:
+``--p2p device`` (NCCL, card to card) and ``--p2p host`` (gloo through
+pinned host memory).
 """
 from __future__ import annotations
 
@@ -280,6 +302,32 @@ FD_ZAMBA2 = ("zamba2 decode: B4 KV32 G1 hd80 S544", 4, 32, 1, 544, 80, 543, 0, 0
 
 SERVE_ARGS = ["--arch", "granite_8b", "--batch", "4", "--prompt-len", "512",
               "--gen", "32", "--backend", "auto", "--device", "cuda"]
+
+# Phase 16: HeteroPP on one card, two ranks sharing it through gloo
+# ("--p2p host": NCCL refuses two ranks on one card).  Each plan is two
+# stages on different chip types of core/chips.py with a non-uniform
+# split, as HeteroAuto gives a heterogeneous cluster: (chip, layers,
+# recompute) a stage.  b microbatches of batch / b rows each.
+PP_ARGS = ["--backend", "auto", "--device", "cuda", "--log-every", "1"]
+PP_QWEN = ("qwen1p5_0p5b", (("A", 10, True), ("B", 14, False)), 4,
+           ["--batch", "8", "--seq", "1024", "--steps", "4"])
+PP_MAMBA2 = ("mamba2_780m", (("A", 20, True), ("B", 28, True)), 4,
+             ["--batch", "4", "--seq", "2048", "--steps", "2"])
+# Phase 16 (c): both widths cut to 4 layers split 1 / 3, every schedule
+# of the library, against the single-device loss and gradient on the
+# same weights and microbatches, at phase 9's limits.  gpipe, 1f1b and
+# zb_h1 run one tick program, so their losses must agree bit for bit,
+# and the chunked schedules run the same layers on the same inputs, so
+# theirs must equal them.
+PP_PARITY_SCHEDULES = ("gpipe", "1f1b", "zb_h1", "interleaved", "interleaved3", "zb_v",
+                       "wave")
+PP_PARITY = [("qwen1p5_0p5b", 4, 2, 1024), ("mamba2_780m", 4, 1, 2048)]
+PP_PARITY_SPLIT = (1, 3)
+PP_PARITY_DTYPES = ("float32", "bfloat16")
+# One hop's cost alone, at (a)'s and (b)'s activation shapes in bf16
+PP_HOPS = [("qwen 2 x 1024 x 1024", (2, 1024, 1024)),
+           ("mamba2 1 x 2048 x 1536", (1, 2048, 1536))]
+PP_HOP_ITERS = 20
 
 
 def log(msg=""):
@@ -1271,10 +1319,252 @@ def phase_profiler():
     return launches
 
 
+def pp_plan(stages, microbatches, schedule):
+    """A ``ParallelPlan`` JSON (``to_dict``) of one-chip stages."""
+    return {"dp": 1, "microbatches": microbatches, "schedule": schedule,
+            "stages": [{"chip": chip, "count": 1, "label": "", "tp": 1, "pp": 1,
+                        "layers": layers, "recompute": rec}
+                       for chip, layers, rec in stages]}
+
+
+def pipeline_and_check(arch, stages, microbatches, args, schedule, kernel,
+                       transport="host"):
+    """``repro_torch.launch.train --plan`` on two ranks (sharing the card
+    under ``--p2p host`` on one card; one card a rank otherwise): the
+    losses must be finite and fall, and ``kernel`` launch b x
+    sum_s L_s x (2 if recompute[s] else 1) times a step, summed over the
+    ranks (each counts from 0 in its own process).  Returns the
+    launches."""
+    import statistics
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    run = f"pipeline_{arch}_{schedule}_{transport}"
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", run)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "plan.json")
+    with open(path, "w") as f:
+        json.dump(pp_plan(stages, microbatches, schedule), f)
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = train.main(["--arch", arch, "--plan", path, "--run-dir", out_dir,
+                      "--p2p", transport] + args + PP_ARGS)
+    wall = time.perf_counter() - t0
+    launches, losses, times = res["launches"], res["losses"], res["step_times_s"]
+    steps = len(losses)
+    per_step = microbatches * sum(L * (2 if rec else 1) for _, L, rec in stages)
+    if res["num_layers"] != sum(L for _, L, _ in stages):
+        raise AssertionError(f"{arch} trained {res['num_layers']} layers")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses} are not finite and falling")
+    if launches[kernel] != per_step * steps:
+        raise AssertionError(f"{kernel} launched {launches[kernel]} times in {steps} "
+                             f"steps over the ranks, expected {per_step} a step")
+    p50 = statistics.median(times[1:]) if steps > 1 else times[0]
+    ticks = res["ticks"]
+    p2p_b = res["p2p_bytes_per_step"][-1]
+    steady = lambda xs: statistics.median(xs[1:] or xs)
+    p2p_s, copy_s = steady(res["p2p_s_per_step"]), steady(res["p2p_copy_s_per_step"])
+    log(f"  {schedule}: losses {', '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  {schedule}: launches over both ranks {launches} in {steps} steps = "
+        f"{launches[kernel] // steps} {kernel} a step (expected {per_step})")
+    log(f"  {schedule}: step p50{' over steps 2-' + str(steps) if steps > 1 else ''} "
+        f"{p50 * 1e3:.1f} ms (all: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms); "
+        f"{res['tokens_per_step'] / p50:.0f} tok/s; {ticks} ticks a step; rank 0's "
+        f"P2P {p2p_b / ticks / 2**20:.2f} MiB and {p2p_s * 1e3 / ticks:.2f} ms a tick "
+        f"({p2p_s * 1e3:.1f} ms a step, forward and backward, waits for the peer "
+        f"included; host staging copies {copy_s * 1e3 / ticks:.2f} ms a tick); peak "
+        f"memory by rank "
+        + ", ".join(f"{b / 2**30:.2f}" for b in res["peak_mem_bytes_per_rank"])
+        + f" GiB; {wall:.1f} s with the ranks' start")
+    log(f"  {schedule}: exchanges a step by rank (wall, waits included / of it host "
+        f"staging copies), and all-reduces a step (the token count, the loss, the "
+        f"replicated leaves' gradients): " + "; ".join(
+            f"rank {r}: {steady(a) * 1e3:.1f} / {steady(c) * 1e3:.1f} ms, reduce "
+            f"{steady(d) * 1e3:.1f} ms"
+            for r, (a, c, d) in enumerate(zip(res["p2p_s_per_step_per_rank"],
+                                              res["p2p_copy_s_per_step_per_rank"],
+                                              res["reduce_s_per_step_per_rank"]))))
+    return launches
+
+
+def _parity_rank(rank, world, device, cases, microbatches, phys, schedules):
+    """Phase 16 (c) on one rank: for each (arch, layers, mb, seq) case and
+    dtype, the pipeline's loss and its gradient's squared norm per leaf
+    in fp64 (block leaves over this rank's slots, the replicated ones on
+    rank 0 only) under every schedule."""
+    import torch
+    from repro_torch.comm.p2p import P2P
+    from repro_torch.core import heteropp as HP
+    from repro_torch.core.schedules import get_schedule
+    from repro_torch.kernels import build
+    from repro_torch.tree import flatten
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        build.load()
+    p2p = P2P("host", dev)
+    out = {}
+    for arch, layers, mb, seq in cases:
+        for dtype in PP_PARITY_DTYPES:
+            cfg, params, tokens = parity_inputs(arch, layers, dtype, mb, seq,
+                                                microbatches, dev)
+            for name in schedules:
+                sched = get_schedule(name)
+                spec = HP.PipelineSpec(world, HP.chunk_layer_counts(phys, sched),
+                                       microbatches, schedule=name,
+                                       n_chunks=sched.n_chunks)
+                local = HP.local_stage_params(params, cfg, spec, rank)
+                for t in flatten(local).values():
+                    t.requires_grad_()
+                loss, grads = HP.make_pipeline_loss(cfg, spec, p2p)(local, tokens)
+                sq = {k: float(torch.sum(torch.square(g.double())))
+                      for k, g in flatten(grads).items()
+                      if k.startswith("blocks/") or rank == 0}
+                out[f"{arch} {dtype} {name}"] = {"loss": float(loss), "sq": sq}
+                del local, grads
+            del params
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    # one hop alone: both ranks exchange one activation each way, the
+    # tick's exchange with no compute around it
+    for label, shape in PP_HOPS:
+        x = torch.randn(shape, device=dev).to(torch.bfloat16)
+        for _ in range(3):
+            p2p.ppermute([(x, [(0, 1), (1, 0)])], x)
+        torch.distributed.barrier()
+        p2p.reset_counts()
+        for _ in range(PP_HOP_ITERS):
+            p2p.ppermute([(x, [(0, 1), (1, 0)])], x)
+        out[f"hop {label}"] = {"ms": p2p.seconds / PP_HOP_ITERS * 1e3,
+                               "copy_ms": p2p.copy_seconds / PP_HOP_ITERS * 1e3,
+                               "mib": x.numel() * x.element_size() / 2 ** 20}
+    return out
+
+
+def parity_inputs(arch, layers, dtype, mb, seq, microbatches, dev):
+    """The cut config, its seeded weights and ``microbatches`` batches of
+    (mb, seq) tokens, the same in every process on one card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    loader = make_loader(cfg, DataConfig(batch_size=mb * microbatches, seq_len=seq,
+                                         seed=1234), device=dev)
+    return cfg, params, next(loader)["tokens"].reshape(microbatches, mb, seq)
+
+
+def phase_pipeline_parity(device="cuda:0", microbatches=4):
+    """Phase 16 (c): the pipeline (two ranks on the card, one spawn for
+    every case) against the single-device ``loss_fn`` and its gradient,
+    in fp32 and bf16."""
+    import torch
+    from repro_torch.launch import ranks
+    from repro_torch.models import model as M
+    from repro_torch.tree import flatten
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    res = ranks.spawn(_parity_rank, 2, (device, PP_PARITY, microbatches,
+                                        PP_PARITY_SPLIT, PP_PARITY_SCHEDULES),
+                      workdir=os.path.join(ROOT, "build", "chip_smoke", "parity"),
+                      transport="host", timeout=600)
+    log(f"  (c) parity: both ranks done in {time.perf_counter() - t0:.1f} s with "
+        "their start")
+    for label, _ in PP_HOPS:
+        log(f"  one hop alone, {label} bf16 ({res[0]['hop ' + label]['mib']:.2f} MiB each "
+            f"way, --p2p host), mean of {PP_HOP_ITERS}: " + "; ".join(
+                f"rank {r}: {o['hop ' + label]['ms']:.3f} ms, of which host staging "
+                f"copies {o['hop ' + label]['copy_ms']:.3f} ms" for r, o in enumerate(res)))
+    for arch, layers, mb, seq in PP_PARITY:
+        log(f"  (c) {arch} width, {layers} layers split "
+            f"{' / '.join(map(str, PP_PARITY_SPLIT))}, {microbatches} microbatches "
+            f"of {mb} x {seq}")
+        for dtype in PP_PARITY_DTYPES:
+            cfg, params, tokens = parity_inputs(arch, layers, dtype, mb, seq,
+                                                microbatches, dev)
+            flat = flatten(params)
+            for t in flat.values():
+                t.requires_grad_()
+            loss, _ = M.loss_fn(params, cfg, {"tokens": tokens.reshape(-1, seq)})
+            norms = {k: float(g.double().norm())
+                     for k, g in zip(flat, torch.autograd.grad(loss, list(flat.values())))}
+            want = float(loss.detach())
+            del params, flat
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            runs = {name: [r[f"{arch} {dtype} {name}"] for r in res]
+                    for name in PP_PARITY_SCHEDULES}
+            losses = {name: rs[0]["loss"] for name, rs in runs.items()}
+            if len({r["loss"] for rs in runs.values() for r in rs}) != 1:
+                raise AssertionError(f"pipeline losses differ between schedules or "
+                                     f"ranks: {losses}")
+            rel = abs(losses["1f1b"] - want) / abs(want)
+            loss_rtol = TRAIN_LOSS_RTOL if dtype == "float32" else TRAIN_BF16_LOSS_RTOL
+            log(f"  {dtype}: pipeline loss {losses['1f1b']:.7f}, the same bit for bit "
+                f"under {', '.join(PP_PARITY_SCHEDULES)}; single device {want:.7f}; "
+                f"rel diff {rel:.2e} (limit {loss_rtol})")
+            worst = {}
+            for name, rs in runs.items():
+                got = {k: math.sqrt(sum(r["sq"].get(k, 0.0) for r in rs)) for k in norms}
+                worst[name] = max((abs(got[k] - norms[k]) / max(norms[k], 1e-12), k)
+                                  for k in norms)
+            log(f"  {dtype}: worst relative per-leaf gradient norm difference over "
+                f"{len(norms)} leaves: " + ", ".join(f"{k} {v:.2e} ({leaf})"
+                                                     for k, (v, leaf) in worst.items())
+                + (f" (limit {TRAIN_GNORM_RTOL:.0e})" if dtype == "float32"
+                   else " (reported, not held in bf16)"))
+            if not math.isfinite(rel) or rel > loss_rtol or (
+                    dtype == "float32"
+                    and max(v for v, _ in worst.values()) > TRAIN_GNORM_RTOL):
+                raise AssertionError(f"pipeline ({arch}, {dtype}) and the single "
+                                     "device disagree")
+
+
+def phase_pipeline(device="cuda:0"):
+    """Phase 16: HeteroPP on one card: (a) qwen1.5-0.5b from the 10 / 14
+    plan under 1f1b and zb_v, (b) mamba2-780m from the 20 / 28 plan, (c)
+    parity at 4 layers.  Returns the launches of (a) and (b)."""
+    arch, stages, b, args = PP_QWEN
+    launches = {}
+    for schedule in ("1f1b", "zb_v"):
+        got = pipeline_and_check(arch, stages, b, args, schedule, "flash_attention")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    arch, stages, b, args = PP_MAMBA2
+    got = pipeline_and_check(arch, stages, b, args, "1f1b", "ssd_scan")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    phase_pipeline_parity(device)
+    return launches
+
+def phase_transports():
+    """``--transports``: phase 16 (a)'s qwen1.5-0.5b plan under 1f1b with
+    one card a rank, through NCCL and through gloo with host staging."""
+    arch, stages, b, args = PP_QWEN
+    for transport in ("device", "host"):
+        log(f"  --p2p {transport}:")
+        pipeline_and_check(arch, stages, b, args, "1f1b", "flash_attention", transport)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    transports = sys.argv[1:] == ["--transports"]
+    if sys.argv[1:] and not transports:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
+    if transports and torch.cuda.device_count() < 2:
+        print("chip_smoke --transports needs two cards", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build
@@ -1294,6 +1584,15 @@ def main() -> int:
     for name, out in build.build_log.items():
         for line in ptxas_summary(out):
             log(f"  [{name}] {line}")
+
+    if transports:
+        log("== 16 (a) by transport: qwen1.5-0.5b 10 / 14, 1f1b, one card a rank")
+        phase_transports()
+        print(smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     log("== 3. kernels vs plain versions")
     rows = phase_kernels()
@@ -1349,6 +1648,12 @@ def main() -> int:
     serve_launches = phase_hybrid_serve()
     for name in ("flash_attention", "flash_decode", "ssd_scan"):
         launches[name] += hybrid_launches[name] + serve_launches[name]
+
+    log("== 16. HeteroPP on one card: 2 ranks, --p2p host; qwen1.5-0.5b 10 / 14 "
+        "(1f1b, zb_v), mamba2-780m 20 / 28, parity at 4 layers")
+    pipeline_launches = phase_pipeline()
+    for name in ("flash_attention", "ssd_scan"):
+        launches[name] += pipeline_launches[name]
 
     kernels = []
     for name in ("flash_attention", "flash_decode", "ssd_scan", "rmsnorm"):

@@ -216,13 +216,13 @@ class Schedule:
 
     # ------------------------------------------------------------- analysis
     def verify(self, num_stages: int, microbatches: int) -> list:
-        """The static safety passes (``analysis/schedule_safety.py`` of
-        the JAX package, over ``core/tickprogram.py``) are not ported
-        yet: they come with the HeteroPP runtime.  Raises."""
-        raise NotImplementedError(
-            "Schedule.verify: the schedule safety passes "
-            "(analysis/schedule_safety, core/tickprogram) come to the port "
-            "with the HeteroPP runtime")
+        """Run the static safety passes (``repro_torch.analysis``, DESIGN.md
+        §15) on this schedule at one (S, b) point: op coverage,
+        placement bijection, causal replay, inflight bound, α
+        cross-check, streamability, pad inertness.  Returns the
+        diagnostic list — empty means safe to execute."""
+        from ...analysis.schedule_safety import verify_schedule
+        return verify_schedule(self, num_stages, microbatches)
 
     def __repr__(self):
         return f"<Schedule {self.name}>"

@@ -4,6 +4,8 @@ replay, the data-parallel and resharding closed forms, the transport
 model.  Both packages run the same Python float arithmetic on the same
 inputs, so every comparison is exact equality."""
 import dataclasses
+import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -39,9 +41,14 @@ def test_chip_catalog_equal_jax():
 
 
 def test_schedule_registry_equal_jax():
+    """The registries agree, and ``Schedule.verify`` (the copied safety
+    passes) gives the JAX package's diagnostics."""
+    from repro.core.schedules import get_schedule as jget_schedule
     assert tavailable() == javailable()
-    with pytest.raises(NotImplementedError, match="HeteroPP"):
-        tget_schedule("1f1b").verify(4, 8)
+    for name in javailable():
+        for S, b in ((2, 4), (4, 8), (3, 5)):
+            got = [d.format() for d in tget_schedule(name).verify(S, b)]
+            assert got == [d.format() for d in jget_schedule(name).verify(S, b)], name
 
 
 @pytest.mark.parametrize("S,b", [(2, 4), (4, 8)])
@@ -177,3 +184,135 @@ def test_p2p_latency_equal_jax():
     assert tlat.fig7_speedups() == jlat.fig7_speedups()
     assert tlat.affinity_throughput() == jlat.affinity_throughput()
     assert tlat.non_affinity_throughput() == jlat.non_affinity_throughput()
+
+
+# ---------------------------------------------------------------------------
+# the plan gate (analysis/*, kernels/constraints.py) and HeteroAuto
+# ---------------------------------------------------------------------------
+
+FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
+
+
+def _plan_dicts():
+    """Plans as ``ParallelPlan.to_dict`` JSON, good and bad: the fixture
+    files, then hand-made ones that trip one pass each."""
+    plans = {p.stem: json.loads(p.read_text())
+             for p in sorted(FIXTURES.glob("**/*.json"))}
+    stage = lambda chip, count, tp, pp, layers, rec=False: dict(
+        chip=chip, count=count, label="", tp=tp, pp=pp, layers=layers, recompute=rec)
+    base = dict(dp=1, microbatches=4, schedule="1f1b", dp_sync="reduce_scatter",
+                dp_transport="device_rdma", bucket_bytes=25 * 2 ** 20)
+    plans.update({
+        "hetero_1f1b": dict(base, stages=[stage("A", 1, 1, 1, 10, True),
+                                          stage("B", 1, 1, 1, 14)]),
+        "hetero_zb_v": dict(base, schedule="zb_v",
+                            stages=[stage("A", 1, 1, 1, 10, True), stage("B", 1, 1, 1, 14)]),
+        "interleaved_b_not_multiple": dict(base, schedule="interleaved", microbatches=3,
+                                           stages=[stage("A", 1, 1, 1, 12),
+                                                   stage("B", 1, 1, 1, 12)]),
+        "grouped_tp_chunked": dict(base, schedule="zb_v",
+                                   stages=[stage("A", 2, 2, 1, 12), stage("B", 1, 1, 1, 12)]),
+        "grouped_tp": dict(base, stages=[stage("A", 4, 4, 1, 12), stage("B", 2, 2, 1, 12)]),
+        "tp_not_dividing": dict(base, stages=[stage("A", 8, 8, 1, 24)]),
+        "uneven_domain": dict(base, dp=2, batch_domain=[4, 3],
+                              stages=[stage("A", 2, 1, 1, 12), stage("B", 2, 1, 1, 12)]),
+        "unknown_schedule": dict(base, schedule="nope",
+                                 stages=[stage("A", 1, 1, 1, 24)]),
+        "missing_field": {"dp": 1},
+    })
+    return plans
+
+
+PLANS = _plan_dicts()
+
+
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_analyze_and_verify_plan_equal_jax(name):
+    from repro.analysis import (PlanVerificationError as JPVE, analyze_plan as janalyze,
+                                verify_plan as jverify)
+    from repro_torch.analysis import (PlanVerificationError as TPVE,
+                                      analyze_plan as tanalyze, verify_plan as tverify)
+    plan = PLANS[name]
+    fmt = lambda diags: [d.format() for d in diags]
+    assert fmt(tanalyze(plan)) == fmt(janalyze(plan))
+    for arch, seq in (("qwen1p5_0p5b", 1024), ("granite_8b", 4096)):
+        kw = dict(seq_len=seq, gbs_tokens=8 * seq)
+        assert fmt(tanalyze(plan, tget_config(arch), **kw)) == \
+            fmt(janalyze(plan, jget_config(arch), **kw)), arch
+    try:
+        jplan = jcm.ParallelPlan.from_dict(plan)
+    except (KeyError, ValueError):
+        return
+    tplan = tcm.ParallelPlan.from_dict(plan)
+    try:
+        want = fmt(jverify(jplan))
+    except JPVE as e:
+        with pytest.raises(TPVE) as got:
+            tverify(tplan)
+        assert str(got.value) == str(e) and isinstance(got.value, ValueError)
+    else:
+        assert fmt(tverify(tplan)) == want
+
+
+def test_kernel_constraints_equal_jax():
+    from repro.kernels import constraints as jcon
+    from repro_torch.kernels import constraints as tcon
+    for name in ("LANE", "DEFAULT_PAGE", "MIN_GROUP", "DEFAULT_BLOCK_Q", "DEFAULT_BLOCK_K"):
+        assert getattr(tcon, name) == getattr(jcon, name)
+    for seq_k in (1, 64, 100, 128, 129, 4096):
+        assert tcon.shrink_block_k(seq_k) == jcon.shrink_block_k(seq_k)
+    for page in (0, 64, 128, 200, 256):
+        assert tcon.check_page_size(page) == jcon.check_page_size(page)
+    for args in ((32, 8, 128, 4096), (16, 16, 64, 1000), (12, 5, 80, 512),
+                 (8, 1, 256, 300)):
+        for page in (128, 96):
+            assert tcon.check_attention_shapes(*args, page_size=page) == \
+                jcon.check_attention_shapes(*args, page_size=page)
+    for args in ((32, 8, 14336, 4), (16, 16, 2816, 3), (12, 4, 100, 8)):
+        assert tcon.check_tp_divisibility(*args) == jcon.check_tp_divisibility(*args)
+
+
+@pytest.mark.parametrize("cluster,arch", [
+    ((("A", 2), ("B", 2)), "qwen1p5_0p5b"),
+    ((("A", 4), ("C", 4)), "granite_8b"),
+    ((("B", 8),), "granite_8b"),
+])
+def test_heteroauto_search_equal_jax(cluster, arch):
+    """The copied search finds the JAX package's plan at the same cost.
+    ``runtime`` says how the runtime would run the winner: the same for a
+    pipe-only plan or one both refuse; a tp or dp layout the JAX runtime
+    runs, the port's ``heteropp`` refuses (ROADMAP A8(d)-(g))."""
+    from repro_torch.core import heteroauto as tha
+    jgroups = [jchips.ChipGroup(jchips.CHIPS[n], c) for n, c in cluster]
+    tgroups = [tchips.ChipGroup(tchips.CHIPS[n], c) for n, c in cluster]
+    seq = 2048
+    want = jha.search(jgroups, jget_config(arch), 16 * seq, seq, two_stage=False)
+    got = tha.search(tgroups, tget_config(arch), 16 * seq, seq, two_stage=False)
+    assert want.plan is not None
+    assert got.plan.to_dict() == want.plan.to_dict()
+    assert dataclasses.asdict(got.cost) == dataclasses.asdict(want.cost)
+    assert got.evaluated == want.evaluated and got.stage1_dp == want.stage1_dp
+    pipe_only = want.plan.dp == 1 and all(st.tp == 1 for st in want.plan.stages)
+    if pipe_only or want.runtime.startswith("refused: "):
+        assert got.runtime == want.runtime
+    else:
+        assert got.runtime.startswith("refused: ") and "A8(d)-(g)" in got.runtime
+    pinned = tha.search(tgroups, tget_config(arch), 16 * seq, seq, two_stage=False,
+                        schedule="1f1b", dp_candidates=[1])
+    assert pinned.plan.to_dict() == jha.search(
+        jgroups, jget_config(arch), 16 * seq, seq, two_stage=False, schedule="1f1b",
+        dp_candidates=[1]).plan.to_dict()
+
+
+def test_p2p_device_transport_needs_a_card_a_rank(monkeypatch):
+    from repro_torch.comm import p2p
+    with pytest.raises(ValueError, match="--p2p host"):
+        p2p.check_transport("device", torch.device("cpu"), 2)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 ranks, 1 card.*--p2p host"):
+        p2p.check_transport("device", torch.device("cuda"), 2)
+    p2p.check_transport("device", torch.device("cuda"), 1)
+    p2p.check_transport("host", torch.device("cuda"), 4)
+    p2p.check_transport("host", torch.device("cpu"), 4)
+    with pytest.raises(ValueError, match="unknown p2p transport"):
+        p2p.check_transport("tcp", torch.device("cpu"), 2)
