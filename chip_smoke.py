@@ -77,19 +77,43 @@ result.  Phases, each of which fails the run by raising:
      gradient in fp32 and bf16 at phase 9's limits, the single-chunk
      schedules' losses equal bit for bit and the chunked ones equal to
      them.
+ 17. HeteroPP over tensor and data parallelism on one card: four ranks
+     sharing it through ``--p2p host``.  (a) phase 16 (a)'s qwen1.5-0.5b
+     10 / 14 plan under 1f1b with tp 2 a stage (Megatron blocks, each
+     member's 8 of 16 heads through ``flash_attention``): 4 steps, 2 x
+     136 = 272 ``flash_attention`` a step over the ranks, twice phase 16
+     (a)'s; (b) qwen1.5-0.5b, ``--pipeline-parallel 2 --data-parallel 2
+     --grad-sync reduce_scatter`` (ZeRO-1), 8 microbatches of 2 x 1024
+     (4 a replica), 3 steps, 2 x 4 x 24 x 2 = 384 ``flash_attention`` a
+     step, each rank's optimizer state half of what its stage holds at
+     dp 1; (c) mamba2-780m at full width cut to 24 of 48 layers (12 /
+     12; the cut keeps the phase inside the time limit), dp 2 x pipe 2
+     under psum in 25 MB buckets, 8 microbatches of 1 x 2048, 2 steps,
+     384 ``ssd_scan`` a step; losses finite and falling, step, memory and
+     the collectives' ms a step by rank and group; (d) both widths at 4
+     layers (1 / 3) against the single device in fp32 and bf16 at phase
+     16 (c)'s limits under (pipe 2, tp 2) (qwen only, tp shards dense
+     blocks; and granite-8b's width, for its GQA) and (dp 2, pipe 2)
+     with psum and ZeRO-1; one gradient synced by bucketed and by
+     per-leaf psum must agree bit for bit, and ZeRO-1's master weights
+     after one step equal psum's to 1e-6 of each leaf's largest entry.
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
-over the main paths that run it, phases 4, 7, 12, 13, 15 and 16, each
-counted from 0; phase 16's in each rank's own process, summed over the
-ranks), the ``nvidia-smi`` name/power line, and last ``{"ok": true,
-"device": {...}}``.
+over the main paths that run it, phases 4, 7, 12, 13, 15, 16 and 17,
+each counted from 0; phases 16 and 17 in each rank's own process, summed
+over the ranks), the ``nvidia-smi`` name/power line, and last ``{"ok":
+true, "device": {...}}``.
 
     python3 chip_smoke.py --transports
 
 needs two cards and runs phases 1, 2 and phase 16 (a)'s 1f1b run only,
 with one card a rank, once through each stage-to-stage transport:
 ``--p2p device`` (NCCL, card to card) and ``--p2p host`` (gloo through
-pinned host memory).
+pinned host memory); with four cards also granite-8b at full size,
+pipe 2 x tp 2 through ``--p2p device`` (3 steps, batch 4 x 2048, peak
+learning rate 1e-5; losses finite and falling, launches pinned), which
+one card cannot hold, phase 17 (d)'s (pipe 2, tp 2) parity cases and
+phase 17 (b)'s ZeRO-1 run with NCCL's reduce-scatter and all-gather.
 """
 from __future__ import annotations
 
@@ -328,6 +352,47 @@ PP_PARITY_DTYPES = ("float32", "bfloat16")
 PP_HOPS = [("qwen 2 x 1024 x 1024", (2, 1024, 1024)),
            ("mamba2 1 x 2048 x 1536", (1, 2048, 1536))]
 PP_HOP_ITERS = 20
+# Phase 17: tensor and data parallelism in HeteroPP, four ranks sharing
+# the card through gloo.  (a) phase 16 (a)'s qwen1.5-0.5b 10 / 14 plan
+# with two Megatron members a stage; (b) qwen1.5-0.5b, even split, two
+# replicas under ZeRO-1, 4 microbatches of 2 x 1024 each; (c)
+# mamba2-780m at full width cut to 24 of 48 layers (to stay inside the
+# time limit), two replicas under bucketed psum, 4 microbatches of 1 x
+# 2048 each; (d) parity at 4 layers against the single device, phase 16
+# (c)'s limits, with bucketed psum bit for bit per-leaf psum and ZeRO-1's
+# master weights after one step within ZERO_MASTER_RTOL of psum's.
+GRID_TP, GRID_DP = 2, 2
+GRID_DENSE_DP = ("qwen1p5_0p5b", 24, ["--pipeline-parallel", "2", "--data-parallel", "2",
+                                      "--grad-sync", "reduce_scatter", "--microbatches",
+                                      "4", "--batch", "16", "--seq", "1024", "--steps", "3"])
+GRID_SSM_DP = ("mamba2_780m", 24, ["--pipeline-parallel", "2", "--data-parallel", "2",
+                                   "--grad-sync", "psum", "--bucket-bytes", "25000000",
+                                   "--microbatches", "4", "--batch", "8", "--seq", "2048",
+                                   "--steps", "2"])
+# (d)'s cases: phase 16 (c)'s widths at 4 layers under the grids each
+# family runs (tp shards dense blocks only), and granite-8b's width, whose
+# GQA (32 / 8 heads, 16 / 4 a tp member) qwen's 16 / 16 does not cover
+GRID_PARITY = [("qwen1p5_0p5b", 4, 2, 1024, ("tp", "dp")),
+               ("mamba2_780m", 4, 1, 2048, ("dp",)),
+               ("granite_8b", 4, 1, 2048, ("tp",))]
+GRID_PARITY_BUCKET = 25_000_000
+ZERO_MASTER_RTOL = 1e-6
+# ZeRO-1's optimizer state a rank: half of the 12 bytes a parameter
+# (fp32 master, m, v) its stage holds at dp 1, within this share (leaves
+# with no dim the dp degree divides stay whole)
+ZERO_OPT_SHARE = (0.5, 0.02)
+# --transports with four cards: granite-8b at full size, pipe 2 x tp 2,
+# one card a rank through NCCL.  At the launcher's peak learning rate
+# (3e-4) a random-init granite-8b's loss rises over its first steps, on
+# the single device as on the grid; at 1e-5 it falls
+TRANSPORT_TP = ("granite_8b", 36, ["--pipeline-parallel", "2", "--tensor-parallel", "2",
+                                   "--microbatches", "4", "--batch", "4", "--seq", "2048",
+                                   "--steps", "3", "--lr", "1e-5"])
+# ... and phase 17 (d)'s tp cases through NCCL (the dp cases stay on the
+# host transport: NCCL's ring sums four ranks in an order that depends on
+# the buffer, so bucketed and per-leaf psum need not agree bit for bit)
+GRID_PARITY_NCCL = [(a, n, mb, seq, ("tp",)) for a, n, mb, seq, k in GRID_PARITY
+                    if "tp" in k]
 
 
 def log(msg=""):
@@ -1319,45 +1384,56 @@ def phase_profiler():
     return launches
 
 
-def pp_plan(stages, microbatches, schedule):
-    """A ``ParallelPlan`` JSON (``to_dict``) of one-chip stages."""
-    return {"dp": 1, "microbatches": microbatches, "schedule": schedule,
-            "stages": [{"chip": chip, "count": 1, "label": "", "tp": 1, "pp": 1,
+def pp_plan(stages, microbatches, schedule, tp=1, dp=1):
+    """A ``ParallelPlan`` JSON (``to_dict``) of one-stage chip groups of
+    ``tp`` x ``dp`` chips."""
+    return {"dp": dp, "microbatches": microbatches, "schedule": schedule,
+            "stages": [{"chip": chip, "count": tp * dp, "label": "", "tp": tp, "pp": 1,
                         "layers": layers, "recompute": rec}
                        for chip, layers, rec in stages]}
 
 
-def pipeline_and_check(arch, stages, microbatches, args, schedule, kernel,
-                       transport="host"):
-    """``repro_torch.launch.train --plan`` on two ranks (sharing the card
-    under ``--p2p host`` on one card; one card a rank otherwise): the
-    losses must be finite and fall, and ``kernel`` launch b x
-    sum_s L_s x (2 if recompute[s] else 1) times a step, summed over the
-    ranks (each counts from 0 in its own process).  Returns the
-    launches."""
+def plan_and_check(arch, stages, microbatches, args, schedule, kernel, transport="host",
+                   tp=1):
+    """``repro_torch.launch.train --plan`` of ``stages`` with ``tp``
+    members a stage: ``kernel`` launches tp x b x sum_s L_s x (2 if
+    recompute[s] else 1) times a step over the ranks.  Returns the
+    launcher's result (``pipeline_and_check``)."""
+    run = f"pipeline_{arch}_{schedule}_{transport}" + (f"_tp{tp}" if tp > 1 else "")
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", run)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "plan.json")
+    with open(path, "w") as f:
+        json.dump(pp_plan(stages, microbatches, schedule, tp), f)
+    per_step = tp * microbatches * sum(L * (2 if rec else 1) for _, L, rec in stages)
+    return pipeline_and_check(run, ["--arch", arch, "--plan", path] + args, kernel,
+                              per_step, sum(L for _, L, _ in stages), schedule, transport)
+
+
+def pipeline_and_check(run, argv, kernel, per_step, layers, label, transport="host"):
+    """``repro_torch.launch.train`` on a rank grid (its ranks sharing the
+    card under ``--p2p host`` on one card; one card a rank otherwise): the
+    losses must be finite and fall, and ``kernel`` launch
+    ``per_step`` times a step, summed over the ranks (each counts from 0
+    in its own process).  Prints the step, the memory and the collectives
+    a step by rank and group.  Returns the launcher's result."""
     import statistics
 
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train
 
-    run = f"pipeline_{arch}_{schedule}_{transport}"
     out_dir = os.path.join(ROOT, "build", "chip_smoke", run)
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "plan.json")
-    with open(path, "w") as f:
-        json.dump(pp_plan(stages, microbatches, schedule), f)
     torch.cuda.empty_cache()
     ops.reset_launches()
     t0 = time.perf_counter()
-    res = train.main(["--arch", arch, "--plan", path, "--run-dir", out_dir,
-                      "--p2p", transport] + args + PP_ARGS)
+    res = train.main(argv + ["--run-dir", out_dir, "--p2p", transport] + PP_ARGS)
     wall = time.perf_counter() - t0
     launches, losses, times = res["launches"], res["losses"], res["step_times_s"]
     steps = len(losses)
-    per_step = microbatches * sum(L * (2 if rec else 1) for _, L, rec in stages)
-    if res["num_layers"] != sum(L for _, L, _ in stages):
-        raise AssertionError(f"{arch} trained {res['num_layers']} layers")
+    if res["num_layers"] != layers:
+        raise AssertionError(f"{res['arch']} trained {res['num_layers']} layers")
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses {losses} are not finite and falling")
     if launches[kernel] != per_step * steps:
@@ -1368,10 +1444,11 @@ def pipeline_and_check(arch, stages, microbatches, args, schedule, kernel,
     p2p_b = res["p2p_bytes_per_step"][-1]
     steady = lambda xs: statistics.median(xs[1:] or xs)
     p2p_s, copy_s = steady(res["p2p_s_per_step"]), steady(res["p2p_copy_s_per_step"])
-    log(f"  {schedule}: losses {', '.join(f'{x:.4f}' for x in losses)}")
-    log(f"  {schedule}: launches over both ranks {launches} in {steps} steps = "
+    n = len(res["peak_mem_bytes_per_rank"])
+    log(f"  {label}: losses {', '.join(f'{x:.4f}' for x in losses)}")
+    log(f"  {label}: launches over the {n} ranks {launches} in {steps} steps = "
         f"{launches[kernel] // steps} {kernel} a step (expected {per_step})")
-    log(f"  {schedule}: step p50{' over steps 2-' + str(steps) if steps > 1 else ''} "
+    log(f"  {label}: step p50{' over steps 2-' + str(steps) if steps > 1 else ''} "
         f"{p50 * 1e3:.1f} ms (all: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms); "
         f"{res['tokens_per_step'] / p50:.0f} tok/s; {ticks} ticks a step; rank 0's "
         f"P2P {p2p_b / ticks / 2**20:.2f} MiB and {p2p_s * 1e3 / ticks:.2f} ms a tick "
@@ -1380,15 +1457,14 @@ def pipeline_and_check(arch, stages, microbatches, args, schedule, kernel,
         f"memory by rank "
         + ", ".join(f"{b / 2**30:.2f}" for b in res["peak_mem_bytes_per_rank"])
         + f" GiB; {wall:.1f} s with the ranks' start")
-    log(f"  {schedule}: exchanges a step by rank (wall, waits included / of it host "
-        f"staging copies), and all-reduces a step (the token count, the loss, the "
-        f"replicated leaves' gradients): " + "; ".join(
-            f"rank {r}: {steady(a) * 1e3:.1f} / {steady(c) * 1e3:.1f} ms, reduce "
-            f"{steady(d) * 1e3:.1f} ms"
-            for r, (a, c, d) in enumerate(zip(res["p2p_s_per_step_per_rank"],
-                                              res["p2p_copy_s_per_step_per_rank"],
-                                              res["reduce_s_per_step_per_rank"]))))
-    return launches
+    ms = lambda key, r: steady(res[key + "_per_step_per_rank"][r]) * 1e3
+    log(f"  {label}: collectives a step by rank (d, s, k), wall ms: " + "; ".join(
+        f"rank {r} {tuple(res['grid_per_rank'][r])}: hops {ms('p2p_s', r):.1f} (copies "
+        f"{ms('p2p_copy_s', r):.1f}), tp all-reduce {ms('tp_s', r):.1f}, dp all-reduce "
+        f"{ms('dp_s', r):.1f}, dp reduce-scatter {ms('dp_scatter_s', r):.1f}, dp "
+        f"all-gather {ms('dp_gather_s', r):.1f}, replicated all-reduce "
+        f"{ms('reduce_s', r):.1f}, norm {ms('norm_s', r):.1f}" for r in range(n)))
+    return res
 
 
 def _parity_rank(rank, world, device, cases, microbatches, phys, schedules):
@@ -1397,7 +1473,7 @@ def _parity_rank(rank, world, device, cases, microbatches, phys, schedules):
     in fp64 (block leaves over this rank's slots, the replicated ones on
     rank 0 only) under every schedule."""
     import torch
-    from repro_torch.comm.p2p import P2P
+    from repro_torch.comm.p2p import Grid
     from repro_torch.core import heteropp as HP
     from repro_torch.core.schedules import get_schedule
     from repro_torch.kernels import build
@@ -1407,7 +1483,8 @@ def _parity_rank(rank, world, device, cases, microbatches, phys, schedules):
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
         build.load()
-    p2p = P2P("host", dev)
+    grid = Grid.build("host", dev, pipe=world)
+    p2p = grid.pipe
     out = {}
     for arch, layers, mb, seq in cases:
         for dtype in PP_PARITY_DTYPES:
@@ -1421,7 +1498,9 @@ def _parity_rank(rank, world, device, cases, microbatches, phys, schedules):
                 local = HP.local_stage_params(params, cfg, spec, rank)
                 for t in flatten(local).values():
                     t.requires_grad_()
-                loss, grads = HP.make_pipeline_loss(cfg, spec, p2p)(local, tokens)
+                loss, grads = HP.make_pipeline_loss(cfg, spec, grid)(local, tokens)
+                grads = HP.make_grad_sync(spec, grid, "psum")(
+                    grads, HP.zero1_dims(local, spec, "psum"))
                 sq = {k: float(torch.sum(torch.square(g.double())))
                       for k, g in flatten(grads).items()
                       if k.startswith("blocks/") or rank == 0}
@@ -1533,25 +1612,279 @@ def phase_pipeline(device="cuda:0"):
     plan under 1f1b and zb_v, (b) mamba2-780m from the 20 / 28 plan, (c)
     parity at 4 layers.  Returns the launches of (a) and (b)."""
     arch, stages, b, args = PP_QWEN
-    launches = {}
+    launches, per_step = {}, {}
     for schedule in ("1f1b", "zb_v"):
-        got = pipeline_and_check(arch, stages, b, args, schedule, "flash_attention")
-        for k, v in got.items():
+        res = plan_and_check(arch, stages, b, args, schedule, "flash_attention")
+        per_step[schedule] = res["launches"]["flash_attention"] // len(res["losses"])
+        for k, v in res["launches"].items():
             launches[k] = launches.get(k, 0) + v
     arch, stages, b, args = PP_MAMBA2
-    got = pipeline_and_check(arch, stages, b, args, "1f1b", "ssd_scan")
+    got = plan_and_check(arch, stages, b, args, "1f1b", "ssd_scan")["launches"]
     for k, v in got.items():
         launches[k] = launches.get(k, 0) + v
     phase_pipeline_parity(device)
+    return launches, per_step["1f1b"]
+
+
+def cut_depth(layers):
+    """The launcher's full-size configs cut to ``layers`` layers while the
+    context lasts (the spawned ranks get the config from the launcher)."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    if layers is None:
+        return contextlib.nullcontext()
+    return mock.patch.object(train, "get_config", lambda name: dataclasses.replace(
+        get_config(name), num_layers=layers))
+
+
+def grid_and_check(run, arch, layers, args, kernel, per_step, label, transport="host",
+                   full_layers=None):
+    """A launcher run on a (dp, pipe, tp) grid from ``args``; ``layers``
+    below the config's depth (``full_layers``) cuts it, which the output
+    says."""
+    cut = full_layers is not None and layers < full_layers
+    if cut:
+        log(f"  {label}: {arch} cut to {layers} of {full_layers} layers (full width)")
+    with cut_depth(layers if cut else None):
+        return pipeline_and_check(run, ["--arch", arch] + args, kernel, per_step, layers,
+                                  label, transport)
+
+
+def check_zero1_state(res, label):
+    """Each rank's optimizer-state bytes against the 12 bytes a parameter
+    its stage holds at dp 1."""
+    share, tol = ZERO_OPT_SHARE
+    rows = []
+    for r, (b, n) in enumerate(zip(res["opt_state_bytes_per_rank"],
+                                   res["param_count_per_rank"])):
+        got = b / (12 * n)
+        rows.append(f"rank {r}: {b / 2**20:.1f} MiB = {got:.4f} x the "
+                    f"{12 * n / 2**20:.1f} MiB of dp 1")
+        if abs(got - share) > tol:
+            raise AssertionError(f"{label}: rank {r} holds {got:.4f} of its stage's "
+                                 f"optimizer state, expected {share} +- {tol}")
+    log(f"  {label}: optimizer state (fp32 master, m, v) by rank: " + "; ".join(rows))
+
+
+def phase_grid(qwen_1f1b_per_step, device="cuda:0"):
+    """Phase 17: HeteroPP over tp and dp on one card, four ranks.
+    Returns the launches of (a)-(c)."""
+    launches = {}
+
+    def add(res):
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    arch, stages, b, args = PP_QWEN
+    log(f"  (a) {arch} {' / '.join(str(L) for _, L, _ in stages)}, tp {GRID_TP} a stage, "
+        "1f1b")
+    res = plan_and_check(arch, stages, b, args, "1f1b", "flash_attention", tp=GRID_TP)
+    got = res["launches"]["flash_attention"] // len(res["losses"])
+    if got != GRID_TP * qwen_1f1b_per_step:
+        raise AssertionError(f"(a) launched {got} flash_attention a step, not {GRID_TP} x "
+                             f"phase 16 (a)'s {qwen_1f1b_per_step}")
+    log(f"  (a): {got} flash_attention a step = {GRID_TP} x phase 16 (a)'s "
+        f"{qwen_1f1b_per_step} (each member on its {16 // GRID_TP} of 16 heads)")
+    add(res)
+
+    arch, layers, args = GRID_DENSE_DP
+    label = f"(b) dp {GRID_DP} x pipe 2, ZeRO-1"
+    res = grid_and_check("grid_dense_dp", arch, layers, args, "flash_attention",
+                         GRID_DP * 4 * layers * 2, label)
+    check_zero1_state(res, "(b)")
+    add(res)
+
+    arch, layers, args = GRID_SSM_DP
+    label = f"(c) dp {GRID_DP} x pipe 2, bucketed psum"
+    res = grid_and_check("grid_ssm_dp", arch, layers, args, "ssd_scan",
+                         GRID_DP * 4 * layers * 2, label, full_layers=48)
+    add(res)
+
+    phase_grid_parity(device)
     return launches
+
+
+def _grid_parity_rank(rank, world, device, cases, microbatches, phys, transport):
+    """Phase 17 (d) on one rank: for each (arch, layers, mb, seq) case and
+    dtype, under (pipe 2, tp 2) (dense only) and under (dp 2, pipe 2)
+    with psum and ZeRO-1: the loss and the squared norm of each leaf of
+    the synced gradient in fp64, counted on the rank that holds it first
+    (``heteropp.leaf_axes``); the largest difference between one
+    gradient synced by bucketed and by per-leaf psum (a second backward
+    would differ by the card's atomic adds), and ZeRO-1's master weights
+    after one step against psum's (largest difference over the leaf's
+    largest entry).  ``transport`` ``device`` runs rank r on card r."""
+    import torch
+    from repro_torch.comm.p2p import Grid
+    from repro_torch.core import heteropp as HP
+    from repro_torch.kernels import build
+    from repro_torch.training.train_step import train_state_from
+    from repro_torch.tree import flatten, tree_leaves, tree_map
+
+    dev = torch.device(f"cuda:{rank}" if transport == "device" else device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        build.load()
+    kinds = {k for case in cases for k in case[4]}
+    grids = {"tp": Grid.build(transport, dev, pipe=2, tp=GRID_TP) if "tp" in kinds else None,
+             "dp": Grid.build(transport, dev, dp=GRID_DP, pipe=2) if "dp" in kinds else None}
+    out = {}
+
+    def run(cfg, params, tokens, grid, sync):
+        spec = HP.PipelineSpec(grid.S, phys, microbatches // grid.D,
+                               tensor_parallel=grid.T, data_parallel=grid.D)
+        local = HP.local_stage_params(params, cfg, spec, grid.s, grid.k)
+        for t in flatten(local).values():
+            t.requires_grad_()
+        loss_fn = HP.make_pipeline_loss(cfg, spec, grid)
+        loss, grads = loss_fn(local, tokens)
+        dims = HP.zero1_dims(local, spec, sync)
+        got = {"loss": float(loss)}
+        if grid.D > 1 and sync == "psum":
+            twin = tree_map(torch.clone, grads)
+            bucketed = dataclasses.replace(spec, bucket_bytes=GRID_PARITY_BUCKET)
+            HP.make_grad_sync(bucketed, grid, "psum")(twin, dims)
+        grads = HP.make_grad_sync(spec, grid, sync)(grads, dims)
+        if grid.D > 1 and sync == "psum":
+            got["bucket diff"] = max(float((a - b).abs().max()) for a, b in
+                                     zip(tree_leaves(grads), tree_leaves(twin)))
+        coord = {"pipe": grid.s, "tp": grid.k, "dp": grid.d}
+        got["sq"] = {k: float(torch.sum(torch.square(g.double())))
+                     for (k, g), axes in zip(flatten(grads).items(),
+                                             HP.leaf_axes(local, spec, dims))
+                     if all(c == 0 for a, c in coord.items() if a not in axes)}
+        master = None
+        if grid.D > 1:
+            del grads
+            state = train_state_from(local, HP.stage_opt_state(local, spec, grid, sync), 0)
+            HP.make_pipeline_train_step(cfg, spec, grid, grad_sync=sync)(state, tokens)
+            master = (state.opt_state["master"], dims)
+        return got, master
+
+    for arch, layers, mb, seq, kinds in cases:
+        for dtype in PP_PARITY_DTYPES:
+            cfg, params, tokens = parity_inputs(arch, layers, dtype, mb, seq,
+                                                microbatches, dev)
+            key = f"{arch} {dtype}"
+            if "tp" in kinds:
+                out[f"{key} tp"] = run(cfg, params, tokens, grids["tp"], "psum")[0]
+            if "dp" not in kinds:
+                del params
+                continue
+            dp = grids["dp"]
+            out[f"{key} psum"], (m_psum, _) = run(cfg, params, tokens, dp, "psum")
+            out[f"{key} reduce_scatter"], (m_zero, dims) = run(cfg, params, tokens, dp,
+                                                               "reduce_scatter")
+            out[f"{key} zero diff"] = max(
+                float((z - (p if d is None else p.chunk(GRID_DP, d)[dp.d])).abs().max())
+                / max(float(p.abs().max()), 1e-30)
+                for z, p, d in zip(tree_leaves(m_zero), tree_leaves(m_psum),
+                                   tree_leaves(dims)))
+            del params, m_psum, m_zero
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def phase_grid_parity(device="cuda:0", microbatches=4, transport="host",
+                      cases=GRID_PARITY):
+    """Phase 17 (d): the (pipe 2, tp 2) and (dp 2, pipe 2) grids (four
+    ranks on the card under ``host``, one spawn for every case; one card
+    a rank under ``device``) against the single-device ``loss_fn`` and
+    its gradient, in fp32 and bf16."""
+    import torch
+    from repro_torch.launch import ranks
+    from repro_torch.models import model as M
+    from repro_torch.tree import flatten
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    res = ranks.spawn(_grid_parity_rank, 4, (device, cases, microbatches,
+                                             PP_PARITY_SPLIT, transport),
+                      workdir=os.path.join(ROOT, "build", "chip_smoke", "grid_parity"),
+                      transport=transport, timeout=600)
+    log(f"  (d) parity: the four ranks done in {time.perf_counter() - t0:.1f} s with "
+        "their start")
+    for arch, layers, mb, seq, kinds in cases:
+        log(f"  (d) {arch} width, {layers} layers split "
+            f"{' / '.join(map(str, PP_PARITY_SPLIT))}, {microbatches} microbatches "
+            f"of {mb} x {seq}"
+            + (f" ({microbatches // GRID_DP} a replica under dp)" if "dp" in kinds else ""))
+        for dtype in PP_PARITY_DTYPES:
+            cfg, params, tokens = parity_inputs(arch, layers, dtype, mb, seq,
+                                                microbatches, dev)
+            flat = flatten(params)
+            for t in flat.values():
+                t.requires_grad_()
+            loss, _ = M.loss_fn(params, cfg, {"tokens": tokens.reshape(-1, seq)})
+            norms = {k: float(g.double().norm())
+                     for k, g in zip(flat, torch.autograd.grad(loss, list(flat.values())))}
+            want = float(loss.detach())
+            del params, flat
+            torch.cuda.empty_cache()
+            key = f"{arch} {dtype}"
+            modes = (["tp"] if "tp" in kinds else []) + (
+                ["psum", "reduce_scatter"] if "dp" in kinds else [])
+            loss_rtol = TRAIN_LOSS_RTOL if dtype == "float32" else TRAIN_BF16_LOSS_RTOL
+            bad = []
+            for mode in modes:
+                runs = [r[f"{key} {mode}"] for r in res]
+                if len({r["loss"] for r in runs}) != 1:
+                    bad.append(f"{mode}: losses differ between ranks")
+                rel = abs(runs[0]["loss"] - want) / abs(want)
+                got = {k: math.sqrt(sum(r["sq"].get(k, 0.0) for r in runs)) for k in norms}
+                worst, leaf = max((abs(got[k] - norms[k]) / max(norms[k], 1e-12), k)
+                                  for k in norms)
+                log(f"  {dtype} {mode}: loss {runs[0]['loss']:.7f} against the single "
+                    f"device's {want:.7f}, rel diff {rel:.2e} (limit {loss_rtol}); worst "
+                    f"per-leaf gradient norm rel diff {worst:.2e} ({leaf})"
+                    + (f" (limit {TRAIN_GNORM_RTOL:.0e})" if dtype == "float32"
+                       else " (reported, not held in bf16)"))
+                if not math.isfinite(rel) or rel > loss_rtol or (
+                        dtype == "float32" and worst > TRAIN_GNORM_RTOL):
+                    bad.append(f"{mode}: the grid and the single device disagree")
+            if "dp" in kinds:
+                bucket = max(r[f"{key} psum"]["bucket diff"] for r in res)
+                zero = max(r[f"{key} zero diff"] for r in res)
+                log(f"  {dtype}: one gradient synced by bucketed psum "
+                    f"({GRID_PARITY_BUCKET} bytes) and by per-leaf psum, largest "
+                    f"difference {bucket:.3e} (must be 0); ZeRO-1 master weights after "
+                    f"one step against psum's, largest difference / largest entry "
+                    f"{zero:.2e} (limit {ZERO_MASTER_RTOL:.0e})")
+                if bucket != 0.0:
+                    bad.append("bucketed psum differs from per-leaf psum")
+                if not zero <= ZERO_MASTER_RTOL:
+                    bad.append("ZeRO-1 and psum updates differ")
+            if bad:
+                raise AssertionError(f"phase 17 (d) {arch} {dtype}: " + "; ".join(bad))
 
 def phase_transports():
     """``--transports``: phase 16 (a)'s qwen1.5-0.5b plan under 1f1b with
     one card a rank, through NCCL and through gloo with host staging."""
+    import torch
     arch, stages, b, args = PP_QWEN
     for transport in ("device", "host"):
         log(f"  --p2p {transport}:")
-        pipeline_and_check(arch, stages, b, args, "1f1b", "flash_attention", transport)
+        plan_and_check(arch, stages, b, args, "1f1b", "flash_attention", transport)
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"  granite-8b pipe 2 x tp 2 and qwen1.5-0.5b dp 2 x pipe 2 through --p2p "
+            f"device need four cards; this machine has {cards}: skipped")
+        return
+    log("  phase 17 (d)'s (pipe 2, tp 2) cases, one card a rank, --p2p device:")
+    phase_grid_parity(transport="device", cases=GRID_PARITY_NCCL)
+    arch, layers, args = TRANSPORT_TP
+    log(f"  {arch} at full size, pipe 2 x tp 2, one card a rank, --p2p device:")
+    grid_and_check("grid_transport_tp", arch, layers, args, "flash_attention",
+                   GRID_TP * 4 * layers * 2, "tp 2 x pipe 2", transport="device")
+    arch, layers, args = GRID_DENSE_DP
+    log(f"  phase 17 (b): {arch} dp 2 x pipe 2, ZeRO-1, one card a rank, --p2p device:")
+    res = grid_and_check("grid_transport_dp", arch, layers, args, "flash_attention",
+                         GRID_DP * 4 * layers * 2, "dp 2 x pipe 2", transport="device")
+    check_zero1_state(res, "dp 2 x pipe 2")
 
 
 def main() -> int:
@@ -1651,9 +1984,16 @@ def main() -> int:
 
     log("== 16. HeteroPP on one card: 2 ranks, --p2p host; qwen1.5-0.5b 10 / 14 "
         "(1f1b, zb_v), mamba2-780m 20 / 28, parity at 4 layers")
-    pipeline_launches = phase_pipeline()
+    pipeline_launches, qwen_1f1b_per_step = phase_pipeline()
     for name in ("flash_attention", "ssd_scan"):
         launches[name] += pipeline_launches[name]
+
+    log(f"== 17. HeteroPP tp and dp on one card: 4 ranks, --p2p host; qwen1.5-0.5b 10 / 14 "
+        f"x tp {GRID_TP}, qwen1.5-0.5b dp {GRID_DP} ZeRO-1, mamba2-780m 24 layers dp "
+        f"{GRID_DP} bucketed psum, parity at 4 layers")
+    grid_launches = phase_grid(qwen_1f1b_per_step)
+    for name in ("flash_attention", "ssd_scan"):
+        launches[name] += grid_launches[name]
 
     kernels = []
     for name in ("flash_attention", "flash_decode", "ssd_scan", "rmsnorm"):

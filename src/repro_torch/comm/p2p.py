@@ -1,7 +1,9 @@
-"""The one-hop exchange between pipeline stages: the port's counterpart of
-``jax.lax.ppermute`` in the JAX package's HeteroPP runtime (its DiComm
-device-direct hop), over a ``torch.distributed`` process group with one
-rank a stage.
+"""The collectives of the HeteroPP runtime: the one-hop exchange between
+pipeline stages (the port's counterpart of ``jax.lax.ppermute``, the JAX
+package's DiComm device-direct hop), and the all-reduce, reduce-scatter
+and all-gather of its tensor- and data-parallel groups, each over one
+``torch.distributed`` process group.  :class:`Grid` builds the groups of
+a (dp, pipe, tp) rank grid.
 
 Two transports, which the caller names; nothing picks one quietly:
 
@@ -17,10 +19,12 @@ Two transports, which the caller names; nothing picks one quietly:
 
 :class:`P2P` counts the bytes it sends, the wall time of its exchanges
 (waiting for the peer included) and, of that, the time of the staging
-copies, so a run can report them a tick.
+copies, so a run can report them a tick; and the wall time of each kind
+of collective, so a run can report it for each group.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -31,6 +35,8 @@ TRANSPORTS = ("device", "host")
 BACKENDS = {"device": "nccl", "host": "gloo"}
 
 Perm = Sequence[Tuple[int, int]]
+# gloo sums these through an fp32 buffer (exact for two summands)
+NARROW = (torch.bfloat16, torch.float16)
 
 
 def check_transport(transport: str, device: torch.device, world_size: int) -> None:
@@ -64,11 +70,23 @@ def rank_device(device: torch.device, local_rank: int, transport: str) -> torch.
 
 
 class P2P:
-    """Point-to-point exchanges of one rank over ``group`` (the default
-    group when None).  ``bytes_sent``, ``seconds`` (wall time, waiting for
-    the peer included) and ``copy_seconds`` (the host staging copies in
-    it) add up over every :meth:`ppermute`; ``reduce_seconds`` over every
-    :meth:`all_reduce_`."""
+    """Collectives of one rank over ``group`` (the default group when
+    None).  Peers are named by their rank in the group; the exchange
+    maps them to the global ranks ``torch.distributed`` addresses.
+    ``bytes_sent``, ``seconds`` (wall time, waiting for the peer
+    included) and ``copy_seconds`` (the host staging copies in it) add up
+    over every :meth:`ppermute`; ``reduce_seconds``, ``scatter_seconds``
+    and ``gather_seconds`` over every :meth:`all_reduce_`,
+    :meth:`reduce_scatter_` and :meth:`all_gather_`.  On the card each
+    collective synchronizes the device before and after, so its time is
+    its own.
+
+    On the ``host`` transport (gloo) a bf16 or fp16 tensor is summed
+    through an fp32 host buffer and rounded back, a reduce-scatter is an
+    all-reduce of the whole tensor of which the rank keeps its slice (the
+    same sums as :meth:`all_reduce_`), and an all-gather moves the
+    tensor's bytes; on ``device`` (NCCL) each collective runs in the
+    tensor's dtype on the card."""
 
     def __init__(self, transport: str, device: torch.device, group=None):
         if transport not in TRANSPORTS:
@@ -78,16 +96,16 @@ class P2P:
         self.group = group
         self.rank = dist.get_rank(group)
         self.world_size = dist.get_world_size(group)
+        # a point-to-point peer is named to torch by its GLOBAL rank
+        self.global_ranks = [r if group is None else dist.get_global_rank(group, r)
+                             for r in range(self.world_size)]
         self.staged = transport == "host" and self.device.type == "cuda"
-        self.bytes_sent = 0
-        self.seconds = 0.0
-        self.copy_seconds = 0.0
-        self.reduce_seconds = 0.0
         self._zeros: Dict[Tuple, torch.Tensor] = {}
+        self.reset_counts()
 
     def reset_counts(self) -> None:
         self.bytes_sent, self.seconds, self.copy_seconds = 0, 0.0, 0.0
-        self.reduce_seconds = 0.0
+        self.reduce_seconds = self.scatter_seconds = self.gather_seconds = 0.0
 
     def _wire_zeros(self, like: torch.Tensor) -> torch.Tensor:
         """A cached zero tensor shaped like ``like`` where it goes on the
@@ -123,10 +141,10 @@ class P2P:
         is None) and receives from ``src`` for the ``(src, rank)`` in
         ``perm``; what it receives comes back on this rank's device, in a
         new tensor, or zeros where no pair sends to this rank.  Every
-        tensor is shaped like ``like``.  All sends and receives of one
-        call go in one ``batch_isend_irecv``, so a send and a receive of
-        one tick cannot deadlock; the perms' order is the tag order, the
-        same on every rank."""
+        tensor is shaped like ``like``; ranks are group ranks.  All sends
+        and receives of one call go in one ``batch_isend_irecv``, so a
+        send and a receive of one tick cannot deadlock; the perms' order
+        is the tag order, the same on every rank."""
         if self.device.type == "cuda":
             # wait for this rank's queued work (the staging copy would wait
             # for it), so the exchange's time is the exchange's
@@ -140,11 +158,13 @@ class P2P:
                     recv_buf = ("local", x)
                 elif src == self.rank:
                     buf = self._wire(x, like)
-                    ops.append(dist.P2POp(dist.isend, buf, dst, self.group, tag))
+                    ops.append(dist.P2POp(dist.isend, buf, self.global_ranks[dst],
+                                          self.group, tag))
                     self.bytes_sent += buf.numel() * buf.element_size()
                 elif dst == self.rank:
                     buf = self._empty(like)
-                    ops.append(dist.P2POp(dist.irecv, buf, src, self.group, tag))
+                    ops.append(dist.P2POp(dist.irecv, buf, self.global_ranks[src],
+                                          self.group, tag))
                     recv_buf = ("wire", buf)
             recvs.append(recv_buf)
         t1 = time.perf_counter()
@@ -170,19 +190,153 @@ class P2P:
             self.copy_seconds += (t1 - t0) + (t3 - t2)
         return outs
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the group in place (fp32 or wider; staged
-        through host memory on the ``host`` transport)."""
+    def _start(self) -> float:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        if self.staged:
-            host = t.detach().cpu()
-            dist.all_reduce(host, group=self.group)
-            t.copy_(host)
+        return time.perf_counter()
+
+    def _since(self, t0: float) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    def _host_buffer(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as gloo sums it: on the CPU, fp32 for a narrow float (the
+        same storage where ``t`` is already such a tensor)."""
+        return t.detach().to("cpu", torch.float32 if t.dtype in NARROW else t.dtype)
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the group in place."""
+        t0 = self._start()
+        if self.transport == "host":
+            buf = self._host_buffer(t)
+            dist.all_reduce(buf, group=self.group)
+            if buf.data_ptr() != t.data_ptr():
+                t.copy_(buf)
         else:
             dist.all_reduce(t, group=self.group)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.reduce_seconds += time.perf_counter() - t0
+        self.reduce_seconds += self._since(t0)
         return t
+
+    def reduce_scatter_(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum of ``t`` over the group, cut into ``world_size`` equal
+        slices along ``dim``: this rank's slice, a new tensor (``t`` is
+        left as it was)."""
+        n = self.world_size
+        t0 = self._start()
+        if self.transport == "host":
+            buf = self._host_buffer(t)
+            if buf.data_ptr() == t.data_ptr():
+                buf = buf.clone()
+            dist.all_reduce(buf, group=self.group)
+            out = buf.chunk(n, dim)[self.rank].to(self.device, t.dtype).contiguous()
+        else:
+            x = t.detach().movedim(dim, 0).contiguous()
+            part = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
+                               device=x.device)
+            dist.reduce_scatter_tensor(part, x, group=self.group)
+            out = part.movedim(0, dim).contiguous()
+        self.scatter_seconds += self._since(t0)
+        return out
+
+    def all_gather_(self, out: torch.Tensor, part: torch.Tensor, dim: int) -> torch.Tensor:
+        """Fill ``out`` with every rank's ``part`` laid end to end along
+        ``dim`` in group-rank order (in place; returns ``out``)."""
+        t0 = self._start()
+        if self.transport == "host":
+            # a gather sums nothing: it moves the bytes as they are
+            buf = part.detach().to("cpu").contiguous()
+            parts = [torch.empty_like(buf.view(torch.uint8))
+                     for _ in range(self.world_size)]
+            dist.all_gather(parts, buf.view(torch.uint8), group=self.group)
+            out.copy_(torch.cat([p.view(buf.dtype) for p in parts], dim))
+        else:
+            x = part.detach().movedim(dim, 0).contiguous()
+            full = torch.empty((x.shape[0] * self.world_size, *x.shape[1:]),
+                               dtype=x.dtype, device=x.device)
+            dist.all_gather_into_tensor(full, x, group=self.group)
+            out.copy_(full.movedim(0, dim))
+        self.gather_seconds += self._since(t0)
+        return out
+
+
+@dataclasses.dataclass
+class Grid:
+    """One rank's place on a (dp, pipe, tp) grid of D·S·T ranks, in the
+    JAX package's mesh order ``rank = (d·S + s)·T + k``, and its groups,
+    each a :class:`P2P` with counters of its own:
+
+    * ``pipe``: same (d, k), all s: the stage hop (member k of stage s
+      talks to member k of stage s ± 1);
+    * ``tp``: same (d, s), all k: the Megatron all-reduces (None at T 1);
+    * ``dp``: same (s, k), all d: the gradient sync (None at D 1);
+    * ``rep``: same k, all (d, s): pipe ∪ dp, where the loss, the token
+      count and the replicated leaves' gradients are summed;
+    * ``world``: every rank: the clip norm.
+
+    Build it with :meth:`build`, on every rank of the job in the same
+    order (``new_group`` is collective)."""
+    D: int
+    S: int
+    T: int
+    d: int
+    s: int
+    k: int
+    pipe: P2P
+    tp: Optional[P2P]
+    dp: Optional[P2P]
+    rep: P2P
+    world: P2P
+
+    @staticmethod
+    def rank_of(d: int, s: int, k: int, S: int, T: int) -> int:
+        return (d * S + s) * T + k
+
+    @classmethod
+    def build(cls, transport: str, device: torch.device, *, dp: int = 1,
+              pipe: int = 1, tp: int = 1) -> "Grid":
+        world = dist.get_world_size()
+        if world != dp * pipe * tp:
+            raise ValueError(f"a (dp {dp}, pipe {pipe}, tp {tp}) grid needs "
+                             f"{dp * pipe * tp} ranks; the job has {world}")
+        me = dist.get_rank()
+        d, rest = divmod(me, pipe * tp)
+        s, k = divmod(rest, tp)
+        at = lambda d, s, k: cls.rank_of(d, s, k, pipe, tp)
+
+        def family(groups):
+            # every rank creates every group of the family, in one order
+            mine = None
+            for ranks in groups:
+                g = None if len(ranks) == world else dist.new_group(ranks)
+                if me in ranks:
+                    mine = P2P(transport, device, g)
+            return mine
+
+        return cls(
+            dp, pipe, tp, d, s, k,
+            pipe=family([[at(a, i, c) for i in range(pipe)]
+                         for a in range(dp) for c in range(tp)]),
+            tp=family([[at(a, i, c) for c in range(tp)]
+                       for a in range(dp) for i in range(pipe)]) if tp > 1 else None,
+            dp=family([[at(a, i, c) for a in range(dp)]
+                       for i in range(pipe) for c in range(tp)]) if dp > 1 else None,
+            rep=family([[at(a, i, c) for a in range(dp) for i in range(pipe)]
+                        for c in range(tp)]),
+            world=P2P(transport, device))
+
+    def counts(self) -> Dict[str, float]:
+        """The counters a step reads, by group: the hops' bytes, wall and
+        staging copies (pipe); the all-reduces of the loss, the token count
+        and the replicated leaves' gradients (rep); the tp all-reduces;
+        the dp sync (all-reduce, reduce-scatter, all-gather); the clip
+        norm's all-reduce (world)."""
+        z = lambda p, f: getattr(p, f) if p is not None else 0.0
+        return {"p2p_bytes": self.pipe.bytes_sent, "p2p_s": self.pipe.seconds,
+                "p2p_copy_s": self.pipe.copy_seconds,
+                "reduce_s": self.rep.reduce_seconds,
+                "tp_s": z(self.tp, "reduce_seconds"),
+                "dp_s": z(self.dp, "reduce_seconds"),
+                "dp_scatter_s": z(self.dp, "scatter_seconds"),
+                "dp_gather_s": z(self.dp, "gather_seconds"),
+                "norm_s": self.world.reduce_seconds}

@@ -20,17 +20,19 @@ Two halves, mirroring the schedule subsystem's analytic/runtime split:
   optimizer state) or ``reduce_scatter`` (dp-sharded optimizer state,
   the memory-capped small-chip mode).
 
-The port has both analytic halves; the runtime collectives come with
-the HeteroPP runtime on ``torch.distributed``.
+The port has both analytic halves and the norm of the runtime half;
+the runtime collectives themselves are ``comm/p2p.py``'s, called by
+``core/heteropp.py``.
 """
 from .batch_domain import (BatchDomain, check_memory_caps, domain_cost,
                            pad_index_map, partition)
-from .grad_sync import (GRAD_SYNC_MODES, GradBuckets, bucketize, sync_time,
+from .grad_sync import (GRAD_SYNC_MODES, GradBuckets, bucketize,
+                        replica_grad_norm, spec_axes, sync_time,
                         tree_leaf_bytes, zero1_scatter_dim)
 
 __all__ = [
     "BatchDomain", "check_memory_caps", "domain_cost", "pad_index_map",
     "partition",
-    "GRAD_SYNC_MODES", "GradBuckets", "bucketize", "sync_time",
-    "tree_leaf_bytes", "zero1_scatter_dim",
+    "GRAD_SYNC_MODES", "GradBuckets", "bucketize", "replica_grad_norm",
+    "spec_axes", "sync_time", "tree_leaf_bytes", "zero1_scatter_dim",
 ]

@@ -20,13 +20,13 @@ Analytic half — per-bucket byte accounting against the
   sharding (×1/dp memory — the small-chip enabler the cost model's
   ``opt_bytes / dp`` term assumes) and bucket-granular overlap.
 
-Runtime half — the collectives the 3-D (dp, pipe, tp) pipeline train
-step executes (``replica_grad_norm``, ``spec_axes`` and the psum /
-reduce-scatter sync inside ``heteropp``) — is not ported yet: it comes
-with the HeteroPP runtime on ``torch.distributed``.  What is here is the
-byte accounting the cost model prices, :func:`zero1_scatter_dim` (pure
-shape arithmetic), and :func:`tree_leaf_bytes` over the port's
-nested-dict trees.
+Runtime half — what the 3-D (dp, pipe, tp) pipeline train step
+(``core/heteropp.py``) needs besides its collectives:
+:func:`zero1_scatter_dim` (pure shape arithmetic), and :func:`spec_axes`
+/ :func:`replica_grad_norm`, the global gradient norm over a rank grid,
+with a leaf's sharding written as a tuple of axis names a dim (None,
+a name, or a tuple of names: a ``PartitionSpec``'s entries).
+:func:`tree_leaf_bytes` walks the port's nested-dict trees.
 
 Non-uniform batch domains (DESIGN.md §13) need NO sync-side weighting:
 the loss is the global batch mean (CE sums and token counts psum over
@@ -34,14 +34,16 @@ dp before the division), so each replica's raw gradient is already the
 allocation-weighted PARTIAL of the global gradient and both modes stay
 the plain sums above — the same collectives, the same prices.
 
-A copy of the analytic half of the JAX package's
-``core/dataparallel/grad_sync.py``, held equal to it by
-``tests/test_torch_planning.py``.
+A copy of the JAX package's ``core/dataparallel/grad_sync.py``, held
+equal to it by ``tests/test_torch_planning.py`` (the runtime half with
+torch collectives in place of ``jax.lax.psum``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 from ...tree import flatten
 
@@ -158,3 +160,48 @@ def zero1_scatter_dim(local_shape: Tuple[int, ...], dp: int,
         if s >= dp and s % dp == 0:
             return i
     return None
+
+
+def spec_axes(spec) -> set:
+    """Mesh axes a PartitionSpec names (flattening tuple entries)."""
+    named = set()
+    for s in spec:
+        if s is None:
+            continue
+        named |= set(s) if isinstance(s, (tuple, list)) else {s}
+    return named
+
+
+def replica_grad_norm(grads: Sequence[torch.Tensor], specs: Sequence[Any],
+                      axis_sizes: Dict[str, int],
+                      all_reduce: Callable[[torch.Tensor], torch.Tensor]
+                      ) -> torch.Tensor:
+    """Global gradient norm over a rank grid, from this rank's leaves.
+
+    ``specs`` gives each leaf of ``grads`` its sharding over the grid's
+    axes (``axis_sizes``: name → size); ``all_reduce`` sums a tensor over
+    every rank of the grid in place.  A leaf replicated over an axis
+    contributes identical squares on each of its members, so its local
+    square-sum is divided by the replication factor before the sum — the
+    sum then counts every distinct shard exactly once and every
+    replicated leaf exactly once.
+    """
+    grads, specs = list(grads), list(specs)
+    # a mismatched specs list would silently zip-truncate and DROP
+    # gradient leaves from the global norm — refuse instead
+    if len(grads) != len(specs):
+        raise ValueError(
+            f"replica_grad_norm: grads have {len(grads)} leaves "
+            f"but specs have {len(specs)} — the spec tree must "
+            f"mirror the gradient tree leaf-for-leaf, otherwise leaves "
+            f"fall out of the global grad norm")
+    sq = torch.zeros((), dtype=torch.float32,
+                     device=grads[0].device if grads else None)
+    for g, spec in zip(grads, specs):
+        named = spec_axes(spec)
+        r = 1
+        for a, n in axis_sizes.items():
+            if a not in named:
+                r *= n
+        sq = sq + torch.sum(torch.square(g.float())) / r
+    return torch.sqrt(all_reduce(sq))

@@ -25,8 +25,8 @@ no evaluation.
 A copy of the JAX package's ``core/heteroauto.py``,
 held equal to it by ``tests/test_torch_planning.py``.
 One difference: ``runtime_path`` also reports the layouts the
-port's ``heteropp`` refuses with ``NotImplementedError`` (tp, dp,
-batch domains and grouped tp: ROADMAP A8(d)-(g)) as ``refused``.
+port's ``heteropp`` refuses with ``NotImplementedError`` (uneven batch
+domains and grouped tp: ROADMAP A8(f), A8(g)) as ``refused``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """HeteroPP on ``torch.distributed``: heterogeneous pipeline parallelism
-over the pipe axis (the counterpart of ``repro/core/heteropp.py``).
+over a (dp, pipe, tp) rank grid (the counterpart of
+``repro/core/heteropp.py``).
 
 Two execution paths, as in the JAX package:
 
@@ -8,15 +9,17 @@ Two execution paths, as in the JAX package:
   numerics oracle, equal to the monolithic ``models.model.forward``.
 * :func:`make_pipeline_loss` / :func:`make_pipeline_train_step` run the
   schedule's static tick program (``core/tickprogram.py``) with one
-  process (rank) a physical stage.  Each rank holds its stage's layers
-  (``local_stage_params``: ``(Lmax, ...)`` leaves, or ``(v, Lcmax,
-  ...)`` for chunked schedules) and a copy of ``embed`` and
-  ``final_norm``.  On every tick every rank takes its input from the
-  route the tables name (a fresh embedding, the previous or the next
-  stage, or its own last output), runs its chunk, adds the CE of a
-  microbatch that leaves the last global stage, and shifts its output
-  one hop each way with :class:`~repro_torch.comm.p2p.P2P` (zeros on a
-  tick it is idle, so every rank issues every exchange of every tick).
+  process (rank) a physical stage, tp member and dp replica
+  (:class:`~repro_torch.comm.p2p.Grid`, ``rank = (d·S + s)·T + k``).
+  Each rank holds its stage's layers (``local_stage_params``: ``(Lmax,
+  ...)`` leaves, or ``(v, Lcmax, ...)`` for chunked schedules), sliced to
+  its Megatron tp shard, and a copy of ``embed`` and ``final_norm``.  On
+  every tick every rank takes its input from the route the tables name
+  (a fresh embedding, the previous or the next stage, or its own last
+  output), runs its chunk, adds the CE of a microbatch that leaves the
+  last global stage, and shifts its output one hop each way along its
+  pipe group with :class:`~repro_torch.comm.p2p.P2P` (zeros on a tick it
+  is idle, so every rank issues every exchange of every tick).
 
 The backward is explicit, in reverse tick order, not autograd across
 ranks: each tick's input is a detached leaf, the tick's gradient comes
@@ -26,16 +29,25 @@ goes back along the route it came by.  It computes what ``jax.grad``
 through the JAX package's scan and ``ppermute`` computes (GPipe memory:
 every tick's graph lives until the backward; ``recompute[s]`` keeps only
 each layer's input, as ``torch.utils.checkpoint``).  The replicated
-leaves' gradients are summed over the pipe, which is what ``shard_map``'s
-transpose of a replicated input does.
+leaves' gradients are summed over pipe and dp in one all-reduce, which
+is what ``shard_map``'s transpose of a replicated input does.
 
-Only the pipe axis is ported: a spec that asks for tensor parallelism,
-data parallelism, a batch domain or grouped tp raises
-``NotImplementedError`` (ROADMAP A8(d)-(g)).  Only the dense and ssm
-block kinds run (the JAX package's ``block_kind`` maps hybrid to dense,
-so its pipeline has no hybrid path; moe waits for ROADMAP A11).  A
-padded layer slot is skipped, not computed and masked: with tp 1 no
-collective sits inside a layer, and the result is the same.
+Tensor parallelism (dense blocks) is Megatron's conjugate pair inside
+each layer (:class:`_TPCopy` on the normed input of each sub-block,
+:class:`_TPReduce` on its row-parallel output), so activations, norm
+scales, ``embed`` and ``final_norm`` get their whole gradient on every
+tp member and need no sum over tp.  Data parallelism takes each
+replica's own microbatches, makes the loss the global batch mean, and
+closes the gradients with a per-leaf or bucketed all-reduce over dp, or
+ZeRO-1 (reduce-scatter, AdamW on dp-sharded state, all-gather).
+
+Uneven batch domains (ROADMAP A8(f)) and grouped non-uniform tp (A8(g))
+raise ``NotImplementedError``.  Only the dense and ssm block kinds run
+(the JAX package's ``block_kind`` maps hybrid to dense, so its pipeline
+has no hybrid path; moe waits for ROADMAP A11), and tp only the dense
+one.  A padded layer slot is skipped, not computed and masked: a
+stage's tp group shares its mask, so every member skips the same slots
+and issues the same collectives.
 """
 from __future__ import annotations
 
@@ -46,17 +58,18 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..models import layers, model as M, transformer as tfm
+from ..comm.p2p import Grid
+from ..models import attention, layers, model as M, transformer as tfm
 from ..models.config import ModelConfig
 from ..optim import adamw
-from ..tree import tree_leaves, tree_map
+from ..tree import flatten, tree_leaves, tree_map
+from .dataparallel.grad_sync import (GRAD_SYNC_MODES, bucketize, replica_grad_norm,
+                                     zero1_scatter_dim)
+from .tp_rules import TP_COLUMN_PARAMS, TP_ROW_PARAMS, tp_body_dim, tp_local_slice
 from .tickprogram import (SRC_INJECT, SRC_LOCAL, SRC_NEXT, SRC_PREV, TickTables,
                           chunk_layer_counts, spmd_tick_tables)
 
 PyTree = Any
-UNPORTED = ("tensor parallelism, data parallelism, batch domains and grouped "
-            "tp are not ported yet (ROADMAP A8(d)-(g)); the port runs the "
-            "pipe axis only")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,10 +80,10 @@ class PipelineSpec:
     ``layers_per_stage`` is indexed by GLOBAL chunk-stage g in ascending
     model-layer order (length S·n_chunks); the schedule's chunk placement
     decides which physical stage hosts which global chunk-stage.
-    ``recompute`` stays per physical stage.  The tp, dp, batch-domain
-    and grouped-tp fields keep the JAX package's validation, and a spec
-    that asks for any of them raises ``NotImplementedError``
-    (``bucket_bytes`` only shapes a dp sync, so it is inert here)."""
+    ``recompute`` stays per physical stage.  ``microbatches`` is per dp
+    replica.  The batch-domain and grouped-tp fields keep the JAX
+    package's validation, and a spec that asks for either raises
+    ``NotImplementedError`` (ROADMAP A8(f), A8(g))."""
     num_stages: int
     layers_per_stage: Tuple[int, ...]     # per global chunk-stage
     microbatches: int
@@ -161,14 +174,17 @@ class PipelineSpec:
             raise ValueError("reshard strategies need stage_tp (the "
                              "grouped runtime); uniform specs have no "
                              "per-boundary collective to choose")
-        asks = [f"{name}={value}" for name, value, default in (
-            ("tensor_parallel", self.tensor_parallel, 1),
-            ("data_parallel", self.data_parallel, 1),
-            ("batch_domain", self.batch_domain, ()),
-            ("stage_tp", self.stage_tp, ())) if value != default]
-        if asks:
-            raise NotImplementedError(f"PipelineSpec({', '.join(asks)}): "
-                                      + UNPORTED)
+        if self.batch_domain:
+            raise NotImplementedError(
+                f"PipelineSpec(batch_domain={self.batch_domain}): uneven "
+                f"batch domains are not ported yet (ROADMAP A8(f)); the "
+                f"port's dp replicas take equal microbatch counts")
+        if self.stage_tp:
+            raise NotImplementedError(
+                f"PipelineSpec(stage_tp={self.stage_tp}, reshard="
+                f"{self.reshard}): grouped non-uniform tp and its reshard "
+                f"are not ported yet (ROADMAP A8(g)); the port runs a "
+                f"uniform tensor_parallel")
 
     @property
     def total_layers(self) -> int:
@@ -195,9 +211,10 @@ def from_plan(plan, microbatches: Optional[int] = None, *,
 
     With the defaults tp and dp stay cost-model dimensions and the layer
     split alone executes.  ``execute_tp`` / ``execute_dp`` build the
-    JAX package's tp, dp and batch-domain fields, which the port's spec
-    refuses unless the plan is pipe-only (tp 1, dp 1).  ``verify=True``
-    gates on the copied static verifier (``analysis.verify_plan``)."""
+    JAX package's tp, dp and batch-domain fields: uniform tp and dp run,
+    non-uniform per-stage tp and uneven batch domains are refused by the
+    spec (ROADMAP A8(g), A8(f)).  ``verify=True`` gates on the copied
+    static verifier (``analysis.verify_plan``)."""
     from .schedules import get_schedule
     sched = get_schedule(plan.schedule)
     v = sched.n_chunks
@@ -316,13 +333,16 @@ def stage_slots(spec: PipelineSpec, stage: int) -> Tuple[int, ...]:
 
 
 def local_stage_params(params: PyTree, cfg: ModelConfig, spec: PipelineSpec,
-                       stage: int) -> PyTree:
+                       stage: int, tp_rank: int = 0) -> PyTree:
     """Physical ``stage``'s share of the monolithic ``params``: block
     leaves ``(Lmax, ...)`` (single-chunk) or ``(v, Lcmax, ...)``
     (chunked: slot k holds global chunk-stage ``stage_slots[k]``), zero
-    past each slot's layer count; ``embed`` and ``final_norm`` copied.
+    past each slot's layer count, and with ``spec.tensor_parallel`` > 1
+    sliced to tp member ``tp_rank``'s Megatron shard
+    (``tp_rules.tp_local_slice``); ``embed`` and ``final_norm`` copied.
     New tensors: the result shares no storage with ``params``."""
     pipeline_block_kind(cfg)
+    validate_spec_tp(cfg, spec)
     L = cfg.num_layers
     assert spec.total_layers == L, (spec.layers_per_stage, L)
     Lmax = spec.max_layers
@@ -340,7 +360,13 @@ def local_stage_params(params: PyTree, cfg: ModelConfig, spec: PipelineSpec,
             return pad_part(leaf, slots[0])
         return torch.stack([pad_part(leaf, g) for g in slots])
 
-    return {"blocks": tree_map(split, params["blocks"]),
+    blocks = tree_map(split, params["blocks"])
+    if spec.tensor_parallel > 1:
+        stacked = 1 if spec.n_chunks == 1 else 2
+        blocks = _unflatten(blocks, [
+            tp_local_slice(path, leaf, tp_rank, spec.tensor_parallel, stacked=stacked)
+            for path, leaf in flatten(blocks).items()])
+    return {"blocks": blocks,
             "embed": tree_map(lambda t: t.detach().clone(), params["embed"]),
             "final_norm": tree_map(lambda t: t.detach().clone(),
                                    params["final_norm"])}
@@ -361,9 +387,11 @@ def split_stage_params(params: PyTree, cfg: ModelConfig, spec: PipelineSpec
     """The JAX package's stage layout: block leaves ``(S, Lmax, ...)`` and
     mask ``(S, Lmax)`` for single-chunk specs, ``(S, v, Lcmax, ...)`` /
     ``(S, v, Lcmax)`` for chunked ones, zero-padded; ``embed`` and
-    ``final_norm`` replicated (once)."""
+    ``final_norm`` replicated (once); every leaf at full width, whatever
+    ``spec.tensor_parallel`` (the tp shards are ``local_stage_params``')."""
     S = spec.num_stages
-    per = [local_stage_params(params, cfg, spec, s) for s in range(S)]
+    full = dataclasses.replace(spec, tensor_parallel=1)
+    per = [local_stage_params(params, cfg, full, s) for s in range(S)]
     blocks = tree_map(lambda *leaves: torch.stack(leaves),
                       *[p["blocks"] for p in per])
     mask = torch.stack([stage_mask(spec, s) for s in range(S)])
@@ -375,18 +403,115 @@ def split_stage_params(params: PyTree, cfg: ModelConfig, spec: PipelineSpec
 # stage compute
 # ---------------------------------------------------------------------------
 
+def validate_tensor_parallel(cfg: ModelConfig, tp: int) -> None:
+    """Check that the runtime can realize tp-degree ``tp`` for ``cfg``.
+
+    The manual tp path shards attention heads and MLP ff Megatron-style
+    (DESIGN.md §8), so it is limited to dense decoder blocks whose head /
+    kv-head / ff counts divide tp; MoE / SSM / hybrid blocks keep tp as a
+    cost-model dimension until their expert/state sharding is realized."""
+    if tp == 1:
+        return
+    kind = cfg.block_kind
+    if kind != "dense" or cfg.hybrid_attn_every or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"tensor_parallel={tp}: the 2-D (pipe, tp) runtime shards "
+            f"dense decoder blocks only; {cfg.name} has block kind "
+            f"{kind!r} (family {cfg.family!r}) — tp stays a cost-model "
+            f"dimension for it (DESIGN.md §8)")
+    for what, n in (("num_heads", cfg.num_heads),
+                    ("num_kv_heads", cfg.num_kv_heads),
+                    ("d_ff", cfg.d_ff)):
+        if n % tp:
+            raise ValueError(
+                f"tensor_parallel={tp} does not divide {cfg.name}.{what}"
+                f"={n}; pick a tp that divides heads, kv heads and d_ff")
+
+
+def validate_spec_tp(cfg: ModelConfig, spec: PipelineSpec) -> None:
+    """Validate the tp degree a spec realizes (the port's specs are
+    uniform: grouped ``stage_tp`` is refused, ROADMAP A8(g))."""
+    validate_tensor_parallel(cfg, spec.tensor_parallel)
+
+
+def _tp_local_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """The per-member view of the model: each tp member owns 1/tp of the
+    heads, kv heads and ff width; everything else (d_model, head_dim,
+    rope, norms) is unchanged."""
+    if tp == 1:
+        return cfg
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                               num_kv_heads=cfg.num_kv_heads // tp,
+                               d_ff=cfg.d_ff // tp)
+
+
+class _TPCopy(torch.autograd.Function):
+    """Megatron's ``f``: identity forward; backward, the all-reduce of
+    the gradient over the tp group (each member's heads or ff slice give
+    a part of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce_(g.contiguous().clone()), None
+
+
+class _TPReduce(torch.autograd.Function):
+    """Megatron's ``g``: forward, the all-reduce over the tp group of a
+    row-parallel output (each member's part of the sum); identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _tp_block_forward(p, cfg: ModelConfig, lcfg: ModelConfig, x, tp, *,
+                      backend: str = "auto"):
+    """One dense block with manual Megatron tensor parallelism: ``p``
+    holds this member's shards (column-parallel wq/wk/wv/bq/bk/bv/wi/wg,
+    row-parallel wo), so attention runs on its ``lcfg`` heads and the MLP
+    on its ff slice; each sub-block's row-parallel output is summed over
+    the tp group (``tp``, a :class:`~repro_torch.comm.p2p.P2P`) before
+    the residual add, so activations stay replicated across tp.  A
+    replicated attention leaf (the per-head qk-norm scales) sees only
+    this member's heads, so it passes :class:`_TPCopy` too."""
+    h = _TPCopy.apply(layers.apply_norm(p["ln1"], x, cfg.norm), tp)
+    attn = {k: v if k in TP_COLUMN_PARAMS | TP_ROW_PARAMS
+            else tree_map(lambda t: _TPCopy.apply(t, tp), v)
+            for k, v in p["attn"].items()}
+    a = attention.self_attention(attn, lcfg, h, backend=backend)
+    x = x + _TPReduce.apply(a, tp)
+    h = _TPCopy.apply(layers.apply_norm(p["ln2"], x, cfg.norm), tp)
+    return x + _TPReduce.apply(layers.apply_mlp(p["mlp"], h, cfg.mlp), tp)
+
+
 def _stage_forward(blocks, mask_row, cfg, x, kind: str, remat: bool, *,
-                   backend: str = "auto"):
+                   backend: str = "auto", tp=None, lcfg=None):
     """Run the valid layers of a stage's stacked ``blocks`` (``mask_row``
-    True); a padded slot is skipped.  ``remat`` checkpoints each layer."""
+    True); a padded slot is skipped.  ``remat`` checkpoints each layer
+    (its recompute issues the layer's tp all-reduces again).  With ``tp``
+    (the tp group) each layer is the Megatron block on ``lcfg``'s heads."""
     valid = [bool(v) for v in mask_row]
     if not any(valid):
         return x
     for p, ok in zip(tfm.unstack(blocks), valid):
         if not ok:
             continue
-        fn = lambda x, p=p: tfm.block_forward(p, cfg, x, kind,
-                                              backend=backend)[0]
+        if tp is None:
+            fn = lambda x, p=p: tfm.block_forward(p, cfg, x, kind,
+                                                  backend=backend)[0]
+        else:
+            fn = lambda x, p=p: _tp_block_forward(p, cfg, lcfg, x, tp,
+                                                  backend=backend)
         x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
     return x
 
@@ -454,23 +579,34 @@ class _Routes:
         return tuple((dst, src) for src, dst in perm)
 
 
-def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, p2p, *,
+def _check_grid(spec: PipelineSpec, grid: Grid) -> None:
+    want = (spec.data_parallel, spec.num_stages, spec.tensor_parallel)
+    if (grid.D, grid.S, grid.T) != want:
+        raise ValueError(f"the rank grid is (dp {grid.D}, pipe {grid.S}, tp "
+                         f"{grid.T}) but the PipelineSpec asks for (dp {want[0]}, "
+                         f"pipe {want[1]}, tp {want[2]})")
+
+
+def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
                        backend: str = "auto"):
     """This rank's part of the pipeline loss.  Returns ``loss_fn(params,
     tokens) -> (loss, grads)``: ``params`` is the rank's
     ``local_stage_params`` tree (floating leaves ``requires_grad``),
-    ``tokens`` (b, mb_size, S) int.  ``loss`` is the global mean CE (a
-    detached 0-d fp32 tensor, the same on every rank); ``grads`` is an
-    fp32 tree shaped like ``params``, the replicated leaves summed over
-    the pipe.  ``loss_fn.stats`` holds the last call's tick count and
-    exchanges."""
+    ``tokens`` (D·b, mb_size, S) int, of which dp replica d takes
+    microbatches ``d·b`` to ``d·b + b - 1``.  ``loss`` is the global mean
+    CE over every replica (a detached 0-d fp32 tensor, the same on every
+    rank); ``grads`` is an fp32 tree shaped like ``params``, this rank's
+    part of the global gradient: :func:`make_grad_sync` sums it over the
+    grid (at dp 1 the block leaves are whole already, and the replicated
+    leaves need their sum over pipe).  ``loss_fn.stats`` holds the last
+    call's tick count and collectives (``Grid.counts``)."""
     kind = pipeline_block_kind(cfg)
-    S = spec.num_stages
-    if p2p.world_size != S:
-        raise ValueError(f"the pipe group has {p2p.world_size} ranks but the "
-                         f"PipelineSpec has {S} physical stages")
-    s = p2p.rank
-    tables = spmd_tick_tables(_spec_schedule(spec), S, spec.microbatches)
+    validate_spec_tp(cfg, spec)
+    _check_grid(spec, grid)
+    p2p, tp, rep = grid.pipe, grid.tp, grid.rep
+    S, s, b = spec.num_stages, grid.s, spec.microbatches
+    lcfg = _tp_local_cfg(cfg, spec.tensor_parallel)
+    tables = spmd_tick_tables(_spec_schedule(spec), S, b)
     routes = _Routes.of(tables, S)
     mask = stage_mask(spec, s)
     mask = mask[None] if spec.n_chunks == 1 else mask
@@ -481,10 +617,12 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, p2p, *,
              bool(tables.emit[t, s])) for t in range(tables.ticks)]
 
     def loss_fn(params, tokens):
-        b, mb_size, seq = tokens.shape
-        if b != spec.microbatches:
-            raise ValueError(f"tokens carry {b} microbatches but the "
-                             f"PipelineSpec has {spec.microbatches}")
+        n, mb_size, seq = tokens.shape
+        if n != spec.data_parallel * b:
+            raise ValueError(f"tokens carry {n} microbatches but data_parallel="
+                             f"{spec.data_parallel} × microbatches={b} needs "
+                             f"{spec.data_parallel * b}")
+        tokens = tokens[grid.d * b:(grid.d + 1) * b]
         dev = tokens.device
         like = torch.empty((mb_size, seq, cfg.d_model), dtype=dtype, device=dev)
         blocks = params["blocks"] if spec.n_chunks > 1 \
@@ -493,12 +631,12 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, p2p, *,
                             dim=2)
         lmask = torch.ones((mb_size, seq), dtype=torch.float32, device=dev)
         lmask[:, -1] = 0.0
-        p2p0 = (p2p.bytes_sent, p2p.seconds, p2p.copy_seconds, p2p.reduce_seconds)
+        c0 = grid.counts()
         # denom is a token count: the emitting ticks' masks, summed over
-        # the pipe once
+        # pipe and dp once (every tp member holds the same count)
         denom = torch.tensor(float(sum(e for a, _, _, _, e in rows if a))
                              * float(lmask.sum()), dtype=torch.float32, device=dev)
-        p2p.all_reduce_(denom)
+        rep.all_reduce_(denom)
         inv_denom = 1.0 / max(float(denom), 1.0)
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
 
@@ -515,7 +653,7 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, p2p, *,
                     x = {SRC_PREV: x_prev, SRC_NEXT: x_next, SRC_LOCAL: y_loc}[src]
                     leaf = x = x.detach().requires_grad_()
                 y = _stage_forward(_chunk(blocks, ck), mask[ck], cfg, x, kind, remat,
-                                   backend=backend)
+                                   backend=backend, tp=tp, lcfg=lcfg)
                 ce = None
                 if emit:
                     h = layers.apply_norm(params["final_norm"], y, cfg.norm)
@@ -527,7 +665,7 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, p2p, *,
             if t < tables.ticks - 1:
                 x_prev, x_next = _exchange(p2p, routes.perm_f, routes.perm_b, y, like)
                 y_loc = y.detach() if routes.local and y is not None else None
-        loss = p2p.all_reduce_(loss_acc) * inv_denom
+        loss = rep.all_reduce_(loss_acc) * inv_denom
 
         # ---- backward: reverse tick order, gradients along the routes ----
         leaves = tree_leaves(params)
@@ -567,10 +705,7 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, p2p, *,
                                        gx if src == SRC_NEXT else None))
                 dy_loc = gx if src == SRC_LOCAL else None
         grads = _unflatten(params, acc)
-        for name in ("embed", "final_norm"):
-            for g in tree_leaves(grads[name]):
-                p2p.all_reduce_(g)
-        loss_fn.stats = _stats(tables, p2p, p2p0)
+        loss_fn.stats = _stats(tables, grid, c0)
         return loss, grads
 
     loss_fn.tables = tables
@@ -603,49 +738,206 @@ def _unflatten(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
-def _stats(tables, p2p, start):
-    """A call's tick count and exchanges: bytes sent, wall seconds (waits
-    for the peer included) and the staging copies' seconds in them; and
-    the wall seconds of its all-reduces (the token count, the loss, the
-    replicated leaves' gradients)."""
-    return {"ticks": int(tables.ticks),
-            "p2p_bytes": int(p2p.bytes_sent - start[0]),
-            "p2p_s": float(p2p.seconds - start[1]),
-            "p2p_copy_s": float(p2p.copy_seconds - start[2]),
-            "reduce_s": float(p2p.reduce_seconds - start[3])}
+def _stats(tables, grid: Grid, start: Dict[str, float]) -> Dict[str, Any]:
+    """A call's tick count and, since ``start`` (``grid.counts()``), its
+    collectives: the hops' bytes sent, wall seconds (waits for the peer
+    included) and the staging copies' seconds in them; the wall seconds
+    of the loss, token-count and replicated-gradient all-reduces
+    (``reduce_s``), the tp all-reduces, the dp sync (all-reduce,
+    reduce-scatter, all-gather) and the clip norm's all-reduce."""
+    now = grid.counts()
+    out: Dict[str, Any] = {"ticks": int(tables.ticks)}
+    for key, v in now.items():
+        out[key] = type(v)(v - start[key])
+    return out
 
 
-def pipeline_grad_norm(grads: PyTree, p2p) -> torch.Tensor:
-    """The global gradient norm of the whole model: the block leaves'
-    squares summed over the pipe, the replicated leaves (already summed
-    over the pipe, the same on every rank) counted once."""
-    blocks = sum(torch.sum(torch.square(g.float()))
-                 for g in tree_leaves(grads["blocks"]))
-    blocks = p2p.all_reduce_(torch.as_tensor(blocks, dtype=torch.float32).clone())
-    rep = sum(torch.sum(torch.square(g.float()))
-              for name in ("embed", "final_norm") for g in tree_leaves(grads[name]))
-    return torch.sqrt(blocks + rep)
+# ---------------------------------------------------------------------------
+# the train step: dp gradient sync, the clip norm over the grid, AdamW
+# ---------------------------------------------------------------------------
+
+def zero1_dims(params: PyTree, spec: PipelineSpec, grad_sync: str) -> PyTree:
+    """The dim of each leaf of a rank's stage tree on which ZeRO-1 shards
+    its gradient and optimizer state over dp
+    (``grad_sync.zero1_scatter_dim`` of the rank-local shape, the tp dim
+    taken), or None for a leaf synced whole (every leaf outside ZeRO-1:
+    ``grad_sync`` ``psum``, or dp 1)."""
+    D, T = spec.data_parallel, spec.tensor_parallel
+    stacked = 1 if spec.n_chunks == 1 else 2
+    flat = flatten(params)
+    if D == 1 or grad_sync != "reduce_scatter":
+        return _unflatten(params, [None] * len(flat))
+
+    def dim(path, leaf):
+        taken = []
+        if path.startswith("blocks/") and T > 1:
+            d = tp_body_dim(path, leaf.ndim - stacked)
+            if d is not None:
+                taken.append(stacked + d)
+        return zero1_scatter_dim(tuple(leaf.shape), D, taken)
+
+    return _unflatten(params, [dim(p, leaf) for p, leaf in flat.items()])
 
 
-def make_pipeline_train_step(cfg: ModelConfig, spec: PipelineSpec, p2p,
+def stage_opt_state(params: PyTree, spec: PipelineSpec, grid: Grid,
+                    grad_sync: str = "reduce_scatter") -> PyTree:
+    """AdamW state (fp32 master, m, v) for a rank's stage tree: whole, or
+    under ZeRO-1 (dp > 1, ``reduce_scatter``) each leaf's dp slice
+    ``grid.d`` on its :func:`zero1_dims` dim (1/D of the bytes)."""
+    D = spec.data_parallel
+    part = lambda p, d: p if d is None else p.detach().chunk(D, d)[grid.d]
+    return adamw.init_opt_state(tree_map(part, params, zero1_dims(params, spec, grad_sync)))
+
+
+def leaf_axes(params: PyTree, spec: PipelineSpec, dims: PyTree) -> List[tuple]:
+    """Each leaf's grid axes (``grad_sync.spec_axes`` input): block leaves
+    are sharded over pipe, over tp on their Megatron dim, and over dp on
+    their ZeRO-1 dim; the replicated leaves over dp on theirs."""
+    stacked = 1 if spec.n_chunks == 1 else 2
+    out = []
+    for (path, leaf), d in zip(flatten(params).items(), tree_leaves(dims)):
+        axes = ["dp"] if d is not None else []
+        if path.startswith("blocks/"):
+            axes.append("pipe")
+            if spec.tensor_parallel > 1 and \
+                    tp_body_dim(path, leaf.ndim - stacked) is not None:
+                axes.append("tp")
+        out.append(tuple(axes))
+    return out
+
+
+def _bucketed_dp_psum(grads: PyTree, grid: Grid, n_chunks: int,
+                      bucket_bytes: int) -> None:
+    """Fused per-bucket all-reduces in wgrad-completion order, in place:
+    the JAX package's ``_bucketed_dp_psum``.
+
+    The gradient stream is ordered the way backward finalizes it: later
+    chunk slots first, block leaves in reverse flatten order within a
+    slot, and the replicated ``embed`` / ``final_norm`` last.  The
+    coalescing is ``grad_sync.bucketize``, applied per run of one dtype:
+    block leaves sum over dp.  The replicated leaves sum over pipe ∪ dp
+    (``grid.rep``; the reference has summed them over the pipe already
+    and sums them over dp here), one all-reduce a leaf: gloo's and
+    NCCL's rings sum an element of a group of more than two ranks in an
+    order set by its place in the buffer, so a fused buffer would round
+    differently.  A dp group of two sums each element as a + b wherever
+    it lies, so at dp 2 the result is bit-identical to the per-leaf
+    all-reduces (beyond two, equal to rounding)."""
+    flat = list(flatten(grads).items())
+    nleaves = len(flat)
+    entries = []        # (completion-order key, tensor: a view of a block leaf)
+    for i, (path, leaf) in enumerate(flat):
+        if path.startswith("blocks/") and n_chunks > 1:
+            for k in range(n_chunks):
+                entries.append(((n_chunks - 1 - k, nleaves - i), leaf[k]))
+        elif path.startswith("blocks/"):
+            entries.append(((0, nleaves - i), leaf))
+    entries.sort(key=lambda e: e[0])
+
+    run: List[torch.Tensor] = []          # maximal run of one dtype
+
+    def flush_run():
+        if not run:
+            return
+        gb = bucketize([(str(j), t.numel() * t.element_size())
+                        for j, t in enumerate(run)], bucket_bytes)
+        for bucket in gb.buckets:
+            parts = [run[int(name)] for name, _ in bucket]
+            if len(parts) == 1:
+                grid.dp.all_reduce_(parts[0])
+                continue
+            fused = grid.dp.all_reduce_(torch.cat([t.reshape(-1) for t in parts]))
+            for t, piece in zip(parts, fused.split([t.numel() for t in parts])):
+                t.copy_(piece.view(t.shape))
+        run.clear()
+
+    for _, t in entries:
+        if run and t.dtype != run[0].dtype:
+            flush_run()
+        run.append(t)
+    flush_run()
+    for i in reversed(range(nleaves)):
+        path, leaf = flat[i]
+        if not path.startswith("blocks/"):
+            grid.rep.all_reduce_(leaf)
+
+
+def make_grad_sync(spec: PipelineSpec, grid: Grid, grad_sync: str = "reduce_scatter"):
+    """The gradient sync of the train step (the JAX package's
+    ``_make_dp_train_step``), for gradients from
+    :func:`make_pipeline_loss`.  Returns ``sync(grads, dims) -> grads`` with
+    ``dims`` :func:`zero1_dims`: the replicated leaves are summed over
+    pipe ∪ dp in one all-reduce; the block leaves over dp by
+    ``grad_sync``: ``psum``, one all-reduce a leaf, or with
+    ``spec.bucket_bytes`` > 0 fused buckets in wgrad-completion order
+    (:func:`_bucketed_dp_psum`); or ``reduce_scatter`` (ZeRO-1): a
+    reduce-scatter a leaf on its ``dims`` dim, where the replicated
+    leaves keep their slice of the sum.  ``grad_sync`` means nothing at
+    dp 1.  In place where the result is whole."""
+    if grad_sync not in GRAD_SYNC_MODES:
+        raise ValueError(f"grad_sync {grad_sync!r} not in {GRAD_SYNC_MODES}")
+    D = spec.data_parallel
+
+    def sync(grads, dims):
+        if D > 1 and grad_sync == "psum" and spec.bucket_bytes > 0:
+            _bucketed_dp_psum(grads, grid, spec.n_chunks, spec.bucket_bytes)
+            return grads
+        out = []
+        for (path, g), d in zip(flatten(grads).items(), tree_leaves(dims)):
+            if not path.startswith("blocks/"):
+                grid.rep.all_reduce_(g)
+                out.append(g if d is None else g.chunk(D, d)[grid.d].contiguous())
+            elif D == 1:
+                out.append(g)
+            elif d is None:
+                out.append(grid.dp.all_reduce_(g))
+            else:
+                out.append(grid.dp.reduce_scatter_(g, d))
+        return _unflatten(grads, out)
+
+    return sync
+
+
+def make_pipeline_train_step(cfg: ModelConfig, spec: PipelineSpec, grid: Grid,
                              opt_cfg: Optional[adamw.AdamWConfig] = None, *,
-                             backend: str = "auto"):
-    """This rank's train step: the pipeline loss and gradients, the global
-    gradient norm for the clip, and AdamW on the rank's stage tree (the
-    replicated leaves get the same update on every rank).  Returns
-    ``train_step(state, tokens) -> (state, metrics)`` over a
-    ``training.train_step.TrainState`` of ``local_stage_params``;
-    ``train_step.stats`` holds the last step's tick count and exchanges."""
+                             backend: str = "auto", grad_sync: str = "reduce_scatter"):
+    """This rank's train step: the pipeline loss and gradients, the dp
+    sync (:func:`make_grad_sync`), the global gradient norm for the clip
+    over the whole grid (``grad_sync.replica_grad_norm``), and AdamW on
+    the rank's stage tree (the replicated leaves get the same update on
+    every rank).  Under ZeRO-1 AdamW updates this replica's slices of the
+    dp-sharded (master, m, v), and one all-gather a leaf rebuilds the
+    parameters.  Returns ``train_step(state, tokens) -> (state,
+    metrics)`` over a ``training.train_step.TrainState`` of
+    ``local_stage_params`` whose optimizer state is
+    :func:`stage_opt_state`'s; ``train_step.stats`` holds the last step's
+    tick count and collectives."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
-    loss_fn = make_pipeline_loss(cfg, spec, p2p, backend=backend)
+    sync = make_grad_sync(spec, grid, grad_sync)
+    loss_fn = make_pipeline_loss(cfg, spec, grid, backend=backend)
+    D = spec.data_parallel
+    sizes = {"pipe": spec.num_stages, "tp": spec.tensor_parallel, "dp": D}
 
     def train_step(state, tokens):
+        c0 = grid.counts()
         loss, grads = loss_fn(state.params, tokens)
-        gnorm = pipeline_grad_norm(grads, p2p)
+        dims = zero1_dims(state.params, spec, grad_sync)
+        grads = sync(grads, dims)
+        gnorm = replica_grad_norm(tree_leaves(grads), leaf_axes(state.params, spec, dims),
+                                  sizes, grid.world.all_reduce_)
+        # ZeRO-1 updates this replica's slices into buffers of the
+        # parameters' dtype and gathers them into the parameters
+        parts = tree_map(lambda p, d: p if d is None else torch.empty_like(
+            p.detach().chunk(D, d)[0]), state.params, dims)
         _, _, om = adamw.apply_update(opt_cfg, state.opt_state, grads, state.step,
-                                      state.params, grad_norm=gnorm)
+                                      parts, grad_norm=gnorm)
+        with torch.no_grad():
+            for p, part, d in zip(tree_leaves(state.params), tree_leaves(parts),
+                                  tree_leaves(dims)):
+                if d is not None:
+                    grid.dp.all_gather_(p, part, d)
         state.step += 1
-        train_step.stats = loss_fn.stats
+        train_step.stats = _stats(loss_fn.tables, grid, c0)
         return state, {"loss": loss, **om}
 
     train_step.tables = loss_fn.tables

@@ -4,7 +4,9 @@ device, or the HeteroPP pipeline with one process a stage.
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_780m \\
         --steps 50 --batch 8 --seq 256 [--backend auto|einsum|kernel] \\
         [--device cuda|cpu] [--smoke] [--ckpt-dir DIR --ckpt-every N] \\
-        [--pipeline-parallel N [--schedule 1f1b] [--microbatches B] \\
+        [--pipeline-parallel N [--tensor-parallel T] [--data-parallel D] \\
+         [--schedule 1f1b] [--microbatches B] \\
+         [--grad-sync psum|reduce_scatter] [--bucket-bytes N] \\
          | --plan plan.json | --search A:1,B:1] [--p2p device|host]
 
 Runs on the card unless ``--device cpu`` is given; without a card and
@@ -18,25 +20,30 @@ Prints ``arch=… family=… params~…M devices=…`` and every
 same row in ``<run-dir>/metrics.jsonl``.  ``main`` also returns the
 per-step losses and times to a caller in Python.
 
-``--pipeline-parallel N`` trains through ``core.heteropp`` on N ranks,
-one a physical stage, under ``--schedule`` (default 1f1b) with
-``--microbatches`` microbatches (default N), the layers split evenly;
-``--plan plan.json`` runs a saved HeteroAuto ``ParallelPlan``
-(``ParallelPlan.to_dict`` JSON: its schedule, stages, non-uniform layer
-split and per-stage recompute), and ``--search CHIP:N,...`` runs the
-HeteroAuto search on that cluster first and trains the winner.  A plan
-passes the copied static verifier first (``--no-verify-plan`` skips
-it).  The launcher starts its own ranks (``launch.ranks.spawn``, a
-``FileStore`` in the run directory), or runs one rank of a job
-started outside it: a ``torchrun`` job when its environment names one
-(the card is ``LOCAL_RANK``), or the process group its caller has
-joined.  ``--p2p`` names the stage-to-stage
-transport: ``device`` (NCCL, one card a rank; the default) or ``host``
-(gloo through host memory: the CPU, or several ranks on one card).
-Rank 0 prints the step lines and writes ``metrics.jsonl`` with ``"mode":
-"pipeline"``.  Tensor and data parallelism (``--tensor-parallel``,
-``--data-parallel``) and ``--trace`` are refused: they wait for ROADMAP
-A8(d), A8(e) and A14.
+``--pipeline-parallel N`` trains through ``core.heteropp`` on a rank
+grid of D·N·T ranks (``--data-parallel D`` replicas of N physical
+stages, each over ``--tensor-parallel T`` Megatron members; rank
+``(d·N + s)·T + k``), under ``--schedule`` (default 1f1b) with
+``--microbatches`` microbatches a replica (default N), the layers split
+evenly.  With D > 1 ``--grad-sync`` picks the dp gradient sync: ZeRO-1
+``reduce_scatter`` (the default) or ``psum``, bucketed with
+``--bucket-bytes N``.  ``--plan plan.json`` runs a saved HeteroAuto
+``ParallelPlan`` (``ParallelPlan.to_dict`` JSON: its schedule, stages,
+non-uniform layer split, per-stage recompute, uniform tp, dp and sync
+mode), and ``--search CHIP:N,...`` runs the HeteroAuto search on that
+cluster first and trains the winner.  A plan passes the copied static
+verifier first (``--no-verify-plan`` skips it).  The launcher starts its
+own ranks (``launch.ranks.spawn``, a ``FileStore`` in the run
+directory), or runs one rank of a job started outside it: a ``torchrun``
+job when its environment names one (the card is ``LOCAL_RANK``), or the
+process group its caller has joined.  ``--p2p`` names the transport of
+every group: ``device`` (NCCL, one card a rank; the default) or
+``host`` (gloo through host memory: the CPU, or several ranks on one
+card).  Every rank logs its steps and losses: rank 0 prints them and
+writes ``metrics.jsonl`` with ``"mode": "pipeline"``, then prints the
+step p50 and the collectives' ms a step by group; rank r writes
+``rank<r>/metrics.jsonl`` in the run directory.  Uneven batch domains, grouped
+tp (ROADMAP A8(f), A8(g)) and ``--trace`` (A14) are refused.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ from ..checkpointing.io import (checkpoint_step, load_checkpoint,
                                 save_checkpoint)
 from ..comm import p2p as P2P
 from ..configs import canonical, get_config, get_smoke_config, list_configs
+from ..core.dataparallel.grad_sync import GRAD_SYNC_MODES
 from ..core.schedules import available_schedules
 from ..data.pipeline import DataConfig, make_loader
 from ..kernels import build as kbuild
@@ -115,9 +123,21 @@ def parse_args(argv=None):
                          "through host memory: the CPU, or ranks sharing a "
                          "card)")
     ap.add_argument("--tensor-parallel", type=int, default=0,
-                    help="not ported yet (ROADMAP A8(d))")
+                    help="with --pipeline-parallel: shard every stage over N "
+                         "Megatron tp members (default 1; plans carry their "
+                         "own tp)")
     ap.add_argument("--data-parallel", type=int, default=0,
-                    help="not ported yet (ROADMAP A8(e))")
+                    help="with --pipeline-parallel: N pipeline replicas, each "
+                         "taking its share of the microbatches (default 1; "
+                         "plans carry their own dp)")
+    ap.add_argument("--grad-sync", default=None, choices=GRAD_SYNC_MODES,
+                    help="with --data-parallel: psum (replicated optimizer "
+                         "state) or ZeRO-1 reduce_scatter + all-gather "
+                         "(dp-sharded optimizer state; the default)")
+    ap.add_argument("--bucket-bytes", type=int, default=0,
+                    help="with --data-parallel --grad-sync psum: fused "
+                         "all-reduces of at most this many bytes in "
+                         "wgrad-completion order; 0 = one a leaf")
     ap.add_argument("--trace", action="store_true",
                     help="not ported yet (ROADMAP A14)")
     return ap.parse_args(argv)
@@ -125,19 +145,16 @@ def parse_args(argv=None):
 
 def _refuse(args, pipeline: bool) -> None:
     """Flags the chosen path would not honour exit with a message."""
-    unported = [(flag, item) for flag, on, item in (
-        ("--tensor-parallel", args.tensor_parallel, "A8(d)"),
-        ("--data-parallel", args.data_parallel, "A8(e)"),
-        ("--trace", args.trace, "A14")) if on]
-    if unported:
-        raise SystemExit(
-            "; ".join(f"{flag}: not ported to repro_torch yet (ROADMAP {item})"
-                      for flag, item in unported)
-            + ". The port's HeteroPP runs the pipe axis only")
+    if args.trace:
+        raise SystemExit("--trace: not ported to repro_torch yet (ROADMAP A14)")
     if not pipeline:
         given = [flag for flag, on in (
             ("--schedule", args.schedule), ("--microbatches", args.microbatches),
-            ("--p2p", args.p2p), ("--no-verify-plan", args.no_verify_plan)) if on]
+            ("--p2p", args.p2p), ("--no-verify-plan", args.no_verify_plan),
+            ("--tensor-parallel", args.tensor_parallel),
+            ("--data-parallel", args.data_parallel),
+            ("--grad-sync", args.grad_sync),
+            ("--bucket-bytes", args.bucket_bytes)) if on]
         if given:
             raise SystemExit(f"{' '.join(given)} only apply to the pipeline; "
                              "add --pipeline-parallel N, --plan or --search")
@@ -149,9 +166,29 @@ def _refuse(args, pipeline: bool) -> None:
         if args.schedule is not None:
             raise SystemExit(f"{src} uses the plan's schedule; drop "
                              f"--schedule {args.schedule}")
+        if args.grad_sync is not None:
+            raise SystemExit(f"{src} sets the grad-sync mode from the "
+                             f"plan (searched over sync mode × bucket "
+                             f"size — DESIGN.md §10); drop --grad-sync "
+                             f"{args.grad_sync}")
         if args.pipeline_parallel > 1:
             raise SystemExit(f"{src} sets the stage count from the plan; "
                              f"drop --pipeline-parallel")
+        if args.tensor_parallel:
+            raise SystemExit(f"{src} sets tp from the plan (uniform plans "
+                             f"execute on the (pipe, tp) mesh, non-uniform "
+                             f"ones via the grouped stage runtime); drop "
+                             f"--tensor-parallel {args.tensor_parallel}")
+        if args.data_parallel:
+            raise SystemExit(f"{src} sets dp from the plan (uniform batch "
+                             f"domains execute on the (dp, pipe, tp) "
+                             f"mesh); drop --data-parallel "
+                             f"{args.data_parallel}")
+        if args.bucket_bytes:
+            raise SystemExit(f"{src} sets the grad-sync bucket size from "
+                             f"the plan (searched over bucket size × sync "
+                             f"mode — DESIGN.md §10); drop --bucket-bytes "
+                             f"{args.bucket_bytes}")
     if args.accum != 1:
         raise SystemExit("--accum: the pipeline's microbatches take its "
                          "place; drop --accum")
@@ -237,9 +274,11 @@ def _opt(args) -> AdamWConfig:
 # ---------------------------------------------------------------------------
 
 def pipeline_spec(args, cfg):
-    """The PipelineSpec to train, and the plan it came from (or None):
-    from ``--plan``, a fresh ``--search``, or the even split of
-    ``--pipeline-parallel``.  Plans pass the static verifier first."""
+    """The PipelineSpec to train, its dp gradient-sync mode, and the plan
+    it came from (or None): from ``--plan``, a fresh ``--search``, or the
+    even split of ``--pipeline-parallel`` with ``--tensor-parallel`` and
+    ``--data-parallel``.  Plans pass the static verifier first and carry
+    their own sync mode."""
     from ..core import heteropp as HP
     mb = args.microbatches or None
 
@@ -256,8 +295,10 @@ def pipeline_spec(args, cfg):
                                  "(--no-verify-plan to bypass):\n"
                                  + format_report(errs))
         try:
-            return HP.from_plan(plan, microbatches=mb, execute_tp=True,
-                                execute_dp=True, verify=False), plan
+            spec = HP.from_plan(plan, microbatches=mb, execute_tp=True,
+                                execute_dp=True, verify=False)
+            HP.validate_spec_tp(cfg, spec)
+            return spec, plan.dp_sync, plan
         except (ValueError, NotImplementedError) as e:
             raise SystemExit(str(e)) from None
 
@@ -286,61 +327,96 @@ def pipeline_spec(args, cfg):
         return _from_plan(r.plan)
     from ..core.schedules import get_schedule
     pp = args.pipeline_parallel
+    tp = args.tensor_parallel or 1
+    dp = args.data_parallel or 1
+    try:
+        HP.validate_tensor_parallel(cfg, tp)
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(str(e)) from None
+    grad_sync = args.grad_sync or "reduce_scatter"
+    # flags the step would never consult refuse, not silently drop
+    if args.grad_sync is not None and dp <= 1:
+        raise SystemExit(
+            f"--grad-sync {args.grad_sync} needs --data-parallel > 1: "
+            f"there is no dp gradient sync without dp replicas")
+    if args.bucket_bytes:
+        if args.bucket_bytes < 0:
+            raise SystemExit(
+                f"--bucket-bytes must be positive: {args.bucket_bytes}")
+        if dp <= 1:
+            raise SystemExit(
+                f"--bucket-bytes {args.bucket_bytes} needs "
+                f"--data-parallel > 1: there is no dp grad sync to "
+                f"bucket")
+        if grad_sync != "psum":
+            raise SystemExit(
+                f"--bucket-bytes {args.bucket_bytes} only shapes the "
+                f"psum sync mode (ZeRO-1 reduce_scatter keeps one "
+                f"message per leaf — DESIGN.md §10); add "
+                f"--grad-sync psum or drop the flag")
     sched = get_schedule(args.schedule or "1f1b")
     base, rem = divmod(cfg.num_layers, pp)
     phys = [base + (1 if i < rem else 0) for i in range(pp)]
     try:
         return HP.PipelineSpec(pp, HP.chunk_layer_counts(phys, sched),
                                microbatches=mb or pp, schedule=sched.name,
-                               n_chunks=sched.n_chunks), None
+                               n_chunks=sched.n_chunks, tensor_parallel=tp,
+                               data_parallel=dp,
+                               bucket_bytes=args.bucket_bytes), grad_sync, None
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e)) from None
 
 
 def run_pipeline(args, cfg, dev):
-    """Train through the pipeline: checks, then one rank a stage (spawned
-    here, or this process's rank of a job started outside the launcher).
-    Returns rank 0's results: what the single-device path returns but the
-    state, which stays in the ranks, and the tick program's exchanges;
-    when spawned here also each rank's peak memory and exchanges, and the
-    kernels' launches summed over the ranks."""
+    """Train through the pipeline: checks, then one rank a (replica,
+    stage, tp member) (spawned here, or this process's rank of a job
+    started outside the launcher).  Returns rank 0's results: what the
+    single-device path returns but the state, which stays in the ranks,
+    and its collectives a step; when spawned here also each rank's peak
+    memory, optimizer-state bytes and collectives, and the kernels'
+    launches summed over the ranks."""
     from ..core.heteropp import pipeline_block_kind
     try:
         pipeline_block_kind(cfg)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
-    spec, plan = pipeline_spec(args, cfg)
+    spec, grad_sync, plan = pipeline_spec(args, cfg)
     transport = args.p2p or "device"
-    S = spec.num_stages
+    S, T, D = spec.num_stages, spec.tensor_parallel, spec.data_parallel
+    world = D * S * T
     env = os.environ
     torchrun = all(k in env for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR"))
     try:
-        P2P.check_transport(transport, dev, int(env.get("LOCAL_WORLD_SIZE", S))
-                            if torchrun else S)
+        P2P.check_transport(transport, dev, int(env.get("LOCAL_WORLD_SIZE", world))
+                            if torchrun else world)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     if spec.total_layers != cfg.num_layers:
         raise SystemExit(f"plan covers {spec.total_layers} layers but "
                          f"{cfg.name} has {cfg.num_layers}")
-    if args.batch % spec.microbatches:
-        raise SystemExit(f"--batch {args.batch} not divisible by "
-                         f"{spec.microbatches} microbatches")
+    if args.batch % (D * spec.microbatches):
+        raise SystemExit(f"--batch {args.batch} not divisible by {D} replica(s) "
+                         f"x {spec.microbatches} microbatches")
     print(f"arch={cfg.name} family={cfg.family} "
-          f"params~{cfg.param_count() / 1e6:.1f}M devices={S} ({dev}, p2p "
+          f"params~{cfg.param_count() / 1e6:.1f}M devices={world} ({dev}, p2p "
           f"{transport})", flush=True)
     print(f"pipeline: stages={S} v={spec.n_chunks} "
           f"layers/global-stage={spec.layers_per_stage} "
           f"recompute={spec.recompute} microbatches={spec.microbatches} "
           f"schedule={spec.schedule}", flush=True)
+    print(f"grid: dp={D} pipe={S} tp={T}, {world} ranks (rank = (d*{S} + s)*{T} + k)"
+          + (f"; dp sync {grad_sync}" + (f" in buckets of {spec.bucket_bytes} bytes"
+                                         if spec.bucket_bytes else "")
+             if D > 1 else ""), flush=True)
     run_dir = args.run_dir or os.path.join("runs", cfg.name)
     os.makedirs(run_dir, exist_ok=True)
-    job = (args, cfg, spec, plan.to_dict() if plan is not None else None,
+    job = (args, cfg, spec, grad_sync, plan.to_dict() if plan is not None else None,
            transport)
     if torchrun or torch.distributed.is_initialized():
-        return _join_job(job, transport, S)
+        return _join_job(job, transport, world)
     # ranks on the CPU share its cores
-    threads = max(1, torch.get_num_threads() // S) if dev.type == "cpu" else None
-    outs = ranks.spawn(_pipeline_rank, S, job,
+    threads = max(1, torch.get_num_threads() // world) if dev.type == "cpu" else None
+    outs = ranks.spawn(_pipeline_rank, world, job,
                        workdir=os.path.join(run_dir, "ranks"),
                        transport=transport, timeout=RANK_TIMEOUT_S, threads=threads)
     res = dict(outs[0])
@@ -348,12 +424,18 @@ def run_pipeline(args, cfg, dev):
     per_rank = [o["peak_mem_bytes"] for o in outs if o["peak_mem_bytes"] is not None]
     res["peak_mem_bytes"] = max(per_rank) if per_rank else None
     res["launches"] = {k: sum(o["launches"][k] for o in outs) for k in res["launches"]}
-    for key in ("p2p_s_per_step", "p2p_copy_s_per_step", "reduce_s_per_step"):
+    for key in ("losses", "opt_state_bytes", "param_count", "grid") + tuple(
+            k + "_per_step" for k in STAT_KEYS):
         res[key + "_per_rank"] = [o[key] for o in outs]
     return res
 
 
-def _join_job(job, transport, S):
+# a step's collectives by group (``Grid.counts``), seconds or bytes
+STAT_KEYS = ("p2p_bytes", "p2p_s", "p2p_copy_s", "reduce_s", "tp_s", "dp_s",
+             "dp_scatter_s", "dp_gather_s", "norm_s")
+
+
+def _join_job(job, transport, world_size):
     """This process's rank of a job started outside the launcher: a
     ``torchrun`` job (joined here through ``env://``, on card
     ``LOCAL_RANK``), or a caller that has joined a process group already.
@@ -364,8 +446,8 @@ def _join_job(job, transport, S):
         rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     else:
         rank, world = dist.get_rank(), dist.get_world_size()
-    if world != S:
-        raise SystemExit(f"the job has {world} ranks for {S} stages")
+    if world != world_size:
+        raise SystemExit(f"the job has {world} ranks for a grid of {world_size}")
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     if own:
         if transport == "device":
@@ -381,41 +463,52 @@ def _join_job(job, transport, S):
             dist.destroy_process_group()
 
 
-def _pipeline_rank(rank, world, args, cfg, spec, plan_dict, transport, *,
+def _pipeline_rank(rank, world, args, cfg, spec, grad_sync, plan_dict, transport, *,
                    local_rank=None):
-    """One stage's process: its share of the seeded weights, its train
-    step, the same batches as every other rank.  Rank 0 prints and logs.
-    Returns this rank's losses, step times, peak memory, kernel launches
-    (counted from 0 in this process) and exchanges a step."""
+    """One rank's process: its (replica, stage, tp member) share of the
+    seeded weights and optimizer state, its train step, the same batches
+    as every other rank.  Rank 0 prints and logs to ``metrics.jsonl``;
+    every other rank logs its steps and losses to ``rank<r>/metrics.jsonl``
+    in the run directory.  Returns this rank's losses, step times, peak
+    memory, optimizer-state bytes, kernel launches (counted from 0 in this
+    process) and collectives a step."""
+    import statistics
+
     from ..core import heteropp as HP
     from ..models import model as M
+    from ..tree import tree_leaves
     base = devices.resolve(args.device)
     dev = P2P.rank_device(base, rank if local_rank is None else local_rank, transport)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
         if args.backend != "einsum":
             kbuild.load()
-    p2p = P2P.P2P(transport, dev)
+    S, T, D, b = (spec.num_stages, spec.tensor_parallel, spec.data_parallel,
+                  spec.microbatches)
+    grid = P2P.Grid.build(transport, dev, dp=D, pipe=S, tp=T)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed),
                            device=dev)
-    local = HP.local_stage_params(params, cfg, spec, rank)
+    local = HP.local_stage_params(params, cfg, spec, grid.s, grid.k)
     del params
-    state = train_state_from(local, adamw.init_opt_state(local), 0)
-    step_fn = HP.make_pipeline_train_step(cfg, spec, p2p, _opt(args),
-                                          backend=args.backend)
+    state = train_state_from(local, HP.stage_opt_state(local, spec, grid, grad_sync), 0)
+    opt_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state.opt_state))
+    step_fn = HP.make_pipeline_train_step(cfg, spec, grid, _opt(args),
+                                          backend=args.backend, grad_sync=grad_sync)
     loader = make_loader(cfg, DataConfig(batch_size=args.batch, seq_len=args.seq,
                                          seed=1234 + args.seed), device=dev)
-    b = spec.microbatches
     tokens_per_step = args.batch * args.seq
     meta = {"arch": cfg.name, "family": cfg.family, "mode": "pipeline",
-            "devices": world, "stages": spec.num_stages, "n_chunks": spec.n_chunks,
+            "devices": world, "stages": S, "n_chunks": spec.n_chunks,
+            "tensor_parallel": T, "data_parallel": D,
+            "grad_sync": grad_sync if D > 1 else None, "bucket_bytes": spec.bucket_bytes,
             "layers_per_stage": list(spec.layers_per_stage),
             "recompute": list(spec.recompute), "schedule": spec.schedule,
             "microbatches": b, "batch": args.batch, "seq": args.seq,
             "backend": args.backend, "device": str(dev), "p2p": transport,
-            "plan": plan_dict}
-    logger = MetricsLogger(args.run_dir or os.path.join("runs", cfg.name),
-                           meta=meta) if rank == 0 else None
+            "plan": plan_dict, "rank": rank, "grid": [grid.d, grid.s, grid.k]}
+    run_dir = args.run_dir or os.path.join("runs", cfg.name)
+    logger = MetricsLogger(run_dir if rank == 0 else os.path.join(run_dir, f"rank{rank}"),
+                           meta=meta)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
@@ -425,14 +518,14 @@ def _pipeline_rank(rank, world, args, cfg, spec, plan_dict, transport, *,
         t_last, i_last = t0, 0
         for i in range(args.steps):
             toks = next(loader)["tokens"]
-            toks = toks.reshape(b, args.batch // b, args.seq)
+            toks = toks.reshape(D * b, args.batch // (D * b), args.seq)
             t1 = time.perf_counter()
             state, m = step_fn(state, toks)
             losses.append(float(m["loss"]))
             devices.synchronize(dev)
             step_times.append(time.perf_counter() - t1)
             stats.append(dict(step_fn.stats))
-            if logger is not None and ((i + 1) % args.log_every == 0 or i == 0):
+            if (i + 1) % args.log_every == 0 or i == 0:
                 now = time.perf_counter()
                 tps = tokens_per_step * (i + 1) / (now - t0)
                 st = stats[-1]
@@ -440,27 +533,37 @@ def _pipeline_rank(rank, world, args, cfg, spec, plan_dict, transport, *,
                            step_time_s=(now - t_last) / (i + 1 - i_last),
                            peak_bytes_in_use=device_memory_highwater(dev),
                            loss=losses[-1], grad_norm=float(m["grad_norm"]),
-                           lr=float(m["lr"]), ticks=st["ticks"],
-                           p2p_bytes=st["p2p_bytes"], p2p_s=st["p2p_s"],
-                           p2p_copy_s=st["p2p_copy_s"], reduce_s=st["reduce_s"])
+                           lr=float(m["lr"]), **st)
                 t_last, i_last = now, i + 1
-                print(f"step {i + 1:5d} loss={losses[-1]:.4f} "
-                      f"lr={float(m['lr']):.2e} gnorm={float(m['grad_norm']):.2f} "
-                      f"TGS={tps / world:.0f} p2p={st['p2p_s'] * 1e3 / st['ticks']:.2f} "
-                      f"ms/tick", flush=True)
+                if rank == 0:
+                    print(f"step {i + 1:5d} loss={losses[-1]:.4f} "
+                          f"lr={float(m['lr']):.2e} gnorm={float(m['grad_norm']):.2f} "
+                          f"TGS={tps / world:.0f} "
+                          f"p2p={st['p2p_s'] * 1e3 / st['ticks']:.2f} ms/tick",
+                          flush=True)
     finally:
-        if logger is not None:
-            logger.close()
+        logger.close()
+    if rank == 0 and stats:
+        steady = lambda k: statistics.median([s[k] for s in stats[1:] or stats]) * 1e3
+        p50 = statistics.median(step_times[1:] or step_times) * 1e3
+        print(f"summary (rank 0): p50 {p50:.1f} ms over steps 2-{len(stats)}; "
+              f"collectives in ms/step: pipe hops {steady('p2p_s'):.1f} (host copies "
+              f"{steady('p2p_copy_s'):.1f}), tp all-reduce {steady('tp_s'):.1f}, "
+              f"dp all-reduce {steady('dp_s'):.1f}, dp reduce-scatter "
+              f"{steady('dp_scatter_s'):.1f}, dp all-gather {steady('dp_gather_s'):.1f}, "
+              f"replicated all-reduce {steady('reduce_s'):.1f}, clip norm "
+              f"{steady('norm_s'):.1f}", flush=True)
     ticks = stats[-1]["ticks"] if stats else 0
-    return {"arch": cfg.name, "num_layers": cfg.num_layers, "losses": losses,
-            "step_times_s": step_times, "tokens_per_step": tokens_per_step,
-            "peak_mem_bytes": device_memory_highwater(dev), "mode": "pipeline",
-            "launches": {fn.__name__: fn.launches for fn in ops.KERNELS},
-            "ticks": ticks, "p2p_bytes_per_step": [s["p2p_bytes"] for s in stats],
-            "p2p_s_per_step": [s["p2p_s"] for s in stats],
-            "p2p_copy_s_per_step": [s["p2p_copy_s"] for s in stats],
-            "reduce_s_per_step": [s["reduce_s"] for s in stats],
-            "rank": rank, "device": str(dev)}
+    out = {"arch": cfg.name, "num_layers": cfg.num_layers, "losses": losses,
+           "step_times_s": step_times, "tokens_per_step": tokens_per_step,
+           "peak_mem_bytes": device_memory_highwater(dev), "mode": "pipeline",
+           "launches": {fn.__name__: fn.launches for fn in ops.KERNELS},
+           "ticks": ticks, "opt_state_bytes": opt_bytes,
+           "param_count": sum(t.numel() for t in tree_leaves(state.params)),
+           "rank": rank, "grid": [grid.d, grid.s, grid.k], "device": str(dev)}
+    for key in STAT_KEYS:
+        out[key + "_per_step"] = [s[key] for s in stats]
+    return out
 
 
 if __name__ == "__main__":

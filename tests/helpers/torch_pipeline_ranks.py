@@ -1,5 +1,6 @@
 """Rank functions for the port's multi-rank pipeline tests
-(``tests/test_torch_heteropp.py``), run by
+(``tests/test_torch_heteropp.py``, ``tests/test_torch_heteropp_grid.py``),
+run by
 ``repro_torch.launch.ranks.spawn`` on gloo CPU ranks.  This module
 imports nothing of JAX, so the ranks start quickly; the test holds what
 they return against the JAX package."""
@@ -12,7 +13,7 @@ import torch
 import torch.distributed
 
 from repro_torch import bridge
-from repro_torch.comm.p2p import P2P
+from repro_torch.comm.p2p import Grid
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import heteropp as HP
 from repro_torch.core.schedules import get_schedule
@@ -44,26 +45,104 @@ def loss_and_grads(rank, world, cfg_fields, tree, tokens, phys, schedules,
     cfg = ModelConfig(**cfg_fields)
     params = bridge.params_from_numpy(tree, CPU)
     toks = torch.from_numpy(tokens)
-    p2p = P2P("host", CPU)
+    grid = Grid.build("host", CPU, pipe=world)
     out = {}
     for name in schedules:
         spec = schedule_spec(name, phys, toks.shape[0], recompute)
         state = _state(params, cfg, spec, rank)
-        loss_fn = HP.make_pipeline_loss(cfg, spec, p2p)
+        loss_fn = HP.make_pipeline_loss(cfg, spec, grid)
         loss, grads = loss_fn(state.params, toks)
+        grads = HP.make_grad_sync(spec, grid, "psum")(
+            grads, HP.zero1_dims(state.params, spec, "psum"))
         out[name] = {"loss": float(loss), "grads": grads,
                      "ticks": loss_fn.stats["ticks"],
                      "p2p_bytes": loss_fn.stats["p2p_bytes"]}
     if train_opt is not None:
         spec = schedule_spec(schedules[0], phys, toks.shape[0], recompute)
         state = _state(params, cfg, spec, rank)
-        step = HP.make_pipeline_train_step(cfg, spec, p2p,
+        step = HP.make_pipeline_train_step(cfg, spec, grid,
                                            adamw.AdamWConfig(**train_opt))
         state, m = step(state, toks)
         out["train"] = {"params": tree_map(lambda t: t.detach(), state.params),
                         "m": state.opt_state["m"], "master": state.opt_state["master"],
                         "loss": float(m["loss"]),
                         "grad_norm": float(m["grad_norm"])}
+    return out
+
+
+# the dp sync modes of the grid tests: (grad_sync, bucket_bytes); the
+# wide buckets hold every leaf of a smoke config's group together
+SYNC_MODES = {"psum": ("psum", 0), "psum_bucketed": ("psum", 200_000),
+              "psum_bucketed_wide": ("psum", 4_000_000),
+              "reduce_scatter": ("reduce_scatter", 0)}
+
+
+def grid_cases(rank, world, jobs):
+    """For each job ``(grid_shape, cases, train_opt)``, on a (dp, pipe, tp)
+    grid of ``world`` ranks (every job's grid is built first, in one order
+    on every rank), for each case (a dict of ``cfg`` fields, numpy
+    ``tree``, ``tokens`` (D·b, mb, S), ``phys`` split and sync ``modes``)
+    and each mode: the pipeline loss and this rank's gradient tree after
+    the dp sync (ZeRO-1 slices under ``reduce_scatter``) with its ZeRO-1
+    dims (-1: whole); with ``train_opt`` (``AdamWConfig`` fields) also
+    the rank's parameters, first moment, master weights and metrics after
+    one train step.  Returns one list of case results a job."""
+    grids = [Grid.build("host", CPU, dp=D, pipe=S, tp=T) for (D, S, T), _, _ in jobs]
+    return [[_grid_case(grid, case, train_opt) for case in cases]
+            for grid, (_, cases, train_opt) in zip(grids, jobs)]
+
+
+def _grid_case(grid, case, train_opt):
+    D, S, T = grid.D, grid.S, grid.T
+    cfg = ModelConfig(**case["cfg"])
+    params = bridge.params_from_numpy(case["tree"], CPU)
+    toks = torch.from_numpy(case["tokens"])
+    res = {"grid": [grid.d, grid.s, grid.k]}
+    for mode in case["modes"]:
+        grad_sync, bucket = SYNC_MODES[mode]
+        spec = HP.PipelineSpec(S, tuple(case["phys"]), toks.shape[0] // D,
+                               tensor_parallel=T, data_parallel=D, bucket_bytes=bucket)
+        local = HP.local_stage_params(params, cfg, spec, grid.s, grid.k)
+        state = train_state_from(local, HP.stage_opt_state(local, spec, grid, grad_sync), 0)
+        loss_fn = HP.make_pipeline_loss(cfg, spec, grid)
+        loss, grads = loss_fn(state.params, toks)
+        dims = HP.zero1_dims(state.params, spec, grad_sync)
+        grads = HP.make_grad_sync(spec, grid, grad_sync)(grads, dims)
+        r = {"loss": float(loss), "grads": grads,
+             "dims": tree_map(lambda d: -1 if d is None else d, dims)}
+        if train_opt is not None:
+            step = HP.make_pipeline_train_step(cfg, spec, grid,
+                                               adamw.AdamWConfig(**train_opt),
+                                               grad_sync=grad_sync)
+            state, m = step(state, toks)
+            r["train"] = {"params": tree_map(lambda t: t.detach(), state.params),
+                          "m": state.opt_state["m"], "master": state.opt_state["master"],
+                          "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        res[mode] = r
+    return res
+
+
+def subgroup_collectives(rank, world):
+    """On the (dp 1, pipe 2, tp 2) and (dp 2, pipe 2, tp 1) grids of four
+    ranks: what each rank receives when the members of its pipe group
+    swap their global ranks (``P2P.ppermute`` names peers by group rank),
+    and a reduce-scatter and an fp32 and a bf16 all-gather on dim 1 over
+    its tp or dp group."""
+    out = {}
+    for shape in ((1, 2, 2), (2, 2, 1)):
+        D, S, T = shape
+        grid = Grid.build("host", CPU, dp=D, pipe=S, tp=T)
+        x = torch.full((3,), float(rank))
+        got, = grid.pipe.ppermute([(x, [(0, 1), (1, 0)])], x)
+        other = grid.tp if T > 1 else grid.dp
+        t = torch.arange(8.0).reshape(2, 4) + 10 * rank
+        part = other.reduce_scatter_(t, 1)
+        full = torch.empty(2, 4)
+        other.all_gather_(full, part * 0 + other.rank, 1)
+        half = torch.empty(2, 4, dtype=torch.bfloat16)
+        other.all_gather_(half, (part * 0 + other.rank + 0.5).bfloat16(), 1)
+        out[str(shape)] = {"got": got, "part": part, "gathered": full,
+                           "gathered_bf16": half, "group": other.global_ranks}
     return out
 
 

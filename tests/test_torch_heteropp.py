@@ -179,18 +179,26 @@ def test_from_plan_refusals():
     with pytest.raises(ValueError) as terr:
         THP.from_plan(tplan)
     assert type(terr.value).__name__ == type(jerr.value).__name__
-    # tp and dp: the JAX package builds a spec, the port refuses by name
+    # uniform tp and dp execute as in the JAX package; non-uniform tp and
+    # an uneven batch domain build a spec there and are refused here by name
     g = lambda n, c: jchips.ChipGroup(jchips.CHIPS[n], c)
-    for stages, dp in (([(2, 1), (2, 1)], 1), ([(1, 1), (1, 1)], 2), ([(1, 1), (2, 1)], 1)):
+    for stages, dp, domain, item in (([(2, 1), (2, 1)], 1, None, None),
+                                     ([(1, 1), (1, 1)], 2, None, None),
+                                     ([(1, 1), (2, 1)], 1, None, r"A8\(g\)"),
+                                     ([(1, 1), (1, 1)], 2, (4, 3), r"A8\(f\)")):
         jplan = jcm.ParallelPlan(
             [jcm.StagePlan(g("A", tp * pp * dp), tp, pp, 12, True)
              for (tp, pp) in stages[:1]]
             + [jcm.StagePlan(g("B", tp * pp * dp), tp, pp, 12, True)
-               for (tp, pp) in stages[1:]], dp=dp, microbatches=4)
-        JHP.from_plan(jplan, execute_tp=True, execute_dp=True, verify=False)
+               for (tp, pp) in stages[1:]], dp=dp, microbatches=4, batch_domain=domain)
+        want = JHP.from_plan(jplan, execute_tp=True, execute_dp=True, verify=False)
         tplan = tcm.ParallelPlan.from_dict(jplan.to_dict())
-        with pytest.raises(NotImplementedError, match=r"A8\(d\)-\(g\)"):
-            THP.from_plan(tplan, execute_tp=True, execute_dp=True, verify=False)
+        if item is None:
+            got = THP.from_plan(tplan, execute_tp=True, execute_dp=True, verify=False)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        else:
+            with pytest.raises(NotImplementedError, match=item):
+                THP.from_plan(tplan, execute_tp=True, execute_dp=True, verify=False)
         # as cost-model dimensions (the defaults) both lay out the split
         assert dataclasses.asdict(THP.from_plan(tplan, verify=False)) == \
             dataclasses.asdict(JHP.from_plan(jplan, verify=False))
@@ -201,13 +209,23 @@ def test_spec_checks_and_refusals():
         THP.PipelineSpec(2, (1, 1), 4, data_parallel=2, batch_domain=(4,))
     with pytest.raises(ValueError, match="stage_tp"):
         THP.PipelineSpec(2, (1, 1), 4, stage_tp=(1, 2, 3))
-    for kw in (dict(tensor_parallel=2), dict(data_parallel=2),
-               dict(data_parallel=2, batch_domain=(4, 3)), dict(stage_tp=(1, 2))):
+    # uniform tp and dp are accepted, with the JAX package's fields
+    for kw in (dict(tensor_parallel=2), dict(data_parallel=2, bucket_bytes=8)):
+        assert dataclasses.asdict(THP.PipelineSpec(2, (1, 1), 4, **kw)) == \
+            dataclasses.asdict(JHP.PipelineSpec(2, (1, 1), 4, **kw))
+    # uneven batch domains and grouped tp are refused by name
+    for kw, item in ((dict(data_parallel=2, batch_domain=(4, 3)), r"A8\(f\)"),
+                     (dict(stage_tp=(1, 2)), r"A8\(g\)")):
         JHP.PipelineSpec(2, (1, 1), 4, **kw)
-        with pytest.raises(NotImplementedError, match=r"A8\(d\)-\(g\)"):
+        with pytest.raises(NotImplementedError, match=item):
             THP.PipelineSpec(2, (1, 1), 4, **kw)
-    # the bucket budget only shapes a dp sync: inert, not refused
-    assert THP.PipelineSpec(2, (1, 1), 4, bucket_bytes=8).bucket_bytes == 8
+    # tp on an ssm block kind: the JAX package's refusal, word for word
+    with pytest.raises(NotImplementedError) as terr:
+        THP.validate_spec_tp(tsmoke("mamba2_780m"),
+                             THP.PipelineSpec(2, (1, 1), 4, tensor_parallel=2))
+    with pytest.raises(NotImplementedError) as jerr:
+        JHP.validate_tensor_parallel(exact_cfg("mamba2_780m"), 2)
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_hybrid_moe_and_other_families_refused():
@@ -470,8 +488,12 @@ def test_pipeline_launcher_joins_a_torchrun_job(tmp_path, fp32_launcher):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--pipeline-parallel", "2", "--tensor-parallel", "2"], r"A8\(d\)"),
-    (["--pipeline-parallel", "2", "--data-parallel", "2"], r"A8\(e\)"),
+    (["--pipeline-parallel", "2", "--grad-sync", "psum"], "needs --data-parallel"),
+    (["--pipeline-parallel", "2", "--data-parallel", "2", "--bucket-bytes", "1000"],
+     "only shapes the psum"),
+    (["--arch", "mamba2_780m", "--pipeline-parallel", "2", "--tensor-parallel", "2"],
+     "dense decoder blocks only"),
+    (["--plan", "p.json", "--data-parallel", "2"], "sets dp from the plan"),
     (["--pipeline-parallel", "2", "--trace"], "A14"),
     (["--plan", "p.json", "--search", "A:1,B:1"], "mutually exclusive"),
     (["--plan", "p.json", "--schedule", "zb_v"], "plan's schedule"),

@@ -108,7 +108,8 @@ def test_port_imports_no_jax_or_repro_ast():
         "core/resharding", "core/schedules/base", "core/schedules/library",
         "core/schedules/simulator", "core/dataparallel/batch_domain",
         "core/dataparallel/grad_sync", "comm/latency",
-        "core/tickprogram", "core/heteroauto", "core/heteropp", "comm/p2p",
+        "core/tickprogram", "core/heteroauto", "core/heteropp", "core/tp_rules",
+        "comm/p2p",
         "kernels/constraints", "launch/ranks", "analysis/__init__",
         "analysis/diagnostics", "analysis/schedule_safety", "analysis/collectives",
         "analysis/resources", "analysis/kernel_lint", "analysis/plan_verifier")}

@@ -286,14 +286,15 @@ def test_train_launcher_cpu_loss_falls(tmp_path):
 
 
 def test_train_launcher_refuses_pipeline_and_missing_card(tmp_path):
-    # the pipeline runs (tests/test_torch_heteropp.py); its tp axis is
-    # still refused, by name
+    # the pipeline runs (tests/test_torch_heteropp*.py); tp on the ssm
+    # family is refused with the JAX package's words
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
                         "mamba2_780m", "--smoke", "--device", "cpu",
                         "--pipeline-parallel", "2", "--tensor-parallel", "2"],
                        capture_output=True, text=True, env=_env(), timeout=120,
                        cwd=tmp_path)
-    assert r.returncode != 0 and "HeteroPP" in r.stderr and "A8(d)" in r.stderr
+    assert r.returncode != 0 and "tensor_parallel=2" in r.stderr \
+        and "dense decoder blocks only" in r.stderr
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
                         "mamba2_780m", "--smoke", "--steps", "1"],
                        capture_output=True, text=True,
