@@ -98,11 +98,33 @@ result.  Phases, each of which fails the run by raising:
      per-leaf psum must agree bit for bit, and ZeRO-1's master weights
      after one step equal psum's to 1e-6 of each leaf's largest entry.
 
+ 18. HeteroPP with grouped non-uniform tp on one card: Σ tp_s = 3 ranks
+     sharing it through ``--p2p host``, ``launch.train --plan`` of
+     qwen1.5-0.5b at full size (14 / 10 layers, phase 16 (a)'s batch, 4
+     steps) whose stages disagree on tp: (a) tp (2, 1), once with
+     ``--reshard sr_ag`` and once with ``naive``; (b) tp (1, 2) with
+     ``sr_ag``.  ``flash_attention`` launches a step = Σ_s tp_s x stage
+     s's launches at tp 1; the boundary's bytes per exchange each way
+     exactly what the strategy moves (one copy each way under ``sr_ag``,
+     tp_dst forward and tp_src back under ``naive``), beside the copied
+     closed forms; (c) qwen's width at 4 layers (1 / 3), both layouts
+     and both strategies, fp32, against the single device at phase 17
+     (d)'s limits.
+ 19. HeteroPP with an uneven batch domain on one card: four ranks, (dp
+     2, pipe 2), replica 0 taking 4 microbatches and replica 1 taking 3:
+     mamba2-780m at full width cut to phase 17 (c)'s 24 layers, 7 x (1 x
+     2048) a step, 2 steps under ZeRO-1, per-leaf psum and bucketed psum
+     (7 x 24 x 2 = 336 ``ssd_scan`` a step; each replica's tick count its
+     own allocation's); at 4 layers in fp32 against the single device on
+     the same 7 microbatches, the padded token layout and the padded one
+     with its pad slots overwritten giving the tight layout's loss bit
+     for bit and its gradient within a second tight backward's spread.
+
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
-over the main paths that run it, phases 4, 7, 12, 13, 15, 16 and 17,
-each counted from 0; phases 16 and 17 in each rank's own process, summed
-over the ranks), the ``nvidia-smi`` name/power line, and last ``{"ok":
-true, "device": {...}}``.
+over the main paths that run it, phases 4, 7, 12, 13, 15, 16, 17, 18
+and 19, each counted from 0; phases 16 to 19 in each rank's own process,
+summed over the ranks), the ``nvidia-smi`` name/power line, and last
+``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --transports
 
@@ -113,7 +135,9 @@ pinned host memory); with four cards also granite-8b at full size,
 pipe 2 x tp 2 through ``--p2p device`` (3 steps, batch 4 x 2048, peak
 learning rate 1e-5; losses finite and falling, launches pinned), which
 one card cannot hold, phase 17 (d)'s (pipe 2, tp 2) parity cases and
-phase 17 (b)'s ZeRO-1 run with NCCL's reduce-scatter and all-gather.
+phase 17 (b)'s ZeRO-1 run with NCCL's reduce-scatter and all-gather;
+with three cards or more also phase 18 (a) through ``--p2p device``,
+``sr_ag`` against ``naive``.
 """
 from __future__ import annotations
 
@@ -257,6 +281,8 @@ SSD_CASES = [
     ("prefill: b4 S512 h48 p64 g1 n128", 4, 512, 48, 64, 1, 128, 256),
     ("g 2, S = chunk 128, p32 n64", 2, 128, 8, 32, 2, 64, 128),
     ("smoke: S96 chunk 32, p32 n16", 2, 96, 4, 32, 1, 16, 32),
+    # a pipeline microbatch of mamba2-780m (phases 16, 17, 19)
+    ("pipeline: b1 S2048 h48 p64 g1 n128", 1, 2048, 48, 64, 1, 128, 256),
 ]
 SSD_GRAD = ("grad: b1 S512 h48 p64 g1 n128", 1, 512, 48, 64, 1, 128, 256)
 FA_GRAD = [
@@ -296,6 +322,8 @@ FA_CASES = [
     ("window 50, GQA, hd 64", 1, 300, 300, 8, 4, 64, True, 50, 0),
     ("ragged S=200, hd 80", 2, 200, 200, 4, 4, 80, True, 0, 0),
     ("window 96, GQA 8/4, hd 80", 2, 320, 320, 8, 4, 80, True, 96, 0),
+    # a qwen1.5-0.5b microbatch on a tp-2 member (phases 17, 18): 8 of 16 heads
+    ("qwen tp 2: B2 S1024 H8 hd64", 2, 1024, 1024, 8, 8, 64, True, 0, 0),
 ]
 FA_SERVE = ("serving: B4 S512 H32 KV8 hd128", 4, 512, 512, 32, 8, 128, True, 0, 0)
 # t_attn of the profile (phase 12): granite-8b's heads at seq 4096
@@ -393,6 +421,34 @@ TRANSPORT_TP = ("granite_8b", 36, ["--pipeline-parallel", "2", "--tensor-paralle
 # the buffer, so bucketed and per-leaf psum need not agree bit for bit)
 GRID_PARITY_NCCL = [(a, n, mb, seq, ("tp",)) for a, n, mb, seq, k in GRID_PARITY
                     if "tp" in k]
+# Phase 18: grouped non-uniform tp, Σ tp_s = 3 ranks sharing the card
+# through gloo.  qwen1.5-0.5b at full size, phase 16 (a)'s batch (4
+# microbatches of 2 x 1024), 14 / 10 layers between a stage of one tp
+# degree on chip A and one of another on chip B: (a) tp (2, 1) under
+# each boundary strategy, (b) tp (1, 2) under the one choose_strategy
+# picks (sr_ag).  (chip, tp, layers, recompute) a stage.
+HETERO_QWEN = ("qwen1p5_0p5b", 4, 2, 1024, ["--batch", "8", "--seq", "1024", "--steps", "4"])
+HETERO_RUNS = [("(a)", (("A", 2, 14, True), ("B", 1, 10, False)), ("sr_ag", "naive")),
+               ("(b)", (("A", 1, 14, True), ("B", 2, 10, False)), ("sr_ag",))]
+# (c): qwen's width at 4 layers split 1 / 3, both layouts, both
+# strategies, fp32, against the single device at phase 17 (d)'s limits
+HETERO_PARITY = ("qwen1p5_0p5b", 4, 2, 1024)
+HETERO_LAYOUTS = ((2, 1), (1, 2))
+HETERO_STRATEGIES = ("sr_ag", "naive")
+# Phase 19: an uneven batch domain, replica 0 taking 4 microbatches and
+# replica 1 taking 3, on a (dp 2, pipe 2, tp 1) grid of four ranks sharing
+# the card: mamba2-780m at full width cut to phase 17 (c)'s 24 layers (12
+# / 12), 7 microbatches of 1 x 2048 a step, 2 steps in each dp sync mode
+# ((name, dp_sync, bucket_bytes); ZeRO-1 ignores the bucket size, and the
+# plan verifier prices in buckets only, refusing bucket_bytes 0, so the
+# per-leaf psum run passes --no-verify-plan); and at 4 layers in fp32 against the single device on
+# the same 7 microbatches
+DOMAIN = (4, 3)
+DOMAIN_SSM = ("mamba2_780m", 24, 48, 1, 2048, ["--batch", "7", "--seq", "2048",
+                                              "--steps", "2"])
+DOMAIN_SYNCS = [("ZeRO-1", "reduce_scatter", GRID_PARITY_BUCKET), ("per-leaf psum", "psum", 0),
+                ("bucketed psum", "psum", GRID_PARITY_BUCKET)]
+DOMAIN_PARITY = ("mamba2_780m", 4, 1, 2048)
 
 
 def log(msg=""):
@@ -1384,13 +1440,24 @@ def phase_profiler():
     return launches
 
 
-def pp_plan(stages, microbatches, schedule, tp=1, dp=1):
-    """A ``ParallelPlan`` JSON (``to_dict``) of one-stage chip groups of
-    ``tp`` x ``dp`` chips."""
+def pp_plan(stages, microbatches, dp=1, schedule="1f1b", **extra):
+    """A ``ParallelPlan`` JSON (``to_dict``) of one-stage chip groups,
+    (chip, tp, layers, recompute) a stage, each of tp x dp chips;
+    ``extra`` adds plan fields (``batch_domain``, ``dp_sync``, ...)."""
     return {"dp": dp, "microbatches": microbatches, "schedule": schedule,
             "stages": [{"chip": chip, "count": tp * dp, "label": "", "tp": tp, "pp": 1,
                         "layers": layers, "recompute": rec}
-                       for chip, layers, rec in stages]}
+                       for chip, tp, layers, rec in stages], **extra}
+
+
+def write_plan(run, plan):
+    """``plan`` as ``build/chip_smoke/<run>/plan.json``; returns its path."""
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", run)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "plan.json")
+    with open(path, "w") as f:
+        json.dump(plan, f)
+    return path
 
 
 def plan_and_check(arch, stages, microbatches, args, schedule, kernel, transport="host",
@@ -1400,11 +1467,8 @@ def plan_and_check(arch, stages, microbatches, args, schedule, kernel, transport
     recompute[s] else 1) times a step over the ranks.  Returns the
     launcher's result (``pipeline_and_check``)."""
     run = f"pipeline_{arch}_{schedule}_{transport}" + (f"_tp{tp}" if tp > 1 else "")
-    out_dir = os.path.join(ROOT, "build", "chip_smoke", run)
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "plan.json")
-    with open(path, "w") as f:
-        json.dump(pp_plan(stages, microbatches, schedule, tp), f)
+    path = write_plan(run, pp_plan([(chip, tp, L, rec) for chip, L, rec in stages],
+                                   microbatches, schedule=schedule))
     per_step = tp * microbatches * sum(L * (2 if rec else 1) for _, L, rec in stages)
     return pipeline_and_check(run, ["--arch", arch, "--plan", path] + args, kernel,
                               per_step, sum(L for _, L, _ in stages), schedule, transport)
@@ -1441,9 +1505,13 @@ def pipeline_and_check(run, argv, kernel, per_step, layers, label, transport="ho
                              f"steps over the ranks, expected {per_step} a step")
     p50 = statistics.median(times[1:]) if steps > 1 else times[0]
     ticks = res["ticks"]
-    p2p_b = res["p2p_bytes_per_step"][-1]
+    # a grouped layout hops across its stage boundaries, the others along
+    # their pipe groups: one of the two counts is 0
+    hop = lambda key, i: res[f"p2p_{key}_per_step"][i] + res[f"boundary_{key}_per_step"][i]
+    p2p_b = hop("bytes", -1)
     steady = lambda xs: statistics.median(xs[1:] or xs)
-    p2p_s, copy_s = steady(res["p2p_s_per_step"]), steady(res["p2p_copy_s_per_step"])
+    p2p_s = steady([hop("s", i) for i in range(steps)])
+    copy_s = steady([hop("copy_s", i) for i in range(steps)])
     n = len(res["peak_mem_bytes_per_rank"])
     log(f"  {label}: losses {', '.join(f'{x:.4f}' for x in losses)}")
     log(f"  {label}: launches over the {n} ranks {launches} in {steps} steps = "
@@ -1458,9 +1526,11 @@ def pipeline_and_check(run, argv, kernel, per_step, layers, label, transport="ho
         + ", ".join(f"{b / 2**30:.2f}" for b in res["peak_mem_bytes_per_rank"])
         + f" GiB; {wall:.1f} s with the ranks' start")
     ms = lambda key, r: steady(res[key + "_per_step_per_rank"][r]) * 1e3
+    hop_ms = lambda key, r: ms("p2p_" + key, r) + ms("boundary_" + key, r)
     log(f"  {label}: collectives a step by rank (d, s, k), wall ms: " + "; ".join(
-        f"rank {r} {tuple(res['grid_per_rank'][r])}: hops {ms('p2p_s', r):.1f} (copies "
-        f"{ms('p2p_copy_s', r):.1f}), tp all-reduce {ms('tp_s', r):.1f}, dp all-reduce "
+        f"rank {r} {tuple(res['grid_per_rank'][r])}: hops {hop_ms('s', r):.1f} (copies "
+        f"{hop_ms('copy_s', r):.1f}), boundary all-gather {ms('boundary_gather_s', r):.1f}, "
+        f"tp all-reduce {ms('tp_s', r):.1f}, dp all-reduce "
         f"{ms('dp_s', r):.1f}, dp reduce-scatter {ms('dp_scatter_s', r):.1f}, dp "
         f"all-gather {ms('dp_gather_s', r):.1f}, replicated all-reduce "
         f"{ms('reduce_s', r):.1f}, norm {ms('norm_s', r):.1f}" for r in range(n)))
@@ -1797,8 +1867,6 @@ def phase_grid_parity(device="cuda:0", microbatches=4, transport="host",
     its gradient, in fp32 and bf16."""
     import torch
     from repro_torch.launch import ranks
-    from repro_torch.models import model as M
-    from repro_torch.tree import flatten
 
     dev = torch.device(device)
     t0 = time.perf_counter()
@@ -1814,38 +1882,15 @@ def phase_grid_parity(device="cuda:0", microbatches=4, transport="host",
             f"of {mb} x {seq}"
             + (f" ({microbatches // GRID_DP} a replica under dp)" if "dp" in kinds else ""))
         for dtype in PP_PARITY_DTYPES:
-            cfg, params, tokens = parity_inputs(arch, layers, dtype, mb, seq,
-                                                microbatches, dev)
-            flat = flatten(params)
-            for t in flat.values():
-                t.requires_grad_()
-            loss, _ = M.loss_fn(params, cfg, {"tokens": tokens.reshape(-1, seq)})
-            norms = {k: float(g.double().norm())
-                     for k, g in zip(flat, torch.autograd.grad(loss, list(flat.values())))}
-            want = float(loss.detach())
-            del params, flat
-            torch.cuda.empty_cache()
+            want, norms = single_device_grads(arch, layers, dtype, mb, seq, microbatches,
+                                              dev)
             key = f"{arch} {dtype}"
             modes = (["tp"] if "tp" in kinds else []) + (
                 ["psum", "reduce_scatter"] if "dp" in kinds else [])
-            loss_rtol = TRAIN_LOSS_RTOL if dtype == "float32" else TRAIN_BF16_LOSS_RTOL
             bad = []
             for mode in modes:
-                runs = [r[f"{key} {mode}"] for r in res]
-                if len({r["loss"] for r in runs}) != 1:
-                    bad.append(f"{mode}: losses differ between ranks")
-                rel = abs(runs[0]["loss"] - want) / abs(want)
-                got = {k: math.sqrt(sum(r["sq"].get(k, 0.0) for r in runs)) for k in norms}
-                worst, leaf = max((abs(got[k] - norms[k]) / max(norms[k], 1e-12), k)
-                                  for k in norms)
-                log(f"  {dtype} {mode}: loss {runs[0]['loss']:.7f} against the single "
-                    f"device's {want:.7f}, rel diff {rel:.2e} (limit {loss_rtol}); worst "
-                    f"per-leaf gradient norm rel diff {worst:.2e} ({leaf})"
-                    + (f" (limit {TRAIN_GNORM_RTOL:.0e})" if dtype == "float32"
-                       else " (reported, not held in bf16)"))
-                if not math.isfinite(rel) or rel > loss_rtol or (
-                        dtype == "float32" and worst > TRAIN_GNORM_RTOL):
-                    bad.append(f"{mode}: the grid and the single device disagree")
+                bad += hold_parity([r[f"{key} {mode}"] for r in res], want, norms, dtype,
+                                   mode)
             if "dp" in kinds:
                 bucket = max(r[f"{key} psum"]["bucket diff"] for r in res)
                 zero = max(r[f"{key} zero diff"] for r in res)
@@ -1861,6 +1906,329 @@ def phase_grid_parity(device="cuda:0", microbatches=4, transport="host",
             if bad:
                 raise AssertionError(f"phase 17 (d) {arch} {dtype}: " + "; ".join(bad))
 
+
+def boundary_report(res, label, stages, strategy, act_bytes):
+    """A grouped run's stage-boundary traffic: the bytes that crossed it
+    per exchange forward (stage 0's members sent them) and backward
+    (stage 1's), the all-gather bytes a member of an ``sr_ag``
+    destination brought in, and each rank's wall ms a step, beside the
+    copied closed forms (``naive_cost`` / ``sr_ag_cost`` and
+    ``boundary_time`` priced for the plan's chips).  The bytes must be
+    what the strategy moves: one copy each way under ``sr_ag``, tp_dst
+    copies forward and tp_src back under ``naive``."""
+    import statistics
+
+    from repro_torch.core import chips, resharding as RS
+    t_src, t_dst = (tp for _, tp, _, _ in stages)
+    hops = res["ticks"] - 1                      # exchanges a step, each way
+    steady = lambda xs: statistics.median(xs[1:] or xs)
+    per_rank = lambda key: [res[f"{key}_per_step_per_rank"][r][-1]
+                            for r in range(len(res["grid_per_rank"]))]
+    stage_of = [g[1] for g in res["grid_per_rank"]]
+    sent = per_rank("boundary_bytes")
+    fwd = sum(b for b, s in zip(sent, stage_of) if s == 0) / hops
+    bwd = sum(b for b, s in zip(sent, stage_of) if s == 1) / hops
+    gathered = [g / hops for g in per_rank("boundary_gather_bytes")]
+    if strategy == "sr_ag":
+        want = (act_bytes, act_bytes)
+        want_g = [RS.sr_ag_cost(act_bytes, t_dst, t_src).intra_bytes if s == 0 else
+                  RS.sr_ag_cost(act_bytes, t_src, t_dst).intra_bytes for s in stage_of]
+        closed = RS.sr_ag_cost(act_bytes, t_src, t_dst)
+    else:
+        want, want_g = (t_dst * act_bytes, t_src * act_bytes), [0] * len(stage_of)
+        closed = RS.naive_cost(act_bytes, t_src, t_dst)
+    src, dst = (chips.CHIPS[chip] for chip, _, _, _ in stages)
+    priced = RS.boundary_time(act_bytes, t_src, t_dst, nic_bw=src.nic_bw,
+                              intra_bw=dst.intra_node_bw, strategy=strategy)
+    ms = lambda key, r: steady(res[key + "_per_step_per_rank"][r]) * 1e3
+    log(f"  {label}: boundary a step ({hops} exchanges each way of a "
+        f"{act_bytes / 2**20:.2f} MiB activation): {fwd / 2**20:.2f} MiB forward and "
+        f"{bwd / 2**20:.2f} MiB back per exchange (expected {want[0] / 2**20:.2f} / "
+        f"{want[1] / 2**20:.2f}); all-gather per exchange by rank "
+        + ", ".join(f"{g / 2**20:.2f}" for g in gathered) + " MiB; closed forms "
+        f"cross_bytes {closed.cross_bytes / 2**20:.2f} MiB, intra_bytes "
+        f"{closed.intra_bytes / 2**20:.2f} MiB, boundary_time priced for chips "
+        f"{src.name} -> {dst.name} {priced * 1e3:.3f} ms a hop; wall ms a step by rank: "
+        + "; ".join(f"rank {r}: hops {ms('boundary_s', r):.1f} (copies "
+                    f"{ms('boundary_copy_s', r):.1f}), all-gather "
+                    f"{ms('boundary_gather_s', r):.1f}"
+                    for r in range(len(stage_of))))
+    if (fwd, bwd) != want or gathered != want_g:
+        raise AssertionError(f"{label}: the boundary moved {fwd} / {bwd} bytes and "
+                             f"gathered {gathered}, not {want} / {want_g}")
+
+
+def phase_hetero(transport="host", runs=HETERO_RUNS):
+    """Phase 18 (a), (b): qwen1.5-0.5b at full size from plans whose two
+    stages disagree on tp (Σ tp_s ranks), through ``launch.train --plan
+    --reshard``.  Each run's ``flash_attention`` launches a step must be
+    Σ_s tp_s x stage s's launches at tp 1 (every member runs its stage's
+    layers on its own heads).  Returns the runs' launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import dtype_of
+    arch, b, mb, seq, args = HETERO_QWEN
+    cfg = get_config(arch)
+    act = mb * seq * cfg.d_model * torch.empty((), dtype=dtype_of(cfg)).element_size()
+    launches = {}
+    for label, stages, strategies in runs:
+        tps = tuple(tp for _, tp, _, _ in stages)
+        at_tp1 = [b * L * (2 if rec else 1) for _, _, L, rec in stages]
+        per_step = sum(tp * n for tp, n in zip(tps, at_tp1))
+        for strategy in strategies:
+            run = f"hetero_{arch}_tp{tps[0]}{tps[1]}_{strategy}_{transport}"
+            path = write_plan(run, pp_plan(stages, b))
+            name = f"{label} tp {tps} {strategy}"
+            res = pipeline_and_check(run, ["--arch", arch, "--plan", path, "--reshard",
+                                           strategy] + args, "flash_attention",
+                                     per_step, sum(L for _, _, L, _ in stages), name,
+                                     transport)
+            log(f"  {name}: {per_step} flash_attention a step = "
+                + " + ".join(f"{tp} x {n}" for tp, n in zip(tps, at_tp1))
+                + " (tp_s x stage s's launches at tp 1)")
+            boundary_report(res, name, stages, strategy, act)
+            for k, v in res["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def _hetero_parity_rank(rank, world, device, case, microbatches, phys, layouts, strategies):
+    """Phase 18 (c) on one rank: on each grouped layout (every layout
+    built first) under each strategy, in fp32, the pipeline's loss and
+    the squared norms (fp64) of the synced gradient leaves this rank
+    counts first (``heteropp.leaf_axes``: a stage's tp-sharded leaves on
+    every member, its replicated ones on member 0, ``embed`` and
+    ``final_norm`` on rank 0)."""
+    import torch
+    from repro_torch.comm.p2p import Grid
+    from repro_torch.core import heteropp as HP
+    from repro_torch.kernels import build
+    from repro_torch.tree import flatten
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    build.load()
+    grids = [Grid.grouped("host", dev, st) for st in layouts]
+    arch, layers, mb, seq = case
+    cfg, params, tokens = parity_inputs(arch, layers, "float32", mb, seq, microbatches, dev)
+    out = {}
+    for st, grid in zip(layouts, grids):
+        for strategy in strategies:
+            spec = HP.PipelineSpec(len(st), phys, microbatches, stage_tp=st,
+                                   reshard=(strategy,))
+            local = HP.local_stage_params(params, cfg, spec, grid.s, grid.k)
+            for t in flatten(local).values():
+                t.requires_grad_()
+            loss, grads = HP.make_pipeline_loss(cfg, spec, grid)(local, tokens)
+            dims = HP.zero1_dims(local, spec, "psum")
+            grads = HP.make_grad_sync(spec, grid, "psum")(grads, dims)
+            coord = {"pipe": grid.s, "tp": grid.k}
+            out[f"{st} {strategy}"] = {"loss": float(loss), "sq": {
+                k: float(torch.sum(torch.square(g.double())))
+                for (k, g), axes in zip(flatten(grads).items(),
+                                        HP.leaf_axes(local, spec, dims, grid.s))
+                if all(c == 0 for a, c in coord.items() if a not in axes)}}
+            del local, grads
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_hetero_parity(device="cuda:0", microbatches=4):
+    """Phase 18 (c): both grouped layouts under both strategies (three
+    ranks on the card, one spawn) against the single-device ``loss_fn``
+    and its gradient in fp32."""
+    import torch
+    from repro_torch.launch import ranks
+
+    arch, layers, mb, seq = HETERO_PARITY
+    t0 = time.perf_counter()
+    res = ranks.spawn(_hetero_parity_rank, 3, (device, HETERO_PARITY, microbatches,
+                                               PP_PARITY_SPLIT, HETERO_LAYOUTS,
+                                               HETERO_STRATEGIES),
+                      workdir=os.path.join(ROOT, "build", "chip_smoke", "hetero_parity"),
+                      transport="host", timeout=600)
+    log(f"  (c) parity: the three ranks done in {time.perf_counter() - t0:.1f} s with "
+        f"their start; {arch} width, {layers} layers split "
+        f"{' / '.join(map(str, PP_PARITY_SPLIT))}, {microbatches} microbatches of "
+        f"{mb} x {seq}, fp32")
+    want, norms = single_device_grads(arch, layers, "float32", mb, seq, microbatches,
+                                      torch.device(device))
+    bad = []
+    for st in HETERO_LAYOUTS:
+        for strategy in HETERO_STRATEGIES:
+            bad += hold_parity([r[f"{st} {strategy}"] for r in res], want, norms,
+                               "float32", f"tp {st} {strategy}")
+    if bad:
+        raise AssertionError("phase 18 (c): " + "; ".join(bad))
+
+
+def phase_domain():
+    """Phase 19: mamba2-780m at full width (phase 17 (c)'s 24 layers) on
+    a (dp 2, pipe 2) grid with the uneven batch domain (4, 3), through
+    ``launch.train --plan``, one run in each dp sync mode: 7 x 24 x 2
+    ``ssd_scan`` a step, and replica d's tick program its own allocation's
+    (b + 1 ticks under 1f1b).  Returns the runs' launches."""
+    arch, layers, full, mb, seq, args = DOMAIN_SSM
+    per_step = sum(DOMAIN) * layers * 2
+    launches = {}
+    for name, sync, bucket in DOMAIN_SYNCS:
+        run = f"domain_{arch}_{sync}_{bucket}"
+        plan = pp_plan([("A", 1, layers // 2, True), ("B", 1, layers // 2, True)],
+                           max(DOMAIN), dp=len(DOMAIN), batch_domain=list(DOMAIN),
+                           dp_sync=sync, bucket_bytes=bucket)
+        label = f"domain {DOMAIN}, {name}"
+        argv = ["--plan", write_plan(run, plan)] + args + (
+            ["--no-verify-plan"] if bucket == 0 else [])
+        res = grid_and_check(run, arch, layers, argv, "ssd_scan", per_step, label,
+                             full_layers=full)
+        ticks = {}
+        for (d, _, _), t in zip(res["grid_per_rank"], res["ticks_per_rank"]):
+            ticks.setdefault(d, set()).add(t)
+        log(f"  {label}: ticks a step by replica " + ", ".join(
+            f"{d}: {sorted(t)} ({DOMAIN[d]} microbatches)" for d, t in sorted(ticks.items())))
+        if ticks != {d: {a + 1} for d, a in enumerate(DOMAIN)}:
+            raise AssertionError(f"{label}: replicas ran {ticks} ticks, not their "
+                                 f"allocations' 1f1b programs")
+        if sync == "reduce_scatter":
+            check_zero1_state(res, label)
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def _domain_parity_rank(rank, world, device, case, domain, phys):
+    """Phase 19's parity on one rank of the (dp 2, pipe 2) grid, fp32: the
+    loss and the squared norms of the gradient leaves this rank counts
+    first, from the tight token layout (Σ domain microbatches); the loss
+    and the largest gradient difference from it of the tight layout
+    again, of the padded layout, and of the padded one with every pad
+    slot overwritten."""
+    import torch
+    from repro_torch.comm.p2p import Grid
+    from repro_torch.core import heteropp as HP
+    from repro_torch.kernels import build
+    from repro_torch.tree import flatten, tree_leaves
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    build.load()
+    grid = Grid.build("host", dev, dp=len(domain), pipe=len(phys))
+    arch, layers, mb, seq = case
+    cfg, params, tokens = parity_inputs(arch, layers, "float32", mb, seq, sum(domain), dev)
+    spec = HP.PipelineSpec(len(phys), phys, max(domain), data_parallel=len(domain),
+                           batch_domain=domain)
+    local = HP.local_stage_params(params, cfg, spec, grid.s, grid.k)
+    del params
+    for t in flatten(local).values():
+        t.requires_grad_()
+    loss_fn = HP.make_pipeline_loss(cfg, spec, grid)
+    sync = HP.make_grad_sync(spec, grid, "psum")
+    dims = HP.zero1_dims(local, spec, "psum")
+    padded = HP.prepare_domain_tokens(spec, tokens)
+    pad = torch.tensor([j >= a for a in domain for j in range(max(domain))], device=dev)
+    clobbered = padded.clone()
+    clobbered[pad] = (padded[pad] + 7) % cfg.vocab_size
+    out = {"losses": {}, "diff": {}}
+    first = None
+    for name, toks in (("tight", tokens), ("tight again", tokens), ("padded", padded),
+                       ("pads overwritten", clobbered)):
+        loss, grads = loss_fn(local, toks)
+        grads = sync(grads, dims)
+        out["losses"][name] = float(loss)
+        if first is None:
+            first = grads
+            out["loss"], out["ticks"] = float(loss), loss_fn.stats["ticks"]
+            coord = {"pipe": grid.s, "dp": grid.d}
+            out["sq"] = {k: float(torch.sum(torch.square(g.double())))
+                         for (k, g), axes in zip(flatten(grads).items(),
+                                                 HP.leaf_axes(local, spec, dims, grid.s))
+                         if all(c == 0 for a, c in coord.items() if a not in axes)}
+        else:
+            out["diff"][name] = max(float((a - b).abs().max())
+                                    for a, b in zip(tree_leaves(grads), tree_leaves(first)))
+    return out
+
+
+def phase_domain_parity(device="cuda:0"):
+    """Phase 19's parity: the uneven domain at 4 layers in fp32 against the
+    single device on the same 7 microbatches; the padded layout, and the
+    padded one with its pad slots overwritten, give the tight layout's
+    loss bit for bit and its gradient within what a second backward of
+    the tight layout moves it (0 where the card's backward is
+    deterministic)."""
+    import torch
+    from repro_torch.launch import ranks
+
+    arch, layers, mb, seq = DOMAIN_PARITY
+    t0 = time.perf_counter()
+    res = ranks.spawn(_domain_parity_rank, 4, (device, DOMAIN_PARITY, DOMAIN,
+                                               PP_PARITY_SPLIT),
+                      workdir=os.path.join(ROOT, "build", "chip_smoke", "domain_parity"),
+                      transport="host", timeout=600)
+    log(f"  parity: the four ranks done in {time.perf_counter() - t0:.1f} s with their "
+        f"start; {arch} width, {layers} layers split {' / '.join(map(str, PP_PARITY_SPLIT))}"
+        f", domain {DOMAIN} of 1 x {seq}, fp32; ticks by rank "
+        f"{[r['ticks'] for r in res]}")
+    want, norms = single_device_grads(arch, layers, "float32", mb, seq, sum(DOMAIN),
+                                      torch.device(device))
+    bad = hold_parity(res, want, norms, "float32", f"domain {DOMAIN}, psum")
+    spread = max(r["diff"]["tight again"] for r in res)
+    for name in ("padded", "pads overwritten"):
+        diff = max(r["diff"][name] for r in res)
+        same = all(r["losses"][name] == r["losses"]["tight"] for r in res)
+        log(f"  {name} layout against the tight one: loss the same bit for bit: {same}; "
+            f"largest gradient difference {diff:.3e} (a second tight backward: "
+            f"{spread:.3e})")
+        if not same or diff > spread:
+            bad.append(f"the {name} layout changed the result")
+    if bad:
+        raise AssertionError("phase 19 parity: " + "; ".join(bad))
+
+
+def single_device_grads(arch, layers, dtype, mb, seq, microbatches, dev, n=None):
+    """The single device's ``loss_fn`` on ``parity_inputs``' weights and
+    first ``n`` (default all) microbatches: its loss and each leaf's
+    gradient norm (fp64)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.tree import flatten
+
+    cfg, params, tokens = parity_inputs(arch, layers, dtype, mb, seq, microbatches, dev)
+    flat = flatten(params)
+    for t in flat.values():
+        t.requires_grad_()
+    loss, _ = M.loss_fn(params, cfg, {"tokens": tokens[:n].reshape(-1, seq)})
+    norms = {k: float(g.double().norm())
+             for k, g in zip(flat, torch.autograd.grad(loss, list(flat.values())))}
+    want = float(loss.detach())
+    del params, flat
+    torch.cuda.empty_cache()
+    return want, norms
+
+
+def hold_parity(runs, want, norms, dtype, label):
+    """One parity run's result a rank (its ``loss`` and the squared
+    norms ``sq`` of the gradient leaves it counts) against the single
+    device's loss and per-leaf gradient norms, at phase 16 (c)'s limits.
+    Logs the comparison; returns what disagrees."""
+    bad = []
+    if len({r["loss"] for r in runs}) != 1:
+        bad.append(f"{label}: losses differ between ranks")
+    loss_rtol = TRAIN_LOSS_RTOL if dtype == "float32" else TRAIN_BF16_LOSS_RTOL
+    rel = abs(runs[0]["loss"] - want) / abs(want)
+    got = {k: math.sqrt(sum(r["sq"].get(k, 0.0) for r in runs)) for k in norms}
+    worst, leaf = max((abs(got[k] - norms[k]) / max(norms[k], 1e-12), k) for k in norms)
+    log(f"  {dtype} {label}: loss {runs[0]['loss']:.7f} against the single device's "
+        f"{want:.7f}, rel diff {rel:.2e} (limit {loss_rtol}); worst per-leaf gradient "
+        f"norm rel diff {worst:.2e} ({leaf})"
+        + (f" (limit {TRAIN_GNORM_RTOL:.0e})" if dtype == "float32"
+           else " (reported, not held in bf16)"))
+    if not math.isfinite(rel) or rel > loss_rtol or (
+            dtype == "float32" and worst > TRAIN_GNORM_RTOL):
+        bad.append(f"{label}: the pipeline and the single device disagree")
+    return bad
+
+
 def phase_transports():
     """``--transports``: phase 16 (a)'s qwen1.5-0.5b plan under 1f1b with
     one card a rank, through NCCL and through gloo with host staging."""
@@ -1870,6 +2238,13 @@ def phase_transports():
         log(f"  --p2p {transport}:")
         plan_and_check(arch, stages, b, args, "1f1b", "flash_attention", transport)
     cards = torch.cuda.device_count()
+    if cards < 3:
+        log(f"  phase 18 (a) through --p2p device needs three cards; this machine has "
+            f"{cards}: skipped")
+    else:
+        log("  phase 18 (a): qwen1.5-0.5b 14 / 10 at tp (2, 1), one card a rank, "
+            "--p2p device, sr_ag against naive:")
+        phase_hetero(transport="device", runs=HETERO_RUNS[:1])
     if cards < 4:
         log(f"  granite-8b pipe 2 x tp 2 and qwen1.5-0.5b dp 2 x pipe 2 through --p2p "
             f"device need four cards; this machine has {cards}: skipped")
@@ -1994,6 +2369,17 @@ def main() -> int:
     grid_launches = phase_grid(qwen_1f1b_per_step)
     for name in ("flash_attention", "ssd_scan"):
         launches[name] += grid_launches[name]
+
+    log("== 18. HeteroPP grouped tp on one card: 3 ranks, --p2p host; qwen1.5-0.5b "
+        "14 / 10 at tp (2, 1) (sr_ag, naive) and (1, 2), parity at 4 layers")
+    hetero_launches = phase_hetero()
+    phase_hetero_parity()
+    log(f"== 19. HeteroPP uneven batch domain {DOMAIN} on one card: 4 ranks, --p2p host; "
+        f"mamba2-780m 24 layers dp 2 x pipe 2 in each dp sync mode, parity at 4 layers")
+    domain_launches = phase_domain()
+    phase_domain_parity()
+    for name in ("flash_attention", "ssd_scan"):
+        launches[name] += hetero_launches[name] + domain_launches[name]
 
     kernels = []
     for name in ("flash_attention", "flash_decode", "ssd_scan", "rmsnorm"):

@@ -3,7 +3,8 @@ pipeline stages (the port's counterpart of ``jax.lax.ppermute``, the JAX
 package's DiComm device-direct hop), and the all-reduce, reduce-scatter
 and all-gather of its tensor- and data-parallel groups, each over one
 ``torch.distributed`` process group.  :class:`Grid` builds the groups of
-a (dp, pipe, tp) rank grid.
+a (dp, pipe, tp) rank grid, or of the grouped runtime's flat layout in
+which each stage has a tp degree of its own (:meth:`Grid.grouped`).
 
 Two transports, which the caller names; nothing picks one quietly:
 
@@ -20,7 +21,8 @@ Two transports, which the caller names; nothing picks one quietly:
 :class:`P2P` counts the bytes it sends, the wall time of its exchanges
 (waiting for the peer included) and, of that, the time of the staging
 copies, so a run can report them a tick; and the wall time of each kind
-of collective, so a run can report it for each group.
+of collective (and the bytes an all-gather brings in), so a run can
+report it for each group.
 """
 from __future__ import annotations
 
@@ -75,9 +77,11 @@ class P2P:
     maps them to the global ranks ``torch.distributed`` addresses.
     ``bytes_sent``, ``seconds`` (wall time, waiting for the peer
     included) and ``copy_seconds`` (the host staging copies in it) add up
-    over every :meth:`ppermute`; ``reduce_seconds``, ``scatter_seconds``
-    and ``gather_seconds`` over every :meth:`all_reduce_`,
-    :meth:`reduce_scatter_` and :meth:`all_gather_`.  On the card each
+    over every :meth:`ppermute` and :meth:`send_recv`;
+    ``reduce_seconds``, ``scatter_seconds`` and ``gather_seconds`` over
+    every :meth:`all_reduce_`, :meth:`reduce_scatter_` and
+    :meth:`all_gather_`, and ``gather_bytes`` (the other members' parts
+    that arrive) over every :meth:`all_gather_`.  On the card each
     collective synchronizes the device before and after, so its time is
     its own.
 
@@ -106,6 +110,7 @@ class P2P:
     def reset_counts(self) -> None:
         self.bytes_sent, self.seconds, self.copy_seconds = 0, 0.0, 0.0
         self.reduce_seconds = self.scatter_seconds = self.gather_seconds = 0.0
+        self.gather_bytes = 0
 
     def _wire_zeros(self, like: torch.Tensor) -> torch.Tensor:
         """A cached zero tensor shaped like ``like`` where it goes on the
@@ -190,6 +195,40 @@ class P2P:
             self.copy_seconds += (t1 - t0) + (t3 - t2)
         return outs
 
+    def send_recv(self, sends: Sequence[Tuple[Optional[torch.Tensor], int, torch.Tensor]],
+                  recvs: Sequence[Tuple[int, torch.Tensor]]) -> List[torch.Tensor]:
+        """One batch of point-to-point messages: each ``(x, peer, like)``
+        of ``sends`` goes to ``peer`` (zeros shaped like ``like`` where
+        ``x`` is None), and each ``(peer, like)`` of ``recvs`` comes from
+        ``peer`` into a new tensor shaped like ``like``; returns those in
+        ``recvs``' order, on this rank's device.  Peers are group ranks,
+        at most one message a peer each way.  Counted as
+        :meth:`ppermute` counts."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        ops, bufs = [], []
+        for x, peer, like in sends:
+            buf = self._wire(x, like)
+            ops.append(dist.P2POp(dist.isend, buf, self.global_ranks[peer], self.group))
+            self.bytes_sent += buf.numel() * buf.element_size()
+        for peer, like in recvs:
+            bufs.append(self._empty(like))
+            ops.append(dist.P2POp(dist.irecv, bufs[-1], self.global_ranks[peer], self.group))
+        t1 = time.perf_counter()
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            if self.device.type == "cuda" and not self.staged:
+                torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        outs = [b.to(self.device) for b in bufs] if self.staged else bufs
+        t3 = time.perf_counter()
+        self.seconds += t3 - t0
+        if self.staged:
+            self.copy_seconds += (t1 - t0) + (t3 - t2)
+        return outs
+
     def _start(self) -> float:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -243,6 +282,7 @@ class P2P:
         """Fill ``out`` with every rank's ``part`` laid end to end along
         ``dim`` in group-rank order (in place; returns ``out``)."""
         t0 = self._start()
+        self.gather_bytes += (self.world_size - 1) * part.numel() * part.element_size()
         if self.transport == "host":
             # a gather sums nothing: it moves the bytes as they are
             buf = part.detach().to("cpu").contiguous()
@@ -275,18 +315,21 @@ class Grid:
     * ``world``: every rank: the clip norm.
 
     Build it with :meth:`build`, on every rank of the job in the same
-    order (``new_group`` is collective)."""
+    order (``new_group`` is collective).  :meth:`grouped` builds the
+    grouped runtime's layout instead, where stages differ in tp."""
     D: int
     S: int
-    T: int
+    T: int                   # this rank's stage's tp degree
     d: int
     s: int
     k: int
-    pipe: P2P
+    pipe: Optional[P2P]      # None on a grouped layout (``boundary`` hops)
     tp: Optional[P2P]
     dp: Optional[P2P]
     rep: P2P
     world: P2P
+    boundary: Optional[P2P] = None
+    stage_tp: Tuple[int, ...] = ()
 
     @staticmethod
     def rank_of(d: int, s: int, k: int, S: int, T: int) -> int:
@@ -325,15 +368,73 @@ class Grid:
                         for c in range(tp)]),
             world=P2P(transport, device))
 
+    @classmethod
+    def grouped(cls, transport: str, device: torch.device,
+                stage_tp: Sequence[int]) -> "Grid":
+        """The grouped runtime's flat layout of N = Σ ``stage_tp`` ranks:
+        stage s owns ranks ``offset[s]`` … ``offset[s] + stage_tp[s] - 1``
+        (the copied ``tickprogram.group_layout`` order), member k its k-th.
+        Its groups: ``tp``, this rank's stage (None at tp 1; every stage's
+        group is created on every rank, in stage order, so groups of
+        unequal size are collective as ``new_group`` wants);
+        ``boundary``, the stage-boundary hops (point-to-point over the
+        world group, peers named by global rank: a hop crosses two
+        groups); ``rep``, the world, where one member a stage adds the
+        loss, the token count and the replicated leaves' gradients
+        (:meth:`stage_sum_`); ``world``, the clip norm.  dp is 1."""
+        stage_tp = tuple(int(t) for t in stage_tp)
+        world = dist.get_world_size()
+        if world != sum(stage_tp):
+            raise ValueError(f"a grouped layout of stage_tp {stage_tp} needs "
+                             f"{sum(stage_tp)} ranks; the job has {world}")
+        me = dist.get_rank()
+        tp = None
+        for i, t in enumerate(stage_tp):
+            first = sum(stage_tp[:i])
+            if first <= me < first + t:
+                s, k = i, me - first
+            if t > 1:
+                g = None if t == world else dist.new_group(list(range(first, first + t)))
+                if first <= me < first + t:
+                    tp = P2P(transport, device, g)
+        return cls(1, len(stage_tp), stage_tp[s], 0, s, k, pipe=None, tp=tp, dp=None,
+                   rep=P2P(transport, device), world=P2P(transport, device),
+                   boundary=P2P(transport, device), stage_tp=stage_tp)
+
+    def stage_ranks(self, s: int) -> Tuple[int, ...]:
+        """The global ranks of stage ``s``'s tp members on a grouped
+        layout, in member order."""
+        first = sum(self.stage_tp[:s])
+        return tuple(range(first, first + self.stage_tp[s]))
+
+    def stage_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the stages and replicas, in place, of a value that
+        every tp member of a stage holds alike, each (replica, stage)
+        counted once: over ``rep`` (same k) on a (dp, pipe, tp) grid; on
+        a grouped layout, where stages have different member counts, over
+        the world with member 0 of each stage alone contributing."""
+        if self.stage_tp and self.k:
+            t.zero_()
+        return self.rep.all_reduce_(t)
+
     def counts(self) -> Dict[str, float]:
         """The counters a step reads, by group: the hops' bytes, wall and
-        staging copies (pipe); the all-reduces of the loss, the token count
-        and the replicated leaves' gradients (rep); the tp all-reduces;
-        the dp sync (all-reduce, reduce-scatter, all-gather); the clip
-        norm's all-reduce (world)."""
+        staging copies (pipe); on a grouped layout the boundary hops'
+        (their bytes cross the stage boundary) and the all-gathers that
+        rebuild an ``sr_ag`` hop's activation in the destination stage
+        (bytes brought in, wall); the all-reduces of the loss, the token
+        count and the replicated leaves' gradients (rep); the tp
+        all-reduces; the dp sync (all-reduce, reduce-scatter,
+        all-gather); the clip norm's all-reduce (world)."""
         z = lambda p, f: getattr(p, f) if p is not None else 0.0
-        return {"p2p_bytes": self.pipe.bytes_sent, "p2p_s": self.pipe.seconds,
-                "p2p_copy_s": self.pipe.copy_seconds,
+        gather = self.tp if self.stage_tp else None
+        return {"p2p_bytes": z(self.pipe, "bytes_sent"), "p2p_s": z(self.pipe, "seconds"),
+                "p2p_copy_s": z(self.pipe, "copy_seconds"),
+                "boundary_bytes": z(self.boundary, "bytes_sent"),
+                "boundary_s": z(self.boundary, "seconds"),
+                "boundary_copy_s": z(self.boundary, "copy_seconds"),
+                "boundary_gather_bytes": z(gather, "gather_bytes"),
+                "boundary_gather_s": z(gather, "gather_seconds"),
                 "reduce_s": self.rep.reduce_seconds,
                 "tp_s": z(self.tp, "reduce_seconds"),
                 "dp_s": z(self.dp, "reduce_seconds"),

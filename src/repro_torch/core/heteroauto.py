@@ -21,12 +21,6 @@ assignment is scored under the candidate schedules, pruned by the cost
 model's α monotonicity — compute terms are schedule-independent, so among
 memory-feasible schedules the lowest-α one always wins and the rest need
 no evaluation.
-
-A copy of the JAX package's ``core/heteroauto.py``,
-held equal to it by ``tests/test_torch_planning.py``.
-One difference: ``runtime_path`` also reports the layouts the
-port's ``heteropp`` refuses with ``NotImplementedError`` (uneven batch
-domains and grouped tp: ROADMAP A8(f), A8(g)) as ``refused``.
 """
 from __future__ import annotations
 
@@ -101,7 +95,7 @@ def runtime_path(plan: Optional[ParallelPlan]) -> str:
     from . import heteropp as HP
     try:
         spec = HP.from_plan(plan, execute_tp=True, execute_dp=True)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         return f"refused: {e}"
     path = "grouped-tp" if spec.grouped else "uniform-tp"
     return path + "+uneven-dp" if spec.batch_domain else path

@@ -41,13 +41,28 @@ replica's own microbatches, makes the loss the global batch mean, and
 closes the gradients with a per-leaf or bucketed all-reduce over dp, or
 ZeRO-1 (reduce-scatter, AdamW on dp-sharded state, all-gather).
 
-Uneven batch domains (ROADMAP A8(f)) and grouped non-uniform tp (A8(g))
-raise ``NotImplementedError``.  Only the dense and ssm block kinds run
-(the JAX package's ``block_kind`` maps hybrid to dense, so its pipeline
-has no hybrid path; moe waits for ROADMAP A11), and tp only the dense
-one.  A padded layer slot is skipped, not computed and masked: a
-stage's tp group shares its mask, so every member skips the same slots
-and issues the same collectives.
+Uneven batch domains (``PipelineSpec.batch_domain``, DESIGN.md §13):
+replica d runs the schedule's tick program for its own allocation
+(``spmd_tick_tables(sched, S, batch_domain[d])``, the prefix of its row
+of ``domain_tick_tables``) and stops there: the JAX program's padded
+tail ticks, which compute nothing it keeps, are skipped.  The loss is
+the global token mean, so the dp sync that follows the tick loop is the
+uniform one.
+
+Grouped non-uniform tp (``PipelineSpec.stage_tp``, DESIGN.md §12): a flat
+layout of Σ tp_s ranks (:meth:`~repro_torch.comm.p2p.Grid.grouped`), each
+stage's Megatron blocks on its own tp group and its own tp_s shard (the
+JAX package pads every shard to the tp_min width with zeros; the port
+holds the true shard), and at each stage boundary the spec's reshard
+strategy (``core/resharding.py``: ``sr_ag`` or ``naive``) moves the
+activation forward and its gradient back.  Single-chunk schedules and dp
+1 only, as in the JAX package.
+
+Only the dense and ssm block kinds run (the JAX package's ``block_kind``
+maps hybrid to dense, so its pipeline has no hybrid path; moe waits for
+ROADMAP A11), and tp only the dense one.  A padded layer slot is
+skipped, not computed and masked: a stage's tp group shares its mask,
+so every member skips the same slots and issues the same collectives.
 """
 from __future__ import annotations
 
@@ -59,6 +74,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..comm.p2p import Grid
+from . import resharding as RS
 from ..models import attention, layers, model as M, transformer as tfm
 from ..models.config import ModelConfig
 from ..optim import adamw
@@ -81,9 +97,11 @@ class PipelineSpec:
     model-layer order (length S·n_chunks); the schedule's chunk placement
     decides which physical stage hosts which global chunk-stage.
     ``recompute`` stays per physical stage.  ``microbatches`` is per dp
-    replica.  The batch-domain and grouped-tp fields keep the JAX
-    package's validation, and a spec that asks for either raises
-    ``NotImplementedError`` (ROADMAP A8(f), A8(g))."""
+    replica (the pacing one's under a non-uniform ``batch_domain``, whose
+    replica r takes ``batch_domain[r]``).  ``stage_tp`` gives each
+    physical stage its own tp degree (the grouped runtime, with
+    ``reshard`` naming each boundary's strategy).  Every field keeps the
+    JAX package's validation."""
     num_stages: int
     layers_per_stage: Tuple[int, ...]     # per global chunk-stage
     microbatches: int
@@ -174,17 +192,6 @@ class PipelineSpec:
             raise ValueError("reshard strategies need stage_tp (the "
                              "grouped runtime); uniform specs have no "
                              "per-boundary collective to choose")
-        if self.batch_domain:
-            raise NotImplementedError(
-                f"PipelineSpec(batch_domain={self.batch_domain}): uneven "
-                f"batch domains are not ported yet (ROADMAP A8(f)); the "
-                f"port's dp replicas take equal microbatch counts")
-        if self.stage_tp:
-            raise NotImplementedError(
-                f"PipelineSpec(stage_tp={self.stage_tp}, reshard="
-                f"{self.reshard}): grouped non-uniform tp and its reshard "
-                f"are not ported yet (ROADMAP A8(g)); the port runs a "
-                f"uniform tensor_parallel")
 
     @property
     def total_layers(self) -> int:
@@ -196,7 +203,32 @@ class PipelineSpec:
 
     @property
     def grouped(self) -> bool:
+        """True when the spec uses the grouped (non-uniform per-stage tp)
+        runtime: a flat layout of :attr:`pipe_width` ranks."""
         return bool(self.stage_tp)
+
+    @property
+    def stage_tps(self) -> Tuple[int, ...]:
+        """Effective per-physical-stage tp degrees (uniform or grouped)."""
+        return self.stage_tp if self.stage_tp \
+            else (self.tensor_parallel,) * self.num_stages
+
+    @property
+    def pipe_width(self) -> int:
+        """Ranks of the grouped runtime's flat layout."""
+        return sum(self.stage_tp) if self.stage_tp else self.num_stages
+
+    @property
+    def batch_allocations(self) -> Tuple[int, ...]:
+        """Effective per-dp-replica microbatch allocations (uniform or
+        non-uniform, DESIGN.md §13)."""
+        return self.batch_domain if self.batch_domain \
+            else (self.microbatches,) * self.data_parallel
+
+    @property
+    def total_microbatches(self) -> int:
+        """Global-batch microbatch count Σ_r allocations[r]."""
+        return sum(self.batch_allocations)
 
 
 def from_plan(plan, microbatches: Optional[int] = None, *,
@@ -211,10 +243,13 @@ def from_plan(plan, microbatches: Optional[int] = None, *,
 
     With the defaults tp and dp stay cost-model dimensions and the layer
     split alone executes.  ``execute_tp`` / ``execute_dp`` build the
-    JAX package's tp, dp and batch-domain fields: uniform tp and dp run,
-    non-uniform per-stage tp and uneven batch domains are refused by the
-    spec (ROADMAP A8(g), A8(f)).  ``verify=True`` gates on the copied
-    static verifier (``analysis.verify_plan``)."""
+    JAX package's tp, dp and batch-domain fields: stages that disagree
+    on tp give a grouped spec whose tp-changing boundaries take
+    ``resharding.choose_strategy``'s pick, and a non-uniform
+    ``batch_domain`` gives each replica its own allocation; non-uniform
+    tp under a chunked schedule or with dp > 1 is refused with the JAX
+    package's words.  ``verify=True`` gates on the copied static
+    verifier (``analysis.verify_plan``)."""
     from .schedules import get_schedule
     sched = get_schedule(plan.schedule)
     v = sched.n_chunks
@@ -337,10 +372,11 @@ def local_stage_params(params: PyTree, cfg: ModelConfig, spec: PipelineSpec,
     """Physical ``stage``'s share of the monolithic ``params``: block
     leaves ``(Lmax, ...)`` (single-chunk) or ``(v, Lcmax, ...)``
     (chunked: slot k holds global chunk-stage ``stage_slots[k]``), zero
-    past each slot's layer count, and with ``spec.tensor_parallel`` > 1
-    sliced to tp member ``tp_rank``'s Megatron shard
-    (``tp_rules.tp_local_slice``); ``embed`` and ``final_norm`` copied.
-    New tensors: the result shares no storage with ``params``."""
+    past each slot's layer count, and with the stage's tp degree
+    (``spec.stage_tps[stage]``) above 1 sliced to tp member ``tp_rank``'s
+    Megatron shard of that degree (``tp_rules.tp_local_slice``);
+    ``embed`` and ``final_norm`` copied.  New tensors: the result shares
+    no storage with ``params``."""
     pipeline_block_kind(cfg)
     validate_spec_tp(cfg, spec)
     L = cfg.num_layers
@@ -361,10 +397,11 @@ def local_stage_params(params: PyTree, cfg: ModelConfig, spec: PipelineSpec,
         return torch.stack([pad_part(leaf, g) for g in slots])
 
     blocks = tree_map(split, params["blocks"])
-    if spec.tensor_parallel > 1:
+    tp = spec.stage_tps[stage]
+    if tp > 1:
         stacked = 1 if spec.n_chunks == 1 else 2
         blocks = _unflatten(blocks, [
-            tp_local_slice(path, leaf, tp_rank, spec.tensor_parallel, stacked=stacked)
+            tp_local_slice(path, leaf, tp_rank, tp, stacked=stacked)
             for path, leaf in flatten(blocks).items()])
     return {"blocks": blocks,
             "embed": tree_map(lambda t: t.detach().clone(), params["embed"]),
@@ -388,9 +425,10 @@ def split_stage_params(params: PyTree, cfg: ModelConfig, spec: PipelineSpec
     mask ``(S, Lmax)`` for single-chunk specs, ``(S, v, Lcmax, ...)`` /
     ``(S, v, Lcmax)`` for chunked ones, zero-padded; ``embed`` and
     ``final_norm`` replicated (once); every leaf at full width, whatever
-    ``spec.tensor_parallel`` (the tp shards are ``local_stage_params``')."""
+    the spec's tp (the tp shards are ``local_stage_params``'; the JAX
+    package lays a grouped spec out a rank at a time instead)."""
     S = spec.num_stages
-    full = dataclasses.replace(spec, tensor_parallel=1)
+    full = dataclasses.replace(spec, tensor_parallel=1, stage_tp=(), reshard=())
     per = [local_stage_params(params, cfg, full, s) for s in range(S)]
     blocks = tree_map(lambda *leaves: torch.stack(leaves),
                       *[p["blocks"] for p in per])
@@ -429,9 +467,11 @@ def validate_tensor_parallel(cfg: ModelConfig, tp: int) -> None:
 
 
 def validate_spec_tp(cfg: ModelConfig, spec: PipelineSpec) -> None:
-    """Validate the tp degree a spec realizes (the port's specs are
-    uniform: grouped ``stage_tp`` is refused, ROADMAP A8(g))."""
-    validate_tensor_parallel(cfg, spec.tensor_parallel)
+    """Validate every tp degree a spec realizes — the uniform
+    ``tensor_parallel`` or each distinct grouped ``stage_tp`` entry:
+    the model's head / kv-head / ff counts must divide every degree."""
+    for t in sorted(set(spec.stage_tps)):
+        validate_tensor_parallel(cfg, t)
 
 
 def _tp_local_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
@@ -579,12 +619,72 @@ class _Routes:
         return tuple((dst, src) for src, dst in perm)
 
 
+class _BoundaryHops:
+    """The grouped runtime's tick exchange: this stage's output to the
+    next stage and its input from the previous one, each across a
+    :class:`~repro_torch.core.resharding.Boundary` with the spec's
+    strategy, in one batch (single-chunk schedules only hop forward);
+    the gradients go back by the reversed boundaries."""
+
+    def __init__(self, spec: PipelineSpec, grid: Grid):
+        S, s = spec.num_stages, grid.s
+        cross = [RS.Boundary(grid.stage_ranks(i), grid.stage_ranks(i + 1), spec.reshard[i])
+                 for i in range(S - 1)]
+        self.p2p, self.gather = grid.boundary, grid.tp
+        self.out = cross[s] if s < S - 1 else None     # y -> stage s + 1
+        self.inp = cross[s - 1] if s > 0 else None     # x <- stage s - 1
+
+    def forward(self, y, like):
+        return RS.hop(self.p2p, like, send=(y, self.out) if self.out else None,
+                      recv=self.inp, gather=self.gather)
+
+    def backward(self, gx, like):
+        return RS.hop(self.p2p, like,
+                      send=(gx, self.inp.reversed()) if self.inp else None,
+                      recv=self.out.reversed() if self.out else None, gather=self.gather)
+
+
 def _check_grid(spec: PipelineSpec, grid: Grid) -> None:
+    if spec.grouped:
+        if grid.stage_tp != spec.stage_tp:
+            raise ValueError(f"the rank layout has stage_tp {grid.stage_tp} but the "
+                             f"PipelineSpec asks for {spec.stage_tp}")
+        return
     want = (spec.data_parallel, spec.num_stages, spec.tensor_parallel)
-    if (grid.D, grid.S, grid.T) != want:
+    if grid.stage_tp or (grid.D, grid.S, grid.T) != want:
         raise ValueError(f"the rank grid is (dp {grid.D}, pipe {grid.S}, tp "
                          f"{grid.T}) but the PipelineSpec asks for (dp {want[0]}, "
                          f"pipe {want[1]}, tp {want[2]})")
+
+
+def prepare_domain_tokens(spec: PipelineSpec, tokens: torch.Tensor) -> torch.Tensor:
+    """The microbatches of ``tokens`` laid out a replica after another,
+    ``spec.microbatches`` slots each (the JAX package's
+    ``_prepare_domain_tokens``).  A uniform domain takes exactly ``dp ·
+    b``.  A non-uniform one takes either the TIGHT replica-major layout
+    (Σ allocations, replica r's ``allocations[r]`` consecutive), packed
+    through ``dataparallel.pad_index_map`` (a pad slot repeats the
+    replica's last microbatch and is never read), or the PADDED one (dp
+    · max allocations), as it is."""
+    dp, b = spec.data_parallel, spec.microbatches
+    n = tokens.shape[0]
+    if not spec.batch_domain:
+        if n != dp * b:
+            raise ValueError(
+                f"tokens carry {n} microbatches but data_parallel={dp} "
+                f"× microbatches={b} needs {dp * b} (uniform batch "
+                f"domain — DESIGN.md §9)")
+        return tokens
+    from .dataparallel import pad_index_map
+    total = spec.total_microbatches
+    if n == total:
+        return tokens[torch.tensor(pad_index_map(spec.batch_domain), device=tokens.device)]
+    if n == dp * b:
+        return tokens
+    raise ValueError(
+        f"tokens carry {n} microbatches but the batch domain "
+        f"{list(spec.batch_domain)} needs {total} (tight replica-major) "
+        f"or {dp * b} (padded per-replica — DESIGN.md §13)")
 
 
 def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
@@ -592,22 +692,30 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
     """This rank's part of the pipeline loss.  Returns ``loss_fn(params,
     tokens) -> (loss, grads)``: ``params`` is the rank's
     ``local_stage_params`` tree (floating leaves ``requires_grad``),
-    ``tokens`` (D·b, mb_size, S) int, of which dp replica d takes
-    microbatches ``d·b`` to ``d·b + b - 1``.  ``loss`` is the global mean
-    CE over every replica (a detached 0-d fp32 tensor, the same on every
-    rank); ``grads`` is an fp32 tree shaped like ``params``, this rank's
-    part of the global gradient: :func:`make_grad_sync` sums it over the
-    grid (at dp 1 the block leaves are whole already, and the replicated
-    leaves need their sum over pipe).  ``loss_fn.stats`` holds the last
-    call's tick count and collectives (``Grid.counts``)."""
+    ``tokens`` int, (D·b, mb_size, S), of which dp replica d takes
+    microbatches ``d·b`` to ``d·b + b - 1``, or under a non-uniform
+    batch domain either layout :func:`prepare_domain_tokens` takes
+    (replica d runs its own ``batch_domain[d]``).  ``loss`` is the global
+    mean CE over every replica (a detached 0-d fp32 tensor, the same on
+    every rank); ``grads`` is an fp32 tree shaped like ``params``, this
+    rank's part of the global gradient: :func:`make_grad_sync` sums it
+    over the grid (at dp 1 the block leaves are whole already, and the
+    replicated leaves need their sum over the stages).  On a grouped spec
+    ``grid`` is :meth:`Grid.grouped`'s layout: each stage runs its own tp
+    degree and the boundary hops reshard.  ``loss_fn.stats`` holds the
+    last call's tick count and collectives (``Grid.counts``)."""
     kind = pipeline_block_kind(cfg)
     validate_spec_tp(cfg, spec)
     _check_grid(spec, grid)
-    p2p, tp, rep = grid.pipe, grid.tp, grid.rep
-    S, s, b = spec.num_stages, grid.s, spec.microbatches
-    lcfg = _tp_local_cfg(cfg, spec.tensor_parallel)
+    p2p, tp = grid.pipe, grid.tp
+    S, s = spec.num_stages, grid.s
+    b, bmax = spec.batch_allocations[grid.d], spec.microbatches
+    lcfg = _tp_local_cfg(cfg, grid.T)
     tables = spmd_tick_tables(_spec_schedule(spec), S, b)
-    routes = _Routes.of(tables, S)
+    if spec.grouped:
+        hops, routes = _BoundaryHops(spec, grid), None
+    else:
+        hops, routes = None, _Routes.of(tables, S)
     mask = stage_mask(spec, s)
     mask = mask[None] if spec.n_chunks == 1 else mask
     remat = spec.recompute[s]
@@ -617,12 +725,8 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
              bool(tables.emit[t, s])) for t in range(tables.ticks)]
 
     def loss_fn(params, tokens):
-        n, mb_size, seq = tokens.shape
-        if n != spec.data_parallel * b:
-            raise ValueError(f"tokens carry {n} microbatches but data_parallel="
-                             f"{spec.data_parallel} × microbatches={b} needs "
-                             f"{spec.data_parallel * b}")
-        tokens = tokens[grid.d * b:(grid.d + 1) * b]
+        tokens = prepare_domain_tokens(spec, tokens)[grid.d * bmax:grid.d * bmax + b]
+        _, mb_size, seq = tokens.shape
         dev = tokens.device
         like = torch.empty((mb_size, seq, cfg.d_model), dtype=dtype, device=dev)
         blocks = params["blocks"] if spec.n_chunks > 1 \
@@ -633,10 +737,10 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
         lmask[:, -1] = 0.0
         c0 = grid.counts()
         # denom is a token count: the emitting ticks' masks, summed over
-        # pipe and dp once (every tp member holds the same count)
+        # the stages and replicas once (every tp member holds the same count)
         denom = torch.tensor(float(sum(e for a, _, _, _, e in rows if a))
                              * float(lmask.sum()), dtype=torch.float32, device=dev)
-        rep.all_reduce_(denom)
+        grid.stage_sum_(denom)
         inv_denom = 1.0 / max(float(denom), 1.0)
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
 
@@ -662,10 +766,12 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
                 records.append((leaf, y, ce, src))
             else:
                 records.append(None)
-            if t < tables.ticks - 1:
+            if t < tables.ticks - 1 and hops is not None:
+                x_prev = hops.forward(y, like)
+            elif t < tables.ticks - 1:
                 x_prev, x_next = _exchange(p2p, routes.perm_f, routes.perm_b, y, like)
                 y_loc = y.detach() if routes.local and y is not None else None
-        loss = rep.all_reduce_(loss_acc) * inv_denom
+        loss = grid.stage_sum_(loss_acc) * inv_denom
 
         # ---- backward: reverse tick order, gradients along the routes ----
         leaves = tree_leaves(params)
@@ -695,7 +801,9 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
                         if g is not None:
                             a.add_(g.float())
                 del rec, leaf, y, ce, outs
-            if t > 0:
+            if t > 0 and hops is not None:
+                dy_f = hops.backward(gx if src == SRC_PREV else None, like)
+            elif t > 0:
                 # the input's gradient goes back to the rank that sent it
                 # (the reverse of the forward's perms); what arrives is
                 # the gradient of this rank's output of tick t - 1
@@ -789,17 +897,19 @@ def stage_opt_state(params: PyTree, spec: PipelineSpec, grid: Grid,
     return adamw.init_opt_state(tree_map(part, params, zero1_dims(params, spec, grad_sync)))
 
 
-def leaf_axes(params: PyTree, spec: PipelineSpec, dims: PyTree) -> List[tuple]:
-    """Each leaf's grid axes (``grad_sync.spec_axes`` input): block leaves
-    are sharded over pipe, over tp on their Megatron dim, and over dp on
-    their ZeRO-1 dim; the replicated leaves over dp on theirs."""
+def leaf_axes(params: PyTree, spec: PipelineSpec, dims: PyTree,
+              stage: int = 0) -> List[tuple]:
+    """Each leaf's grid axes (``grad_sync.spec_axes`` input) on a rank of
+    physical ``stage``: block leaves are sharded over pipe, over tp on
+    their Megatron dim (where the stage's tp degree is above 1), and over
+    dp on their ZeRO-1 dim; the replicated leaves over dp on theirs."""
     stacked = 1 if spec.n_chunks == 1 else 2
     out = []
     for (path, leaf), d in zip(flatten(params).items(), tree_leaves(dims)):
         axes = ["dp"] if d is not None else []
         if path.startswith("blocks/"):
             axes.append("pipe")
-            if spec.tensor_parallel > 1 and \
+            if spec.stage_tps[stage] > 1 and \
                     tp_body_dim(path, leaf.ndim - stacked) is not None:
                 axes.append("tp")
         out.append(tuple(axes))
@@ -859,7 +969,7 @@ def _bucketed_dp_psum(grads: PyTree, grid: Grid, n_chunks: int,
     for i in reversed(range(nleaves)):
         path, leaf = flat[i]
         if not path.startswith("blocks/"):
-            grid.rep.all_reduce_(leaf)
+            grid.stage_sum_(leaf)
 
 
 def make_grad_sync(spec: PipelineSpec, grid: Grid, grad_sync: str = "reduce_scatter"):
@@ -867,7 +977,9 @@ def make_grad_sync(spec: PipelineSpec, grid: Grid, grad_sync: str = "reduce_scat
     ``_make_dp_train_step``), for gradients from
     :func:`make_pipeline_loss`.  Returns ``sync(grads, dims) -> grads`` with
     ``dims`` :func:`zero1_dims`: the replicated leaves are summed over
-    pipe ∪ dp in one all-reduce; the block leaves over dp by
+    the stages and replicas, one all-reduce a leaf (``Grid.stage_sum_``:
+    pipe ∪ dp, or one member a stage on a grouped layout); the block
+    leaves over dp by
     ``grad_sync``: ``psum``, one all-reduce a leaf, or with
     ``spec.bucket_bytes`` > 0 fused buckets in wgrad-completion order
     (:func:`_bucketed_dp_psum`); or ``reduce_scatter`` (ZeRO-1): a
@@ -885,7 +997,7 @@ def make_grad_sync(spec: PipelineSpec, grid: Grid, grad_sync: str = "reduce_scat
         out = []
         for (path, g), d in zip(flatten(grads).items(), tree_leaves(dims)):
             if not path.startswith("blocks/"):
-                grid.rep.all_reduce_(g)
+                grid.stage_sum_(g)
                 out.append(g if d is None else g.chunk(D, d)[grid.d].contiguous())
             elif D == 1:
                 out.append(g)
@@ -916,14 +1028,16 @@ def make_pipeline_train_step(cfg: ModelConfig, spec: PipelineSpec, grid: Grid,
     sync = make_grad_sync(spec, grid, grad_sync)
     loss_fn = make_pipeline_loss(cfg, spec, grid, backend=backend)
     D = spec.data_parallel
-    sizes = {"pipe": spec.num_stages, "tp": spec.tensor_parallel, "dp": D}
+    # a leaf replicated in a stage's tp group has that stage's tp_s copies
+    sizes = {"pipe": spec.num_stages, "tp": grid.T, "dp": D}
 
     def train_step(state, tokens):
         c0 = grid.counts()
         loss, grads = loss_fn(state.params, tokens)
         dims = zero1_dims(state.params, spec, grad_sync)
         grads = sync(grads, dims)
-        gnorm = replica_grad_norm(tree_leaves(grads), leaf_axes(state.params, spec, dims),
+        gnorm = replica_grad_norm(tree_leaves(grads),
+                                  leaf_axes(state.params, spec, dims, grid.s),
                                   sizes, grid.world.all_reduce_)
         # ZeRO-1 updates this replica's slices into buffers of the
         # parameters' dtype and gathers them into the parameters

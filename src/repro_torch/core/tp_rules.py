@@ -10,8 +10,10 @@ projections ``wo`` are ROW-parallel (input dim sharded; an all-reduce
 over the tp group rebuilds the full activation before the residual add).
 Norm scales, per-head qk-norms, and everything else stay replicated.
 
-``tp_local_slice`` takes no padding width: the grouped runtime that pads
-a narrower shard to the widest one (``pad_tp``) is ROADMAP A8(g).
+``tp_local_slice`` takes no padding width (the JAX package's ``pad_tp``):
+the port's grouped runtime holds each stage's true tp_s shard, where the
+JAX package pads a narrower shard with zeros to the widest one (ROADMAP
+C, phantom shards).
 """
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ device, or the HeteroPP pipeline with one process a stage.
         [--pipeline-parallel N [--tensor-parallel T] [--data-parallel D] \\
          [--schedule 1f1b] [--microbatches B] \\
          [--grad-sync psum|reduce_scatter] [--bucket-bytes N] \\
-         | --plan plan.json | --search A:1,B:1] [--p2p device|host]
+         | --plan plan.json | --search A:1,B:1 [--search-dp 1,2] \
+         [--search-uneven-dp]] [--reshard sr_ag|naive] [--p2p device|host]
 
 Runs on the card unless ``--device cpu`` is given; without a card and
 without ``--device cpu`` it raises.  ``--backend`` picks the kernel
@@ -29,10 +30,19 @@ evenly.  With D > 1 ``--grad-sync`` picks the dp gradient sync: ZeRO-1
 ``reduce_scatter`` (the default) or ``psum``, bucketed with
 ``--bucket-bytes N``.  ``--plan plan.json`` runs a saved HeteroAuto
 ``ParallelPlan`` (``ParallelPlan.to_dict`` JSON: its schedule, stages,
-non-uniform layer split, per-stage recompute, uniform tp, dp and sync
-mode), and ``--search CHIP:N,...`` runs the HeteroAuto search on that
-cluster first and trains the winner.  A plan passes the copied static
-verifier first (``--no-verify-plan`` skips it).  The launcher starts its
+non-uniform layer split, per-stage recompute, tp, dp and sync mode), and
+``--search CHIP:N,...`` runs the HeteroAuto search on that cluster first
+and trains the winner (``--search-dp`` widens its dp candidates,
+``--search-uneven-dp`` admits dp degrees that do not divide the batch).
+A plan whose stages disagree on tp runs on the grouped layout of Σ tp_s
+ranks (stage s on tp_s of them, the plan's ``sr_ag`` or ``naive``
+reshard at each boundary where tp changes, the one
+``resharding.choose_strategy`` prices lower unless ``--reshard`` names
+one for every such boundary, as ``cost_model.evaluate(resharding=…)``
+prices it); a plan with a non-uniform
+``batch_domain`` gives each dp replica its own microbatch count.  A plan
+passes the copied static verifier first (``--no-verify-plan`` skips
+it).  The launcher starts its
 own ranks (``launch.ranks.spawn``, a ``FileStore`` in the run
 directory), or runs one rank of a job started outside it: a ``torchrun``
 job when its environment names one (the card is ``LOCAL_RANK``), or the
@@ -42,12 +52,13 @@ every group: ``device`` (NCCL, one card a rank; the default) or
 card).  Every rank logs its steps and losses: rank 0 prints them and
 writes ``metrics.jsonl`` with ``"mode": "pipeline"``, then prints the
 step p50 and the collectives' ms a step by group; rank r writes
-``rank<r>/metrics.jsonl`` in the run directory.  Uneven batch domains, grouped
-tp (ROADMAP A8(f), A8(g)) and ``--trace`` (A14) are refused.
+``rank<r>/metrics.jsonl`` in the run directory.  ``--trace`` (ROADMAP A14)
+is refused.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -115,6 +126,17 @@ def parse_args(argv=None):
     ap.add_argument("--search", default=None, metavar="CHIP:N,...",
                     help="HeteroAuto-search this chip cluster (e.g. A:1,B:1) "
                          "and train the winning plan")
+    ap.add_argument("--search-dp", default=None, metavar="N,...",
+                    help="with --search: dp candidate degrees (comma list, "
+                         "default 1)")
+    ap.add_argument("--search-uneven-dp", action="store_true",
+                    help="with --search: also consider dp degrees that do not "
+                         "divide the batch; the winner carries a "
+                         "throughput-proportional batch_domain")
+    ap.add_argument("--reshard", default=None, choices=("sr_ag", "naive"),
+                    help="with a plan whose stages disagree on tp: this "
+                         "strategy at every boundary where tp changes (default: "
+                         "each boundary's choose_strategy pick)")
     ap.add_argument("--no-verify-plan", action="store_true",
                     help="skip the static plan verifier for --plan/--search")
     ap.add_argument("--p2p", default=None, choices=P2P.TRANSPORTS,
@@ -147,6 +169,10 @@ def _refuse(args, pipeline: bool) -> None:
     """Flags the chosen path would not honour exit with a message."""
     if args.trace:
         raise SystemExit("--trace: not ported to repro_torch yet (ROADMAP A14)")
+    if (args.search_dp or args.search_uneven_dp) and not args.search:
+        flag = "--search-dp" if args.search_dp else "--search-uneven-dp"
+        raise SystemExit(f"{flag} only shapes the HeteroAuto search; "
+                         f"add --search CHIP:N,...")
     if not pipeline:
         given = [flag for flag, on in (
             ("--schedule", args.schedule), ("--microbatches", args.microbatches),
@@ -154,13 +180,16 @@ def _refuse(args, pipeline: bool) -> None:
             ("--tensor-parallel", args.tensor_parallel),
             ("--data-parallel", args.data_parallel),
             ("--grad-sync", args.grad_sync),
-            ("--bucket-bytes", args.bucket_bytes)) if on]
+            ("--bucket-bytes", args.bucket_bytes), ("--reshard", args.reshard)) if on]
         if given:
             raise SystemExit(f"{' '.join(given)} only apply to the pipeline; "
                              "add --pipeline-parallel N, --plan or --search")
         return
     if args.plan and args.search:
         raise SystemExit("--plan and --search are mutually exclusive")
+    if args.reshard and not (args.plan or args.search):
+        raise SystemExit(f"--reshard {args.reshard} picks the boundary collective of a "
+                         f"plan whose stages disagree on tp; add --plan or --search")
     if args.plan or args.search:
         src = "--plan" if args.plan else "--search"
         if args.schedule is not None:
@@ -298,6 +327,12 @@ def pipeline_spec(args, cfg):
             spec = HP.from_plan(plan, microbatches=mb, execute_tp=True,
                                 execute_dp=True, verify=False)
             HP.validate_spec_tp(cfg, spec)
+            if args.reshard:
+                if not spec.grouped:
+                    raise ValueError(f"--reshard {args.reshard}: the plan's stages share "
+                                     f"one tp degree, so no boundary reshards")
+                spec = dataclasses.replace(spec, reshard=tuple(
+                    r if r == "none" else args.reshard for r in spec.reshard))
             return spec, plan.dp_sync, plan
         except (ValueError, NotImplementedError) as e:
             raise SystemExit(str(e)) from None
@@ -317,8 +352,11 @@ def pipeline_spec(args, cfg):
         for part in args.search.split(","):
             chip, count = part.split(":")
             groups.append(chips.ChipGroup(chips.CHIPS[chip], int(count)))
+        dp_cands = [int(d) for d in args.search_dp.split(",")] \
+            if args.search_dp else [1]
         r = heteroauto.search(groups, cfg, args.batch * args.seq, args.seq,
-                              two_stage=False, dp_candidates=[1])
+                              two_stage=False, dp_candidates=dp_cands,
+                              uneven_dp=args.search_uneven_dp)
         if r.plan is None:
             raise SystemExit(f"--search {args.search}: no feasible plan for "
                              f"{cfg.name}")
@@ -383,7 +421,8 @@ def run_pipeline(args, cfg, dev):
     spec, grad_sync, plan = pipeline_spec(args, cfg)
     transport = args.p2p or "device"
     S, T, D = spec.num_stages, spec.tensor_parallel, spec.data_parallel
-    world = D * S * T
+    # a grouped plan runs on Σ tp_s ranks, stage s on tp_s of them
+    world = spec.pipe_width if spec.grouped else D * S * T
     env = os.environ
     torchrun = all(k in env for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR"))
     try:
@@ -394,20 +433,28 @@ def run_pipeline(args, cfg, dev):
     if spec.total_layers != cfg.num_layers:
         raise SystemExit(f"plan covers {spec.total_layers} layers but "
                          f"{cfg.name} has {cfg.num_layers}")
-    if args.batch % (D * spec.microbatches):
-        raise SystemExit(f"--batch {args.batch} not divisible by {D} replica(s) "
-                         f"x {spec.microbatches} microbatches")
+    total_mb = spec.total_microbatches
+    if args.batch % total_mb:
+        raise SystemExit(f"--batch {args.batch} not divisible by the global "
+                         f"microbatch count Σ allocations = {total_mb} "
+                         f"(allocations {list(spec.batch_allocations)})")
     print(f"arch={cfg.name} family={cfg.family} "
           f"params~{cfg.param_count() / 1e6:.1f}M devices={world} ({dev}, p2p "
           f"{transport})", flush=True)
-    print(f"pipeline: stages={S} v={spec.n_chunks} "
-          f"layers/global-stage={spec.layers_per_stage} "
+    print(f"pipeline: stages={S} "
+          + (f"stage_tp={spec.stage_tp} reshard={spec.reshard} " if spec.grouped else "")
+          + f"v={spec.n_chunks} layers/global-stage={spec.layers_per_stage} "
           f"recompute={spec.recompute} microbatches={spec.microbatches} "
-          f"schedule={spec.schedule}", flush=True)
-    print(f"grid: dp={D} pipe={S} tp={T}, {world} ranks (rank = (d*{S} + s)*{T} + k)"
-          + (f"; dp sync {grad_sync}" + (f" in buckets of {spec.bucket_bytes} bytes"
-                                         if spec.bucket_bytes else "")
-             if D > 1 else ""), flush=True)
+          + (f"batch_domain={list(spec.batch_domain)} " if spec.batch_domain else "")
+          + f"schedule={spec.schedule}", flush=True)
+    if spec.grouped:
+        print(f"grid: grouped, {world} ranks (stage s on ranks sum(stage_tp[:s]) "
+              f"+ k, k < stage_tp[s])", flush=True)
+    else:
+        print(f"grid: dp={D} pipe={S} tp={T}, {world} ranks (rank = (d*{S} + s)*{T} + k)"
+              + (f"; dp sync {grad_sync}" + (f" in buckets of {spec.bucket_bytes} bytes"
+                                             if spec.bucket_bytes else "")
+                 if D > 1 else ""), flush=True)
     run_dir = args.run_dir or os.path.join("runs", cfg.name)
     os.makedirs(run_dir, exist_ok=True)
     job = (args, cfg, spec, grad_sync, plan.to_dict() if plan is not None else None,
@@ -424,15 +471,16 @@ def run_pipeline(args, cfg, dev):
     per_rank = [o["peak_mem_bytes"] for o in outs if o["peak_mem_bytes"] is not None]
     res["peak_mem_bytes"] = max(per_rank) if per_rank else None
     res["launches"] = {k: sum(o["launches"][k] for o in outs) for k in res["launches"]}
-    for key in ("losses", "opt_state_bytes", "param_count", "grid") + tuple(
+    for key in ("losses", "opt_state_bytes", "param_count", "grid", "ticks") + tuple(
             k + "_per_step" for k in STAT_KEYS):
         res[key + "_per_rank"] = [o[key] for o in outs]
     return res
 
 
 # a step's collectives by group (``Grid.counts``), seconds or bytes
-STAT_KEYS = ("p2p_bytes", "p2p_s", "p2p_copy_s", "reduce_s", "tp_s", "dp_s",
-             "dp_scatter_s", "dp_gather_s", "norm_s")
+STAT_KEYS = ("p2p_bytes", "p2p_s", "p2p_copy_s", "boundary_bytes", "boundary_s",
+             "boundary_copy_s", "boundary_gather_bytes", "boundary_gather_s",
+             "reduce_s", "tp_s", "dp_s", "dp_scatter_s", "dp_gather_s", "norm_s")
 
 
 def _join_job(job, transport, world_size):
@@ -483,9 +531,10 @@ def _pipeline_rank(rank, world, args, cfg, spec, grad_sync, plan_dict, transport
         torch.cuda.set_device(dev)
         if args.backend != "einsum":
             kbuild.load()
-    S, T, D, b = (spec.num_stages, spec.tensor_parallel, spec.data_parallel,
-                  spec.microbatches)
-    grid = P2P.Grid.build(transport, dev, dp=D, pipe=S, tp=T)
+    S, D, b = spec.num_stages, spec.data_parallel, spec.microbatches
+    total_mb = spec.total_microbatches
+    grid = P2P.Grid.grouped(transport, dev, spec.stage_tp) if spec.grouped \
+        else P2P.Grid.build(transport, dev, dp=D, pipe=S, tp=spec.tensor_parallel)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed),
                            device=dev)
     local = HP.local_stage_params(params, cfg, spec, grid.s, grid.k)
@@ -499,7 +548,9 @@ def _pipeline_rank(rank, world, args, cfg, spec, grad_sync, plan_dict, transport
     tokens_per_step = args.batch * args.seq
     meta = {"arch": cfg.name, "family": cfg.family, "mode": "pipeline",
             "devices": world, "stages": S, "n_chunks": spec.n_chunks,
-            "tensor_parallel": T, "data_parallel": D,
+            "tensor_parallel": spec.tensor_parallel, "data_parallel": D,
+            "stage_tp": list(spec.stage_tp), "reshard": list(spec.reshard),
+            "batch_domain": list(spec.batch_domain),
             "grad_sync": grad_sync if D > 1 else None, "bucket_bytes": spec.bucket_bytes,
             "layers_per_stage": list(spec.layers_per_stage),
             "recompute": list(spec.recompute), "schedule": spec.schedule,
@@ -518,7 +569,8 @@ def _pipeline_rank(rank, world, args, cfg, spec, grad_sync, plan_dict, transport
         t_last, i_last = t0, 0
         for i in range(args.steps):
             toks = next(loader)["tokens"]
-            toks = toks.reshape(D * b, args.batch // (D * b), args.seq)
+            # Σ allocations microbatches, replica-major (the tight layout)
+            toks = toks.reshape(total_mb, args.batch // total_mb, args.seq)
             t1 = time.perf_counter()
             state, m = step_fn(state, toks)
             losses.append(float(m["loss"]))
@@ -539,16 +591,20 @@ def _pipeline_rank(rank, world, args, cfg, spec, grad_sync, plan_dict, transport
                     print(f"step {i + 1:5d} loss={losses[-1]:.4f} "
                           f"lr={float(m['lr']):.2e} gnorm={float(m['grad_norm']):.2f} "
                           f"TGS={tps / world:.0f} "
-                          f"p2p={st['p2p_s'] * 1e3 / st['ticks']:.2f} ms/tick",
+                          f"p2p={(st['p2p_s'] + st['boundary_s']) * 1e3 / st['ticks']:.2f} "
+                          f"ms/tick",
                           flush=True)
     finally:
         logger.close()
     if rank == 0 and stats:
         steady = lambda k: statistics.median([s[k] for s in stats[1:] or stats]) * 1e3
         p50 = statistics.median(step_times[1:] or step_times) * 1e3
+        hops = ("boundary hops {:.1f} (host copies {:.1f}), boundary all-gather "
+                "{:.1f}".format(steady("boundary_s"), steady("boundary_copy_s"),
+                                steady("boundary_gather_s")) if spec.grouped else
+                f"pipe hops {steady('p2p_s'):.1f} (host copies {steady('p2p_copy_s'):.1f})")
         print(f"summary (rank 0): p50 {p50:.1f} ms over steps 2-{len(stats)}; "
-              f"collectives in ms/step: pipe hops {steady('p2p_s'):.1f} (host copies "
-              f"{steady('p2p_copy_s'):.1f}), tp all-reduce {steady('tp_s'):.1f}, "
+              f"collectives in ms/step: {hops}, tp all-reduce {steady('tp_s'):.1f}, "
               f"dp all-reduce {steady('dp_s'):.1f}, dp reduce-scatter "
               f"{steady('dp_scatter_s'):.1f}, dp all-gather {steady('dp_gather_s'):.1f}, "
               f"replicated all-reduce {steady('reduce_s'):.1f}, clip norm "

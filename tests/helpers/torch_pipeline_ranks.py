@@ -1,6 +1,6 @@
 """Rank functions for the port's multi-rank pipeline tests
-(``tests/test_torch_heteropp.py``, ``tests/test_torch_heteropp_grid.py``),
-run by
+(``tests/test_torch_heteropp.py``, ``tests/test_torch_heteropp_grid.py``,
+``tests/test_torch_heteropp_hetero.py``), run by
 ``repro_torch.launch.ranks.spawn`` on gloo CPU ranks.  This module
 imports nothing of JAX, so the ranks start quickly; the test holds what
 they return against the JAX package."""
@@ -86,7 +86,11 @@ def grid_cases(rank, world, jobs):
     the dp sync (ZeRO-1 slices under ``reduce_scatter``) with its ZeRO-1
     dims (-1: whole); with ``train_opt`` (``AdamWConfig`` fields) also
     the rank's parameters, first moment, master weights and metrics after
-    one train step.  Returns one list of case results a job."""
+    one train step.  A case with a ``domain`` (its uneven batch domain)
+    carries its tokens in the tight layout, Σ allocations microbatches;
+    under ``psum`` it also runs them in the padded layout, and again with
+    the pad slots overwritten (``padded``, ``clobbered``: loss and
+    gradient).  Returns one list of case results a job."""
     grids = [Grid.build("host", CPU, dp=D, pipe=S, tp=T) for (D, S, T), _, _ in jobs]
     return [[_grid_case(grid, case, train_opt) for case in cases]
             for grid, (_, cases, train_opt) in zip(grids, jobs)]
@@ -97,19 +101,32 @@ def _grid_case(grid, case, train_opt):
     cfg = ModelConfig(**case["cfg"])
     params = bridge.params_from_numpy(case["tree"], CPU)
     toks = torch.from_numpy(case["tokens"])
+    domain = tuple(case.get("domain") or ())
     res = {"grid": [grid.d, grid.s, grid.k]}
     for mode in case["modes"]:
         grad_sync, bucket = SYNC_MODES[mode]
-        spec = HP.PipelineSpec(S, tuple(case["phys"]), toks.shape[0] // D,
-                               tensor_parallel=T, data_parallel=D, bucket_bytes=bucket)
+        spec = HP.PipelineSpec(S, tuple(case["phys"]),
+                               max(domain) if domain else toks.shape[0] // D,
+                               tensor_parallel=T, data_parallel=D, bucket_bytes=bucket,
+                               batch_domain=domain)
         local = HP.local_stage_params(params, cfg, spec, grid.s, grid.k)
         state = train_state_from(local, HP.stage_opt_state(local, spec, grid, grad_sync), 0)
         loss_fn = HP.make_pipeline_loss(cfg, spec, grid)
         loss, grads = loss_fn(state.params, toks)
+        ticks = loss_fn.stats["ticks"]
         dims = HP.zero1_dims(state.params, spec, grad_sync)
         grads = HP.make_grad_sync(spec, grid, grad_sync)(grads, dims)
-        r = {"loss": float(loss), "grads": grads,
+        r = {"loss": float(loss), "grads": grads, "ticks": ticks,
              "dims": tree_map(lambda d: -1 if d is None else d, dims)}
+        if domain and mode == "psum":
+            padded = HP.prepare_domain_tokens(spec, toks)
+            pad = torch.tensor([j >= a for a in domain for j in range(max(domain))])
+            clobbered = padded.clone()
+            clobbered[pad] = (padded[pad] + 7) % cfg.vocab_size
+            for name, t in (("padded", padded), ("clobbered", clobbered)):
+                loss_p, grads_p = loss_fn(state.params, t)
+                r[name] = {"loss": float(loss_p), "grads": HP.make_grad_sync(
+                    spec, grid, grad_sync)(grads_p, dims)}
         if train_opt is not None:
             step = HP.make_pipeline_train_step(cfg, spec, grid,
                                                adamw.AdamWConfig(**train_opt),
@@ -120,6 +137,65 @@ def _grid_case(grid, case, train_opt):
                           "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
         res[mode] = r
     return res
+
+
+def grouped_cases(rank, world, layouts, cases, train_opt):
+    """On the grouped layout of each ``stage_tp`` in ``layouts`` (Σ tp_s =
+    ``world``; every layout is built first, in one order on every rank),
+    for each case (``cfg`` fields, numpy ``tree``, ``tokens`` (b, mb, S),
+    ``phys`` split) and each reshard strategy of ``case["strategies"]``:
+    the pipeline loss, this rank's gradient tree after the sync, and with
+    ``train_opt`` (``AdamWConfig`` fields) the rank's parameters, first
+    moment and metrics after one train step.  Then the reshard alone on
+    each layout: a (2, 3, width) activation, 100·rank + column on stage 0's
+    members, moved to stage 1 and back under each strategy, with the bytes
+    this rank sent and gathered.  Returns one dict a layout, keyed
+    ``"<case> <strategy>"``."""
+    from repro_torch.core import resharding as RS
+    grids = [Grid.grouped("host", CPU, st) for st in layouts]
+    out = []
+    for st, grid in zip(layouts, grids):
+        res = {"grid": [grid.s, grid.k]}
+        for i, case in enumerate(cases):
+            cfg = ModelConfig(**case["cfg"])
+            params = bridge.params_from_numpy(case["tree"], CPU)
+            toks = torch.from_numpy(case["tokens"])
+            for strategy in case["strategies"]:
+                spec = HP.PipelineSpec(len(st), tuple(case["phys"]), toks.shape[0],
+                                       stage_tp=tuple(st), reshard=(strategy,))
+                state = train_state_from(
+                    HP.local_stage_params(params, cfg, spec, grid.s, grid.k), None, 0)
+                state.opt_state = HP.stage_opt_state(state.params, spec, grid, "psum")
+                loss_fn = HP.make_pipeline_loss(cfg, spec, grid)
+                loss, grads = loss_fn(state.params, toks)
+                grads = HP.make_grad_sync(spec, grid, "psum")(
+                    grads, HP.zero1_dims(state.params, spec, "psum"))
+                r = {"loss": float(loss), "grads": grads, "stats": dict(loss_fn.stats)}
+                if train_opt is not None:
+                    step = HP.make_pipeline_train_step(cfg, spec, grid,
+                                                       adamw.AdamWConfig(**train_opt))
+                    state, m = step(state, toks)
+                    r["train"] = {"params": tree_map(lambda t: t.detach(), state.params),
+                                  "m": state.opt_state["m"], "loss": float(m["loss"]),
+                                  "grad_norm": float(m["grad_norm"])}
+                res[f"{i} {strategy}"] = r
+        width = 6
+        like = torch.empty(2, 3, width)
+        src, dst = grid.stage_ranks(0), grid.stage_ranks(1)
+        for strategy in ("sr_ag", "naive"):
+            b = RS.Boundary(src, dst, strategy)
+            x = (100.0 * rank + torch.arange(width).float()).expand(2, 3, width) \
+                if rank in src else None
+            grid.boundary.reset_counts()
+            if grid.tp is not None:
+                grid.tp.reset_counts()
+            there = RS.reshard(x, grid.boundary, b, gather=grid.tp, like=like)
+            back = RS.reshard(there, grid.boundary, b.reversed(), gather=grid.tp, like=like)
+            res[f"reshard {strategy}"] = {
+                "there": there, "back": back, "bytes": grid.boundary.bytes_sent,
+                "gathered": grid.tp.gather_bytes if grid.tp is not None else 0}
+        out.append(res)
+    return out
 
 
 def subgroup_collectives(rank, world):

@@ -179,13 +179,15 @@ def test_from_plan_refusals():
     with pytest.raises(ValueError) as terr:
         THP.from_plan(tplan)
     assert type(terr.value).__name__ == type(jerr.value).__name__
-    # uniform tp and dp execute as in the JAX package; non-uniform tp and
-    # an uneven batch domain build a spec there and are refused here by name
+    # uniform tp and dp, non-uniform tp (a grouped spec, its reshard
+    # chosen per boundary) and an uneven batch domain all build the JAX
+    # package's spec
     g = lambda n, c: jchips.ChipGroup(jchips.CHIPS[n], c)
-    for stages, dp, domain, item in (([(2, 1), (2, 1)], 1, None, None),
-                                     ([(1, 1), (1, 1)], 2, None, None),
-                                     ([(1, 1), (2, 1)], 1, None, r"A8\(g\)"),
-                                     ([(1, 1), (1, 1)], 2, (4, 3), r"A8\(f\)")):
+    for stages, dp, domain in (([(2, 1), (2, 1)], 1, None),
+                               ([(1, 1), (1, 1)], 2, None),
+                               ([(1, 1), (2, 1)], 1, None),
+                               ([(4, 1), (2, 2)], 1, None),
+                               ([(1, 1), (1, 1)], 2, (4, 3))):
         jplan = jcm.ParallelPlan(
             [jcm.StagePlan(g("A", tp * pp * dp), tp, pp, 12, True)
              for (tp, pp) in stages[:1]]
@@ -193,12 +195,9 @@ def test_from_plan_refusals():
                for (tp, pp) in stages[1:]], dp=dp, microbatches=4, batch_domain=domain)
         want = JHP.from_plan(jplan, execute_tp=True, execute_dp=True, verify=False)
         tplan = tcm.ParallelPlan.from_dict(jplan.to_dict())
-        if item is None:
-            got = THP.from_plan(tplan, execute_tp=True, execute_dp=True, verify=False)
-            assert dataclasses.asdict(got) == dataclasses.asdict(want)
-        else:
-            with pytest.raises(NotImplementedError, match=item):
-                THP.from_plan(tplan, execute_tp=True, execute_dp=True, verify=False)
+        got = THP.from_plan(tplan, execute_tp=True, execute_dp=True, verify=False)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.grouped == want.grouped and got.batch_domain == want.batch_domain
         # as cost-model dimensions (the defaults) both lay out the split
         assert dataclasses.asdict(THP.from_plan(tplan, verify=False)) == \
             dataclasses.asdict(JHP.from_plan(jplan, verify=False))
@@ -213,12 +212,14 @@ def test_spec_checks_and_refusals():
     for kw in (dict(tensor_parallel=2), dict(data_parallel=2, bucket_bytes=8)):
         assert dataclasses.asdict(THP.PipelineSpec(2, (1, 1), 4, **kw)) == \
             dataclasses.asdict(JHP.PipelineSpec(2, (1, 1), 4, **kw))
-    # uneven batch domains and grouped tp are refused by name
-    for kw, item in ((dict(data_parallel=2, batch_domain=(4, 3)), r"A8\(f\)"),
-                     (dict(stage_tp=(1, 2)), r"A8\(g\)")):
-        JHP.PipelineSpec(2, (1, 1), 4, **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            THP.PipelineSpec(2, (1, 1), 4, **kw)
+    # uneven batch domains and grouped tp too, with its default reshard
+    for kw in (dict(data_parallel=2, batch_domain=(4, 3)), dict(stage_tp=(1, 2)),
+               dict(data_parallel=2, batch_domain=(4, 4))):
+        got, want = THP.PipelineSpec(2, (1, 1), 4, **kw), JHP.PipelineSpec(2, (1, 1), 4, **kw)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert (got.stage_tps, got.pipe_width, got.batch_allocations,
+                got.total_microbatches) == (want.stage_tps, want.pipe_width,
+                                            want.batch_allocations, want.total_microbatches)
     # tp on an ssm block kind: the JAX package's refusal, word for word
     with pytest.raises(NotImplementedError) as terr:
         THP.validate_spec_tp(tsmoke("mamba2_780m"),

@@ -16,8 +16,12 @@ per-leaf) and ZeRO-1 ``reduce_scatter`` (parameters after one step
 within 1e-6 rel of ``psum``'s), for granite, mamba2 and qwen1.5; (dp 2, pipe 2, tp 2) for granite
 under ZeRO-1 with one train step against the port's single-device step
 (first moment, clip norm within 1e-5 of the single device's
-``global_norm``, updated parameters).  And the collectives of a group
-that is not the default one.
+``global_norm``, updated parameters).  (dp 2, pipe 2) with the uneven
+batch domain (4, 3) for granite and mamba2 in every sync mode, against
+the JAX package over the 7 microbatches, each replica on its own tick
+program; its tight and padded token layouts, and the padded one with
+its pad slots overwritten, bit for bit equal.  And the collectives of a
+group that is not the default one.
 """
 import dataclasses
 import json
@@ -64,20 +68,22 @@ def _two_threads():
     torch.set_num_threads(n)
 
 
-def _case(arch, D, modes, seed=2, **changes):
+def _case(arch, D, modes, seed=2, domain=None, **changes):
     """A case for ``W.grid_cases``: ``_pair``'s weights (or, with config
     ``changes``, the JAX package's init of the changed config) and D·B
-    microbatches of tokens."""
+    microbatches of tokens, or with an uneven batch ``domain`` Σ domain
+    of them (the tight layout)."""
     if changes:
         jcfg = dataclasses.replace(exact_cfg(arch), **changes)
         tree = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(seed)))
         tcfg = TConfig(**dataclasses.asdict(jcfg))
     else:
         jcfg, tcfg, tree = _pair(arch, seed=seed)
+    n = sum(domain) if domain else D * B
     tokens = np.random.default_rng(seed + 1).integers(
-        0, jcfg.vocab_size, (D * B, MB, SEQ)).astype(np.int64)
+        0, jcfg.vocab_size, (n, MB, SEQ)).astype(np.int64)
     return jcfg, {"cfg": dataclasses.asdict(tcfg), "tree": tree, "tokens": tokens,
-                  "phys": PHYS, "modes": modes}
+                  "phys": PHYS, "modes": modes, "domain": domain}
 
 
 def _spawn(jobs, tmp_path):
@@ -159,16 +165,20 @@ def _check_against_jax(results, i, jcfg, case, grid_shape):
 
 TP_GRID, DP_GRID = (1, 2, 2), (2, 2, 1)
 DP_ARCHS = ("granite_8b", "mamba2_780m", "qwen1p5_0p5b")
+# the uneven batch domain's cases: replica 0 takes 4 microbatches, 1 takes 3
+DOMAIN = (4, 3)
+UNEVEN_ARCHS = ("granite_8b", "mamba2_780m")
+DP_CASES = [(arch, None) for arch in DP_ARCHS] + [(arch, DOMAIN) for arch in UNEVEN_ARCHS]
 
 
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
     """One spawn of four ranks for the (pipe 2, tp 2) cases (granite, and
-    granite with qk-norm) and the (dp 2, pipe 2) ones (both archs, every
-    sync mode, one train step each)."""
+    granite with qk-norm) and the (dp 2, pipe 2) ones (every arch, every
+    sync mode, one train step each; the uneven domain's too)."""
     tp = [_case("granite_8b", 1, ["psum"]),
           _case("granite_8b", 1, ["psum"], seed=5, qk_norm=True)]
-    dp = [_case(arch, 2, list(W.SYNC_MODES)) for arch in DP_ARCHS]
+    dp = [_case(arch, 2, list(W.SYNC_MODES), domain=domain) for arch, domain in DP_CASES]
     res_tp, res_dp = _spawn([(TP_GRID, [c for _, c in tp], None),
                              (DP_GRID, [c for _, c in dp], OPT)],
                             tmp_path_factory.mktemp("grid"))
@@ -184,13 +194,16 @@ def test_tensor_parallel_matches_jax(four_ranks):
     assert "blocks/attn/q_norm/scale" in flatten(res[0][1]["psum"]["grads"])
 
 
-@pytest.mark.parametrize("arch", DP_ARCHS)
-def test_data_parallel_sync_modes_match_jax(arch, four_ranks):
+@pytest.mark.parametrize("arch,domain", DP_CASES, ids=[
+    arch if domain is None else f"{arch}-domain{domain}" for arch, domain in DP_CASES])
+def test_data_parallel_sync_modes_match_jax(arch, domain, four_ranks):
     """(dp 2, pipe 2) under per-leaf psum, bucketed psum and ZeRO-1: each
     equals the JAX gradient; bucketed equals per-leaf bit for bit; one
-    step under ZeRO-1 leaves the parameters per-leaf psum leaves."""
+    step under ZeRO-1 leaves the parameters per-leaf psum leaves.  With
+    an uneven batch ``domain`` too, against the JAX package over all its
+    microbatches."""
     _, _, cases, res = four_ranks
-    i = DP_ARCHS.index(arch)
+    i = DP_CASES.index((arch, domain))
     jcfg, case = cases[i]
     _check_against_jax(res, i, jcfg, case, DP_GRID)
     for r in res:
@@ -203,6 +216,32 @@ def test_data_parallel_sync_modes_match_jax(arch, four_ranks):
         for k in a:
             torch.testing.assert_close(b[k], a[k], rtol=ZERO_RTOL, atol=0, msg=k)
     assert any(d >= 0 for d in flatten(res[0][i]["reduce_scatter"]["dims"]).values())
+
+
+@pytest.mark.parametrize("arch", UNEVEN_ARCHS)
+def test_uneven_batch_domain_runs_each_replica_and_ignores_pad_slots(arch, four_ranks):
+    """Under the batch domain (4, 3), replica d runs its own 1f1b program
+    for its allocation (allocation + 1 ticks: the prefix of its row of
+    ``domain_tick_tables``; the pad ticks are skipped), and the padded
+    token layout, and the padded one with every pad slot overwritten,
+    give the tight layout's loss and gradient bit for bit."""
+    from repro_torch.core import tickprogram as ttp
+    _, _, cases, res = four_ranks
+    i = DP_CASES.index((arch, DOMAIN))
+    rows = ttp.domain_tick_tables("1f1b", 2, DOMAIN)
+    for r in res:
+        d = r[i]["grid"][0]
+        own = ttp.spmd_tick_tables("1f1b", 2, DOMAIN[d])
+        assert r[i]["psum"]["ticks"] == own.ticks == DOMAIN[d] + 1
+        for f in ("mb", "chunk", "src", "active", "emit"):
+            np.testing.assert_array_equal(getattr(rows, f)[:own.ticks, d], getattr(own, f))
+        assert not rows.active[own.ticks:, d].any()
+        tight = r[i]["psum"]
+        for name in ("padded", "clobbered"):
+            assert r[i]["psum"][name]["loss"] == tight["loss"], name
+            a, b = flatten(tight["grads"]), flatten(r[i]["psum"][name]["grads"])
+            for k in a:
+                torch.testing.assert_close(b[k], a[k], rtol=0, atol=0, msg=f"{name} {k}")
 
 
 def test_full_grid_train_step_matches_single_device(tmp_path):
@@ -300,3 +339,69 @@ def test_launcher_runs_a_tp_dp_plan(tmp_path, monkeypatch):
     assert [2 * b for b in res["opt_state_bytes_per_rank"]] == \
         [12 * n for n in res["param_count_per_rank"]]
     assert sum(res["tp_s_per_step"]) > 0 and sum(res["dp_scatter_s_per_step"]) > 0
+
+
+@pytest.mark.parametrize("layout", ["grouped", "grouped-naive", "uneven"])
+def test_launcher_runs_a_grouped_and_an_uneven_plan(layout, tmp_path, monkeypatch, capsys):
+    """``launch.train --plan`` with a plan whose stages disagree on tp (tp
+    2 on chip A, 1 on chip B: three ranks, the boundary's reshard picked
+    by ``choose_strategy``, or ``naive`` by ``--reshard``), and with one
+    of two replicas of uneven
+    batch domain (2, 1) (four ranks, batch 6 = 3 microbatches): two steps
+    on the fp32 smoke config train what the single device trains, and the
+    layout line names the stage tps or the domain."""
+    from repro_torch.core import chips as tchips, cost_model as tcm
+    from repro_torch.launch import train
+    monkeypatch.setattr(train, "get_smoke_config", W.fp32_smoke_config)
+    g = lambda name, n: tchips.ChipGroup(tchips.CHIPS[name], n)
+    extra = ["--reshard", "naive"] if layout == "grouped-naive" else []
+    if layout.startswith("grouped"):
+        plan = tcm.ParallelPlan([tcm.StagePlan(g("A", 2), 2, 1, 1, True),
+                                 tcm.StagePlan(g("B", 1), 1, 1, 1, False)],
+                                dp=1, microbatches=2, schedule="1f1b")
+        batch, world = 4, 3
+        line = f"stage_tp=(2, 1) reshard=('{'naive' if extra else 'sr_ag'}',)"
+    else:
+        plan = tcm.ParallelPlan([tcm.StagePlan(g("A", 2), 1, 1, 1, True),
+                                 tcm.StagePlan(g("B", 2), 1, 1, 1, False)],
+                                dp=2, microbatches=2, schedule="1f1b", batch_domain=(2, 1))
+        batch, line, world = 6, "batch_domain=[2, 1]", 4
+    path = tmp_path / "plan.json"
+    path.write_text(json.dumps(plan.to_dict()))
+    argv = ["--arch", "qwen1p5_0p5b", "--smoke", "--device", "cpu", "--steps", "2",
+            "--batch", str(batch), "--seq", "32", "--log-every", "1"]
+    res = train.main(argv + ["--plan", str(path), "--p2p", "host", "--no-verify-plan",
+                             "--run-dir", str(tmp_path / layout)] + extra)
+    assert line in capsys.readouterr().out
+    want = train.main(argv + ["--run-dir", str(tmp_path / "single")])["losses"]
+    np.testing.assert_allclose(res["losses"], want, rtol=LOSS_RTOL)
+    assert len(res["losses_per_rank"]) == world
+    assert all(losses == res["losses"] for losses in res["losses_per_rank"])
+    if layout.startswith("grouped"):
+        assert res["grid_per_rank"] == [[0, 0, 0], [0, 0, 1], [0, 1, 0]]
+        assert all(b > 0 for b in res["boundary_bytes_per_step"])
+        assert sum(res["p2p_bytes_per_step"]) == 0
+    else:
+        # each replica runs its own allocation's 1f1b program: b + 1 ticks
+        assert res["ticks_per_rank"] == [3, 3, 2, 2]
+
+
+def test_launcher_refuses_search_flags_without_search(tmp_path):
+    """``--search-dp`` and ``--search-uneven-dp`` without ``--search``: the
+    JAX launcher's refusal; ``--reshard`` without a plan, or with a plan
+    whose stages share their tp."""
+    from repro_torch.core import chips as tchips, cost_model as tcm
+    from repro_torch.launch import train
+    argv = ["--arch", "qwen1p5_0p5b", "--smoke", "--device", "cpu"]
+    for flag in (["--search-uneven-dp"], ["--search-dp", "1,2"]):
+        with pytest.raises(SystemExit, match="only shapes the HeteroAuto search; add --search"):
+            train.main(argv + ["--pipeline-parallel", "2", *flag])
+    with pytest.raises(SystemExit, match="add --plan or --search"):
+        train.main(argv + ["--pipeline-parallel", "2", "--reshard", "naive"])
+    g = lambda name: tchips.ChipGroup(tchips.CHIPS[name], 1)
+    plan = tcm.ParallelPlan([tcm.StagePlan(g("A"), 1, 1, 1, True),
+                             tcm.StagePlan(g("B"), 1, 1, 1, False)], dp=1, microbatches=2)
+    path = tmp_path / "plan.json"
+    path.write_text(json.dumps(plan.to_dict()))
+    with pytest.raises(SystemExit, match="share one tp degree"):
+        train.main(argv + ["--plan", str(path), "--reshard", "naive", "--p2p", "host"])

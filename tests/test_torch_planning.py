@@ -279,11 +279,10 @@ def test_kernel_constraints_equal_jax():
     ((("B", 8),), "granite_8b"),
 ])
 def test_heteroauto_search_equal_jax(cluster, arch):
-    """The copied search finds the JAX package's plan at the same cost.
-    ``runtime`` says how the runtime would run the winner: the same for a
-    plan of uniform tp and dp or one both refuse; a grouped-tp or
-    uneven-dp layout the JAX runtime runs, the port's ``heteropp``
-    refuses (ROADMAP A8(f), A8(g))."""
+    """The copied search finds the JAX package's plan at the same cost,
+    and ``runtime`` says the JAX package's words for how the runtime
+    runs the winner (uniform tp, grouped tp, an uneven domain, or a
+    refusal)."""
     from repro_torch.core import heteroauto as tha
     jgroups = [jchips.ChipGroup(jchips.CHIPS[n], c) for n, c in cluster]
     tgroups = [tchips.ChipGroup(tchips.CHIPS[n], c) for n, c in cluster]
@@ -294,16 +293,45 @@ def test_heteroauto_search_equal_jax(cluster, arch):
     assert got.plan.to_dict() == want.plan.to_dict()
     assert dataclasses.asdict(got.cost) == dataclasses.asdict(want.cost)
     assert got.evaluated == want.evaluated and got.stage1_dp == want.stage1_dp
-    if want.runtime == "uniform-tp" or want.runtime.startswith("refused: "):
-        assert got.runtime == want.runtime
-    else:
-        assert got.runtime.startswith("refused: ") and (
-            "A8(f)" in got.runtime or "A8(g)" in got.runtime)
+    assert got.runtime == want.runtime
     pinned = tha.search(tgroups, tget_config(arch), 16 * seq, seq, two_stage=False,
                         schedule="1f1b", dp_candidates=[1])
     assert pinned.plan.to_dict() == jha.search(
         jgroups, jget_config(arch), 16 * seq, seq, two_stage=False, schedule="1f1b",
         dp_candidates=[1]).plan.to_dict()
+
+
+@pytest.mark.parametrize("cluster,arch,kw,runtime", [
+    ((("A", 1), ("B", 2)), "qwen1p5_0p5b", dict(schedule="1f1b"), "grouped-tp"),
+    ((("A", 2), ("C", 4)), "granite_8b", dict(schedule="1f1b"), "grouped-tp"),
+    ((("A", 3), ("B", 3)), "qwen1p5_0p5b", dict(schedule="1f1b", dp_candidates=[3],
+                                              uneven_dp=True), "uniform-tp+uneven-dp"),
+    ((("A", 4), ("B", 2)), "qwen1p5_0p5b", dict(schedule="1f1b", dp_candidates=[2],
+                                              uneven_dp=True), "refused: "),
+])
+def test_heteroauto_runtime_equal_jax(cluster, arch, kw, runtime):
+    """Clusters whose winners run grouped tp or an uneven batch domain (or
+    grouped tp with dp, which both refuse): the port's search finds the
+    JAX package's plan and classifies it in the same words."""
+    from repro_torch.core import heteroauto as tha
+    seq = 2048
+    want = jha.search([jchips.ChipGroup(jchips.CHIPS[n], c) for n, c in cluster],
+                      jget_config(arch), 16 * seq, seq, two_stage=False,
+                      **{**dict(dp_candidates=[1]), **kw})
+    got = tha.search([tchips.ChipGroup(tchips.CHIPS[n], c) for n, c in cluster],
+                     tget_config(arch), 16 * seq, seq, two_stage=False,
+                     **{**dict(dp_candidates=[1]), **kw})
+    assert got.plan.to_dict() == want.plan.to_dict()
+    assert want.runtime.startswith(runtime)
+    assert got.runtime == want.runtime
+
+
+def test_heteroauto_copy_equals_the_reference_byte_for_byte():
+    """The port's ``core/heteroauto.py`` is the JAX package's, byte for
+    byte: the port runs every layout its ``runtime_path`` reports."""
+    root = pathlib.Path(__file__).resolve().parents[1] / "src"
+    assert (root / "repro_torch/core/heteroauto.py").read_bytes() == \
+        (root / "repro/core/heteroauto.py").read_bytes()
 
 
 def test_p2p_device_transport_needs_a_card_a_rank(monkeypatch):
