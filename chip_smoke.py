@@ -76,7 +76,16 @@ result.  Phases, each of which fails the run by raising:
      (1 / 3), every library schedule against the single-device loss and
      gradient in fp32 and bf16 at phase 9's limits, the single-chunk
      schedules' losses equal bit for bit and the chunked ones equal to
-     them.
+     them, and in fp32 1f1b's loss and gradient with the tracer's clock
+     in the tick loop equal those without it bit for bit.  (a)'s 1f1b run
+     also passes ``--trace``: ``trace_check`` holds its run directory
+     (``obs.validate.validate_run_dir(require_trace=True)`` without an
+     error, the executed ticks the priced ones, one ``F`` span per active
+     cell of the copied tick tables, one step's launches in the traced
+     pass, the denominator check) and prints each stage's executed ``F``
+     and ``B`` seconds beside the predicted ``F`` share, each rank's
+     exchange share of its traced wall, and the traced wall beside the
+     step p50.
  17. HeteroPP over tensor and data parallelism on one card: four ranks
      sharing it through ``--p2p host``.  (a) phase 16 (a)'s qwen1.5-0.5b
      10 / 14 plan under 1f1b with tp 2 a stage (Megatron blocks, each
@@ -109,7 +118,8 @@ result.  Phases, each of which fails the run by raising:
      tp_dst forward and tp_src back under ``naive``), beside the copied
      closed forms; (c) qwen's width at 4 layers (1 / 3), both layouts
      and both strategies, fp32, against the single device at phase 17
-     (d)'s limits.
+     (d)'s limits.  (a) under ``sr_ag`` passes ``--trace``, held as phase
+     16 (a)'s, its exchange printed tick by tick too.
  19. HeteroPP with an uneven batch domain on one card: four ranks, (dp
      2, pipe 2), replica 0 taking 4 microbatches and replica 1 taking 3:
      mamba2-780m at full width cut to phase 17 (c)'s 24 layers, 7 x (1 x
@@ -119,6 +129,8 @@ result.  Phases, each of which fails the run by raising:
      the same 7 microbatches, the padded token layout and the padded one
      with its pad slots overwritten giving the tight layout's loss bit
      for bit and its gradient within a second tight backward's spread.
+     The ZeRO-1 run passes ``--trace``, held as phase 16 (a)'s (the
+     pacing replica's 5 ticks, replica stragglers against 4 : 3).
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
 over the main paths that run it, phases 4, 7, 12, 13, 15, 16, 17, 18
@@ -131,13 +143,14 @@ summed over the ranks), the ``nvidia-smi`` name/power line, and last
 needs two cards and runs phases 1, 2 and phase 16 (a)'s 1f1b run only,
 with one card a rank, once through each stage-to-stage transport:
 ``--p2p device`` (NCCL, card to card) and ``--p2p host`` (gloo through
-pinned host memory); with four cards also granite-8b at full size,
+pinned host memory), the NCCL run traced as phase 16 (a)'s; with four
+cards also granite-8b at full size,
 pipe 2 x tp 2 through ``--p2p device`` (3 steps, batch 4 x 2048, peak
 learning rate 1e-5; losses finite and falling, launches pinned), which
 one card cannot hold, phase 17 (d)'s (pipe 2, tp 2) parity cases and
 phase 17 (b)'s ZeRO-1 run with NCCL's reduce-scatter and all-gather;
 with three cards or more also phase 18 (a) through ``--p2p device``,
-``sr_ag`` against ``naive``.
+``sr_ag`` (traced) against ``naive``.
 """
 from __future__ import annotations
 
@@ -1461,26 +1474,32 @@ def write_plan(run, plan):
 
 
 def plan_and_check(arch, stages, microbatches, args, schedule, kernel, transport="host",
-                   tp=1):
+                   tp=1, trace=False):
     """``repro_torch.launch.train --plan`` of ``stages`` with ``tp``
     members a stage: ``kernel`` launches tp x b x sum_s L_s x (2 if
-    recompute[s] else 1) times a step over the ranks.  Returns the
-    launcher's result (``pipeline_and_check``)."""
+    recompute[s] else 1) times a step over the ranks; with ``trace`` also
+    ``--trace`` (``trace_check``).  Returns the launcher's result
+    (``pipeline_and_check``)."""
     run = f"pipeline_{arch}_{schedule}_{transport}" + (f"_tp{tp}" if tp > 1 else "")
     path = write_plan(run, pp_plan([(chip, tp, L, rec) for chip, L, rec in stages],
                                    microbatches, schedule=schedule))
     per_step = tp * microbatches * sum(L * (2 if rec else 1) for _, L, rec in stages)
     return pipeline_and_check(run, ["--arch", arch, "--plan", path] + args, kernel,
-                              per_step, sum(L for _, L, _ in stages), schedule, transport)
+                              per_step, sum(L for _, L, _ in stages), schedule, transport,
+                              trace=(schedule, len(stages), (microbatches,), False)
+                              if trace else None)
 
 
-def pipeline_and_check(run, argv, kernel, per_step, layers, label, transport="host"):
+def pipeline_and_check(run, argv, kernel, per_step, layers, label, transport="host",
+                       trace=None):
     """``repro_torch.launch.train`` on a rank grid (its ranks sharing the
     card under ``--p2p host`` on one card; one card a rank otherwise): the
     losses must be finite and fall, and ``kernel`` launch
     ``per_step`` times a step, summed over the ranks (each counts from 0
     in its own process).  Prints the step, the memory and the collectives
-    a step by rank and group.  Returns the launcher's result."""
+    a step by rank and group.  ``trace`` (schedule, stages, allocations,
+    by tick) adds ``--trace`` and holds its run directory
+    (``trace_check``).  Returns the launcher's result."""
     import statistics
 
     import torch
@@ -1492,7 +1511,8 @@ def pipeline_and_check(run, argv, kernel, per_step, layers, label, transport="ho
     torch.cuda.empty_cache()
     ops.reset_launches()
     t0 = time.perf_counter()
-    res = train.main(argv + ["--run-dir", out_dir, "--p2p", transport] + PP_ARGS)
+    res = train.main(argv + ["--run-dir", out_dir, "--p2p", transport] + PP_ARGS
+                     + (["--trace"] if trace else []))
     wall = time.perf_counter() - t0
     launches, losses, times = res["launches"], res["losses"], res["step_times_s"]
     steps = len(losses)
@@ -1534,20 +1554,91 @@ def pipeline_and_check(run, argv, kernel, per_step, layers, label, transport="ho
         f"{ms('dp_s', r):.1f}, dp reduce-scatter {ms('dp_scatter_s', r):.1f}, dp "
         f"all-gather {ms('dp_gather_s', r):.1f}, replicated all-reduce "
         f"{ms('reduce_s', r):.1f}, norm {ms('norm_s', r):.1f}" for r in range(n)))
+    if trace:
+        trace_check(res, out_dir, kernel, per_step, label, trace, p50)
     return res
+
+
+def trace_check(res, run_dir, kernel, per_step, label, tables, p50):
+    """A ``--trace`` run's directory: ``validate_run_dir(require_trace=True)``
+    finds no error, the executed ticks are the priced ones, the executed
+    trace has one ``F`` span per active (replica, stage, tick) cell of the
+    copied tick tables (``tables``: schedule, stages, each replica's
+    allocation; and whether to print the exchange tick by tick), the
+    traced pass launched ``kernel`` one step's ``per_step`` times over the
+    ranks, and the denominator check held (the tokens the CE consumed
+    and the loss's denominator, each the closed form).  Prints each
+    stage's executed ``F`` and ``B`` seconds beside the predicted ``F``
+    share, each rank's exchange seconds (hop and wait, forward and
+    backward) as a share of its traced wall time, and the traced wall
+    beside the step p50: a fenced pass, each tick synchronized, not the
+    step."""
+    from repro_torch.core.tickprogram import spmd_tick_tables
+    from repro_torch.obs.validate import validate_run_dir
+
+    schedule, S, allocs, by_tick = tables
+    errs = validate_run_dir(run_dir, require_trace=True)
+    with open(os.path.join(run_dir, "trace_executed.json")) as f:
+        exe = json.load(f)
+    with open(os.path.join(run_dir, "align.json")) as f:
+        align = json.load(f)
+    meta, summary = exe["metadata"], res["trace"]
+    cells = sum(int(spmd_tick_tables(schedule, S, a).active.sum()) for a in allocs)
+    spans = sum(1 for e in exe["traceEvents"]
+                if e.get("ph") == "X" and e["args"]["kind"] == "F")
+    launched, denom = res["trace_launches"][kernel], meta["denom_check"]
+    log(f"  {label} trace: validate_run_dir errors {errs}; ticks {align['executed_ticks']} "
+        f"executed, {align['priced_ticks']} priced (match {align['ticks_match']}); {spans} "
+        f"F spans, {cells} active cells of the copied tick tables; {launched} {kernel} in "
+        f"the traced pass over the ranks (a step: {per_step}); denominator: the CE "
+        f"consumed {denom['measured']} tokens, the loss divided by {denom['loss_denom']}, "
+        f"{denom['expected']} expected")
+    log(f"  {label} trace by stage (executed F / B ms; F share executed vs predicted): "
+        + "; ".join(f"stage {row['stage']}: F {row['executed_s'] * 1e3:.1f} / B "
+                    f"{summary['stage_b_s'][row['stage']] * 1e3:.1f} ms, share "
+                    f"{row['executed_share']:.4f} vs {row['predicted_share']:.4f}"
+                    for row in align["per_stage"])
+        + f"; max_abs_rel_err {summary['max_abs_rel_err']:.4f}; stragglers flagged "
+        + ", ".join(f"{k} {v['flagged']}" for k, v in align["stragglers"].items()))
+    exch = [sum(x["forward"]) + sum(x["backward"]) for x in meta["exchange_s"]]
+    log(f"  {label} trace: exchange (hop and wait) as a share of each rank's traced "
+        f"wall, rank (d, s, k): " + "; ".join(
+            f"{r} {tuple(g)}: {e * 1e3:.1f} of {w * 1e3:.1f} ms = {e / w:.3f}"
+            for r, (g, e, w) in enumerate(zip(meta["grid"], exch, meta["rank_wall_s"]))))
+    if by_tick:
+        for r, (g, x) in enumerate(zip(meta["grid"], meta["exchange_s"])):
+            log(f"  {label} trace: rank {r} {tuple(g)} exchange ms by tick, forward "
+                + ", ".join(f"{v * 1e3:.1f}" for v in x["forward"]) + "; backward "
+                + ", ".join(f"{v * 1e3:.1f}" for v in x["backward"]))
+    log(f"  {label} trace: traced wall {meta['wall_s'] * 1e3:.1f} ms (one fenced forward "
+        f"and backward, no update) beside the step p50 {p50 * 1e3:.1f} ms")
+    bad = [f"validate_run_dir: {errs}"] if errs else []
+    if not summary["ticks_match"]:
+        bad.append("the executed ticks are not the priced ones")
+    if spans != cells:
+        bad.append(f"{spans} F spans for {cells} active cells")
+    if launched != per_step:
+        bad.append(f"the traced pass launched {kernel} {launched} times, not {per_step}")
+    if not denom["measured"] == denom["loss_denom"] == denom["expected"]:
+        bad.append(f"denominator {denom}")
+    if bad:
+        raise AssertionError(f"{label} trace: " + "; ".join(bad))
 
 
 def _parity_rank(rank, world, device, cases, microbatches, phys, schedules):
     """Phase 16 (c) on one rank: for each (arch, layers, mb, seq) case and
     dtype, the pipeline's loss and its gradient's squared norm per leaf
     in fp64 (block leaves over this rank's slots, the replicated ones on
-    rank 0 only) under every schedule."""
+    rank 0 only) under every schedule; and for each case, whether 1f1b's
+    fp32 loss and gradient with the tracer's clock in the tick loop equal
+    those without it bit for bit."""
     import torch
     from repro_torch.comm.p2p import Grid
     from repro_torch.core import heteropp as HP
     from repro_torch.core.schedules import get_schedule
     from repro_torch.kernels import build
-    from repro_torch.tree import flatten
+    from repro_torch.obs.runtime import fenced_clock
+    from repro_torch.tree import flatten, tree_leaves
 
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -1569,6 +1660,14 @@ def _parity_rank(rank, world, device, cases, microbatches, phys, schedules):
                 for t in flatten(local).values():
                     t.requires_grad_()
                 loss, grads = HP.make_pipeline_loss(cfg, spec, grid)(local, tokens)
+                if dtype == "float32" and name == "1f1b":
+                    # the tracer's clock in the loop changes no bit of the result
+                    loss_c, grads_c = HP.make_pipeline_loss(
+                        cfg, spec, grid, clock=fenced_clock(dev))(local, tokens)
+                    out[f"{arch} clock"] = bool(torch.equal(loss, loss_c)) and all(
+                        torch.equal(a, c) for a, c in zip(tree_leaves(grads),
+                                                          tree_leaves(grads_c)))
+                    del grads_c
                 grads = HP.make_grad_sync(spec, grid, "psum")(
                     grads, HP.zero1_dims(local, spec, "psum"))
                 sq = {k: float(torch.sum(torch.square(g.double())))
@@ -1636,6 +1735,12 @@ def phase_pipeline_parity(device="cuda:0", microbatches=4):
         log(f"  (c) {arch} width, {layers} layers split "
             f"{' / '.join(map(str, PP_PARITY_SPLIT))}, {microbatches} microbatches "
             f"of {mb} x {seq}")
+        same = [r[f"{arch} clock"] for r in res]
+        log(f"  float32 1f1b with the tracer's clock in the tick loop against without: "
+            f"loss and gradient the same bit for bit on every rank: {all(same)}")
+        if not all(same):
+            raise AssertionError(f"phase 16 (c) {arch}: the clock changed the result on "
+                                 f"ranks {[r for r, ok in enumerate(same) if not ok]}")
         for dtype in PP_PARITY_DTYPES:
             cfg, params, tokens = parity_inputs(arch, layers, dtype, mb, seq,
                                                 microbatches, dev)
@@ -1684,7 +1789,8 @@ def phase_pipeline(device="cuda:0"):
     arch, stages, b, args = PP_QWEN
     launches, per_step = {}, {}
     for schedule in ("1f1b", "zb_v"):
-        res = plan_and_check(arch, stages, b, args, schedule, "flash_attention")
+        res = plan_and_check(arch, stages, b, args, schedule, "flash_attention",
+                             trace=schedule == "1f1b")
         per_step[schedule] = res["launches"]["flash_attention"] // len(res["losses"])
         for k, v in res["launches"].items():
             launches[k] = launches.get(k, 0) + v
@@ -1711,16 +1817,16 @@ def cut_depth(layers):
 
 
 def grid_and_check(run, arch, layers, args, kernel, per_step, label, transport="host",
-                   full_layers=None):
+                   full_layers=None, trace=None):
     """A launcher run on a (dp, pipe, tp) grid from ``args``; ``layers``
     below the config's depth (``full_layers``) cuts it, which the output
-    says."""
+    says; ``trace`` as ``pipeline_and_check``'s."""
     cut = full_layers is not None and layers < full_layers
     if cut:
         log(f"  {label}: {arch} cut to {layers} of {full_layers} layers (full width)")
     with cut_depth(layers if cut else None):
         return pipeline_and_check(run, ["--arch", arch] + args, kernel, per_step, layers,
-                                  label, transport)
+                                  label, transport, trace=trace)
 
 
 def check_zero1_state(res, label):
@@ -1979,10 +2085,13 @@ def phase_hetero(transport="host", runs=HETERO_RUNS):
             run = f"hetero_{arch}_tp{tps[0]}{tps[1]}_{strategy}_{transport}"
             path = write_plan(run, pp_plan(stages, b))
             name = f"{label} tp {tps} {strategy}"
+            # (a) under sr_ag traced, its exchange printed tick by tick
+            traced = label == "(a)" and strategy == "sr_ag"
             res = pipeline_and_check(run, ["--arch", arch, "--plan", path, "--reshard",
                                            strategy] + args, "flash_attention",
                                      per_step, sum(L for _, _, L, _ in stages), name,
-                                     transport)
+                                     transport,
+                                     trace=("1f1b", 2, (b,), True) if traced else None)
             log(f"  {name}: {per_step} flash_attention a step = "
                 + " + ".join(f"{tp} x {n}" for tp, n in zip(tps, at_tp1))
                 + " (tp_s x stage s's launches at tp 1)")
@@ -2080,7 +2189,9 @@ def phase_domain():
         argv = ["--plan", write_plan(run, plan)] + args + (
             ["--no-verify-plan"] if bucket == 0 else [])
         res = grid_and_check(run, arch, layers, argv, "ssd_scan", per_step, label,
-                             full_layers=full)
+                             full_layers=full,
+                             trace=("1f1b", 2, DOMAIN, False) if sync == "reduce_scatter"
+                             else None)
         ticks = {}
         for (d, _, _), t in zip(res["grid_per_rank"], res["ticks_per_rank"]):
             ticks.setdefault(d, set()).add(t)
@@ -2231,12 +2342,14 @@ def hold_parity(runs, want, norms, dtype, label):
 
 def phase_transports():
     """``--transports``: phase 16 (a)'s qwen1.5-0.5b plan under 1f1b with
-    one card a rank, through NCCL and through gloo with host staging."""
+    one card a rank, through NCCL (traced: the tracer's object gather on
+    NCCL) and through gloo with host staging."""
     import torch
     arch, stages, b, args = PP_QWEN
     for transport in ("device", "host"):
         log(f"  --p2p {transport}:")
-        plan_and_check(arch, stages, b, args, "1f1b", "flash_attention", transport)
+        plan_and_check(arch, stages, b, args, "1f1b", "flash_attention", transport,
+                       trace=transport == "device")
     cards = torch.cuda.device_count()
     if cards < 3:
         log(f"  phase 18 (a) through --p2p device needs three cards; this machine has "

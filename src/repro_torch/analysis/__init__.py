@@ -5,10 +5,10 @@ gate over ParallelPlans.
 diagnostics (``H2Exxx`` errors / ``H2Wxxx`` warnings);
 ``verify_plan(plan)`` is the cfg-free gate ``heteropp.from_plan`` calls
 on every load, raising :class:`PlanVerificationError` on errors.
-The JAX package's CLI (``analysis/lint.py``) is not copied yet.
+``python -m repro_torch.analysis.lint plan.json ...`` is the CLI.
 
-A copy of the JAX package's ``analysis/__init__.py`` (without the CLI),
-held equal to it by ``tests/test_torch_planning.py``.
+A copy of the JAX package's ``analysis/__init__.py``, held equal to it
+by ``tests/test_torch_planning.py``.
 """
 from .collectives import (check_convergence, check_domain_divergence,
                           check_group_tables, check_grouped_program,

@@ -67,7 +67,7 @@ so every member skips the same slots and issues the same collectives.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -688,7 +688,8 @@ def prepare_domain_tokens(spec: PipelineSpec, tokens: torch.Tensor) -> torch.Ten
 
 
 def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
-                       backend: str = "auto"):
+                       backend: str = "auto",
+                       clock: Optional[Callable[[], float]] = None):
     """This rank's part of the pipeline loss.  Returns ``loss_fn(params,
     tokens) -> (loss, grads)``: ``params`` is the rank's
     ``local_stage_params`` tree (floating leaves ``requires_grad``),
@@ -703,7 +704,22 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
     replicated leaves need their sum over the stages).  On a grouped spec
     ``grid`` is :meth:`Grid.grouped`'s layout: each stage runs its own tp
     degree and the boundary hops reshard.  ``loss_fn.stats`` holds the
-    last call's tick count and collectives (``Grid.counts``)."""
+    last call's tick count and collectives (``Grid.counts``).
+
+    ``clock`` (``obs.runtime.trace_pipeline``'s fenced timer) stamps the
+    tick loop itself, so a traced call runs the very program an untraced
+    one runs: ``stats["tick_stamps"]`` holds ``"forward"``, one
+    ``(tick, active, mb, chunk, emit, start, computed, exchanged)`` a
+    tick (the compute is the stage forward and an emitting tick's CE;
+    then the exchange), and ``"backward"``, one ``(tick, active, start,
+    computed, exchanged)`` a tick in the order run (the compute is the
+    tick's ``autograd.grad``); a tick's exchange ends where the next
+    tick starts.  A clocked call also counts the masked target tokens
+    that its emitting ticks' CE consumed (``stats["ce_tokens"]``, this
+    rank's) and keeps the denominator the loss divided by
+    (``stats["denom"]``), for the tracer's cross-check.  Without a clock
+    the loop calls nothing more: two ``is None`` tests a tick, a third on
+    an emitting tick."""
     kind = pipeline_block_kind(cfg)
     validate_spec_tp(cfg, spec)
     _check_grid(spec, grid)
@@ -743,11 +759,15 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
         grid.stage_sum_(denom)
         inv_denom = 1.0 / max(float(denom), 1.0)
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
+        ce_tokens = 0.0
 
         # ---- forward: tick by tick ----
         records: List[Optional[tuple]] = []
         x_prev = x_next = y_loc = None
+        fwd_stamps, bwd_stamps = [], []
         for t, (active, mb, ck, src, emit) in enumerate(rows):
+            if clock is not None:
+                fwd_stamps.append((t, active, mb, ck, emit, clock()))
             y = None
             if active:
                 toks = tokens[mb]
@@ -763,14 +783,20 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
                     h = layers.apply_norm(params["final_norm"], y, cfg.norm)
                     ce = M.chunked_ce(params["embed"], h, targets[mb], lmask)
                     loss_acc = loss_acc + ce.detach()
+                    if clock is not None:
+                        ce_tokens = ce_tokens + lmask.sum()
                 records.append((leaf, y, ce, src))
             else:
                 records.append(None)
+            if clock is not None:
+                fwd_stamps[-1] += (clock(),)
             if t < tables.ticks - 1 and hops is not None:
                 x_prev = hops.forward(y, like)
             elif t < tables.ticks - 1:
                 x_prev, x_next = _exchange(p2p, routes.perm_f, routes.perm_b, y, like)
                 y_loc = y.detach() if routes.local and y is not None else None
+        if clock is not None:
+            fwd_end = clock()
         loss = grid.stage_sum_(loss_acc) * inv_denom
 
         # ---- backward: reverse tick order, gradients along the routes ----
@@ -779,6 +805,8 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
                for p in leaves]
         dy_f = dy_b = dy_loc = None          # gradients of this tick's y
         for t in range(tables.ticks - 1, -1, -1):
+            if clock is not None:
+                bwd_stamps.append((t, records[t] is not None, clock()))
             rec, records[t] = records[t], None
             gx, src = None, None
             if rec is not None:
@@ -801,6 +829,8 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
                         if g is not None:
                             a.add_(g.float())
                 del rec, leaf, y, ce, outs
+            if clock is not None:
+                bwd_stamps[-1] += (clock(),)
             if t > 0 and hops is not None:
                 dy_f = hops.backward(gx if src == SRC_PREV else None, like)
             elif t > 0:
@@ -812,13 +842,26 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
                     None, like, sends=(gx if src == SRC_PREV else None,
                                        gx if src == SRC_NEXT else None))
                 dy_loc = gx if src == SRC_LOCAL else None
+        if clock is not None:
+            stamps = {"forward": _close_stamps(fwd_stamps, fwd_end),
+                      "backward": _close_stamps(bwd_stamps, clock())}
         grads = _unflatten(params, acc)
         loss_fn.stats = _stats(tables, grid, c0)
+        if clock is not None:
+            loss_fn.stats.update(tick_stamps=stamps, ce_tokens=float(ce_tokens),
+                                 denom=float(denom))
         return loss, grads
 
     loss_fn.tables = tables
     loss_fn.stats = {}
     return loss_fn
+
+
+def _close_stamps(stamps, end):
+    """Each tick's stamps with its exchange's end appended: the next
+    tick's start, ``end`` for the last tick."""
+    ends = [row[-2] for row in stamps[1:]] + [end]
+    return [row + (e,) for row, e in zip(stamps, ends)]
 
 
 def _sum(ts):

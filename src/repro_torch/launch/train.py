@@ -8,7 +8,8 @@ device, or the HeteroPP pipeline with one process a stage.
          [--schedule 1f1b] [--microbatches B] \\
          [--grad-sync psum|reduce_scatter] [--bucket-bytes N] \\
          | --plan plan.json | --search A:1,B:1 [--search-dp 1,2] \
-         [--search-uneven-dp]] [--reshard sr_ag|naive] [--p2p device|host]
+         [--search-uneven-dp]] [--reshard sr_ag|naive] [--p2p device|host] \\
+         [--trace [--straggler-factor 1.5]]
 
 Runs on the card unless ``--device cpu`` is given; without a card and
 without ``--device cpu`` it raises.  ``--backend`` picks the kernel
@@ -52,8 +53,23 @@ every group: ``device`` (NCCL, one card a rank; the default) or
 card).  Every rank logs its steps and losses: rank 0 prints them and
 writes ``metrics.jsonl`` with ``"mode": "pipeline"``, then prints the
 step p50 and the collectives' ms a step by group; rank r writes
-``rank<r>/metrics.jsonl`` in the run directory.  ``--trace`` (ROADMAP A14)
-is refused.
+``rank<r>/metrics.jsonl`` in the run directory.
+
+``--trace`` (pipeline runs only) traces one more forward and backward
+after the timed steps, on the final parameters and the last batch
+(``obs.runtime.trace_pipeline``: the step's own tick loop, each tick's
+compute and exchange stamped after a device synchronize), and rank 0
+writes next to ``metrics.jsonl`` what the JAX launcher writes:
+``trace_predicted.json`` (the event simulator's timeline of the plan,
+or of the spec in layer units where there is no plan or it is a
+per-leaf psum plan, which the cost model cannot price),
+``trace_executed.json``, ``align.json`` (ticks priced against executed, per-stage forward shares,
+and a ``stragglers`` section: stages against the plan's priced compute,
+replicas against their allocations, flagged beyond
+``--straggler-factor`` × the median) and ``plan.json`` when there is a
+plan; ``python -m repro_torch.obs.validate --require-trace RUN_DIR``
+checks them.  The timed steps' launches and times do not include the
+traced passes.
 """
 from __future__ import annotations
 
@@ -161,14 +177,18 @@ def parse_args(argv=None):
                          "all-reduces of at most this many bytes in "
                          "wgrad-completion order; 0 = one a leaf")
     ap.add_argument("--trace", action="store_true",
-                    help="not ported yet (ROADMAP A14)")
+                    help="after training, trace one fenced forward and backward of "
+                         "the pipeline's tick loop and write trace_predicted.json / "
+                         "trace_executed.json / align.json to --run-dir (pipeline "
+                         "runs only)")
+    ap.add_argument("--straggler-factor", type=float, default=1.5,
+                    help="with --trace: flag a stage/replica whose measured/priced "
+                         "ratio exceeds this factor x the cohort median")
     return ap.parse_args(argv)
 
 
 def _refuse(args, pipeline: bool) -> None:
     """Flags the chosen path would not honour exit with a message."""
-    if args.trace:
-        raise SystemExit("--trace: not ported to repro_torch yet (ROADMAP A14)")
     if (args.search_dp or args.search_uneven_dp) and not args.search:
         flag = "--search-dp" if args.search_dp else "--search-uneven-dp"
         raise SystemExit(f"{flag} only shapes the HeteroAuto search; "
@@ -180,7 +200,8 @@ def _refuse(args, pipeline: bool) -> None:
             ("--tensor-parallel", args.tensor_parallel),
             ("--data-parallel", args.data_parallel),
             ("--grad-sync", args.grad_sync),
-            ("--bucket-bytes", args.bucket_bytes), ("--reshard", args.reshard)) if on]
+            ("--bucket-bytes", args.bucket_bytes), ("--reshard", args.reshard),
+            ("--trace", args.trace)) if on]
         if given:
             raise SystemExit(f"{' '.join(given)} only apply to the pipeline; "
                              "add --pipeline-parallel N, --plan or --search")
@@ -477,6 +498,83 @@ def run_pipeline(args, cfg, dev):
     return res
 
 
+def _export_obs(args, cfg, spec, plan, cost, executed, run_dir):
+    """The ``--trace`` epilogue on rank 0 (DESIGN.md §14): the predicted
+    timeline from the event simulator (of the plan where the cost model
+    priced it, ``cost``; else of the spec in layer units), the executed
+    one (``executed``, from ``obs.runtime.trace_pipeline``), their
+    alignment report with its straggler sections (stages against
+    ``cost``), all written next to ``metrics.jsonl``, and ``plan.json``
+    when there is a plan.  Returns the run's trace summary:
+    ``ticks_match``, ``max_abs_rel_err``, ``wall_s`` and the executed
+    ``F`` and ``B`` seconds by stage."""
+    from ..obs import align_traces, write_trace
+    from ..obs.align import per_replica_seconds, per_stage_seconds
+    from ..obs.straggler import replica_stragglers, stage_stragglers
+    from ..obs.trace import predicted_trace_for_plan, predicted_trace_for_spec
+    if cost is not None:
+        predicted, _ = predicted_trace_for_plan(plan, cfg, args.seq, grad_sync=plan.dp > 1)
+    else:
+        predicted, _ = predicted_trace_for_spec(spec)
+    report = align_traces(predicted, executed)
+    stragglers = {}
+    measured = per_stage_seconds(executed)
+    if cost is not None:
+        stragglers["stage"] = stage_stragglers(
+            plan, cost, [measured[s] for s in sorted(measured)],
+            factor=args.straggler_factor)
+    if spec.data_parallel > 1:
+        # expected ∝ allocations (one time a microbatch): the median
+        # normalization makes the unit irrelevant
+        per_rep = per_replica_seconds(executed)
+        stragglers["replica"] = replica_stragglers(
+            spec.batch_allocations, 1.0, [per_rep[r] for r in sorted(per_rep)],
+            factor=args.straggler_factor)
+    report["stragglers"] = stragglers
+    write_trace(os.path.join(run_dir, "trace_predicted.json"), predicted)
+    write_trace(os.path.join(run_dir, "trace_executed.json"), executed)
+    if plan is not None:
+        with open(os.path.join(run_dir, "plan.json"), "w", encoding="utf-8") as f:
+            json.dump(plan.to_dict(), f, indent=2)
+    with open(os.path.join(run_dir, "align.json"), "w", encoding="utf-8") as f:
+        json.dump(report, f, indent=2)
+    err = report["max_abs_rel_err"]
+    wall = executed["metadata"]["wall_s"]
+    print(f"trace: {run_dir}/trace_executed.json ticks={report['executed_ticks']} "
+          f"(priced {report['priced_ticks']}, match={report['ticks_match']}) "
+          f"wall={wall:.3f}s max_share_err={err if err is None else round(err, 4)}",
+          flush=True)
+    backward = per_stage_seconds(executed, kinds=("B",))
+    S = spec.num_stages
+    return {"ticks_match": report["ticks_match"], "max_abs_rel_err": err, "wall_s": wall,
+            "stage_f_s": [measured.get(s, 0.0) for s in range(S)],
+            "stage_b_s": [backward.get(s, 0.0) for s in range(S)]}
+
+
+def _price_plan(plan_dict, cfg, args):
+    """``(plan, cost, priced)``: the ``ParallelPlan`` of ``plan_dict``,
+    its price under the cost model, and the meta row's priced fields (the
+    plan's priced expectations ride in the meta row, so the drift and
+    straggler reports are reproducible from the JSONL alone); all None
+    and ``{}`` without a plan.  The one plan the cost model cannot price,
+    per-leaf psum (``bucket_bytes`` 0, run only past
+    ``--no-verify-plan``), gets no price and a ``priced_error``; any other
+    pricing fault is raised."""
+    if plan_dict is None:
+        return None, None, {}
+    from ..core.cost_model import ParallelPlan, evaluate
+    plan = ParallelPlan.from_dict(plan_dict)
+    try:
+        cost = evaluate(plan, cfg, args.seq, args.batch * args.seq)
+    except ValueError as e:
+        if not (plan.dp_sync == "psum" and plan.bucket_bytes == 0):
+            raise
+        return plan, None, {"priced_error": str(e)}
+    return plan, cost, {"priced_iter_time_s": cost.iter_time, "priced_tgs": cost.tgs,
+                        "priced_exposed_sync_s": sum(cost.exposed_sync),
+                        "priced_reshard_s": sum(cost.t_reshard)}
+
+
 # a step's collectives by group (``Grid.counts``), seconds or bytes
 STAT_KEYS = ("p2p_bytes", "p2p_s", "p2p_copy_s", "boundary_bytes", "boundary_s",
              "boundary_copy_s", "boundary_gather_bytes", "boundary_gather_s",
@@ -519,7 +617,10 @@ def _pipeline_rank(rank, world, args, cfg, spec, grad_sync, plan_dict, transport
     every other rank logs its steps and losses to ``rank<r>/metrics.jsonl``
     in the run directory.  Returns this rank's losses, step times, peak
     memory, optimizer-state bytes, kernel launches (counted from 0 in this
-    process) and collectives a step."""
+    process) and collectives a step, all of the timed steps alone; with
+    ``--trace`` rank 0 also returns the trace summary (``_export_obs``) as
+    ``trace`` and the timed traced pass's launches summed over the ranks
+    as ``trace_launches`` (None elsewhere)."""
     import statistics
 
     from ..core import heteropp as HP
@@ -557,6 +658,8 @@ def _pipeline_rank(rank, world, args, cfg, spec, grad_sync, plan_dict, transport
             "microbatches": b, "batch": args.batch, "seq": args.seq,
             "backend": args.backend, "device": str(dev), "p2p": transport,
             "plan": plan_dict, "rank": rank, "grid": [grid.d, grid.s, grid.k]}
+    plan, cost, priced = _price_plan(plan_dict, cfg, args)
+    meta.update(priced)
     run_dir = args.run_dir or os.path.join("runs", cfg.name)
     logger = MetricsLogger(run_dir if rank == 0 else os.path.join(run_dir, f"rank{rank}"),
                            meta=meta)
@@ -564,6 +667,7 @@ def _pipeline_rank(rank, world, args, cfg, spec, grad_sync, plan_dict, transport
         torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     losses, step_times, stats = [], [], []
+    toks = None
     try:
         t0 = time.perf_counter()
         t_last, i_last = t0, 0
@@ -594,6 +698,21 @@ def _pipeline_rank(rank, world, args, cfg, spec, grad_sync, plan_dict, transport
                           f"p2p={(st['p2p_s'] + st['boundary_s']) * 1e3 / st['ticks']:.2f} "
                           f"ms/tick",
                           flush=True)
+        # the timed steps' counts, before the traced passes
+        launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+        peak = device_memory_highwater(dev)
+        trace = trace_launches = None
+        if args.trace:
+            from ..obs.runtime import trace_pipeline
+            if toks is None:
+                toks = next(loader)["tokens"].reshape(total_mb, args.batch // total_mb,
+                                                      args.seq)
+            executed = trace_pipeline(cfg, spec, grid, state.params, toks,
+                                      backend=args.backend)
+            if rank == 0:
+                trace = _export_obs(args, cfg, spec, plan, cost, executed, run_dir)
+                trace_launches = {k: sum(r[k] for r in executed["metadata"]["launches"])
+                                  for k in launches}
     finally:
         logger.close()
     if rank == 0 and stats:
@@ -612,8 +731,8 @@ def _pipeline_rank(rank, world, args, cfg, spec, grad_sync, plan_dict, transport
     ticks = stats[-1]["ticks"] if stats else 0
     out = {"arch": cfg.name, "num_layers": cfg.num_layers, "losses": losses,
            "step_times_s": step_times, "tokens_per_step": tokens_per_step,
-           "peak_mem_bytes": device_memory_highwater(dev), "mode": "pipeline",
-           "launches": {fn.__name__: fn.launches for fn in ops.KERNELS},
+           "peak_mem_bytes": peak, "mode": "pipeline", "launches": launches,
+           "trace_launches": trace_launches, "trace": trace,
            "ticks": ticks, "opt_state_bytes": opt_bytes,
            "param_count": sum(t.numel() for t in tree_leaves(state.params)),
            "rank": rank, "grid": [grid.d, grid.s, grid.k], "device": str(dev)}

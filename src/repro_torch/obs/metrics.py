@@ -1,5 +1,5 @@
-"""Structured metrics: gauges and histograms with a JSONL sink (the part
-of ``repro/obs/metrics.py`` that serving uses, copied so the port imports
+"""Structured metrics: a small counters/gauges/histograms registry with
+a JSONL sink (a copy of ``repro/obs/metrics.py``, so the port imports
 nothing of ``repro``; the rows have the same schema).
 
 The sink writes one JSON object per line to ``run_dir/metrics.jsonl``:
@@ -28,6 +28,21 @@ def percentile(sorted_samples: Sequence[float], q: float) -> float:
     if not 0.0 < q <= 1.0:
         raise ValueError(f"q must be in (0, 1]: {q}")
     return sorted_samples[max(1, math.ceil(q * n)) - 1]
+
+
+class Counter:
+    """Monotone event count (``inc`` only)."""
+
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0
+
+    def inc(self, n: int = 1) -> int:
+        if n < 0:
+            raise ValueError(f"counters only increase: inc({n})")
+        self.value += n
+        return self.value
 
 
 class Gauge:
@@ -76,8 +91,12 @@ class MetricsRegistry:
     into one JSON-ready dict (histograms as ``name.p50`` etc.)."""
 
     def __init__(self):
+        self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
+
+    def counter(self, name: str) -> Counter:
+        return self._counters.setdefault(name, Counter())
 
     def gauge(self, name: str) -> Gauge:
         return self._gauges.setdefault(name, Gauge())
@@ -87,6 +106,8 @@ class MetricsRegistry:
 
     def snapshot(self) -> Dict[str, float]:
         out: Dict[str, float] = {}
+        for name, c in self._counters.items():
+            out[name] = c.value
         for name, g in self._gauges.items():
             if g.value is not None:
                 out[name] = g.value

@@ -1,6 +1,6 @@
 """Rank functions for the port's multi-rank pipeline tests
 (``tests/test_torch_heteropp.py``, ``tests/test_torch_heteropp_grid.py``,
-``tests/test_torch_heteropp_hetero.py``), run by
+``tests/test_torch_heteropp_hetero.py``, ``tests/test_torch_obs.py``), run by
 ``repro_torch.launch.ranks.spawn`` on gloo CPU ranks.  This module
 imports nothing of JAX, so the ranks start quickly; the test holds what
 they return against the JAX package."""
@@ -219,6 +219,40 @@ def subgroup_collectives(rank, world):
         other.all_gather_(half, (part * 0 + other.rank + 0.5).bfloat16(), 1)
         out[str(shape)] = {"got": got, "part": part, "gathered": full,
                            "gathered_bf16": half, "group": other.global_ranks}
+    return out
+
+
+def trace_cases(rank, world, grid_shape, cases):
+    """On a (dp, pipe, tp) grid of ``world`` ranks, for each case (``cfg``
+    fields, numpy ``tree``, ``tokens``, ``phys`` split, ``schedule``, an
+    optional uneven batch ``domain``): ``obs.runtime.trace_pipeline``'s
+    trace (None off rank 0); with ``clock_parity`` also the loss and this
+    rank's gradient tree of ``make_pipeline_loss`` without a clock and
+    with the fenced one, on the same parameters and tokens."""
+    from repro_torch.obs.runtime import fenced_clock, trace_pipeline
+    from repro_torch.tree import flatten
+    D, S, T = grid_shape
+    grid = Grid.build("host", CPU, dp=D, pipe=S, tp=T)
+    out = []
+    for case in cases:
+        cfg = ModelConfig(**case["cfg"])
+        params = bridge.params_from_numpy(case["tree"], CPU)
+        toks = torch.from_numpy(case["tokens"])
+        sched = get_schedule(case["schedule"])
+        domain = tuple(case.get("domain") or ())
+        spec = HP.PipelineSpec(S, HP.chunk_layer_counts(case["phys"], sched),
+                               max(domain) if domain else toks.shape[0] // D,
+                               schedule=sched.name, n_chunks=sched.n_chunks,
+                               tensor_parallel=T, data_parallel=D, batch_domain=domain)
+        local = HP.local_stage_params(params, cfg, spec, grid.s, grid.k)
+        for t in flatten(local).values():
+            t.requires_grad_()
+        r = {"trace": trace_pipeline(cfg, spec, grid, local, toks)}
+        if case.get("clock_parity"):
+            for name, clock in (("untraced", None), ("traced", fenced_clock(CPU))):
+                loss, grads = HP.make_pipeline_loss(cfg, spec, grid, clock=clock)(local, toks)
+                r[name] = {"loss": loss, "grads": grads}
+        out.append(r)
     return out
 
 

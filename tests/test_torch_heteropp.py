@@ -495,7 +495,7 @@ def test_pipeline_launcher_joins_a_torchrun_job(tmp_path, fp32_launcher):
     (["--arch", "mamba2_780m", "--pipeline-parallel", "2", "--tensor-parallel", "2"],
      "dense decoder blocks only"),
     (["--plan", "p.json", "--data-parallel", "2"], "sets dp from the plan"),
-    (["--pipeline-parallel", "2", "--trace"], "A14"),
+    (["--trace"], "--pipeline-parallel"),
     (["--plan", "p.json", "--search", "A:1,B:1"], "mutually exclusive"),
     (["--plan", "p.json", "--schedule", "zb_v"], "plan's schedule"),
     (["--search", "A:1,B:1", "--pipeline-parallel", "2"], "stage count from the plan"),

@@ -112,7 +112,9 @@ def test_port_imports_no_jax_or_repro_ast():
         "comm/p2p",
         "kernels/constraints", "launch/ranks", "analysis/__init__",
         "analysis/diagnostics", "analysis/schedule_safety", "analysis/collectives",
-        "analysis/resources", "analysis/kernel_lint", "analysis/plan_verifier")}
+        "analysis/resources", "analysis/kernel_lint", "analysis/plan_verifier",
+        "analysis/lint", "obs/__init__", "obs/metrics", "obs/trace", "obs/align",
+        "obs/straggler", "obs/validate", "obs/runtime")}
     assert planning <= scanned, planning - scanned
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in PORT_FILES
            for m in _imports(p) if _banned(m)]
@@ -188,6 +190,20 @@ def test_metrics_copy_matches_jax():
     assert ht.summary() == hj.summary()
     with pytest.raises(ValueError):
         tmetrics.percentile([], 0.5)
+    cj, ct = jmetrics.Counter(), tmetrics.Counter()
+    assert [ct.inc(n) for n in (1, 0, 3)] == [cj.inc(n) for n in (1, 0, 3)]
+    with pytest.raises(ValueError):
+        ct.inc(-1)
+    snaps = []
+    for m in (jmetrics, tmetrics):
+        reg = m.MetricsRegistry()
+        reg.counter("steps").inc(3)
+        reg.gauge("lr").set(1e-3)
+        reg.gauge("unset")
+        for s in samples:
+            reg.histogram("lat").observe(s)
+        snaps.append(reg.snapshot())
+    assert snaps[1] == snaps[0] and snaps[1]["steps"] == 3 and "unset" not in snaps[1]
 
 
 # the port's copies of JAX constants and config dataclasses: (port module,

@@ -334,6 +334,29 @@ def test_heteroauto_copy_equals_the_reference_byte_for_byte():
         (root / "repro/core/heteroauto.py").read_bytes()
 
 
+@pytest.mark.parametrize("argv,rc", [
+    (["plan_exp_c1_8dev.json"], 0),
+    (["bad/plan_divergent.json"], 1),
+    (["plan_exp_c1_8dev.json", "bad/plan_overhbm.json", "--arch", "granite_8b",
+      "--seq", "4096"], 1),
+    (["--schedules"], 0),
+])
+def test_lint_cli_equal_jax(argv, rc, capsys):
+    """The copied plan-lint CLI prints the JAX package's diagnostics and
+    returns its exit code, on a good plan, a bad one, the cfg-full passes
+    and the schedule registry sweep."""
+    from repro.analysis import lint as jlint
+    from repro_torch.analysis import lint as tlint
+    argv = [str(FIXTURES / a) if a.endswith(".json") else a for a in argv]
+    out = []
+    for lint in (jlint, tlint):
+        code = lint.main(argv)
+        out.append((code, capsys.readouterr()))
+    assert out[1] == out[0] and out[0][0] == rc
+    assert ("PLAN_LINT_OK" in out[0][1].out or "SCHEDULE_REGISTRY_OK" in out[0][1].out
+            or "H2E" in out[0][1].err)
+
+
 def test_p2p_device_transport_needs_a_card_a_rank(monkeypatch):
     from repro_torch.comm import p2p
     with pytest.raises(ValueError, match="--p2p host"):
