@@ -13,7 +13,8 @@ result.  Phases, each of which fails the run by raising:
      started together.
   3. kernels vs their plain PyTorch versions on the card, at the shapes
      the main paths give them (``flash_attention`` also at the profiler's
-     (1, 4096, 32/8, 128); zamba2's head_dim 80 and (h 80, n 64) too) and
+     (1, 4096, 32/8, 128); zamba2's head_dim 80 and (h 80, n 64) too;
+     qwen3-moe's GQA group of 8: prefill, training and decode) and
      at edge cases, in fp32 and bf16, and the gradients of the three
      autograd Functions (``flash_attention``, ``ssd_scan``, ``rmsnorm``)
      against the gradients of plain versions written apart from the ones
@@ -131,12 +132,44 @@ result.  Phases, each of which fails the run by raising:
      for bit and its gradient within a second tight backward's spread.
      The ZeRO-1 run passes ``--trace``, held as phase 16 (a)'s (the
      pacing replica's 5 ticks, replica stragglers against 4 : 3).
+ 20. MoE serving: ``repro_torch.launch.serve`` serves qwen3-moe-30b-a3b
+     at full width and depth (48 layers of 128 experts, top 8, 61 GB of
+     bf16 weights), batch 4, prompt 512, 32 tokens; the prefill launches
+     48 ``flash_attention``, each decode call 48 ``flash_decode``; then
+     where the time goes (phase 6's method, with the device time of each
+     stage of the blocks: attention, routing, dispatch, expert products,
+     combine).
+ 21. MoE training: qwen3-moe-30b-a3b at full width cut to 4 layers,
+     batch 2 x seq 2048, 4 steps; losses finite and falling, 2 x 4
+     ``flash_attention`` a step; layer 0's ``moe_drop_frac`` and aux
+     losses on one batch at capacity factor 1.25; a warm step traced.
+ 22. kernel path vs plain path, MoE: qwen3-moe's width at 2 layers,
+     training as phase 9 (fp32 and bf16) and serving as phase 5 (fp32
+     and bf16).
+ 23. the measured auto-profiler on MoE: ``measure_layer_profile`` times
+     a ``moe`` block of qwen3-moe at full width (4 layers for the decode
+     step) at seq 4096, launches pinned as in phase 12; a plan of the
+     whole model priced with and without the times.
+ 24. HeteroPP with moe stages on one card, two ranks, ``--p2p host``:
+     (a) ``launch.train --plan`` of qwen3-moe at full width cut to 2
+     layers, one a stage on chips A and B (a stage's layers are padded to
+     the largest stage's, each slot with its AdamW state: a 1 / 3 split of
+     4 layers does not fit two ranks on one card), 1f1b, 4 microbatches of
+     1 x 2048, 2 steps, 4 x (1 x 2 + 1) = 12 ``flash_attention`` a step
+     over both ranks, traced as phase 16 (a); (b) its width at 2 layers (1 / 1) in
+     fp32 under 1f1b and zb_v against the mean over the microbatches of
+     the single-device ``loss_fn``: the loss and each leaf's gradient
+     norm at phase 16 (c)'s limits, each layer's router gradient within
+     1e-3 of its largest entry, the loss nearer the oracle than the
+     value the JAX package's SPMD pipeline gives (it divides the summed
+     aux by the stage count).
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
-over the main paths that run it, phases 4, 7, 12, 13, 15, 16, 17, 18
-and 19, each counted from 0; phases 16 to 19 in each rank's own process,
+over the main paths that run it, phases 4, 7, 12, 13, 15–21, 23 and 24,
+each counted from 0; the pipeline phases in each rank's own process,
 summed over the ranks), the ``nvidia-smi`` name/power line, and last
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  Each phase's heading carries the
+seconds since the script started.
 
     python3 chip_smoke.py --transports
 
@@ -154,6 +187,7 @@ with three cards or more also phase 18 (a) through ``--p2p device``,
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -302,6 +336,8 @@ FA_GRAD = [
     ("grad: qwen B2 S1024 H16 hd64", 2, 1024, 1024, 16, 16, 64, True, 0, 0),
     ("grad: window 96, q_offset 64, GQA 8/2", 1, 256, 320, 8, 2, 128, True, 96, 64),
     ("grad: zamba2 heads B1 S512 H32 hd80", 1, 512, 512, 32, 32, 80, True, 0, 0),
+    # qwen3-moe-30b-a3b's training shape: a GQA group of 8
+    ("grad: qwen3-moe B2 S2048 H32 KV4 hd128", 2, 2048, 2048, 32, 4, 128, True, 0, 0),
 ]
 # zamba2-2.7b's ssd_scan shapes: h 80 heads of p 64, state n 64
 SSD_ZAMBA2 = [
@@ -337,6 +373,8 @@ FA_CASES = [
     ("window 96, GQA 8/4, hd 80", 2, 320, 320, 8, 4, 80, True, 96, 0),
     # a qwen1.5-0.5b microbatch on a tp-2 member (phases 17, 18): 8 of 16 heads
     ("qwen tp 2: B2 S1024 H8 hd64", 2, 1024, 1024, 8, 8, 64, True, 0, 0),
+    # qwen3-moe-30b-a3b's grouping (phases 20-24): 32 query heads over 4 kv heads
+    ("GQA 32/4, hd 128", 1, 256, 256, 32, 4, 128, True, 0, 0),
 ]
 FA_SERVE = ("serving: B4 S512 H32 KV8 hd128", 4, 512, 512, 32, 8, 128, True, 0, 0)
 # t_attn of the profile (phase 12): granite-8b's heads at seq 4096
@@ -362,11 +400,47 @@ FD_CASES = [
     ("hd 80, G 25 (the most at hd 80)", 2, 4, 25, 333, 80, 300, 0, 0.0, False, 1.0),
 ]
 FD_SERVE = ("serving: B4 KV8 G4 hd128 S544", 4, 8, 4, 544, 128, 543, 0, 0.0, False, 1.0)
+# qwen3-moe-30b-a3b's shapes: 32 query heads over 4 kv heads (GQA 8),
+# hd 128; prefill (phase 20), a training batch (phases 21, 22) and decode
+FA_QWEN3_MOE = [
+    ("qwen3-moe prefill: B4 S512 H32 KV4 hd128", 4, 512, 512, 32, 4, 128, True, 0, 0),
+    ("qwen3-moe training: B2 S2048 H32 KV4 hd128", 2, 2048, 2048, 32, 4, 128, True, 0, 0),
+]
+FD_QWEN3_MOE = ("qwen3-moe decode: B4 KV4 G8 hd128 S544", 4, 4, 8, 544, 128, 543, 0, 0.0,
+                False, 1.0)
 FD_ZAMBA2 = ("zamba2 decode: B4 KV32 G1 hd80 S544", 4, 32, 1, 544, 80, 543, 0, 0.0, False,
              1.0)
 
 SERVE_ARGS = ["--arch", "granite_8b", "--batch", "4", "--prompt-len", "512",
               "--gen", "32", "--backend", "auto", "--device", "cuda"]
+# Phases 20-24: qwen3-moe-30b-a3b (E 128, k 8, d 2048, expert d_ff 768, 48
+# layers, vocab 151936, 30.5 B parameters).  Serving at full width and
+# depth (61 GB of bf16 weights); training at full width cut to 4 of 48
+# layers (AdamW's fp32 master, m and v beside the bf16 weights and
+# gradients, 16 bytes a parameter: 49.8 GB at 4 layers, 69.8 GB at 6)
+MOE_ARCH = "qwen3_moe_30b_a3b"
+MOE_SERVE_ARGS = ["--arch", MOE_ARCH, "--batch", "4", "--prompt-len", "512",
+                  "--gen", "32", "--backend", "auto", "--device", "cuda"]
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_ARGS = ["--arch", MOE_ARCH, "--batch", "2", "--seq", "2048", "--steps", "4",
+                  "--backend", "auto", "--device", "cuda", "--log-every", "1"]
+# Phase 22: the kernel path against the plain path at qwen3-moe's width
+MOE_CUT_LAYERS = 2
+# Phase 24: (a) qwen3-moe cut to 2 layers, one a stage on chips A and B
+# (recompute on / off), 4 microbatches of 1 x 2048, 2 steps.  Every rank
+# holds its stage's layers padded to the largest stage's count (the JAX
+# package's stage layout), each slot with its fp32 AdamW state and
+# gradient accumulator, and a copy of the 0.62 B-parameter embedding and
+# head: at 4 layers split 1 / 3 that is 2.49 B parameters, ~45 GB, a rank,
+# and the two ranks do not fit one card (rank 0 ran out of memory at 32.8
+# GiB allocated); at 1 / 1 it is 1.25 B, ~25 GB.  (b) 2 layers (1 / 1) in
+# fp32, 4 microbatches of 1 x 2048, under 1f1b and zb_v
+MOE_PP_LAYERS = 2
+MOE_PP_STAGES = (("A", 1, True), ("B", 1, False))
+MOE_PP_ARGS = ["--batch", "4", "--seq", "2048", "--steps", "2"]
+MOE_PP_PARITY = (MOE_ARCH, 2, 1, 2048)
+MOE_PP_PARITY_SPLIT = (1, 1)
+MOE_PP_PARITY_SCHEDULES = ("1f1b", "zb_v")
 
 # Phase 16: HeteroPP on one card, two ranks sharing it through gloo
 # ("--p2p host": NCCL refuses two ranks on one card).  Each plan is two
@@ -464,7 +538,14 @@ DOMAIN_SYNCS = [("ZeRO-1", "reduce_scatter", GRID_PARITY_BUCKET), ("per-leaf psu
 DOMAIN_PARITY = ("mamba2_780m", 4, 1, 2048)
 
 
+T0 = time.perf_counter()
+
+
 def log(msg=""):
+    """Print a line; a phase's heading (``== ``) with the seconds since the
+    script started."""
+    if msg.startswith("== "):
+        msg += f"  [{time.perf_counter() - T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -588,7 +669,7 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     fa_err = fd_err = 0.0
-    for case in FA_CASES + [FA_SERVE] + FA_ZAMBA2:
+    for case in FA_CASES + [FA_SERVE] + FA_ZAMBA2 + FA_QWEN3_MOE:
         label, *_, causal, window, q_offset = case
         for dname, dt in dtypes.items():
             q, k, v = fa_inputs(case, dt, gen)
@@ -600,7 +681,7 @@ def phase_kernels():
             e = compare(got, want, dname, f"flash_attention [{label}, {dname}]")
             log(f"  flash_attention {label:32s} {dname:9s} max_abs_err={e:.3e}")
             fa_err = max(fa_err, e) if dname == "bfloat16" else fa_err
-    for case in FD_CASES + [FD_SERVE, FD_ZAMBA2]:
+    for case in FD_CASES + [FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE]:
         label, *_, pos, window, softcap, ring, _ = case
         for dname, dt in dtypes.items():
             q, [(k, v)] = fd_inputs(case, dt, gen)
@@ -613,10 +694,10 @@ def phase_kernels():
             log(f"  flash_decode    {label:32s} {dname:9s} max_abs_err={e:.3e}")
             fd_err = max(fd_err, e) if dname == "bfloat16" else fd_err
 
-    # ---- times at the serving shapes (and the profile's, and zamba2's), bf16 ----
+    # ---- times at the serving shapes (the profile's, zamba2's, qwen3-moe's), bf16 ----
     rows = {}
     fa_rows = {}
-    for case in (FA_SERVE, FA_PROFILE, *FA_ZAMBA2):
+    for case in (FA_SERVE, FA_PROFILE, *FA_ZAMBA2, *FA_QWEN3_MOE):
         label, B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
         q, k, v = fa_inputs(case, torch.bfloat16, gen)
         want = ref.flash_attention_ref(q, k, v)
@@ -647,7 +728,8 @@ def phase_kernels():
         torch.cuda.empty_cache()
     rows["flash_attention"] = dict(fa_rows[FA_SERVE[0]], max_abs_err=fa_err)
 
-    fd_rows = {case[0]: fd_timed(case, gen, fd_err) for case in (FD_SERVE, FD_ZAMBA2)}
+    fd_rows = {case[0]: fd_timed(case, gen, fd_err)
+               for case in (FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE)}
     rows["flash_decode"] = fd_rows[FD_SERVE[0]]
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     shown = list(fa_rows.items()) + list(fd_rows.items())
@@ -669,10 +751,13 @@ def fd_timed(case, gen, err):
     from repro_torch.kernels import ops, ref
 
     _, B, KV, G, S, hd, pos, window, softcap, ring, _ = case
-    # eight caches (71 MB at the granite shape, 178 MB at zamba2's: more
-    # than the 50 MB L2) taken in turn, so every call reads its cache from
-    # device memory, as each layer's decode does
-    q, caches = fd_inputs(case, torch.bfloat16, gen, n_caches=8)
+    # caches taken in turn, at least eight and at least 64 MB of them (71
+    # MB at the granite shape, 178 MB at zamba2's, 67 MB in 15 at
+    # qwen3-moe's: more than the 50 MB L2), so every call reads its cache
+    # from device memory, as each layer's decode does
+    per_cache = 2 * B * KV * S * hd * 2
+    q, caches = fd_inputs(case, torch.bfloat16, gen,
+                          n_caches=max(8, math.ceil(64e6 / per_cache)))
     live = int(ref.decode_valid(pos, S, device="cuda").sum())
     # the library call needs the mask as a bias; the kernel computes it
     bias = ops.decode_bias(pos, S, device="cuda").view(1, 1, 1, S)
@@ -787,17 +872,35 @@ def phase_end_to_end(arch="granite_8b", layers=4, dtype="bfloat16"):
     cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
     B, S, steps = 4, 512, 4
     diff = lambda a, b: (float((a - b).norm() / b.norm()), float((a - b).abs().max()))
+    moe = cfg.family == "moe"
+    routes = []
     with torch.inference_mode():
         params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                device=dev)
         toks = SyntheticTokens(cfg, DataConfig(batch_size=B, seq_len=S)).next_batch()
         batch = {"tokens": torch.from_numpy(toks["tokens"]).to(dev)}
-        le, feed = serve_logits(params, cfg, batch, "einsum", steps)
+        with moe_routing(routes) if moe else contextlib.nullcontext():
+            le, feed = serve_logits(params, cfg, batch, "einsum", steps)
         lk, _ = serve_logits(params, cfg, batch, "kernel", steps, feed)
         chunks = [cfg.ssm_chunk // k for k in TRAIN_BF16_CHUNK_DIVISORS] \
             if cfg.family in ("ssm", "hybrid") else []
         ys = [serve_logits(params, dataclasses.replace(cfg, ssm_chunk=c), batch,
                            "einsum", steps, feed)[0] for c in chunks]
+        if moe and dtype == "bfloat16":
+            with keys_reversed():
+                own = serve_logits(params, cfg, batch, "einsum", steps, feed)[0]
+            for i, (k, e) in enumerate(zip(lk, le)):
+                (rel, mx), (r, m) = diff(k, e), diff(own[i], e)
+                log(f"  {dtype} free-running (printed, not held) "
+                    + ("prefill last logits" if i == 0 else f"decode step {i - 1} logits")
+                    + f": kernel vs einsum rel L2 {rel:.3e}, max abs {mx:.3e}; the einsum "
+                    f"path with its keys reversed {r:.3e}, {m:.3e} (limits "
+                    f"{max(E2E_REL_L2, E2E_SPREAD * r):.3e}, "
+                    f"{max(E2E_MAX_ABS, E2E_SPREAD * m):.3e})")
+            with moe_routing(routes, replay=True):
+                lk, _ = serve_logits(params, cfg, batch, "kernel", steps, feed)
+            log(f"  {dtype}: held with the einsum path's routing replayed on the kernel "
+                "path:")
     agree = lambda xs: sum(int(torch.equal(a.argmax(-1), b.argmax(-1)))
                            for a, b in zip(xs[1:], le[1:]))
     # a token criterion the plain path fails against itself judges nothing
@@ -825,12 +928,15 @@ def phase_end_to_end(arch="granite_8b", layers=4, dtype="bfloat16"):
     torch.cuda.empty_cache()
 
 
-def phase_profile():
-    """Where the time goes on the main path's model: granite-8b, 36
-    layers, bf16, batch 4, prompt 512.  After a warm-up, one prefill and
-    4 decode steps are timed on the host clock untraced, then again under
-    ``torch.profiler`` for the device time by kernel (a separate traced
-    run, so phase 4's serve numbers carry no tracing cost)."""
+def phase_profile(arch="granite_8b"):
+    """Where the time goes on a serving path's model at full width and
+    depth (granite-8b, 36 layers; qwen3-moe-30b-a3b, 48), bf16, batch 4,
+    prompt 512.  After a warm-up, one prefill and 4 decode steps are
+    timed on the host clock untraced, then again under ``torch.profiler``
+    for the device time by kernel (a separate traced run, so the serve
+    phase's numbers carry no tracing cost); a moe model's traced runs
+    take the CPU activity too, inside ``stage_ranges``, for the device
+    time of each stage of its blocks."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -838,7 +944,8 @@ def phase_profile():
     from repro_torch.models import model as M
 
     dev = torch.device("cuda")
-    cfg = get_config("granite_8b")
+    cfg = get_config(arch)
+    moe = cfg.family == "moe"
     B, S, steps = 4, 512, 4
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
@@ -864,7 +971,9 @@ def phase_profile():
             run(label)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / n
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            acts = [ProfilerActivity.CPU] * moe + [ProfilerActivity.CUDA]
+            with profile(activities=acts) as prof, \
+                    (stage_ranges() if moe else contextlib.nullcontext()):
                 t0 = time.perf_counter()
                 run(label)
                 torch.cuda.synchronize()
@@ -872,11 +981,14 @@ def phase_profile():
             by_name = {}
             for e in prof.key_averages():
                 us = getattr(e, "self_device_time_total", 0) or 0
-                if us > 0:
+                # with CPU activity on, sum the kernels' own rows only
+                if us > 0 and e.key not in STAGE_RANGES and (
+                        not moe or e.device_type == torch.autograd.DeviceType.CUDA):
                     by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / n
             busy = sum(by_name.values())
             top = sorted(by_name.items(), key=lambda kv: -kv[1])
-            with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
+            suffix = "" if arch == "granite_8b" else f"_{arch}"
+            with open(os.path.join(out_dir, f"profile_{label}{suffix}.txt"), "w") as f:
                 for name, ms in top:
                     f.write(f"{ms:12.4f} ms  {name}\n")
             if not by_name:
@@ -886,6 +998,13 @@ def phase_profile():
             log(f"  {label}: {wall:.2f} ms a call untraced, {traced:.2f} ms traced; "
                 f"device busy {busy:.2f} ms = {100 * busy / wall:.1f}% of the "
                 f"untraced time (idle share {100 * (1 - busy / wall):.1f}%)")
+            if moe:
+                stages = {k: v / n for k, v in range_device_ms(prof).items()}
+                log(f"  {label} by stage, device ms a call (the kernels each range "
+                    "launched): " + "; ".join(
+                        f"{k} {v:.3f} ({100 * v / busy:.1f}%)" for k, v in stages.items())
+                    + f"; outside them (embedding, norms, unembedding) "
+                    f"{busy - sum(stages.values()):.3f}")
             for name, ms in top[:6]:
                 log(f"    {ms:9.4f} ms {100 * ms / busy:5.1f}%  {name[:90]}")
     del params, cache
@@ -1225,7 +1344,10 @@ def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4):
     against the einsum (chunked) path, three steps from the same weights
     and batches, in fp32 (the CUDA-core kernels) or bf16 (the tensor-core
     ones; each leaf's gradient held to the einsum path's own spread at
-    other chunks)."""
+    other chunks).  A moe model in bf16 is held with the einsum path's
+    routing replayed on the kernel path (``moe_routing``), its spread the
+    einsum path's with its attention keys reversed, and the free-running
+    kernel path is printed beside it."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, make_loader
@@ -1239,7 +1361,11 @@ def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4):
     B, S, steps = 4, 2048, 3
     opt = AdamWConfig(lr=3e-4, total_steps=steps, warmup_steps=5)
 
-    def run(cfg, backend, steps):
+    def run(cfg, backend, steps, ctx=None):
+        with ctx or contextlib.nullcontext():
+            return run_steps(cfg, backend, steps)
+
+    def run_steps(cfg, backend, steps):
         state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
                                  device=dev)
         loader = make_loader(cfg, DataConfig(batch_size=B, seq_len=S, seed=1234),
@@ -1258,9 +1384,23 @@ def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4):
         torch.cuda.empty_cache()
         return list(flat), norms, losses
 
-    (names, nk, lk), (_, ne, le) = run(cfg, "kernel", steps), run(cfg, "einsum", steps)
-    rel = max(abs(a - b) / b for a, b in zip(lk, le))
+    moe = cfg.family == "moe"
+    routes = []
+    names, ne, le = run(cfg, "einsum", steps, moe_routing(routes) if moe else None)
+    _, nk, lk = run(cfg, "kernel", steps)
     loss_rtol = TRAIN_LOSS_RTOL if dtype == "float32" else TRAIN_BF16_LOSS_RTOL
+    if moe and dtype == "bfloat16":
+        rel = max(abs(a - b) / b for a, b in zip(lk, le))
+        _, ny, ly = run(cfg, "einsum", steps, keys_reversed())
+        own = max(abs(a - b) / b for a, b in zip(ly, le))
+        log(f"  {dtype}, free-running (printed, not held): losses kernel "
+            f"{', '.join(f'{x:.6f}' for x in lk)}; worst rel diff {rel:.2e} (limit "
+            f"{loss_rtol}; the einsum path with its keys reversed: {own:.2e}); worst "
+            f"per-leaf gradient norm rel diff "
+            f"{max(abs(a - b) / max(b, 1e-12) for a, b in zip(nk, ne)):.2e}")
+        _, nk, lk = run(cfg, "kernel", steps, moe_routing(routes, replay=True))
+        log(f"  {dtype}: held with the einsum path's routing replayed on the kernel path:")
+    rel = max(abs(a - b) / b for a, b in zip(lk, le))
     log(f"  {dtype}: losses kernel {', '.join(f'{x:.6f}' for x in lk)}; "
         f"einsum {', '.join(f'{x:.6f}' for x in le)}; worst rel diff {rel:.2e} "
         f"(limit {loss_rtol})")
@@ -1270,12 +1410,17 @@ def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4):
             f"{worst:.2e} over {len(nk)} leaves (limit {TRAIN_GNORM_RTOL:.0e})")
         grads_ok = worst <= TRAIN_GNORM_RTOL
     else:
-        chunks = [cfg.ssm_chunk // k for k in TRAIN_BF16_CHUNK_DIVISORS]
-        rows = bf16_gnorm_rows(names, nk, ne, [
-            run(dataclasses.replace(cfg, ssm_chunk=c), "einsum", 0)[1] for c in chunks])
+        if moe:
+            rows = bf16_gnorm_rows(names, nk, ne, [ny])
+            what = "the einsum path's own spread with its attention keys reversed"
+        else:
+            chunks = [cfg.ssm_chunk // k for k in TRAIN_BF16_CHUNK_DIVISORS]
+            rows = bf16_gnorm_rows(names, nk, ne, [
+                run(dataclasses.replace(cfg, ssm_chunk=c), "einsum", 0)[1] for c in chunks])
+            what = (f"the chunked path's own spread at chunk "
+                    f"{' and '.join(map(str, chunks))}")
         log(f"  {dtype}: step-1 gradients, per leaf: relative norm difference, "
-            f"the chunked path's own spread at chunk {' and '.join(map(str, chunks))}, "
-            f"limit = {TRAIN_BF16_GNORM_SPREAD} x max(spread, "
+            f"{what}, limit = {TRAIN_BF16_GNORM_SPREAD} x max(spread, "
             f"{TRAIN_BF16_GNORM_FLOOR:.0e})")
         for name, d, spread, limit in rows:
             log(f"    {name:30s} {d:.2e}  spread {spread:.2e}  limit {limit:.2e}"
@@ -1316,12 +1461,14 @@ def phase_dense_train():
     torch.cuda.empty_cache()
 
 
-def phase_train_profile(state, args, out_name):
+def phase_train_profile(state, args, out_name, layers=None):
     """Where the time goes in a warm train step of the model and batch of
-    ``args`` (the state its training phase left): one step timed
-    untraced, one traced with the CPU activity too, so the backward
-    ranges (``ssd_scan.backward``, ``flash_attention.backward``) get
-    their device time."""
+    ``args`` (the state its training phase left; ``layers`` the depth it
+    was cut to): one step timed untraced, one traced with the CPU
+    activity too, so the backward ranges (``ssd_scan.backward``,
+    ``flash_attention.backward``) get their device time; for a moe model
+    the traced step runs inside ``stage_ranges``, whose ranges (the
+    forward and the recompute) get theirs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -1332,6 +1479,8 @@ def phase_train_profile(state, args, out_name):
     flag = lambda name: args[args.index(name) + 1]
     dev = torch.device("cuda")
     cfg = get_config(flag("--arch"))
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     step = make_train_step(cfg, AdamWConfig(lr=3e-4, total_steps=10, warmup_steps=5))
     loader = make_loader(cfg, DataConfig(batch_size=int(flag("--batch")),
                                          seq_len=int(flag("--seq")), seed=99),
@@ -1344,17 +1493,22 @@ def phase_train_profile(state, args, out_name):
     wall = (time.perf_counter() - t0) * 1e3
     batch = next(loader)
     ranges = ("ssd_scan.backward", "flash_attention.backward")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    moe = cfg.family == "moe"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            (stage_ranges() if moe else contextlib.nullcontext()):
         t0 = time.perf_counter()
         state, m = step(state, batch)
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3
     kernels, bwd = {}, {}
+    stages = range_device_ms(prof) if moe else {}
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0) or 0
         if e.key in ranges:
             # the named range: its span on the device, over its kernels
             bwd[e.key] = dev_us / 1e3
+        elif e.key in STAGE_RANGES:
+            continue
         elif dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             # with CPU activity on, an operator's row repeats its kernels'
             # device time: sum the kernels' own rows only
@@ -1383,22 +1537,29 @@ def phase_train_profile(state, args, out_name):
                     + (pct(bwd[r]) if r in bwd else "not measured") for r in ranges)
         + f"; every other kernel {busy - ssd - attn - sum(bwd.values()):.1f} ms; "
         f"GEMMs anywhere (the backward's included) {pct(gemm)}")
+    if stages:
+        log("    forward and recompute by stage (device time of the kernels each "
+            "range launched): " + "; ".join(f"{k} {pct(v)}" for k, v in stages.items())
+            + f"; the backward (outside the ranges) and the optimizer "
+            f"{busy - sum(stages.values()):.1f} ms")
     for name, ms in top[:8]:
         log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  {name[:90]}")
     del state
     torch.cuda.empty_cache()
 
 
-def phase_profiler():
-    """The measured auto-profiler on the card: granite-8b at full width at
-    seq 4096 through the kernels, then one plan priced with and without
-    the card's times laid over chip type A."""
+def phase_profiler(arch=PROFILE_ARCH, layers=None):
+    """The measured auto-profiler on the card: ``arch`` at full width (cut
+    to ``layers`` layers, which only the decode step sees) at seq 4096
+    through the kernels, then one plan of the whole model priced with and
+    without the card's times laid over chip type A."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import chips, cost_model, profiler, schedule
     from repro_torch.kernels import ops
 
-    cfg = get_config(PROFILE_ARCH)
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
     ops.reset_launches()
     t0 = time.perf_counter()
     meas = profiler.measure_layer_profile(cfg, PROFILE_SEQ, iters=PROFILE_ITERS,
@@ -1423,6 +1584,7 @@ def phase_profiler():
     if launches != want:
         raise AssertionError(f"profiler launches {launches}, expected {want}")
 
+    cfg = full
     analytic = profiler.analytic_layer_profile(chips.CHIPS["A"], cfg, 1, PROFILE_SEQ)
     log(f"  chip A's analytic layer at tp 1 (the profile it replaces): "
         f"t_fwd {analytic.t_fwd:.6f} s, t_bwd {analytic.t_bwd:.6f} s, "
@@ -2296,6 +2458,296 @@ def phase_domain_parity(device="cuda:0"):
         raise AssertionError("phase 19 parity: " + "; ".join(bad))
 
 
+@contextlib.contextmanager
+def stage_ranges():
+    """While the context lasts, each stage of a moe block (``moe.route``,
+    ``moe.dispatch``, ``moe.experts``, ``moe.combine``) and each attention
+    sub-block (projections, norms, RoPE and the kernel: ``attention``)
+    runs inside a ``torch.profiler.record_function`` range of that name."""
+    from unittest import mock
+
+    from torch.profiler import record_function
+    from repro_torch.models import attention, moe
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for mod, attr, name in ((moe, "route", "moe.route"),
+                                (moe, "dispatch", "moe.dispatch"),
+                                (moe, "expert_mlp", "moe.experts"),
+                                (moe, "combine", "moe.combine"),
+                                (attention, "self_attention", "attention"),
+                                (attention, "decode_self_attention", "attention")):
+            stack.enter_context(mock.patch.object(mod, attr, ranged(name, getattr(mod, attr))))
+        yield
+
+
+STAGE_RANGES = ("attention", "moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+# Phase 22 in bf16.  The routing is a discrete function of bf16
+# activations: where the kernel path's attention output lands a bf16 step
+# from the einsum path's, a token's 8th and 9th experts can swap, and at
+# capacity factor 1.25 that moves which later tokens of both experts are
+# dropped.  So in bf16 the kernel path is held, at phase 5's and phase 9's
+# limits, with the einsum path's expert choices replayed (the gates stay
+# its own probabilities at those experts, renormalised); the free-running
+# kernel path is printed beside the einsum path's own spread when its
+# attention takes its keys in reverse order (the same sums in another
+# order).  fp32 is held free-running.
+@contextlib.contextmanager
+def moe_routing(routes, replay=False):
+    """While the context lasts, every ``moe.route`` call appends its expert
+    ids to ``routes`` (in call order), or with ``replay`` takes the next
+    recorded ids in place of its own top-k."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.models import moe
+
+    route = moe.route
+    replayed = iter(routes)
+
+    def recorded(params, cfg, x):
+        logits, probs, gate_vals, ids = route(params, cfg, x)
+        if not replay:
+            routes.append(ids.clone())
+            return logits, probs, gate_vals, ids
+        ids = next(replayed)
+        gate_vals = torch.gather(probs, -1, ids)
+        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+        return logits, probs, gate_vals, ids
+
+    with mock.patch.object(moe, "route", recorded):
+        yield
+
+
+@contextlib.contextmanager
+def keys_reversed():
+    """While the context lasts, the einsum attention (prefill and
+    training) takes its keys, values and mask columns in reverse order."""
+    from unittest import mock
+
+    from repro_torch.models import attention
+
+    einsum = attention._attend_einsum
+
+    def reversed_keys(q, k, v, bias, scale, softcap=0.0):
+        return einsum(q, k.flip(1), v.flip(1), bias.flip(-1), scale, softcap)
+
+    with mock.patch.object(attention, "_attend_einsum", reversed_keys):
+        yield
+
+
+def range_device_ms(prof):
+    """Device ms of the kernels launched inside each of ``STAGE_RANGES``
+    (the CPU-side range's device time, children included), from a trace
+    with CPU and CUDA activity."""
+    import torch
+    out = {}
+    for e in prof.key_averages():
+        if e.key in STAGE_RANGES and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.key] = out.get(e.key, 0.0) + (e.device_time_total or 0) / 1e3
+    return {k: out.get(k, 0.0) for k in STAGE_RANGES}
+
+
+def phase_moe_serve():
+    """Phase 20: qwen3-moe-30b-a3b at full width and depth: one
+    ``flash_attention`` a layer in the prefill, one ``flash_decode`` a
+    layer in each decode call; then where the time goes (phase 6's
+    method, by kernel and by stage of the blocks)."""
+    import torch
+    torch.cuda.empty_cache()
+    log(f"  before: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    L = 48
+    launches = serve_and_check(MOE_SERVE_ARGS, "serve_qwen3_moe_30b_a3b", L, lambda calls: {
+        "flash_attention": L, "flash_decode": L * calls, "ssd_scan": 0, "rmsnorm": 0})
+    log("  where the time goes: qwen3-moe-30b-a3b, 48 layers, traced")
+    phase_profile(MOE_ARCH)
+    return launches
+
+
+def phase_moe_train():
+    """Phase 21: qwen3-moe-30b-a3b at full width cut to 4 layers: 2 x 4
+    ``flash_attention`` a step (forward and remat recompute), losses
+    finite and falling; layer 0's ``moe_block`` metrics on one batch at
+    the config's capacity factor; then a warm step traced."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.models import layers as L, transformer as tfm
+    from repro_torch.models.moe import capacity
+
+    n = MOE_TRAIN_LAYERS
+    log(f"  {MOE_ARCH} cut to {n} of 48 layers (full width)")
+    with cut_depth(n):
+        launches, state = train_and_check(MOE_TRAIN_ARGS, "train_qwen3_moe_30b_a3b", n,
+                                          {"flash_attention": 2 * n})
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=n)
+    flag = lambda name: int(MOE_TRAIN_ARGS[MOE_TRAIN_ARGS.index(name) + 1])
+    loader = make_loader(cfg, DataConfig(batch_size=flag("--batch"), seq_len=flag("--seq"),
+                                         seed=7), device=torch.device("cuda"))
+    with torch.no_grad():
+        tokens = next(loader)["tokens"]
+        x = L.embed_tokens(state.params["embed"], tokens)
+        pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+        _, m = tfm.block_forward(tfm.layer(state.params["blocks"], 0), cfg, x, "moe",
+                                 positions=pos)
+    log(f"  layer 0's moe_block on one {tuple(tokens.shape)} batch at capacity factor "
+        f"{cfg.moe_capacity_factor} (C = {capacity(cfg, tokens.shape[1])} a group): "
+        f"moe_drop_frac {float(m['moe_drop_frac']):.5f}, moe_aux_loss "
+        f"{float(m['moe_aux_loss']):.6f}, moe_z_loss {float(m['moe_z_loss']):.6f}")
+    if not all(math.isfinite(float(v)) for v in m.values()):
+        raise AssertionError(f"layer 0's moe metrics are not finite: {m}")
+    log("  where the time goes: a warm train step, traced")
+    phase_train_profile(state, MOE_TRAIN_ARGS, "profile_train_qwen3_moe.txt", layers=n)
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_pipeline():
+    """Phase 24 (a): ``launch.train --plan`` of qwen3-moe-30b-a3b at full
+    width cut to 2 layers, one a stage on chips A and B, 1f1b, two ranks
+    on the card; ``flash_attention`` launches pinned, ``--trace``."""
+    stages, b = MOE_PP_STAGES, 4
+    log(f"  (a) {MOE_ARCH} cut to {MOE_PP_LAYERS} of 48 layers (full width), "
+        f"{' / '.join(str(L) for _, L, _ in stages)}, 1f1b, {b} microbatches of 1 x 2048")
+    with cut_depth(MOE_PP_LAYERS):
+        res = plan_and_check(MOE_ARCH, stages, b, MOE_PP_ARGS, "1f1b", "flash_attention",
+                             trace=True)
+    return res["launches"]
+
+
+def _moe_parity_rank(rank, world, device, case, microbatches, phys, schedules):
+    """Phase 24 (b) on one rank, fp32: under each schedule the pipeline
+    loss, the squared norm of each gradient leaf it counts, and its
+    layers' router gradients by global layer index."""
+    import numpy as np
+    import torch
+    from repro_torch.comm.p2p import Grid
+    from repro_torch.core import heteropp as HP
+    from repro_torch.core.schedules import get_schedule
+    from repro_torch.kernels import build
+    from repro_torch.tree import flatten
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        build.load()
+    grid = Grid.build("host", dev, pipe=world)
+    arch, layers, mb, seq = case
+    cfg, params, tokens = parity_inputs(arch, layers, "float32", mb, seq, microbatches, dev)
+    out = {}
+    for name in schedules:
+        sched = get_schedule(name)
+        spec = HP.PipelineSpec(world, HP.chunk_layer_counts(phys, sched), microbatches,
+                               schedule=name, n_chunks=sched.n_chunks)
+        local = HP.local_stage_params(params, cfg, spec, rank)
+        for t in flatten(local).values():
+            t.requires_grad_()
+        loss, grads = HP.make_pipeline_loss(cfg, spec, grid)(local, tokens)
+        grads = HP.make_grad_sync(spec, grid, "psum")(grads, HP.zero1_dims(local, spec, "psum"))
+        router = grads["blocks"]["moe"]["router"]
+        router = router[None] if spec.n_chunks == 1 else router
+        bounds = np.cumsum([0] + list(spec.layers_per_stage))
+        routers = {int(bounds[g]) + j: router[k, j].cpu()
+                   for k, g in enumerate(HP.stage_slots(spec, rank))
+                   for j in range(spec.layers_per_stage[g])}
+        out[name] = {"loss": float(loss), "routers": routers,
+                     "sq": {k: float(torch.sum(torch.square(g.double())))
+                            for k, g in flatten(grads).items()
+                            if k.startswith("blocks/") or rank == 0}}
+        del local, grads
+    return out
+
+
+def moe_microbatch_mean(case, microbatches, dev):
+    """The single device's oracle for phase 24 (b): the mean over the
+    microbatches of ``loss_fn`` (its aux is not linear in the batch), its
+    CE and aux parts, each leaf's gradient norm, and each layer's router
+    gradient with and without its aux part."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.tree import flatten
+
+    arch, layers, mb, seq = case
+    cfg, params, tokens = parity_inputs(arch, layers, "float32", mb, seq, microbatches, dev)
+    flat = flatten(params)
+    for t in flat.values():
+        t.requires_grad_()
+    router = params["blocks"]["moe"]["router"]
+    ce = aux = 0.0
+    aux_router = torch.zeros_like(router)
+    for i in range(microbatches):
+        total, m = M.loss_fn(params, cfg, {"tokens": tokens[i]})
+        aux_router += torch.autograd.grad(m["aux_loss"] / microbatches, router,
+                                          retain_graph=True)[0]
+        (total / microbatches).backward()
+        ce += float(m["ce_loss"].detach()) / microbatches
+        aux += float(m["aux_loss"].detach()) / microbatches
+    norms = {k: float(t.grad.double().norm()) for k, t in flat.items()}
+    routers = router.grad.detach().cpu()
+    del params, flat
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ce + aux, ce, aux, norms, routers, aux_router.cpu()
+
+
+def phase_moe_pipeline_parity(device="cuda:0", microbatches=4):
+    """Phase 24 (b): qwen3-moe's width at 2 layers (1 / 1), fp32, under
+    1f1b and a chunked schedule, against the mean over the microbatches
+    of the single-device ``loss_fn``: the loss and each leaf's gradient
+    norm at phase 16 (c)'s limits, and each layer's router gradient
+    within TRAIN_GNORM_RTOL of its largest entry; printed beside what the
+    JAX package's SPMD pipeline, which divides the summed aux by the
+    stage count, would give."""
+    import torch
+    from repro_torch.launch import ranks
+
+    case = MOE_PP_PARITY
+    arch, layers, mb, seq = case
+    S = len(MOE_PP_PARITY_SPLIT)
+    t0 = time.perf_counter()
+    res = ranks.spawn(_moe_parity_rank, S, (device, case, microbatches, MOE_PP_PARITY_SPLIT,
+                                            MOE_PP_PARITY_SCHEDULES),
+                      workdir=os.path.join(ROOT, "build", "chip_smoke", "moe_parity"),
+                      transport="host", timeout=600)
+    log(f"  (b) parity: both ranks done in {time.perf_counter() - t0:.1f} s with their "
+        f"start; {arch} width, {layers} layers split "
+        f"{' / '.join(map(str, MOE_PP_PARITY_SPLIT))}, {microbatches} microbatches of "
+        f"{mb} x {seq}, fp32")
+    want, ce, aux, norms, routers, aux_routers = moe_microbatch_mean(
+        case, microbatches, torch.device(device))
+    halved = ce + aux / S
+    log(f"  single device, mean over the microbatches: loss {want:.7f} = CE {ce:.7f} + aux "
+        f"{aux:.7f}; the JAX SPMD pipeline's aux / {S} would give {halved:.7f} "
+        f"(rel {abs(halved - want) / want:.2e} from it)")
+    bad = []
+    for name in MOE_PP_PARITY_SCHEDULES:
+        runs = [r[name] for r in res]
+        bad += hold_parity(runs, want, norms, "float32", name)
+        got = {i: g for r in runs for i, g in r["routers"].items()}
+        for i in range(layers):
+            scale = float(routers[i].abs().max())
+            err = float((got[i] - routers[i]).abs().max()) / scale
+            off = float((got[i] - (routers[i] - aux_routers[i] * (1 - 1 / S))).abs().max()) / scale
+            log(f"  float32 {name}: layer {i}'s router gradient, max abs diff / largest "
+                f"entry {err:.2e} (limit {TRAIN_GNORM_RTOL:.0e}); from the aux-halved "
+                f"one {off:.2e}")
+            if not err <= TRAIN_GNORM_RTOL:
+                bad.append(f"{name}: layer {i}'s router gradient")
+        if abs(runs[0]["loss"] - halved) <= abs(runs[0]["loss"] - want):
+            bad.append(f"{name}: the loss is nearer the aux-halved value")
+    if bad:
+        raise AssertionError("phase 24 (b): " + "; ".join(bad))
+
+
 def single_device_grads(arch, layers, dtype, mb, seq, microbatches, dev, n=None):
     """The single device's ``loss_fn`` on ``parity_inputs``' weights and
     first ``n`` (default all) microbatches: its loss and each leaf's
@@ -2494,6 +2946,34 @@ def main() -> int:
     for name in ("flash_attention", "ssd_scan"):
         launches[name] += hetero_launches[name] + domain_launches[name]
 
+    log("== 20. MoE serving: serve qwen3-moe-30b-a3b, 48 layers, bf16")
+    moe_serve_launches = phase_moe_serve()
+
+    log(f"== 21. MoE training: train qwen3-moe-30b-a3b at full width, "
+        f"{MOE_TRAIN_LAYERS} layers, bf16, b2 x S2048")
+    moe_train_launches = phase_moe_train()
+
+    log(f"== 22. kernel path vs einsum path, MoE: qwen3-moe width, {MOE_CUT_LAYERS} "
+        f"layers; training and serving in fp32 and bf16")
+    for dtype in ("float32", "bfloat16"):
+        phase_train_kernel_vs_plain(dtype, MOE_ARCH, MOE_CUT_LAYERS)
+    for dtype in ("float32", "bfloat16"):
+        phase_end_to_end(MOE_ARCH, MOE_CUT_LAYERS, dtype)
+
+    log(f"== 23. the measured auto-profiler on MoE: qwen3-moe-30b-a3b at full width, "
+        f"{MOE_TRAIN_LAYERS} layers, seq {PROFILE_SEQ}")
+    moe_profile_launches = phase_profiler(MOE_ARCH, MOE_TRAIN_LAYERS)
+
+    log("== 24. HeteroPP with moe stages on one card: 2 ranks, --p2p host; qwen3-moe "
+        f"{MOE_PP_LAYERS} layers 1 / 1 (1f1b, traced), parity at 2 layers")
+    moe_pipeline_launches = phase_moe_pipeline()
+    phase_moe_pipeline_parity()
+    for name in ("flash_attention", "flash_decode", "rmsnorm"):
+        launches[name] += sum(got.get(name, 0) for got in (
+            moe_serve_launches, moe_train_launches, moe_profile_launches,
+            moe_pipeline_launches))
+
+    log("== done")
     kernels = []
     for name in ("flash_attention", "flash_decode", "ssd_scan", "rmsnorm"):
         r = dict(rows[name])

@@ -58,11 +58,19 @@ strategy (``core/resharding.py``: ``sr_ag`` or ``naive``) moves the
 activation forward and its gradient back.  Single-chunk schedules and dp
 1 only, as in the JAX package.
 
-Only the dense and ssm block kinds run (the JAX package's ``block_kind``
-maps hybrid to dense, so its pipeline has no hybrid path; moe waits for
-ROADMAP A11), and tp only the dense one.  A padded layer slot is
-skipped, not computed and masked: a stage's tp group shares its mask,
-so every member skips the same slots and issues the same collectives.
+The dense, moe and ssm block kinds run (the JAX package's ``block_kind``
+maps hybrid to dense, so its pipeline has no hybrid path), and tp only
+the dense one.  A padded layer slot is skipped, not computed and masked:
+a stage's tp group shares its mask, so every member skips the same slots
+and issues the same collectives.
+
+A moe stage returns its layers' summed auxiliary loss beside x; each
+tick's backward differentiates ``(y, aux)`` against ``(g_y, 1 / n)``
+with n the global microbatch count, and the loss is Σ CE / Σ tokens +
+Σ aux / n over every stage, microbatch and replica: the mean over the
+microbatches of ``models.model.loss_fn``.  The JAX package divides the
+summed aux by the stage count besides (``repro/core/heteropp.py:741,
+947``), which halves it at two stages; the port does not (ROADMAP C).
 """
 from __future__ import annotations
 
@@ -340,18 +348,15 @@ def _spec_schedule(spec: PipelineSpec):
 
 
 def pipeline_block_kind(cfg: ModelConfig) -> str:
-    """The block kind a pipeline stage runs: dense or ssm; other
+    """The block kind a pipeline stage runs: dense, moe or ssm; other
     families raise."""
     if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: the pipeline runs dense and ssm blocks only.  The "
+            f"{cfg.name}: the pipeline runs dense, moe and ssm blocks only.  The "
             f"JAX package's block_kind maps the hybrid family to 'dense' "
             f"(repro/models/config.py:94), so its pipeline has no hybrid "
             f"path to port (ROADMAP C)")
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: moe blocks are not ported yet (ROADMAP A11)")
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP A12)")
     return cfg.block_kind
@@ -537,23 +542,29 @@ def _tp_block_forward(p, cfg: ModelConfig, lcfg: ModelConfig, x, tp, *,
 def _stage_forward(blocks, mask_row, cfg, x, kind: str, remat: bool, *,
                    backend: str = "auto", tp=None, lcfg=None):
     """Run the valid layers of a stage's stacked ``blocks`` (``mask_row``
-    True); a padded slot is skipped.  ``remat`` checkpoints each layer
-    (its recompute issues the layer's tp all-reduces again).  With ``tp``
-    (the tp group) each layer is the Megatron block on ``lcfg``'s heads."""
+    True); a padded slot is skipped.  Returns (x, aux): aux is the fp32
+    sum of the valid moe layers' ``moe_aux_loss + moe_z_loss`` (None
+    without a valid moe layer).  ``remat`` checkpoints each layer, which
+    returns its metrics beside x (its recompute issues the layer's tp
+    all-reduces again).  With ``tp`` (the tp group) each layer is the
+    Megatron block on ``lcfg``'s heads."""
+    aux = None
     valid = [bool(v) for v in mask_row]
     if not any(valid):
-        return x
+        return x, aux
     for p, ok in zip(tfm.unstack(blocks), valid):
         if not ok:
             continue
         if tp is None:
-            fn = lambda x, p=p: tfm.block_forward(p, cfg, x, kind,
-                                                  backend=backend)[0]
+            fn = lambda x, p=p: tfm.block_forward(p, cfg, x, kind, backend=backend)
         else:
-            fn = lambda x, p=p: _tp_block_forward(p, cfg, lcfg, x, tp,
-                                                  backend=backend)
-        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
-    return x
+            fn = lambda x, p=p: (_tp_block_forward(p, cfg, lcfg, x, tp,
+                                                   backend=backend), {})
+        x, m = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+        if m:
+            a = m["moe_aux_loss"] + m["moe_z_loss"]
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def _chunk(tree, k):
@@ -571,6 +582,7 @@ def simulate_pipeline_forward(params: PyTree, cfg: ModelConfig,
     x = layers.embed_tokens(params["embed"], batch["tokens"])
     S, v = spec.num_stages, spec.n_chunks
     sched = _spec_schedule(spec) if v > 1 else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(S * v):
         if v == 1:
             s, blocks, mrow = g, _chunk(stage_params["blocks"], g), mask[g]
@@ -580,11 +592,13 @@ def simulate_pipeline_forward(params: PyTree, cfg: ModelConfig,
                      if sched.global_stage(s, k, S) == g)
             blocks = _chunk(_chunk(stage_params["blocks"], s), k)
             mrow = mask[s, k]
-        x = _stage_forward(blocks, mrow, cfg, x, kind, spec.recompute[s],
-                           backend=backend)
+        x, a = _stage_forward(blocks, mrow, cfg, x, kind, spec.recompute[s],
+                              backend=backend)
+        if a is not None:
+            aux = aux + a
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     logits = layers.unembed(params["embed"], x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -697,8 +711,10 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
     microbatches ``d·b`` to ``d·b + b - 1``, or under a non-uniform
     batch domain either layout :func:`prepare_domain_tokens` takes
     (replica d runs its own ``batch_domain[d]``).  ``loss`` is the global
-    mean CE over every replica (a detached 0-d fp32 tensor, the same on
-    every rank); ``grads`` is an fp32 tree shaped like ``params``, this
+    mean CE over every replica, plus for moe the auxiliary losses summed
+    over every stage, microbatch and replica and divided by the global
+    microbatch count (a detached 0-d fp32 tensor, the same on every
+    rank); ``grads`` is an fp32 tree shaped like ``params``, this
     rank's part of the global gradient: :func:`make_grad_sync` sums it
     over the grid (at dp 1 the block leaves are whole already, and the
     replicated leaves need their sum over the stages).  On a grouped spec
@@ -736,6 +752,8 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
     mask = mask[None] if spec.n_chunks == 1 else mask
     remat = spec.recompute[s]
     dtype = layers.dtype_of(cfg)
+    # the aux is a mean over the global batch's microbatches
+    inv_mb = 1.0 / spec.total_microbatches
     rows = [(bool(tables.active[t, s]), int(tables.mb[t, s]),
              int(tables.chunk[t, s]), int(tables.src[t, s]),
              bool(tables.emit[t, s])) for t in range(tables.ticks)]
@@ -759,6 +777,7 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
         grid.stage_sum_(denom)
         inv_denom = 1.0 / max(float(denom), 1.0)
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
+        aux_acc = torch.zeros((), dtype=torch.float32, device=dev)
         ce_tokens = 0.0
 
         # ---- forward: tick by tick ----
@@ -776,8 +795,10 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
                 else:
                     x = {SRC_PREV: x_prev, SRC_NEXT: x_next, SRC_LOCAL: y_loc}[src]
                     leaf = x = x.detach().requires_grad_()
-                y = _stage_forward(_chunk(blocks, ck), mask[ck], cfg, x, kind, remat,
-                                   backend=backend, tp=tp, lcfg=lcfg)
+                y, aux = _stage_forward(_chunk(blocks, ck), mask[ck], cfg, x, kind,
+                                        remat, backend=backend, tp=tp, lcfg=lcfg)
+                if aux is not None:
+                    aux_acc = aux_acc + aux.detach()
                 ce = None
                 if emit:
                     h = layers.apply_norm(params["final_norm"], y, cfg.norm)
@@ -785,7 +806,7 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
                     loss_acc = loss_acc + ce.detach()
                     if clock is not None:
                         ce_tokens = ce_tokens + lmask.sum()
-                records.append((leaf, y, ce, src))
+                records.append((leaf, y, ce, aux, src))
             else:
                 records.append(None)
             if clock is not None:
@@ -798,6 +819,8 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
         if clock is not None:
             fwd_end = clock()
         loss = grid.stage_sum_(loss_acc) * inv_denom
+        if kind == "moe":
+            loss = loss + grid.stage_sum_(aux_acc) * inv_mb
 
         # ---- backward: reverse tick order, gradients along the routes ----
         leaves = tree_leaves(params)
@@ -810,7 +833,7 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
             rec, records[t] = records[t], None
             gx, src = None, None
             if rec is not None:
-                leaf, y, ce, src = rec
+                leaf, y, ce, aux, src = rec
                 outs, gouts = [], []
                 dy = _sum([dy_f, dy_b, dy_loc])
                 if dy is not None:
@@ -818,6 +841,9 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
                     gouts.append(dy.to(y.dtype))
                 if ce is not None:
                     outs.append(ce * inv_denom)
+                    gouts.append(None)
+                if aux is not None:
+                    outs.append(aux * inv_mb)
                     gouts.append(None)
                 if outs:
                     inputs = ([leaf] if leaf is not None else []) + leaves
@@ -828,7 +854,7 @@ def make_pipeline_loss(cfg: ModelConfig, spec: PipelineSpec, grid: Grid, *,
                     for a, g in zip(acc, gs):
                         if g is not None:
                             a.add_(g.float())
-                del rec, leaf, y, ce, outs
+                del rec, leaf, y, ce, aux, outs
             if clock is not None:
                 bwd_stamps[-1] += (clock(),)
             if t > 0 and hops is not None:

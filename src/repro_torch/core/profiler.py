@@ -227,26 +227,22 @@ def measure_layer_profile(cfg: ModelConfig, seq_len: int, *, iters: int = 3,
     the whole model against a cache of ``min(max(seq_len, 32), 1024)``
     slots (``t_decode``).
 
-    As in the reference, the timed block is a dense one for every config
-    but MoE, an ssm config included.  A MoE config raises: MoE is not
-    ported yet.  ``plan_to_schedule_inputs`` / ``cost_model.evaluate``
+    As in the reference, the timed block is a ``moe`` one for a MoE
+    config and a dense one for every other, an ssm config included.
+    ``plan_to_schedule_inputs`` / ``cost_model.evaluate``
     prefer every measured field over the analytic one via
     :func:`apply_measured`."""
     from .. import device as devices
     from ..kernels import ops as kops
     from ..models import layers, transformer as tfm
 
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the profiler times a dense or ssm model; MoE is not "
-            "ported yet")
     dev = devices.resolve(device)
     probe = torch.empty(0, device=dev)
     backend = kops.resolve_backend(backend, probe)
     if backend == "auto":
         backend = kops.preferred_backend(probe)
     gen = torch.Generator(device=dev).manual_seed(0)
-    kind = "dense"
+    kind = "dense" if not cfg.is_moe else "moe"
     blk = tfm.init_block(cfg, kind, layers.dtype_of(cfg), generator=gen,
                          device=dev)
     x = torch.randn((1, seq_len, cfg.d_model), generator=gen, device=dev,

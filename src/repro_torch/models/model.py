@@ -1,14 +1,16 @@
 """Top-level model API: init / forward / loss / cache / prefill / decode
-(the counterpart of ``repro/models/model.py`` for the dense, ssm and
-hybrid families).
+(the counterpart of ``repro/models/model.py`` for the dense, moe, ssm
+and hybrid families).
 
 A hybrid model (zamba2) is G = num_layers / hybrid_attn_every groups of
 ``per`` = hybrid_attn_every ssm layers, each group followed by ONE dense
 block whose weights all groups share (``shared_attn``); its ssm blocks
 are stacked with leading dims (G, per).
 
-Other families (moe, vlm, audio) raise ``NotImplementedError`` when a
-model is built.
+A moe model is a dense stack whose blocks run ``moe_block`` in place of
+the MLP; ``forward`` returns the layers' summed auxiliary losses as
+``metrics["aux_loss"]``, which ``loss_fn`` adds.  Other families (vlm,
+audio) raise ``NotImplementedError`` when a model is built.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from . import attention, layers, ssm as ssm_lib, transformer as tfm
 from .config import ModelConfig
 
 PyTree = Any
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _require_family(cfg: ModelConfig):
@@ -175,7 +177,7 @@ def loss_fn(params, cfg, batch, *, remat=True, backend="auto"):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, cache_len: int, *, device, ring: bool = False):
-    """dense: {"k", "v"} of shape (L, B, KV, cache_len, hd); ssm: {"conv"
+    """dense and moe: {"k", "v"} of shape (L, B, KV, cache_len, hd); ssm: {"conv"
     (L, B, W-1, conv_dim), "state" (L, B, h, p, n) fp32}; hybrid: {"ssm":
     the ssm cache with leading dims (G, per), "attn": the shared block's
     {"k", "v"} for each group, leading dim G}."""

@@ -1,8 +1,9 @@
-"""Block-level composition for the dense, ssm and hybrid families:
+"""Block-level composition for the dense, moe, ssm and hybrid families:
 stacked-param init (leading layer dims) and the layer loops of forward
 and decode (the counterpart of ``repro/models/transformer.py``).
 
   dense : [norm -> self-attn -> +res] [norm -> mlp -> +res]
+  moe   : [norm -> self-attn -> +res] [norm -> moe -> +res]
   ssm   : [norm -> mamba2 -> +res]
   hybrid: groups of ssm blocks, each followed by one weight-shared dense
           block (``models.model`` composes them from the two above)
@@ -13,8 +14,10 @@ group's (per, ...) slice of the (G, per, ...) stack loops like a plain
 stack.  With ``remat=True`` (training) each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
 ``jax.checkpoint``: only the layer's input is kept, and the backward
-recomputes the layer, so every kernel of a layer runs twice a step.
-Other block kinds raise ``NotImplementedError``.
+recomputes the layer, so every kernel of a layer runs twice a step.  A
+moe layer's auxiliary loss leaves the checkpoint beside x, so its
+gradient reaches the router.  Other block kinds raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,10 +26,10 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import attention, layers, ssm as ssm_lib
+from . import attention, layers, moe as moe_lib, ssm as ssm_lib
 
 PyTree = Any
-KINDS = ("dense", "ssm")
+KINDS = ("dense", "moe", "ssm")
 
 
 def _require(kind: str):
@@ -45,11 +48,15 @@ def init_block(cfg, kind: str, dtype, *, generator, device, stack=()) -> PyTree:
     if kind == "ssm":
         return {"ln1": layers.init_norm(cfg.norm, cfg.d_model, **kw),
                 "ssm": ssm_lib.init_ssm(cfg, dtype, generator=generator, **kw)}
-    return {"ln1": layers.init_norm(cfg.norm, cfg.d_model, **kw),
-            "attn": attention.init_attention(cfg, dtype, generator=generator, **kw),
-            "ln2": layers.init_norm(cfg.norm, cfg.d_model, **kw),
-            "mlp": layers.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp, dtype,
-                                   generator=generator, **kw)}
+    p = {"ln1": layers.init_norm(cfg.norm, cfg.d_model, **kw),
+         "attn": attention.init_attention(cfg, dtype, generator=generator, **kw),
+         "ln2": layers.init_norm(cfg.norm, cfg.d_model, **kw)}
+    if kind == "moe":
+        p["moe"] = moe_lib.init_moe(cfg, dtype, generator=generator, **kw)
+    else:
+        p["mlp"] = layers.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp, dtype,
+                                   generator=generator, **kw)
+    return p
 
 
 def init_stacked_blocks(cfg, kind: str, n: int, dtype, *, generator, device):
@@ -89,8 +96,9 @@ def unstack(tree: PyTree):
 
 def block_forward(p, cfg, x, kind: str, *, positions=None, causal=True,
                   prefix_len=0, window=None, backend="auto", kv_cache=None):
-    """One block.  Returns (x, metrics); ``kv_cache`` is filled in place
-    with the block's K/V (prefill)."""
+    """One block.  Returns (x, metrics): metrics non-empty for moe
+    (``moe_block``'s); ``kv_cache`` is filled in place with the block's
+    K/V (prefill)."""
     _require(kind)
     if kind == "ssm":
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
@@ -103,22 +111,28 @@ def block_forward(p, cfg, x, kind: str, *, positions=None, causal=True,
                                  kv_cache=kv_cache)
     x = x + a
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    if kind == "moe":
+        y, metrics = moe_lib.moe_block(p["moe"], cfg, h)
+        return x + y, metrics
     return x + layers.apply_mlp(p["mlp"], h, cfg.mlp), {}
 
 
 def run_stacked(blocks: PyTree, cfg, x, kind: str, *, remat=False,
                 backend="auto", caches=None, **fwd_kw):
     """Loop over the stacked block params.  Returns (x, aux): aux is the
-    summed MoE auxiliary loss, 0 for the ported kinds.  ``caches``
-    (stacked like the blocks) is filled in place when given; ``remat``
-    checkpoints each layer."""
-    per_layer = unstack(blocks)
-    for i, p in enumerate(per_layer):
+    fp32 sum over the layers of ``moe_aux_loss + moe_z_loss``, 0 for the
+    other kinds.  ``caches`` (stacked like the blocks) is filled in place
+    when given; ``remat`` checkpoints each layer, which returns its
+    metrics beside x."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, p in enumerate(unstack(blocks)):
         kv = layer(caches, i) if caches is not None else None
         fn = lambda x, p=p, kv=kv: block_forward(
-            p, cfg, x, kind, backend=backend, kv_cache=kv, **fwd_kw)[0]
-        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            p, cfg, x, kind, backend=backend, kv_cache=kv, **fwd_kw)
+        x, m = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+        if m:
+            aux = aux + (m["moe_aux_loss"] + m["moe_z_loss"])
+    return x, aux
 
 
 def block_decode(p, cfg, x, cache, pos, kind: str, *, ring=False, window=0,
@@ -137,6 +151,9 @@ def block_decode(p, cfg, x, cache, pos, kind: str, *, ring=False, window=0,
         backend=backend)
     x = x + a
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    if kind == "moe":
+        y, _ = moe_lib.moe_block(p["moe"], cfg, h)
+        return x + y, cache
     return x + layers.apply_mlp(p["mlp"], h, cfg.mlp), cache
 
 

@@ -232,12 +232,15 @@ def test_spec_checks_and_refusals():
 def test_hybrid_moe_and_other_families_refused():
     with pytest.raises(NotImplementedError, match="hybrid.*ROADMAP C"):
         THP.pipeline_block_kind(tsmoke("zamba2_2p7b"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        THP.pipeline_block_kind(tsmoke("qwen3_moe_30b_a3b"))
     with pytest.raises(NotImplementedError, match="A12"):
         THP.pipeline_block_kind(tsmoke("paligemma_3b"))
     assert THP.pipeline_block_kind(tsmoke("granite_8b")) == "dense"
     assert THP.pipeline_block_kind(tsmoke("mamba2_780m")) == "ssm"
+    assert THP.pipeline_block_kind(tsmoke("qwen3_moe_30b_a3b")) == "moe"
+    # tp stays refused for moe (word for word the JAX package's:
+    # tests/test_torch_planning.py::test_validate_tensor_parallel_equal_jax)
+    with pytest.raises(NotImplementedError, match="block kind 'moe'"):
+        THP.validate_tensor_parallel(tsmoke("qwen3_moe_30b_a3b"), 2)
 
 
 @pytest.mark.parametrize("arch,phys,schedule", [
@@ -269,21 +272,29 @@ def test_split_stage_params_equal_jax(arch, phys, schedule):
     ("granite_8b", (1, 1), "zb_v"),
     ("mamba2_780m", (1, 1), "1f1b"),
     ("mamba2_780m", (1, 1), "wave"),
+    ("qwen3_moe_30b_a3b", (1, 1), "1f1b"),
+    ("qwen3_moe_30b_a3b", (2, 0), "1f1b"),
 ])
 def test_simulate_pipeline_forward_equal_jax(arch, phys, schedule):
+    """Logits and aux (the summed moe auxiliary losses over the valid
+    layers, 0 for the other kinds) equal the JAX package's and, bit for
+    bit, the monolithic forward's."""
     jcfg, tcfg, tree = _pair(arch)
     tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 32)).astype(np.int32)
     spec_t = W.schedule_spec(schedule, phys, 2)
     spec_j = JHP.PipelineSpec(**dataclasses.asdict(spec_t))
-    want, _ = JHP.simulate_pipeline_forward(jax.tree.map(jnp.asarray, tree), jcfg, spec_j,
-                                            {"tokens": jnp.asarray(tokens)})
+    want, want_aux = JHP.simulate_pipeline_forward(
+        jax.tree.map(jnp.asarray, tree), jcfg, spec_j, {"tokens": jnp.asarray(tokens)})
     params = bridge.params_from_numpy(tree, CPU)
     with torch.no_grad():
-        got, _ = THP.simulate_pipeline_forward(params, tcfg, spec_t,
-                                               {"tokens": torch.from_numpy(tokens)})
-        mono, _ = TM.forward(params, tcfg, {"tokens": torch.from_numpy(tokens)}, remat=False)
+        got, aux = THP.simulate_pipeline_forward(params, tcfg, spec_t,
+                                                 {"tokens": torch.from_numpy(tokens)})
+        mono, m = TM.forward(params, tcfg, {"tokens": torch.from_numpy(tokens)}, remat=False)
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-4, atol=1e-7)
     torch.testing.assert_close(got, mono, rtol=0, atol=0)
+    torch.testing.assert_close(aux, m["aux_loss"], rtol=0, atol=0)
+    assert (float(aux) > 0) == (arch == "qwen3_moe_30b_a3b")
 
 
 # ---------------------------------------------------------------------------
@@ -295,18 +306,28 @@ RANK_CASES = {
     "granite-2-ranks": ("granite_8b", (1, 1), (True, False), True),
     "granite-4-ranks-zero-layer-stages": ("granite_8b", (1, 0, 0, 1), (), False),
     "mamba2-2-ranks": ("mamba2_780m", (1, 1), (False, True), True),
+    # the single-device train step takes the aux of the whole batch, not
+    # the microbatch mean, so the moe case holds the loss and gradient only
+    "qwen3moe-2-ranks": ("qwen3_moe_30b_a3b", (1, 1), (True, False), False),
 }
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 
 
 def _jax_reference(jcfg, tree, tokens):
     """The mean of the JAX package's ``M.loss_fn`` over the microbatches
-    and its gradient: every microbatch counts the same tokens, so that
-    mean is ``M.loss_fn`` of the whole batch (one jitted call)."""
-    full = jnp.asarray(tokens.reshape(-1, tokens.shape[-1]))
-    loss, grads = jax.jit(jax.value_and_grad(
-        lambda p: JM.loss_fn(p, jcfg, {"tokens": full}, backend="einsum")[0]))(
-        jax.tree.map(jnp.asarray, tree))
+    and its gradient: every microbatch counts the same tokens, so for the
+    CE that mean is ``M.loss_fn`` of the whole batch (one jitted call).
+    A moe model's auxiliary loss is not linear in the batch (its load
+    balance multiplies two batch means), so there the mean is taken
+    microbatch by microbatch."""
+    if jcfg.family == "moe":
+        mbs = jnp.asarray(tokens)
+        f = lambda p: jnp.mean(jax.lax.map(
+            lambda t: JM.loss_fn(p, jcfg, {"tokens": t}, backend="einsum")[0], mbs))
+    else:
+        full = jnp.asarray(tokens.reshape(-1, tokens.shape[-1]))
+        f = lambda p: JM.loss_fn(p, jcfg, {"tokens": full}, backend="einsum")[0]
+    loss, grads = jax.jit(jax.value_and_grad(f))(jax.tree.map(jnp.asarray, tree))
     return float(loss), grads
 
 
@@ -351,6 +372,20 @@ def test_pipeline_ranks_match_jax(case, tmp_path):
                 torch.testing.assert_close(fg[k], v, rtol=0, atol=0)
     assert abs(first["loss"] - want_loss) / abs(want_loss) < LOSS_RTOL
     assert res[0]["1f1b"]["ticks"] == b + len(phys) - 1
+    if jcfg.family == "moe":
+        # the JAX package's SPMD pipeline divides the summed aux by the
+        # stage count besides (repro/core/heteropp.py:741, 947): its loss
+        # is the oracle's less half the mean aux at two stages; the
+        # port's is the oracle's, and the router's gradient (held above)
+        # gets the whole aux term
+        aux = np.mean([float(JM.loss_fn(jax.tree.map(jnp.asarray, tree), jcfg,
+                                        {"tokens": jnp.asarray(t.astype(np.int32))},
+                                        backend="einsum")[1]["aux_loss"])
+                       for t in tokens])
+        gap = aux * (1 - 1 / len(phys))
+        assert gap > 1e-3, gap
+        assert abs(first["loss"] - (want_loss - gap)) > 0.5 * gap, (first["loss"], gap)
+        assert "blocks/moe/router" in flatten(res[0]["1f1b"]["grads"])
     if not train:
         return
     # one train step against the port's single-device step on the same

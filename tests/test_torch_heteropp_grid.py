@@ -164,10 +164,10 @@ def _check_against_jax(results, i, jcfg, case, grid_shape):
 
 
 TP_GRID, DP_GRID = (1, 2, 2), (2, 2, 1)
-DP_ARCHS = ("granite_8b", "mamba2_780m", "qwen1p5_0p5b")
+DP_ARCHS = ("granite_8b", "mamba2_780m", "qwen1p5_0p5b", "qwen3_moe_30b_a3b")
 # the uneven batch domain's cases: replica 0 takes 4 microbatches, 1 takes 3
 DOMAIN = (4, 3)
-UNEVEN_ARCHS = ("granite_8b", "mamba2_780m")
+UNEVEN_ARCHS = ("granite_8b", "mamba2_780m", "qwen3_moe_30b_a3b")
 DP_CASES = [(arch, None) for arch in DP_ARCHS] + [(arch, DOMAIN) for arch in UNEVEN_ARCHS]
 
 

@@ -102,10 +102,24 @@ def test_reference_times_a_cut_block_the_port_times_what_it_is_given(monkeypatch
     assert seen == {"jax": (1, 256, 256), "port": (1, 320, 384)}
 
 
-def test_moe_config_raises():
-    cfg = reduced(tconfigs.get_config("qwen3_moe_30b_a3b"))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tprof.measure_layer_profile(cfg, 64, iters=1, device="cpu")
+def test_moe_config_raises(monkeypatch):
+    """A MoE config does not raise: as in the reference
+    (``profiler.py:227``) the timed block is a ``moe`` one, and the
+    profile has the dense profile's fields."""
+    kinds = []
+    block_forward = ttfm.block_forward
+
+    def recorder(p, cfg, x, kind, **kw):
+        kinds.append(kind)
+        return block_forward(p, cfg, x, kind, **kw)
+
+    monkeypatch.setattr(ttfm, "block_forward", recorder)
+    got = _measure_cpu("qwen3_moe_30b_a3b")
+    assert set(kinds) == {"moe"}
+    assert set(got) == set(_measure_cpu("granite_8b")) and "t_ssd" not in got
+    for key, value in got.items():
+        if key not in ("backend", "t_wgrad"):
+            assert value > 0, (key, got)
 
 
 def test_kernel_backend_needs_the_card():
