@@ -14,7 +14,9 @@ result.  Phases, each of which fails the run by raising:
   3. kernels vs their plain PyTorch versions on the card, at the shapes
      the main paths give them (``flash_attention`` also at the profiler's
      (1, 4096, 32/8, 128); zamba2's head_dim 80 and (h 80, n 64) too;
-     qwen3-moe's GQA group of 8: prefill, training and decode) and
+     qwen3-moe's GQA group of 8: prefill, training and decode; whisper's
+     non-causal encoder at 1500 frames, cross-attention at 416 and 1
+     query against 1500, and its decode) and
      at edge cases, in fp32 and bf16, and the gradients of the three
      autograd Functions (``flash_attention``, ``ssd_scan``, ``rmsnorm``)
      against the gradients of plain versions written apart from the ones
@@ -132,6 +134,11 @@ result.  Phases, each of which fails the run by raising:
      for bit and its gradient within a second tight backward's spread.
      The ZeRO-1 run passes ``--trace``, held as phase 16 (a)'s (the
      pacing replica's 5 ticks, replica stragglers against 4 : 3).
+     Each of phases 16-19 and 24 starts its ranks once (``rank_pool``):
+     its launcher runs and its parity check run one after another in the
+     same rank processes, so only its first run pays their start (the
+     processes' imports, CUDA and the libraries' first calls: a first
+     step of 13-36 s, which a warm process does not pay again).
  20. MoE serving: ``repro_torch.launch.serve`` serves qwen3-moe-30b-a3b
      at full width and depth (48 layers of 128 experts, top 8, 61 GB of
      bf16 weights), batch 4, prompt 512, 32 tokens; the prefill launches
@@ -163,9 +170,26 @@ result.  Phases, each of which fails the run by raising:
      1e-3 of its largest entry, the loss nearer the oracle than the
      value the JAX package's SPMD pipeline gives (it divides the summed
      aux by the stage count).
+ 25. audio serving: ``repro_torch.launch.serve`` serves whisper-base at
+     full width and depth (6 encoder + 6 decoder layers, 1500 encoder
+     frames), batch 8, prompt 416, 32 tokens; the prefill launches 18
+     ``flash_attention`` (encoder, decoder self, cross), each decode call
+     6 ``flash_decode`` and 6 ``flash_attention`` (cross-attention at Sq
+     = 1 through the prefill kernel); then where the time goes (phase 6's
+     method, ``profile_*_whisper_base.txt``) and the measured profiler at
+     seq 448 (a dense block without RoPE, a whole whisper decode step;
+     launches pinned) pricing a plan as phase 12.
+ 26. audio training: whisper-base at full width and depth, batch 16 x
+     seq 448, 6 steps; losses finite and falling, 2 x 18
+     ``flash_attention`` a step; then a warm step traced.
+ 27. kernel path vs plain path, audio, at full depth: training as phase
+     9 (b 16 x 448, fp32 and bf16; bf16 gradients held to the einsum
+     path's own spread with its keys reversed) and serving as phase 5 (b
+     8 x 416, fp32 and bf16; phase 5's limits or E2E_SPREAD x that
+     spread).
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
-over the main paths that run it, phases 4, 7, 12, 13, 15–21, 23 and 24,
+over the main paths that run it, phases 4, 7, 12, 13, 15–21 and 23–26,
 each counted from 0; the pipeline phases in each rank's own process,
 summed over the ranks), the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Each phase's heading carries the
@@ -193,9 +217,11 @@ import json
 import math
 import os
 import re
+import queue
 import subprocess
 import sys
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -338,6 +364,8 @@ FA_GRAD = [
     ("grad: zamba2 heads B1 S512 H32 hd80", 1, 512, 512, 32, 32, 80, True, 0, 0),
     # qwen3-moe-30b-a3b's training shape: a GQA group of 8
     ("grad: qwen3-moe B2 S2048 H32 KV4 hd128", 2, 2048, 2048, 32, 4, 128, True, 0, 0),
+    # whisper-base's encoder at its training batch: non-causal, ragged Sk
+    ("grad: whisper encoder B16 S1500 H8 hd64", 16, 1500, 1500, 8, 8, 64, False, 0, 0),
 ]
 # zamba2-2.7b's ssd_scan shapes: h 80 heads of p 64, state n 64
 SSD_ZAMBA2 = [
@@ -410,6 +438,21 @@ FD_QWEN3_MOE = ("qwen3-moe decode: B4 KV4 G8 hd128 S544", 4, 4, 8, 544, 128, 543
                 False, 1.0)
 FD_ZAMBA2 = ("zamba2 decode: B4 KV32 G1 hd80 S544", 4, 32, 1, 544, 80, 543, 0, 0.0, False,
              1.0)
+# whisper-base's shapes (phases 25-27): 8 heads of 64, kv 8, 1500 encoder
+# frames (23 x 64 + 28: a ragged last key tile that no causal bound
+# masks), the decoder's 448 positions; each with the q_offset ``attend``
+# passes (Sk - Sq), which a non-causal call must ignore.  The encoder and
+# the cross-attention at the serving batch (8, prompt 416), decode's
+# cross-attention through the prefill kernel at Sq = 1, and the decoder's
+# self-attention at the training batch (16 x 448)
+FA_WHISPER = [
+    ("whisper encoder: B8 S1500 H8 hd64", 8, 1500, 1500, 8, 8, 64, False, 0, 0),
+    ("whisper cross: B8 Sq416 Sk1500 H8", 8, 416, 1500, 8, 8, 64, False, 0, 1084),
+    ("whisper decode cross: B8 Sq1 Sk1500", 8, 1, 1500, 8, 8, 64, False, 0, 1499),
+    ("whisper self: B16 S448 H8 hd64", 16, 448, 448, 8, 8, 64, True, 0, 0),
+]
+FD_WHISPER = ("whisper decode: B8 KV8 G1 hd64 S448", 8, 8, 1, 448, 64, 447, 0, 0.0, False,
+              1.0)
 
 SERVE_ARGS = ["--arch", "granite_8b", "--batch", "4", "--prompt-len", "512",
               "--gen", "32", "--backend", "auto", "--device", "cuda"]
@@ -441,6 +484,20 @@ MOE_PP_ARGS = ["--batch", "4", "--seq", "2048", "--steps", "2"]
 MOE_PP_PARITY = (MOE_ARCH, 2, 1, 2048)
 MOE_PP_PARITY_SPLIT = (1, 1)
 MOE_PP_PARITY_SCHEDULES = ("1f1b", "zb_v")
+# Phases 25-27: whisper-base (6 encoder + 6 decoder layers, d 512, 8 heads
+# of 64, vocab 51865, 1500 encoder frames; 98.0 M parameters), at full
+# width and depth.  Serving fills the decoder's 448 positions (prompt 416
+# + 32 tokens, the largest cross-attention Sq); training b 16 x 448
+WHISPER_ARCH = "whisper_base"
+WHISPER_LAYERS = 6
+WHISPER_SERVE_ARGS = ["--arch", WHISPER_ARCH, "--batch", "8", "--prompt-len", "416",
+                      "--gen", "32", "--backend", "auto", "--device", "cuda"]
+WHISPER_TRAIN_ARGS = ["--arch", WHISPER_ARCH, "--batch", "16", "--seq", "448", "--steps",
+                      "6", "--backend", "auto", "--device", "cuda", "--log-every", "1"]
+WHISPER_SEQ = 448
+# whisper's block is host-bound on the card: its wgrad is a few percent of
+# its ~5 ms backward, so its profile takes more pairs than phase 12's
+WHISPER_PROFILE_ITERS = 100
 
 # Phase 16: HeteroPP on one card, two ranks sharing it through gloo
 # ("--p2p host": NCCL refuses two ranks on one card).  Each plan is two
@@ -663,13 +720,12 @@ def fd_inputs(case, dtype, gen, n_caches=1):
 
 def phase_kernels():
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     fa_err = fd_err = 0.0
-    for case in FA_CASES + [FA_SERVE] + FA_ZAMBA2 + FA_QWEN3_MOE:
+    for case in FA_CASES + [FA_SERVE] + FA_ZAMBA2 + FA_QWEN3_MOE + FA_WHISPER:
         label, *_, causal, window, q_offset = case
         for dname, dt in dtypes.items():
             q, k, v = fa_inputs(case, dt, gen)
@@ -681,7 +737,7 @@ def phase_kernels():
             e = compare(got, want, dname, f"flash_attention [{label}, {dname}]")
             log(f"  flash_attention {label:32s} {dname:9s} max_abs_err={e:.3e}")
             fa_err = max(fa_err, e) if dname == "bfloat16" else fa_err
-    for case in FD_CASES + [FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE]:
+    for case in FD_CASES + [FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE, FD_WHISPER]:
         label, *_, pos, window, softcap, ring, _ = case
         for dname, dt in dtypes.items():
             q, [(k, v)] = fd_inputs(case, dt, gen)
@@ -694,42 +750,18 @@ def phase_kernels():
             log(f"  flash_decode    {label:32s} {dname:9s} max_abs_err={e:.3e}")
             fd_err = max(fd_err, e) if dname == "bfloat16" else fd_err
 
-    # ---- times at the serving shapes (the profile's, zamba2's, qwen3-moe's), bf16 ----
+    # ---- times at the serving shapes (the profile's, zamba2's, qwen3-moe's,
+    # whisper's), bf16 ----
     rows = {}
     fa_rows = {}
-    for case in (FA_SERVE, FA_PROFILE, *FA_ZAMBA2, *FA_QWEN3_MOE):
-        label, B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
-        q, k, v = fa_inputs(case, torch.bfloat16, gen)
-        want = ref.flash_attention_ref(q, k, v)
-        err = compare(ops.flash_attention(q, k, v), want, "bfloat16",
-                      f"flash_attention [{label}, bfloat16]")
+    for case in (FA_SERVE, FA_PROFILE, *FA_ZAMBA2, *FA_QWEN3_MOE, *FA_WHISPER):
+        fa_rows[case[0]], err = fa_timed(case, gen)
         fa_err = max(fa_err, err)
-        log(f"  flash_attention {label:32s} bfloat16  max_abs_err={err:.3e}")
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True).transpose(1, 2)
-        lib_err = compare(lib, want, "bfloat16",
-                          "scaled_dot_product_attention yardstick", tol=LIB_TOL)
-        log(f"  scaled_dot_product_attention vs plain [{label}]: "
-            f"max_abs_err={lib_err:.3e}")
-        del lib, want
-        pairs = B * H * (Sq * (Sq + 1) // 2)     # causal, q_offset 0, no window
-        b_ms, b_by = bound(4 * hd * pairs,
-                           2 * (q.numel() * 2 + k.numel() + v.numel()))
-        fa_rows[label] = dict(
-            name="flash_attention", route="cuda", source=FA_SOURCE,
-            replaces=FA_REPLACES, bound_ms=b_ms, bound_by=b_by,
-            **timed(lambda i: ops.flash_attention(q, k, v),
-                    lambda i: ref.flash_attention_ref(q, k, v),
-                    lambda i: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True),
-                    "attn_fwd", iters=20))
-        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     rows["flash_attention"] = dict(fa_rows[FA_SERVE[0]], max_abs_err=fa_err)
 
     fd_rows = {case[0]: fd_timed(case, gen, fd_err)
-               for case in (FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE)}
+               for case in (FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE, FD_WHISPER)}
     rows["flash_decode"] = fd_rows[FD_SERVE[0]]
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     shown = list(fa_rows.items()) + list(fd_rows.items())
@@ -741,6 +773,55 @@ def phase_kernels():
             f"{fmt(r['device_ms'])}, whole wrapper {fmt(r['wrapper_device_ms'])}, "
             f"plain {fmt(r['plain_device_ms'])}, library {fmt(r['library_device_ms'])}")
     return rows
+
+
+def fa_timed(case, gen):
+    """``flash_attention``'s row of times at ``case`` (bf16), beside its
+    plain version, ``scaled_dot_product_attention`` and the bound, and its
+    error against the plain version.  The bound counts the (query, key)
+    pairs the mask keeps (causal with q_offset 0 and no window, or every
+    pair).  A single-query call (whisper's decode cross-attention) takes
+    its K/V from a rotation of sets, at least 64 MB of them, so every
+    call reads them from device memory as each decoder layer does."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    label, B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
+    if window or (causal and q_offset):
+        raise ValueError(f"fa_timed: no bound for the mask of {label}")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v = fa_inputs(case, torch.bfloat16, gen)
+    kv_bytes = 2 * (k.numel() + v.numel())
+    n = max(1, math.ceil(64e6 / kv_bytes)) if Sq == 1 else 1
+    sets = [(k, v)] + [fa_inputs(case, torch.bfloat16, gen)[1:] for _ in range(n - 1)]
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    err = compare(ops.flash_attention(q, k, v, **kw), want, "bfloat16",
+                  f"flash_attention [{label}, bfloat16]")
+    log(f"  flash_attention {label:32s} bfloat16  max_abs_err={err:.3e}")
+    qt = q.transpose(1, 2)
+    sets_t = [(kk.transpose(1, 2), vv.transpose(1, 2)) for kk, vv in sets]
+    lib = F.scaled_dot_product_attention(qt, *sets_t[0], is_causal=causal,
+                                         enable_gqa=True).transpose(1, 2)
+    lib_err = compare(lib, want, "bfloat16",
+                      "scaled_dot_product_attention yardstick", tol=LIB_TOL)
+    log(f"  scaled_dot_product_attention vs plain [{label}]: "
+        f"max_abs_err={lib_err:.3e}")
+    del lib, want
+    pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+    b_ms, b_by = bound(4 * hd * pairs, 2 * 2 * q.numel() + kv_bytes)
+    if n > 1:
+        log(f"  flash_attention [{label}]: K/V taken in turn from {n} sets "
+            f"({n * kv_bytes / 1e6:.1f} MB)")
+    row = dict(
+        name="flash_attention", route="cuda", source=FA_SOURCE,
+        replaces=FA_REPLACES, bound_ms=b_ms, bound_by=b_by,
+        **timed(lambda i: ops.flash_attention(q, *sets[i % n], **kw),
+                lambda i: ref.flash_attention_ref(q, *sets[i % n], **kw),
+                lambda i: F.scaled_dot_product_attention(
+                    qt, *sets_t[i % n], is_causal=causal, enable_gqa=True),
+                "attn_fwd", iters=200 if Sq == 1 else 20))
+    return row, err
 
 
 def fd_timed(case, gen, err):
@@ -816,7 +897,8 @@ def serve_and_check(args, run, layers, want):
         if not bool(res[key].float().isfinite().all()):
             raise AssertionError(f"{key} are not finite")
     toks = res["tokens"]
-    if toks.shape != (4, 32) or int(toks.min()) < 0 \
+    flag = lambda name: int(args[args.index(name) + 1])
+    if toks.shape != (flag("--batch"), flag("--gen")) or int(toks.min()) < 0 \
             or int(toks.max()) >= res["vocab_size"]:
         raise AssertionError(f"tokens of shape {tuple(toks.shape)} "
                              f"outside [0, {res['vocab_size']})")
@@ -856,13 +938,16 @@ def serve_logits(params, cfg, batch, backend, steps, feed=None):
     return out, fed
 
 
-def phase_end_to_end(arch="granite_8b", layers=4, dtype="bfloat16"):
+def phase_end_to_end(arch="granite_8b", layers=4, dtype="bfloat16", B=4, S=512):
     """``arch`` at full width cut to ``layers`` layers: prefill and 4
     decode steps through the kernels against the einsum paths, both fed
-    the einsum path's greedy tokens.  For a model with ssm layers each
-    limit is the larger of phase 5's and E2E_SPREAD x the einsum path's
-    own distance from itself at other chunks, measured on the same
-    weights and tokens (see E2E_SPREAD)."""
+    the einsum path's greedy tokens, batch ``B`` x prompt ``S`` (an audio
+    model's frames from the same stream).  For a model with ssm layers
+    each limit is the larger of phase 5's and E2E_SPREAD x the einsum
+    path's own distance from itself at other chunks, for an audio model
+    from itself with its prefill attention's keys reversed (the same sums
+    in another order), measured on the same weights and tokens (see
+    E2E_SPREAD)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
@@ -870,7 +955,7 @@ def phase_end_to_end(arch="granite_8b", layers=4, dtype="bfloat16"):
 
     dev = torch.device("cuda")
     cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
-    B, S, steps = 4, 512, 4
+    steps = 4
     diff = lambda a, b: (float((a - b).norm() / b.norm()), float((a - b).abs().max()))
     moe = cfg.family == "moe"
     routes = []
@@ -878,7 +963,7 @@ def phase_end_to_end(arch="granite_8b", layers=4, dtype="bfloat16"):
         params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                device=dev)
         toks = SyntheticTokens(cfg, DataConfig(batch_size=B, seq_len=S)).next_batch()
-        batch = {"tokens": torch.from_numpy(toks["tokens"]).to(dev)}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in toks.items()}
         with moe_routing(routes) if moe else contextlib.nullcontext():
             le, feed = serve_logits(params, cfg, batch, "einsum", steps)
         lk, _ = serve_logits(params, cfg, batch, "kernel", steps, feed)
@@ -886,6 +971,11 @@ def phase_end_to_end(arch="granite_8b", layers=4, dtype="bfloat16"):
             if cfg.family in ("ssm", "hybrid") else []
         ys = [serve_logits(params, dataclasses.replace(cfg, ssm_chunk=c), batch,
                            "einsum", steps, feed)[0] for c in chunks]
+        spreads = [f"einsum at chunk {c}" for c in chunks]
+        if cfg.family == "audio":
+            with keys_reversed():
+                ys.append(serve_logits(params, cfg, batch, "einsum", steps, feed)[0])
+            spreads.append("einsum with its keys reversed")
         if moe and dtype == "bfloat16":
             with keys_reversed():
                 own = serve_logits(params, cfg, batch, "einsum", steps, feed)[0]
@@ -916,22 +1006,22 @@ def phase_end_to_end(arch="granite_8b", layers=4, dtype="bfloat16"):
         ok = ok and good
         log(f"  {dtype} {what}: kernel vs einsum rel L2 {rel:.3e} (limit {lim_rel:.3e}), "
             f"max abs {mx:.3e} (limit {lim_mx:.3e})"
-            + "".join(f"; einsum at chunk {c}: {r:.3e}, {m:.3e}"
-                      for c, (r, m) in zip(chunks, own)) + ("" if good else "  OVER"))
+            + "".join(f"; {c}: {r:.3e}, {m:.3e}"
+                      for c, (r, m) in zip(spreads, own)) + ("" if good else "  OVER"))
     log(f"  {dtype} greedy tokens agree on {agree(lk)} of {steps} decode steps ("
         + (f"limit {E2E_MIN_AGREE}" if gated else "not held: the einsum path "
            f"agrees with itself on fewer than {E2E_MIN_AGREE}")
-        + "".join(f"; einsum at chunk {c}: {agree(y)}" for c, y in zip(chunks, ys)) + ")")
+        + "".join(f"; {c}: {agree(y)}" for c, y in zip(spreads, ys)) + ")")
     if not ok or (gated and agree(lk) < E2E_MIN_AGREE):
         raise AssertionError(f"serving ({dtype}): kernel path and einsum path disagree")
     del params
     torch.cuda.empty_cache()
 
 
-def phase_profile(arch="granite_8b"):
+def phase_profile(arch="granite_8b", B=4, S=512):
     """Where the time goes on a serving path's model at full width and
-    depth (granite-8b, 36 layers; qwen3-moe-30b-a3b, 48), bf16, batch 4,
-    prompt 512.  After a warm-up, one prefill and 4 decode steps are
+    depth (granite-8b, 36 layers; qwen3-moe-30b-a3b, 48; whisper-base, 6 +
+    6), bf16, batch ``B``, prompt ``S``.  After a warm-up, one prefill and 4 decode steps are
     timed on the host clock untraced, then again under ``torch.profiler``
     for the device time by kernel (a separate traced run, so the serve
     phase's numbers carry no tracing cost); a moe model's traced runs
@@ -946,14 +1036,14 @@ def phase_profile(arch="granite_8b"):
     dev = torch.device("cuda")
     cfg = get_config(arch)
     moe = cfg.family == "moe"
-    B, S, steps = 4, 512, 4
+    steps = 4
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     with torch.inference_mode():
         params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                device=dev)
         toks = SyntheticTokens(cfg, DataConfig(batch_size=B, seq_len=S)).next_batch()
-        batch = {"tokens": torch.from_numpy(toks["tokens"]).to(dev)}
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in toks.items()}
         cache, logits, plen = M.prefill(params, cfg, batch, S + steps)
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
 
@@ -1339,15 +1429,17 @@ def bf16_gnorm_rows(names, got, want, yardsticks):
     return rows
 
 
-def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4):
+def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4, B=4,
+                                S=2048):
     """``arch`` at full width cut to ``layers`` layers: the kernel path
     against the einsum (chunked) path, three steps from the same weights
-    and batches, in fp32 (the CUDA-core kernels) or bf16 (the tensor-core
-    ones; each leaf's gradient held to the einsum path's own spread at
-    other chunks).  A moe model in bf16 is held with the einsum path's
-    routing replayed on the kernel path (``moe_routing``), its spread the
-    einsum path's with its attention keys reversed, and the free-running
-    kernel path is printed beside it."""
+    and batches of ``B`` x ``S``, in fp32 (the CUDA-core kernels) or bf16
+    (the tensor-core ones; each leaf's gradient held to the einsum path's
+    own spread at other chunks).  A moe model in bf16 is held with the
+    einsum path's routing replayed on the kernel path (``moe_routing``),
+    its spread the einsum path's with its attention keys reversed, and the
+    free-running kernel path is printed beside it; an audio model (no ssm
+    chunk to vary) takes that spread too."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, make_loader
@@ -1358,7 +1450,7 @@ def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4):
 
     dev = torch.device("cuda")
     cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
-    B, S, steps = 4, 2048, 3
+    steps = 3
     opt = AdamWConfig(lr=3e-4, total_steps=steps, warmup_steps=5)
 
     def run(cfg, backend, steps, ctx=None):
@@ -1389,6 +1481,8 @@ def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4):
     names, ne, le = run(cfg, "einsum", steps, moe_routing(routes) if moe else None)
     _, nk, lk = run(cfg, "kernel", steps)
     loss_rtol = TRAIN_LOSS_RTOL if dtype == "float32" else TRAIN_BF16_LOSS_RTOL
+    if cfg.family == "audio" and dtype == "bfloat16":
+        _, ny, _ = run(cfg, "einsum", 0, keys_reversed())
     if moe and dtype == "bfloat16":
         rel = max(abs(a - b) / b for a, b in zip(lk, le))
         _, ny, ly = run(cfg, "einsum", steps, keys_reversed())
@@ -1410,7 +1504,7 @@ def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4):
             f"{worst:.2e} over {len(nk)} leaves (limit {TRAIN_GNORM_RTOL:.0e})")
         grads_ok = worst <= TRAIN_GNORM_RTOL
     else:
-        if moe:
+        if moe or cfg.family == "audio":
             rows = bf16_gnorm_rows(names, nk, ne, [ny])
             what = "the einsum path's own spread with its attention keys reversed"
         else:
@@ -1548,11 +1642,14 @@ def phase_train_profile(state, args, out_name, layers=None):
     torch.cuda.empty_cache()
 
 
-def phase_profiler(arch=PROFILE_ARCH, layers=None):
+def phase_profiler(arch=PROFILE_ARCH, layers=None, seq=PROFILE_SEQ,
+                   iters=PROFILE_ITERS):
     """The measured auto-profiler on the card: ``arch`` at full width (cut
-    to ``layers`` layers, which only the decode step sees) at seq 4096
-    through the kernels, then one plan of the whole model priced with and
-    without the card's times laid over chip type A."""
+    to ``layers`` layers, which only the decode step sees) at ``seq``
+    through the kernels, each time the median of ``iters`` calls, then one plan of the whole model priced with and
+    without the card's times laid over chip type A.  An audio model's
+    decode step also launches ``flash_attention`` once a decoder layer
+    (its cross-attention at Sq = 1)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import chips, cost_model, profiler, schedule
@@ -1562,12 +1659,12 @@ def phase_profiler(arch=PROFILE_ARCH, layers=None):
     cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
     ops.reset_launches()
     t0 = time.perf_counter()
-    meas = profiler.measure_layer_profile(cfg, PROFILE_SEQ, iters=PROFILE_ITERS,
+    meas = profiler.measure_layer_profile(cfg, seq, iters=iters,
                                           backend="kernel")
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
     torch.cuda.empty_cache()
-    log(f"  measure_layer_profile({cfg.name}, {PROFILE_SEQ}, iters={PROFILE_ITERS}, "
+    log(f"  measure_layer_profile({cfg.name}, {seq}, iters={iters}, "
         f"backend='kernel') in {wall:.1f} s: " + json.dumps(meas))
     log(f"  launches: {launches}")
     times = {k: v for k, v in meas.items() if k != "backend"}
@@ -1575,17 +1672,19 @@ def phase_profiler(arch=PROFILE_ARCH, layers=None):
     if bad or meas["backend"] != "kernel":
         raise AssertionError(f"profile fields {bad} are not finite and > 0, or the "
                              f"backend is {meas['backend']!r}: {meas}")
-    calls = PROFILE_ITERS + 1                    # one warm call, then the timed ones
+    calls = iters + 1                            # one warm call, then the timed ones
+    cross = cfg.num_layers if cfg.family == "audio" else 0
     want = {"rmsnorm": calls,
-            # block forward, forward + full backward, forward + dgrad, attention
-            "flash_attention": 4 * calls,
+            # block forward, forward + full backward, forward + dgrad,
+            # attention; an audio decode step's cross-attention
+            "flash_attention": (4 + cross) * calls,
             "flash_decode": cfg.num_layers * calls,   # every layer of each decode step
             "ssd_scan": 0}
     if launches != want:
         raise AssertionError(f"profiler launches {launches}, expected {want}")
 
     cfg = full
-    analytic = profiler.analytic_layer_profile(chips.CHIPS["A"], cfg, 1, PROFILE_SEQ)
+    analytic = profiler.analytic_layer_profile(chips.CHIPS["A"], cfg, 1, seq)
     log(f"  chip A's analytic layer at tp 1 (the profile it replaces): "
         f"t_fwd {analytic.t_fwd:.6f} s, t_bwd {analytic.t_bwd:.6f} s, "
         f"wgrad_frac {analytic.wgrad_frac:.4f}")
@@ -1598,12 +1697,12 @@ def phase_profiler(arch=PROFILE_ARCH, layers=None):
     log(f"  plan {plan.describe()}: the card's profile laid over chip type A "
         "only to show that measured numbers reach the ranker; this is not a "
         "plan for an H100 cluster")
-    gbs = plan.batch_seqs * PROFILE_SEQ
+    gbs = plan.batch_seqs * seq
     measured = {"A": meas}
-    base = cost_model.evaluate(plan, cfg, PROFILE_SEQ, gbs)
-    over = cost_model.evaluate(plan, cfg, PROFILE_SEQ, gbs, measured=measured)
-    sim0 = schedule.simulate_plan(plan, cfg, PROFILE_SEQ)
-    sim1 = schedule.simulate_plan(plan, cfg, PROFILE_SEQ, measured=measured)
+    base = cost_model.evaluate(plan, cfg, seq, gbs)
+    over = cost_model.evaluate(plan, cfg, seq, gbs, measured=measured)
+    sim0 = schedule.simulate_plan(plan, cfg, seq)
+    sim1 = schedule.simulate_plan(plan, cfg, seq, measured=measured)
     for label, c, r in (("analytic", base, sim0), ("measured on A", over, sim1)):
         log(f"  {label:14s} evaluate: iter_time {c.iter_time:.6f} s, tgs {c.tgs:.3f}, "
             f"t_comp {[round(t, 6) for t in c.t_comp]}, bubble {c.bubble_frac:.4f}, "
@@ -1666,15 +1765,14 @@ def pipeline_and_check(run, argv, kernel, per_step, layers, label, transport="ho
 
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.launch import train
 
     out_dir = os.path.join(ROOT, "build", "chip_smoke", run)
     os.makedirs(out_dir, exist_ok=True)
     torch.cuda.empty_cache()
     ops.reset_launches()
     t0 = time.perf_counter()
-    res = train.main(argv + ["--run-dir", out_dir, "--p2p", transport] + PP_ARGS
-                     + (["--trace"] if trace else []))
+    res = launch_pipeline(argv + ["--run-dir", out_dir, "--p2p", transport] + PP_ARGS
+                          + (["--trace"] if trace else []))
     wall = time.perf_counter() - t0
     launches, losses, times = res["launches"], res["losses"], res["step_times_s"]
     steps = len(losses)
@@ -1706,7 +1804,7 @@ def pipeline_and_check(run, argv, kernel, per_step, layers, label, transport="ho
         f"included; host staging copies {copy_s * 1e3 / ticks:.2f} ms a tick); peak "
         f"memory by rank "
         + ", ".join(f"{b / 2**30:.2f}" for b in res["peak_mem_bytes_per_rank"])
-        + f" GiB; {wall:.1f} s with the ranks' start")
+        + f" GiB; {wall:.1f} s of wall time")
     ms = lambda key, r: steady(res[key + "_per_step_per_rank"][r]) * 1e3
     hop_ms = lambda key, r: ms("p2p_" + key, r) + ms("boundary_" + key, r)
     log(f"  {label}: collectives a step by rank (d, s, k), wall ms: " + "; ".join(
@@ -1876,13 +1974,12 @@ def phase_pipeline_parity(device="cuda:0", microbatches=4):
     every case) against the single-device ``loss_fn`` and its gradient,
     in fp32 and bf16."""
     import torch
-    from repro_torch.launch import ranks
     from repro_torch.models import model as M
     from repro_torch.tree import flatten
 
     dev = torch.device(device)
     t0 = time.perf_counter()
-    res = ranks.spawn(_parity_rank, 2, (device, PP_PARITY, microbatches,
+    res = spawn_ranks(_parity_rank, 2, (device, PP_PARITY, microbatches,
                                         PP_PARITY_SPLIT, PP_PARITY_SCHEDULES),
                       workdir=os.path.join(ROOT, "build", "chip_smoke", "parity"),
                       transport="host", timeout=600)
@@ -1964,18 +2061,183 @@ def phase_pipeline(device="cuda:0"):
     return launches, per_step["1f1b"]
 
 
+@contextlib.contextmanager
 def cut_depth(layers):
     """The launcher's full-size configs cut to ``layers`` layers while the
-    context lasts (the spawned ranks get the config from the launcher)."""
-    import contextlib
+    context lasts (ranks the launcher spawns get the config from it; the
+    ranks of a ``rank_pool`` apply the same cut themselves)."""
+    global _CUT
     from unittest import mock
 
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     if layers is None:
-        return contextlib.nullcontext()
-    return mock.patch.object(train, "get_config", lambda name: dataclasses.replace(
-        get_config(name), num_layers=layers))
+        yield
+        return
+    before, _CUT = _CUT, layers
+    try:
+        with mock.patch.object(train, "get_config", lambda name: dataclasses.replace(
+                get_config(name), num_layers=layers)):
+            yield
+    finally:
+        _CUT = before
+
+
+_CUT = None                           # the depth cut_depth applies, if any
+_POOL = None                          # the rank_pool of the running phase, if any
+
+
+class RankPool:
+    """``world`` ranks started once (``ranks.spawn``'s fresh processes and
+    process group) that run calls one after another: ``call(fn, args)``
+    runs ``fn(rank, world, *args)`` on every rank and returns their
+    results in rank order, as ``ranks.spawn`` does.  A phase's launcher
+    runs and its parity check share the ranks' start: their imports, CUDA
+    context and the libraries' first calls.  A rank that raises or dies,
+    or a call that outlives its timeout, fails the call with the ranks'
+    tracebacks, and every rank is stopped."""
+
+    def __init__(self, world, workdir, transport="host"):
+        import torch.multiprocessing as mp
+        self.world, self.workdir = world, os.path.abspath(workdir)
+        os.makedirs(self.workdir, exist_ok=True)
+        store = os.path.join(self.workdir, "store")
+        if os.path.exists(store):
+            os.remove(store)
+        ctx = mp.get_context("spawn")
+        self.inboxes = [ctx.Queue() for _ in range(world)]
+        self.outbox = ctx.Queue()
+        self.procs = mp.start_processes(
+            _pool_rank, args=(world, transport, self.workdir, self.inboxes, self.outbox),
+            nprocs=world, join=False, start_method="spawn")
+
+    def call(self, fn, args=(), timeout=1800.0):
+        for box in self.inboxes:
+            box.put((fn.__name__, tuple(args), _CUT))
+        done, errs = set(), {}
+        deadline = time.monotonic() + timeout
+        while len(done) < self.world:
+            try:
+                rank, err = self.outbox.get(timeout=5.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(self.procs.processes) if not p.is_alive()]
+                if dead or time.monotonic() >= deadline:
+                    self.close(kill=True)
+                    raise RuntimeError(f"{fn.__name__}: rank(s) {dead} exited" if dead
+                                       else f"{fn.__name__}: ranks still running after "
+                                       f"{timeout:.0f} s")
+                continue
+            done.add(rank)
+            if err:
+                errs[rank] = err
+                self.close(kill=True)
+                raise RuntimeError(f"{fn.__name__} failed on rank {rank}:\n{err}")
+        import torch
+        return [torch.load(os.path.join(self.workdir, f"rank{r}.pt"), weights_only=True)
+                for r in range(self.world)]
+
+    def close(self, kill=False):
+        for box in self.inboxes:
+            box.put(None)
+        for p in self.procs.processes:
+            if kill and p.is_alive():
+                p.kill()
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+
+
+def _pool_rank(rank, world, transport, workdir, inboxes, outbox):
+    """A ``RankPool`` rank: join the group, then run each call it is sent
+    (under its depth cut; only rank 0 prints), its result written to
+    ``rank<r>.pt``, until it is sent None."""
+    import gc
+
+    import torch
+    from repro_torch.launch import ranks
+    if transport == "device":
+        torch.cuda.set_device(rank)
+    ranks.init_group(rank, world, transport, "file://" + os.path.join(workdir, "store"),
+                     1800.0)
+    quiet = open(os.devnull, "w")
+    try:
+        while True:
+            item = inboxes[rank].get()
+            if item is None:
+                return
+            name, args, cut = item
+            try:
+                with cut_depth(cut), contextlib.redirect_stdout(
+                        sys.stdout if rank == 0 else quiet):
+                    out = globals()[name](rank, world, *args)
+                path = os.path.join(workdir, f"rank{rank}.pt")
+                torch.save(out, path + ".tmp")
+                os.replace(path + ".tmp", path)
+                del out
+                gc.collect()
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+                outbox.put((rank, ""))
+            except BaseException:
+                outbox.put((rank, traceback.format_exc()))
+                return
+    finally:
+        quiet.close()
+        torch.distributed.destroy_process_group()
+
+
+@contextlib.contextmanager
+def rank_pool(world, name):
+    """The phase's ``RankPool`` of ``world`` ranks while the context lasts:
+    ``launch_pipeline`` and ``spawn_ranks`` calls of that many ranks on
+    the host transport run in it."""
+    global _POOL
+    pool = RankPool(world, os.path.join(ROOT, "build", "chip_smoke", f"pool_{name}"))
+    _POOL = pool
+    try:
+        yield pool
+    finally:
+        _POOL = None
+        pool.close()
+
+
+def _in_pool(world, transport):
+    """Whether a call of ``world`` ranks runs in the phase's ``rank_pool``
+    (there is one); a call the pool cannot run raises."""
+    if _POOL is None:
+        return False
+    if world != _POOL.world or transport != "host":
+        raise ValueError(f"a call of {world} ranks on {transport} inside a pool of "
+                         f"{_POOL.world} ranks on host")
+    return True
+
+
+def spawn_ranks(fn, world, args, *, workdir, transport="host", timeout=600):
+    """``ranks.spawn(fn, world, args)``, or the same call in the phase's
+    ``rank_pool``."""
+    from repro_torch.launch import ranks
+    if _in_pool(world, transport):
+        return _POOL.call(fn, args, timeout)
+    return ranks.spawn(fn, world, args, workdir=workdir, transport=transport,
+                       timeout=timeout)
+
+
+def _launcher_rank(rank, world, argv):
+    """One rank of a launcher run in a ``rank_pool``: the launcher joins the
+    ranks' process group and runs this rank."""
+    from repro_torch.launch import train
+    return train.main(argv)
+
+
+def launch_pipeline(argv):
+    """``repro_torch.launch.train`` on a rank grid: in the phase's
+    ``rank_pool`` (the launcher inside each rank, the ranks' results
+    merged as the launcher merges its own), or else the launcher spawning
+    its ranks."""
+    from repro_torch.launch import train
+    if _POOL is None:
+        return train.main(argv)
+    return train.merge_rank_results(_POOL.call(_launcher_rank, (argv,), 1800.0))
 
 
 def grid_and_check(run, arch, layers, args, kernel, per_step, label, transport="host",
@@ -2134,11 +2396,10 @@ def phase_grid_parity(device="cuda:0", microbatches=4, transport="host",
     a rank under ``device``) against the single-device ``loss_fn`` and
     its gradient, in fp32 and bf16."""
     import torch
-    from repro_torch.launch import ranks
 
     dev = torch.device(device)
     t0 = time.perf_counter()
-    res = ranks.spawn(_grid_parity_rank, 4, (device, cases, microbatches,
+    res = spawn_ranks(_grid_parity_rank, 4, (device, cases, microbatches,
                                              PP_PARITY_SPLIT, transport),
                       workdir=os.path.join(ROOT, "build", "chip_smoke", "grid_parity"),
                       transport=transport, timeout=600)
@@ -2309,11 +2570,10 @@ def phase_hetero_parity(device="cuda:0", microbatches=4):
     ranks on the card, one spawn) against the single-device ``loss_fn``
     and its gradient in fp32."""
     import torch
-    from repro_torch.launch import ranks
 
     arch, layers, mb, seq = HETERO_PARITY
     t0 = time.perf_counter()
-    res = ranks.spawn(_hetero_parity_rank, 3, (device, HETERO_PARITY, microbatches,
+    res = spawn_ranks(_hetero_parity_rank, 3, (device, HETERO_PARITY, microbatches,
                                                PP_PARITY_SPLIT, HETERO_LAYOUTS,
                                                HETERO_STRATEGIES),
                       workdir=os.path.join(ROOT, "build", "chip_smoke", "hetero_parity"),
@@ -2430,11 +2690,10 @@ def phase_domain_parity(device="cuda:0"):
     the tight layout moves it (0 where the card's backward is
     deterministic)."""
     import torch
-    from repro_torch.launch import ranks
 
     arch, layers, mb, seq = DOMAIN_PARITY
     t0 = time.perf_counter()
-    res = ranks.spawn(_domain_parity_rank, 4, (device, DOMAIN_PARITY, DOMAIN,
+    res = spawn_ranks(_domain_parity_rank, 4, (device, DOMAIN_PARITY, DOMAIN,
                                                PP_PARITY_SPLIT),
                       workdir=os.path.join(ROOT, "build", "chip_smoke", "domain_parity"),
                       transport="host", timeout=600)
@@ -2708,13 +2967,12 @@ def phase_moe_pipeline_parity(device="cuda:0", microbatches=4):
     JAX package's SPMD pipeline, which divides the summed aux by the
     stage count, would give."""
     import torch
-    from repro_torch.launch import ranks
 
     case = MOE_PP_PARITY
     arch, layers, mb, seq = case
     S = len(MOE_PP_PARITY_SPLIT)
     t0 = time.perf_counter()
-    res = ranks.spawn(_moe_parity_rank, S, (device, case, microbatches, MOE_PP_PARITY_SPLIT,
+    res = spawn_ranks(_moe_parity_rank, S, (device, case, microbatches, MOE_PP_PARITY_SPLIT,
                                             MOE_PP_PARITY_SCHEDULES),
                       workdir=os.path.join(ROOT, "build", "chip_smoke", "moe_parity"),
                       transport="host", timeout=600)
@@ -2790,6 +3048,53 @@ def hold_parity(runs, want, norms, dtype, label):
             dtype == "float32" and worst > TRAIN_GNORM_RTOL):
         bad.append(f"{label}: the pipeline and the single device disagree")
     return bad
+
+
+def phase_whisper_serve():
+    """Phase 25: whisper-base at full width and depth, batch 8, prompt 416,
+    32 tokens (the decoder's 448 positions).  The prefill launches 3 x 6
+    ``flash_attention`` (6 encoder non-causal at 1500 frames, 6 decoder
+    causal, 6 cross non-causal at 416 x 1500), each decode call 6
+    ``flash_decode`` (self) and 6 ``flash_attention`` (cross at Sq = 1);
+    then where the time goes (phase 6's method) and the measured profiler
+    at full width, seq 448 (phase 12's method, launches pinned)."""
+    L = WHISPER_LAYERS
+    launches = serve_and_check(WHISPER_SERVE_ARGS, "serve_whisper_base", L, lambda calls: {
+        "flash_attention": 3 * L + L * calls, "flash_decode": L * calls, "ssd_scan": 0,
+        "rmsnorm": 0})
+    log("  where the time goes: whisper-base, 6 + 6 layers, B8 x 416, traced")
+    phase_profile(WHISPER_ARCH, B=8, S=416)
+    log(f"  the measured auto-profiler: whisper-base at full width, seq {WHISPER_SEQ}")
+    prof = phase_profiler(WHISPER_ARCH, seq=WHISPER_SEQ, iters=WHISPER_PROFILE_ITERS)
+    return {k: launches[k] + prof[k] for k in launches}
+
+
+def phase_whisper_train():
+    """Phase 26: whisper-base at full width and depth, b 16 x 448, 6 steps,
+    bf16, remat on: each step launches 2 x 18 ``flash_attention`` (the 6
+    encoder, 6 self and 6 cross calls of the forward and of the remat
+    recompute); losses finite and falling; then a warm step traced."""
+    import torch
+    L = WHISPER_LAYERS
+    launches, state = train_and_check(WHISPER_TRAIN_ARGS, "train_whisper_base", L,
+                                      {"flash_attention": 2 * 3 * L})
+    log("  where the time goes: a warm whisper-base train step, traced")
+    phase_train_profile(state, WHISPER_TRAIN_ARGS, "profile_train_whisper_base.txt")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_whisper_kernel_vs_plain():
+    """Phase 27: whisper-base at full depth (the model is small), the
+    kernel path against the einsum path: training, 3 steps of b 16 x 448
+    at phase 9's limits, and serving, prefill of b 8 x 416 + 4 decode
+    steps at phase 5's limits or the einsum path's own spread with its
+    keys reversed (E2E_SPREAD), each in fp32 and bf16."""
+    for dtype in ("float32", "bfloat16"):
+        phase_train_kernel_vs_plain(dtype, WHISPER_ARCH, WHISPER_LAYERS, B=16, S=WHISPER_SEQ)
+    for dtype in ("float32", "bfloat16"):
+        phase_end_to_end(WHISPER_ARCH, WHISPER_LAYERS, dtype, B=8, S=416)
 
 
 def phase_transports():
@@ -2924,25 +3229,29 @@ def main() -> int:
 
     log("== 16. HeteroPP on one card: 2 ranks, --p2p host; qwen1.5-0.5b 10 / 14 "
         "(1f1b, zb_v), mamba2-780m 20 / 28, parity at 4 layers")
-    pipeline_launches, qwen_1f1b_per_step = phase_pipeline()
+    with rank_pool(2, "pipeline"):
+        pipeline_launches, qwen_1f1b_per_step = phase_pipeline()
     for name in ("flash_attention", "ssd_scan"):
         launches[name] += pipeline_launches[name]
 
     log(f"== 17. HeteroPP tp and dp on one card: 4 ranks, --p2p host; qwen1.5-0.5b 10 / 14 "
         f"x tp {GRID_TP}, qwen1.5-0.5b dp {GRID_DP} ZeRO-1, mamba2-780m 24 layers dp "
         f"{GRID_DP} bucketed psum, parity at 4 layers")
-    grid_launches = phase_grid(qwen_1f1b_per_step)
+    with rank_pool(4, "grid"):
+        grid_launches = phase_grid(qwen_1f1b_per_step)
     for name in ("flash_attention", "ssd_scan"):
         launches[name] += grid_launches[name]
 
     log("== 18. HeteroPP grouped tp on one card: 3 ranks, --p2p host; qwen1.5-0.5b "
         "14 / 10 at tp (2, 1) (sr_ag, naive) and (1, 2), parity at 4 layers")
-    hetero_launches = phase_hetero()
-    phase_hetero_parity()
+    with rank_pool(3, "hetero"):
+        hetero_launches = phase_hetero()
+        phase_hetero_parity()
     log(f"== 19. HeteroPP uneven batch domain {DOMAIN} on one card: 4 ranks, --p2p host; "
         f"mamba2-780m 24 layers dp 2 x pipe 2 in each dp sync mode, parity at 4 layers")
-    domain_launches = phase_domain()
-    phase_domain_parity()
+    with rank_pool(4, "domain"):
+        domain_launches = phase_domain()
+        phase_domain_parity()
     for name in ("flash_attention", "ssd_scan"):
         launches[name] += hetero_launches[name] + domain_launches[name]
 
@@ -2966,12 +3275,26 @@ def main() -> int:
 
     log("== 24. HeteroPP with moe stages on one card: 2 ranks, --p2p host; qwen3-moe "
         f"{MOE_PP_LAYERS} layers 1 / 1 (1f1b, traced), parity at 2 layers")
-    moe_pipeline_launches = phase_moe_pipeline()
-    phase_moe_pipeline_parity()
+    with rank_pool(2, "moe_pipeline"):
+        moe_pipeline_launches = phase_moe_pipeline()
+        phase_moe_pipeline_parity()
     for name in ("flash_attention", "flash_decode", "rmsnorm"):
         launches[name] += sum(got.get(name, 0) for got in (
             moe_serve_launches, moe_train_launches, moe_profile_launches,
             moe_pipeline_launches))
+
+    log("== 25. audio serving: serve whisper-base, 6 + 6 layers, bf16, B8 x 416 + 32")
+    whisper_serve_launches = phase_whisper_serve()
+
+    log("== 26. audio training: train whisper-base, 6 + 6 layers, bf16, b16 x S448")
+    whisper_train_launches = phase_whisper_train()
+
+    log("== 27. kernel path vs einsum path, audio: whisper-base at full depth; training "
+        "and serving in fp32 and bf16")
+    phase_whisper_kernel_vs_plain()
+    for name in ("flash_attention", "flash_decode", "rmsnorm"):
+        launches[name] += sum(got.get(name, 0) for got in (
+            whisper_serve_launches, whisper_train_launches))
 
     log("== done")
     kernels = []

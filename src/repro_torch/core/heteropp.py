@@ -356,9 +356,16 @@ def pipeline_block_kind(cfg: ModelConfig) -> str:
             f"JAX package's block_kind maps the hybrid family to 'dense' "
             f"(repro/models/config.py:94), so its pipeline has no hybrid "
             f"path to port (ROADMAP C)")
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: the pipeline runs dense, moe and ssm blocks only.  The "
+            f"JAX package's block_kind maps the audio family to 'dense' "
+            f"(repro/models/config.py:89-95), and its pipeline slices "
+            f"params['blocks'], which an encoder-decoder does not have "
+            f"(KeyError: 'blocks'), so it has no audio path to port (ROADMAP C)")
     if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP A12)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP A12b)")
     return cfg.block_kind
 
 

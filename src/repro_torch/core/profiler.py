@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import statistics
 import time
 from typing import Dict, Optional
 
@@ -215,20 +216,27 @@ def measure_layer_profile(cfg: ModelConfig, seq_len: int, *, iters: int = 3,
     would really run there (``kernels.ops.preferred_backend``).  The
     dict's ``"backend"`` is the resolved name.
 
-    Timed, each after one warm call and each call followed by a device
-    synchronize (only the launches would be timed without it): one block
-    forward (``t_fwd``, also ``t_recomp``); forward plus the gradient
-    with respect to the block's parameters and its input (``t_bwd``, as
-    the reference's ``jax.grad`` of both); forward plus the gradient
-    with respect to the input alone (``t_dgrad``); ``t_wgrad = max(t_bwd
-    − t_dgrad, 0)`` and ``wgrad_frac`` clamped to [0.05, 0.95], as in
-    the reference.  Then attention, rmsnorm and (ssm/hybrid configs) the
-    SSD scan alone at ``seq_len``, and one single-token decode step of
-    the whole model against a cache of ``min(max(seq_len, 32), 1024)``
-    slots (``t_decode``).
+    Timed, each the median of ``iters`` calls after one warm call, each
+    call followed by a device synchronize (only the launches would be
+    timed without it), so that a stall of the host does not count: one
+    block forward (``t_fwd``, also ``t_recomp``); forward plus the
+    gradient with respect to the block's parameters and its input
+    (``t_bwd``, as the reference's ``jax.grad`` of both); forward plus
+    the gradient with respect to the input alone, its calls alternating
+    with ``t_bwd``'s; ``t_wgrad``, the median of the differences of those
+    pairs, clamped at 0, and ``t_dgrad = t_bwd − t_wgrad`` (the reference
+    takes ``t_wgrad = max(t_bwd − t_dgrad, 0)`` from two means); and
+    ``wgrad_frac`` clamped to [0.05, 0.95], as in the reference.
+    Then attention, rmsnorm and (ssm/hybrid configs) the SSD scan alone
+    at ``seq_len``, and one single-token decode step of the whole model
+    against a cache of ``min(max(seq_len, 32), 1024)`` slots
+    (``t_decode``).
 
     As in the reference, the timed block is a ``moe`` one for a MoE
-    config and a dense one for every other, an ssm config included.
+    config and a dense one for every other, an ssm config included (an
+    audio config's dense block applies no RoPE, as every block of that
+    family; its decode step is a whole whisper decode step, the
+    cross-attention against a zero cross cache).
     ``plan_to_schedule_inputs`` / ``cost_model.evaluate``
     prefer every measured field over the analytic one via
     :func:`apply_measured`."""
@@ -248,14 +256,15 @@ def measure_layer_profile(cfg: ModelConfig, seq_len: int, *, iters: int = 3,
     x = torch.randn((1, seq_len, cfg.d_model), generator=gen, device=dev,
                     dtype=torch.bfloat16)
 
-    def timed(fn, *args):
-        fn(*args)                                 # warm
-        devices.synchronize(dev)
+    def once(fn, *args):
         t0 = time.perf_counter()
-        for _ in range(iters):
-            fn(*args)
-            devices.synchronize(dev)
-        return (time.perf_counter() - t0) / iters
+        fn(*args)
+        devices.synchronize(dev)
+        return time.perf_counter() - t0
+
+    def timed(fn, *args):
+        once(fn, *args)                           # warm
+        return statistics.median(once(fn, *args) for _ in range(iters))
 
     def block(p, x):
         return tfm.block_forward(p, cfg, x, kind, backend=backend)[0]
@@ -270,11 +279,20 @@ def measure_layer_profile(cfg: ModelConfig, seq_len: int, *, iters: int = 3,
     t_fwd = timed(fwd, blk, x)
     pg = tree_map(lambda t: t.detach().requires_grad_(), blk)
     xg = x.detach().requires_grad_()
-    t_bwd = timed(grad, pg, xg, tree_leaves(pg) + [xg])
-    t_dgrad = timed(grad, blk, xg, [xg])
-    # wgrad time is the FULL backward minus the dgrad-only pass, clamped:
-    # timing noise can push the difference slightly past either end
-    t_wgrad = max(t_bwd - t_dgrad, 0.0)
+    full = tree_leaves(pg) + [xg]
+    once(grad, pg, xg, full)                      # warm
+    once(grad, blk, xg, [xg])
+    # wgrad time is the FULL backward minus the dgrad-only pass.  The two
+    # passes alternate and the median is taken of each pair's difference,
+    # so that a stall of the host or a drift of the clock falls on both
+    # passes of a pair; a host-bound block's wgrad is a few percent of
+    # its backward, and the difference of two medians is noisier than
+    # that.  Clamped, as noise can still push it slightly past either end
+    samples = [(once(grad, pg, xg, full), once(grad, blk, xg, [xg]))
+               for _ in range(iters)]
+    t_bwd = statistics.median(b for b, _ in samples)
+    t_wgrad = max(statistics.median(b - d for b, d in samples), 0.0)
+    t_dgrad = t_bwd - t_wgrad
     frac = t_wgrad / t_bwd if t_bwd > 0 else 0.5
 
     prof = {"t_fwd": t_fwd, "t_bwd": t_bwd, "t_recomp": t_fwd,

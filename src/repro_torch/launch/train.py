@@ -487,6 +487,15 @@ def run_pipeline(args, cfg, dev):
     outs = ranks.spawn(_pipeline_rank, world, job,
                        workdir=os.path.join(run_dir, "ranks"),
                        transport=transport, timeout=RANK_TIMEOUT_S, threads=threads)
+    return merge_rank_results(outs)
+
+
+def merge_rank_results(outs):
+    """The ranks' results of one pipeline run (what each rank returns, in
+    rank order) as the launcher returns them: rank 0's, with each rank's
+    peak memory, optimizer-state bytes, losses, grid position, ticks and
+    collectives a step beside it, the largest peak, and the kernels'
+    launches summed over the ranks."""
     res = dict(outs[0])
     res["peak_mem_bytes_per_rank"] = [o["peak_mem_bytes"] for o in outs]
     per_rank = [o["peak_mem_bytes"] for o in outs if o["peak_mem_bytes"] is not None]

@@ -1,5 +1,6 @@
-"""Attention: GQA + RoPE + (optional) QK-norm / bias / sliding window
-(the counterpart of ``repro/models/attention.py``, dense paths).
+"""Attention: GQA + RoPE + (optional) QK-norm / bias / sliding window,
+and the whisper decoder's cross-attention (the counterpart of
+``repro/models/attention.py``).
 
 Three execution paths:
   * ``einsum``  — plain softmax(QK^T)V for short sequences,
@@ -11,6 +12,10 @@ Three execution paths:
 
 Decode operates on a KV cache of layout (B, KV, S_cache, hd); for
 sliding-window attention the cache may be a ring buffer of window size.
+Cross-attention K/V keep the reference's layout (B, Se, KV, hd) and go
+through ``attend`` non-causal, so on the card they run
+``flash_attention``, in decode too (Sq = 1), as the reference's
+``decode_step`` runs its prefill kernel there.
 """
 from __future__ import annotations
 
@@ -245,3 +250,42 @@ def decode_self_attention(params, cfg, x, cache, pos, *, ring=False,
     out = torch.einsum("bhqs,bhsd->bqhd", probs, vv)
     out = out.reshape(B, 1, cfg.num_heads * hd) @ params["wo"]
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(cfg, dtype, *, generator, device, stack=()):
+    return init_attention(cfg, dtype, generator=generator, device=device,
+                          stack=stack)
+
+
+def cross_attention(params, cfg, x, enc_kv, backend="auto"):
+    """x: (B, Sq, d) decoder states; enc_kv: (k, v) each (B, Se, KV, hd).
+    Every query sees every encoder position (no mask, no RoPE)."""
+    B, Sq, _ = x.shape
+    hd = cfg.head_dim
+    q = x @ params["wq"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    q = q.reshape(B, Sq, cfg.num_heads, hd)
+    k, v = enc_kv
+    q_pos = torch.arange(Sq, dtype=torch.int32, device=x.device)
+    k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+    out = attend(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=False,
+                 backend=backend)
+    return out.reshape(B, Sq, cfg.num_heads * hd) @ params["wo"]
+
+
+def encode_cross_kv(params, cfg, enc_out):
+    """Cross-attention K/V (B, Se, KV, hd) each from the encoder output
+    (no RoPE)."""
+    B, Se, _ = enc_out.shape
+    hd = cfg.head_dim
+    k = enc_out @ params["wk"]
+    v = enc_out @ params["wv"]
+    if cfg.qkv_bias:
+        k, v = k + params["bk"], v + params["bv"]
+    return (k.reshape(B, Se, cfg.num_kv_heads, hd),
+            v.reshape(B, Se, cfg.num_kv_heads, hd))

@@ -1,6 +1,6 @@
 """Top-level model API: init / forward / loss / cache / prefill / decode
-(the counterpart of ``repro/models/model.py`` for the dense, moe, ssm
-and hybrid families).
+(the counterpart of ``repro/models/model.py`` for the dense, moe, ssm,
+hybrid and audio families).
 
 A hybrid model (zamba2) is G = num_layers / hybrid_attn_every groups of
 ``per`` = hybrid_attn_every ssm layers, each group followed by ONE dense
@@ -9,12 +9,24 @@ are stacked with leading dims (G, per).
 
 A moe model is a dense stack whose blocks run ``moe_block`` in place of
 the MLP; ``forward`` returns the layers' summed auxiliary losses as
-``metrics["aux_loss"]``, which ``loss_fn`` adds.  Other families (vlm,
-audio) raise ``NotImplementedError`` when a model is built.
+``metrics["aux_loss"]``, which ``loss_fn`` adds.
+
+An audio model (whisper) is an encoder-decoder: ``enc_blocks``, a
+non-causal dense stack over ``audio_embeds + enc_pos`` (the stub
+frontend's frames and learned positions) closed by ``enc_final_norm``,
+and ``dec_blocks`` of kind ``dec_cross`` over the token embeddings plus
+sinusoidal positions; each decoder layer projects its cross K/V from the
+encoder output.  No block of it applies RoPE.  Its cache is {"self": the
+decoder's {"k", "v"} (L, B, KV, S, hd), "cross": (k, v) each (L, B, Se,
+KV, hd)}; prefill fills both, decode writes "self" and reads "cross".
+
+The vlm family raises ``NotImplementedError`` when a model is built.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
+
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -23,7 +35,7 @@ from . import attention, layers, ssm as ssm_lib, transformer as tfm
 from .config import ModelConfig
 
 PyTree = Any
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
 
 
 def _require_family(cfg: ModelConfig):
@@ -55,7 +67,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     kw = dict(generator=generator, device=device)
     p = {"embed": layers.init_embeddings(cfg, dtype, **kw),
          "final_norm": layers.init_norm(cfg.norm, cfg.d_model, device=device)}
-    if cfg.family == "hybrid":
+    if cfg.family == "audio":
+        p["enc_blocks"] = tfm.init_stacked_blocks(cfg, "dense",
+                                                  cfg.num_encoder_layers, dtype, **kw)
+        p["dec_blocks"] = tfm.init_stacked_blocks(cfg, "dec_cross",
+                                                  cfg.num_layers, dtype, **kw)
+        p["enc_pos"] = layers.embed_init((cfg.encoder_seq_len, cfg.d_model),
+                                         dtype, **kw)
+        p["enc_final_norm"] = layers.init_norm(cfg.norm, cfg.d_model,
+                                               device=device)
+    elif cfg.family == "hybrid":
         p["blocks"] = tfm.init_block(cfg, "ssm", dtype,
                                      stack=_hybrid_groups(cfg), **kw)
         p["shared_attn"] = tfm.init_block(cfg, "dense", dtype, **kw)
@@ -83,7 +104,13 @@ def forward(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     x = layers.embed_tokens(params["embed"], tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    if cfg.family == "hybrid":
+    if cfg.family == "audio":
+        enc = _encode(params, cfg, batch["audio_embeds"], x.dtype, remat=remat,
+                      backend=backend)
+        x = _decode_stack(params, cfg, x, enc, positions, remat=remat,
+                          backend=backend)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    elif cfg.family == "hybrid":
         x, aux = _hybrid_forward(params, cfg, x, positions, remat=remat,
                                  backend=backend)
     else:
@@ -123,6 +150,49 @@ def _hybrid_forward(params, cfg, x, positions, *, remat, backend):
     for gp in tfm.unstack(params["blocks"]):
         x = checkpoint(group, x, gp, use_reentrant=False) if remat else group(x, gp)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _encode(params, cfg, audio_embeds, dtype, *, remat, backend):
+    """The audio encoder: frames + learned positions through the
+    non-causal dense stack (one checkpoint a layer under ``remat``),
+    then ``enc_final_norm``."""
+    enc = audio_embeds.to(dtype) + params["enc_pos"]
+    enc, _ = tfm.run_stacked(params["enc_blocks"], cfg, enc, "dense",
+                             remat=remat, backend=backend, causal=False)
+    return layers.apply_norm(params["enc_final_norm"], enc, cfg.norm)
+
+
+def _decode_stack(params, cfg, x, enc, positions, *, remat, backend,
+                  cache=None):
+    """The audio decoder over the full sequence: sinusoidal positions,
+    then each ``dec_cross`` layer with its cross K/V projected from
+    ``enc`` inside the layer's checkpoint under ``remat`` (as the
+    reference's ``jax.checkpoint`` of its scan body).  ``cache`` (a
+    prefill's) gets each layer's self K/V and cross K/V in place."""
+    x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
+    for i, p in enumerate(tfm.unstack(params["dec_blocks"])):
+        kv = None if cache is None else tfm.layer(cache["self"], i)
+
+        def one(x, enc, p=p, i=i, kv=kv):
+            ekv = attention.encode_cross_kv(p["xattn"], cfg, enc)
+            if cache is not None:
+                cache["cross"][0][i].copy_(ekv[0])
+                cache["cross"][1][i].copy_(ekv[1])
+            return tfm.block_forward(p, cfg, x, "dec_cross", positions=positions,
+                                     enc_kv=ekv, backend=backend, kv_cache=kv)[0]
+
+        x = checkpoint(one, x, enc, use_reentrant=False) if remat else one(x, enc)
+    return x
+
+
+def _sinusoidal(positions, d):
+    """(S, d) fp32: sin then cos of position x 10000^(-i / (d/2))."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    ang = positions[:, None].float() * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +250,9 @@ def init_cache(cfg, batch: int, cache_len: int, *, device, ring: bool = False):
     """dense and moe: {"k", "v"} of shape (L, B, KV, cache_len, hd); ssm: {"conv"
     (L, B, W-1, conv_dim), "state" (L, B, h, p, n) fp32}; hybrid: {"ssm":
     the ssm cache with leading dims (G, per), "attn": the shared block's
-    {"k", "v"} for each group, leading dim G}."""
+    {"k", "v"} for each group, leading dim G}; audio: {"self": the
+    decoder's {"k", "v"} as dense, "cross": (k, v) each (L, B,
+    encoder_seq_len, KV, hd), which prefill overwrites}."""
     _require_family(cfg)
     dtype = layers.dtype_of(cfg)
     if cfg.family == "ssm":
@@ -192,8 +264,15 @@ def init_cache(cfg, batch: int, cache_len: int, *, device, ring: bool = False):
                                               stack=(G, per)),
                 "attn": attention.init_kv_cache(cfg, batch, cache_len, dtype,
                                                 device=device, stack=(G,))}
-    return attention.init_kv_cache(cfg, batch, cache_len, dtype,
-                                   device=device, stack=(cfg.num_layers,))
+    kv = attention.init_kv_cache(cfg, batch, cache_len, dtype,
+                                 device=device, stack=(cfg.num_layers,))
+    if cfg.family == "audio":
+        shape = (cfg.num_layers, batch, cfg.encoder_seq_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cross = tuple(torch.zeros(shape, dtype=dtype, device=device)
+                      for _ in range(2))
+        return {"self": kv, "cross": cross}
+    return kv
 
 
 def _prefill_ssm(blocks, cfg, x, cache, backend):
@@ -225,6 +304,11 @@ def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache_len: int, *,
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     if cfg.family == "ssm":
         x = _prefill_ssm(params["blocks"], cfg, x, cache, backend)
+    elif cfg.family == "audio":
+        enc = _encode(params, cfg, batch["audio_embeds"], x.dtype, remat=False,
+                      backend=backend)
+        x = _decode_stack(params, cfg, x, enc, positions, remat=False,
+                          backend=backend, cache=cache)
     elif cfg.family == "hybrid":
         # the shared block fills group g's KV cache.  No window is passed,
         # so it attends within cfg.sliding_window as the JAX prefill does
@@ -249,12 +333,19 @@ def decode_step(params, cfg, tokens, cache, pos: int, *, ring: bool = False,
     """One decode step.  tokens: (B, 1) int; pos: int position of this
     token.  ``backend`` routes the per-layer attention to the
     ``flash_decode`` kernel (``"kernel"``, or ``"auto"`` on the card) or
-    the einsum cache path; ssm layers take the recurrent update.  The
-    cache is updated in place.  Returns (logits (B, V), cache)."""
+    the einsum cache path; ssm layers take the recurrent update; an audio
+    model's cross-attention runs ``attend`` non-causal at Sq = 1 against
+    the cross cache (``flash_attention`` on the card).  The cache is
+    updated in place.  Returns (logits (B, V), cache)."""
     _require_family(cfg)
     x = layers.embed_tokens(params["embed"], tokens)
     kw = dict(ring=ring, window=window, backend=backend)
-    if cfg.family == "hybrid":
+    if cfg.family == "audio":
+        where = torch.full((1,), int(pos), dtype=torch.int32, device=x.device)
+        x = x + _sinusoidal(where, cfg.d_model).to(x.dtype)
+        x, _ = tfm.run_stacked_decode(params["dec_blocks"], cfg, x, cache["self"],
+                                      pos, "dec_cross", enc_kv=cache["cross"], **kw)
+    elif cfg.family == "hybrid":
         # each group's recurrent ssm steps, then the shared block against
         # the group's KV cache (both updated in place)
         for g in range(tfm.depth(params["blocks"])):

@@ -1,12 +1,19 @@
-"""Block-level composition for the dense, moe, ssm and hybrid families:
-stacked-param init (leading layer dims) and the layer loops of forward
-and decode (the counterpart of ``repro/models/transformer.py``).
+"""Block-level composition for the dense, moe, ssm, hybrid and audio
+families: stacked-param init (leading layer dims) and the layer loops of
+forward and decode (the counterpart of ``repro/models/transformer.py``).
 
-  dense : [norm -> self-attn -> +res] [norm -> mlp -> +res]
-  moe   : [norm -> self-attn -> +res] [norm -> moe -> +res]
-  ssm   : [norm -> mamba2 -> +res]
-  hybrid: groups of ssm blocks, each followed by one weight-shared dense
-          block (``models.model`` composes them from the two above)
+  dense    : [norm -> self-attn -> +res] [norm -> mlp -> +res]
+  moe      : [norm -> self-attn -> +res] [norm -> moe -> +res]
+  ssm      : [norm -> mamba2 -> +res]
+  hybrid   : groups of ssm blocks, each followed by one weight-shared
+             dense block (``models.model`` composes them from the two above)
+  dec_cross: [ln1 -> self-attn -> +res] [ln3 -> cross-attn -> +res]
+             [ln2 -> mlp -> +res] (the whisper decoder; its encoder is a
+             non-causal dense stack)
+
+RoPE is off in every block of an audio model (``rope = cfg.family !=
+"audio"``, as in the reference): whisper's positions are added to its
+embeddings.
 
 A Python loop over the stacked leaves takes the place of ``lax.scan``;
 a loop runs over the leading dim of the tree it is given, so a hybrid
@@ -29,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from . import attention, layers, moe as moe_lib, ssm as ssm_lib
 
 PyTree = Any
-KINDS = ("dense", "moe", "ssm")
+KINDS = ("dense", "moe", "ssm", "dec_cross")
 
 
 def _require(kind: str):
@@ -54,6 +61,10 @@ def init_block(cfg, kind: str, dtype, *, generator, device, stack=()) -> PyTree:
     if kind == "moe":
         p["moe"] = moe_lib.init_moe(cfg, dtype, generator=generator, **kw)
     else:
+        if kind == "dec_cross":
+            p["xattn"] = attention.init_cross_attention(cfg, dtype,
+                                                        generator=generator, **kw)
+            p["ln3"] = layers.init_norm(cfg.norm, cfg.d_model, **kw)
         p["mlp"] = layers.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp, dtype,
                                    generator=generator, **kw)
     return p
@@ -95,10 +106,11 @@ def unstack(tree: PyTree):
 # ---------------------------------------------------------------------------
 
 def block_forward(p, cfg, x, kind: str, *, positions=None, causal=True,
-                  prefix_len=0, window=None, backend="auto", kv_cache=None):
+                  prefix_len=0, enc_kv=None, window=None, backend="auto",
+                  kv_cache=None):
     """One block.  Returns (x, metrics): metrics non-empty for moe
     (``moe_block``'s); ``kv_cache`` is filled in place with the block's
-    K/V (prefill)."""
+    K/V (prefill); ``enc_kv`` is a ``dec_cross`` block's cross K/V."""
     _require(kind)
     if kind == "ssm":
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
@@ -107,9 +119,12 @@ def block_forward(p, cfg, x, kind: str, *, positions=None, causal=True,
     h = layers.apply_norm(p["ln1"], x, cfg.norm)
     a = attention.self_attention(p["attn"], cfg, h, positions=positions,
                                  causal=causal, prefix_len=prefix_len,
-                                 window=window, backend=backend,
-                                 kv_cache=kv_cache)
+                                 rope=cfg.family != "audio", window=window,
+                                 backend=backend, kv_cache=kv_cache)
     x = x + a
+    if kind == "dec_cross":
+        h = layers.apply_norm(p["ln3"], x, cfg.norm)
+        x = x + attention.cross_attention(p["xattn"], cfg, h, enc_kv, backend)
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
     if kind == "moe":
         y, metrics = moe_lib.moe_block(p["moe"], cfg, h)
@@ -136,10 +151,11 @@ def run_stacked(blocks: PyTree, cfg, x, kind: str, *, remat=False,
 
 
 def block_decode(p, cfg, x, cache, pos, kind: str, *, ring=False, window=0,
-                 backend="auto"):
+                 enc_kv=None, backend="auto"):
     """One block, one token.  The attention cache is updated in place;
-    the ssm cache is returned anew (its conv window shifts).  Returns
-    (x, cache)."""
+    the ssm cache is returned anew (its conv window shifts); a
+    ``dec_cross`` block reads its cross K/V ``enc_kv``.  Returns (x,
+    cache)."""
     _require(kind)
     if kind == "ssm":
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
@@ -147,9 +163,12 @@ def block_decode(p, cfg, x, cache, pos, kind: str, *, ring=False, window=0,
         return x + y, cache
     h = layers.apply_norm(p["ln1"], x, cfg.norm)
     a, cache = attention.decode_self_attention(
-        p["attn"], cfg, h, cache, pos, ring=ring, window=window,
-        backend=backend)
+        p["attn"], cfg, h, cache, pos, ring=ring, rope=cfg.family != "audio",
+        window=window, backend=backend)
     x = x + a
+    if kind == "dec_cross":
+        h = layers.apply_norm(p["ln3"], x, cfg.norm)
+        x = x + attention.cross_attention(p["xattn"], cfg, h, enc_kv, backend)
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
     if kind == "moe":
         y, _ = moe_lib.moe_block(p["moe"], cfg, h)
@@ -158,13 +177,16 @@ def block_decode(p, cfg, x, cache, pos, kind: str, *, ring=False, window=0,
 
 
 def run_stacked_decode(blocks, cfg, x, caches, pos, kind: str, *, ring=False,
-                       window=0, backend="auto"):
+                       window=0, enc_kv=None, backend="auto"):
     """Loop over (stacked blocks, stacked caches); each layer's cache is
-    written back into the stack in place."""
+    written back into the stack in place.  ``enc_kv``: the stacked cross
+    K/V pair, (L, B, Se, KV, hd) each, read layer by layer."""
     for i in range(depth(blocks)):
         c = layer(caches, i)
+        ekv = None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i])
         x, new = block_decode(layer(blocks, i), cfg, x, c, pos, kind,
-                              ring=ring, window=window, backend=backend)
+                              ring=ring, window=window, enc_kv=ekv,
+                              backend=backend)
         for key, t in new.items():
             if t is not c[key]:
                 c[key].copy_(t)

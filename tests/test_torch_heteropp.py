@@ -232,6 +232,8 @@ def test_spec_checks_and_refusals():
 def test_hybrid_moe_and_other_families_refused():
     with pytest.raises(NotImplementedError, match="hybrid.*ROADMAP C"):
         THP.pipeline_block_kind(tsmoke("zamba2_2p7b"))
+    with pytest.raises(NotImplementedError, match="audio.*ROADMAP C"):
+        THP.pipeline_block_kind(tsmoke("whisper_base"))
     with pytest.raises(NotImplementedError, match="A12"):
         THP.pipeline_block_kind(tsmoke("paligemma_3b"))
     assert THP.pipeline_block_kind(tsmoke("granite_8b")) == "dense"
