@@ -16,7 +16,11 @@ result.  Phases, each of which fails the run by raising:
      (1, 4096, 32/8, 128); zamba2's head_dim 80 and (h 80, n 64) too;
      qwen3-moe's GQA group of 8: prefill, training and decode; whisper's
      non-causal encoder at 1500 frames, cross-attention at 416 and 1
-     query against 1500, and its decode) and
+     query against 1500, and its decode; paligemma's head_dim 256 with
+     its 256-token bidirectional image prefix at B4 S768 H8 KV1, prefill
+     and gradient, and its decode against 800 slots, linear and a ring;
+     ragged prefixes at hd 64 and 128, a prefix under a window, a prefix
+     given to a non-causal call) and
      at edge cases, in fp32 and bf16, and the gradients of the three
      autograd Functions (``flash_attention``, ``ssd_scan``, ``rmsnorm``)
      against the gradients of plain versions written apart from the ones
@@ -187,9 +191,26 @@ result.  Phases, each of which fails the run by raising:
      path's own spread with its keys reversed) and serving as phase 5 (b
      8 x 416, fp32 and bf16; phase 5's limits or E2E_SPREAD x that
      spread).
+ 28. VLM serving: ``repro_torch.launch.serve`` serves paligemma-3b at
+     full width and depth (18 layers, head_dim 256, one kv head; 5.0 GB of
+     bf16 weights), batch 4 x (256 stub image tokens + prompt 512) + 32
+     tokens against an 800-slot cache; the prefill launches 18
+     ``flash_attention`` (the image prefix bidirectional), each decode
+     call 18 ``flash_decode``; then where the time goes (phase 6's
+     method, ``profile_*_paligemma_3b.txt``: the device's idle share of a
+     decode step) and the measured profiler at seq 768 (launches pinned)
+     pricing a plan as phase 12.
+ 29. VLM training: paligemma-3b at full width and depth, batch 4 x 512
+     text behind the 256 image tokens, 5 steps at peak learning rate
+     3e-5; losses finite and falling, 2 x 18 ``flash_attention`` a step;
+     then a warm step traced.
+ 30. kernel path vs plain path, VLM: paligemma-3b's width cut to 4
+     layers, b 2 x (256 image + 256 text): training as phase 9 and
+     serving as phase 5, fp32 and bf16 (bf16 as phase 27).
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
-over the main paths that run it, phases 4, 7, 12, 13, 15–21 and 23–26,
+over the main paths that run it, phases 4, 7, 12, 13, 15–21, 23–26, 28
+and 29,
 each counted from 0; the pipeline phases in each rank's own process,
 summed over the ranks), the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Each phase's heading carries the
@@ -359,13 +380,16 @@ SSD_CASES = [
 ]
 SSD_GRAD = ("grad: b1 S512 h48 p64 g1 n128", 1, 512, 48, 64, 1, 128, 256)
 FA_GRAD = [
-    ("grad: qwen B2 S1024 H16 hd64", 2, 1024, 1024, 16, 16, 64, True, 0, 0),
-    ("grad: window 96, q_offset 64, GQA 8/2", 1, 256, 320, 8, 2, 128, True, 96, 64),
-    ("grad: zamba2 heads B1 S512 H32 hd80", 1, 512, 512, 32, 32, 80, True, 0, 0),
+    ("grad: qwen B2 S1024 H16 hd64", 2, 1024, 1024, 16, 16, 64, True, 0, 0, 0),
+    ("grad: window 96, q_offset 64, GQA 8/2", 1, 256, 320, 8, 2, 128, True, 96, 64, 0),
+    ("grad: zamba2 heads B1 S512 H32 hd80", 1, 512, 512, 32, 32, 80, True, 0, 0, 0),
     # qwen3-moe-30b-a3b's training shape: a GQA group of 8
-    ("grad: qwen3-moe B2 S2048 H32 KV4 hd128", 2, 2048, 2048, 32, 4, 128, True, 0, 0),
+    ("grad: qwen3-moe B2 S2048 H32 KV4 hd128", 2, 2048, 2048, 32, 4, 128, True, 0, 0, 0),
     # whisper-base's encoder at its training batch: non-causal, ragged Sk
-    ("grad: whisper encoder B16 S1500 H8 hd64", 16, 1500, 1500, 8, 8, 64, False, 0, 0),
+    ("grad: whisper encoder B16 S1500 H8 hd64", 16, 1500, 1500, 8, 8, 64, False, 0, 0, 0),
+    # paligemma-3b's training shape: b 4 x (256 image + 512 text), MQA, hd 256
+    ("grad: paligemma B4 S768 H8 KV1 hd256 prefix 256", 4, 768, 768, 8, 1, 256, True, 0, 0,
+     256),
 ]
 # zamba2-2.7b's ssd_scan shapes: h 80 heads of p 64, state n 64
 SSD_ZAMBA2 = [
@@ -389,28 +413,40 @@ HYBRID_SERVE_ARGS = ["--arch", "zamba2_2p7b", "--batch", "4", "--prompt-len", "5
 # Phase 14: zamba2 at full width cut to 2 groups of 6 ssm layers
 HYBRID_CUT_LAYERS = 12
 
-# (label, B, Sq, Sk, H, KV, hd, causal, window, q_offset)
+# (label, B, Sq, Sk, H, KV, hd, causal, window, q_offset, prefix): prefix
+# keys visible to every query under causal (a bidirectional prefix)
 FA_CASES = [
-    ("ragged S=200, hd 64", 2, 200, 200, 4, 4, 64, True, 0, 0),
-    ("GQA 8/2, hd 128", 2, 256, 256, 8, 2, 128, True, 0, 0),
-    ("causal + window 96", 2, 320, 320, 8, 8, 128, True, 96, 0),
-    ("q_offset 320", 1, 100, 420, 4, 2, 128, True, 0, 320),
-    ("non-causal, ragged Sk", 2, 130, 150, 4, 4, 64, False, 0, 0),
-    ("window 50, GQA, hd 64", 1, 300, 300, 8, 4, 64, True, 50, 0),
-    ("ragged S=200, hd 80", 2, 200, 200, 4, 4, 80, True, 0, 0),
-    ("window 96, GQA 8/4, hd 80", 2, 320, 320, 8, 4, 80, True, 96, 0),
+    ("ragged S=200, hd 64", 2, 200, 200, 4, 4, 64, True, 0, 0, 0),
+    ("GQA 8/2, hd 128", 2, 256, 256, 8, 2, 128, True, 0, 0, 0),
+    ("causal + window 96", 2, 320, 320, 8, 8, 128, True, 96, 0, 0),
+    ("q_offset 320", 1, 100, 420, 4, 2, 128, True, 0, 320, 0),
+    ("non-causal, ragged Sk", 2, 130, 150, 4, 4, 64, False, 0, 0, 0),
+    ("window 50, GQA, hd 64", 1, 300, 300, 8, 4, 64, True, 50, 0, 0),
+    ("ragged S=200, hd 80", 2, 200, 200, 4, 4, 80, True, 0, 0, 0),
+    ("window 96, GQA 8/4, hd 80", 2, 320, 320, 8, 4, 80, True, 96, 0, 0),
     # a qwen1.5-0.5b microbatch on a tp-2 member (phases 17, 18): 8 of 16 heads
-    ("qwen tp 2: B2 S1024 H8 hd64", 2, 1024, 1024, 8, 8, 64, True, 0, 0),
+    ("qwen tp 2: B2 S1024 H8 hd64", 2, 1024, 1024, 8, 8, 64, True, 0, 0, 0),
     # qwen3-moe-30b-a3b's grouping (phases 20-24): 32 query heads over 4 kv heads
-    ("GQA 32/4, hd 128", 1, 256, 256, 32, 4, 128, True, 0, 0),
+    ("GQA 32/4, hd 128", 1, 256, 256, 32, 4, 128, True, 0, 0, 0),
+    # paligemma-3b's prefix-LM mask and head_dim 256 (phases 28-30): ragged
+    # prefixes (no multiple of the 64-key tile) at hd 64 and 128, a prefix
+    # under a window, a prefix past the queries with a q_offset (every key
+    # visible), hd 256 alone and with MQA, and a prefix given to a
+    # non-causal call, where it changes nothing
+    ("prefix 100, GQA 4/2, hd 64", 2, 300, 300, 4, 2, 64, True, 0, 0, 100),
+    ("prefix 70, MQA 8/1, hd 128", 1, 260, 260, 8, 1, 128, True, 0, 0, 70),
+    ("prefix 130 + window 96, hd 256", 2, 400, 400, 8, 1, 256, True, 96, 0, 130),
+    ("prefix 300, q_offset 100, hd 64", 1, 200, 300, 4, 2, 64, True, 0, 100, 300),
+    ("ragged S=200, hd 256", 2, 200, 200, 4, 4, 256, True, 0, 0, 0),
+    ("non-causal, prefix 50 ignored", 2, 130, 150, 4, 4, 64, False, 0, 0, 50),
 ]
-FA_SERVE = ("serving: B4 S512 H32 KV8 hd128", 4, 512, 512, 32, 8, 128, True, 0, 0)
+FA_SERVE = ("serving: B4 S512 H32 KV8 hd128", 4, 512, 512, 32, 8, 128, True, 0, 0, 0)
 # t_attn of the profile (phase 12): granite-8b's heads at seq 4096
-FA_PROFILE = ("profile: B1 S4096 H32 KV8 hd128", 1, 4096, 4096, 32, 8, 128, True, 0, 0)
+FA_PROFILE = ("profile: B1 S4096 H32 KV8 hd128", 1, 4096, 4096, 32, 8, 128, True, 0, 0, 0)
 # zamba2-2.7b's shared block: 32 heads of 2560 / 32 = 80, kv 32
 FA_ZAMBA2 = [
-    ("zamba2 prefill: B4 S512 H32 KV32 hd80", 4, 512, 512, 32, 32, 80, True, 0, 0),
-    ("zamba2 training: B4 S2048 H32 KV32 hd80", 4, 2048, 2048, 32, 32, 80, True, 0, 0),
+    ("zamba2 prefill: B4 S512 H32 KV32 hd80", 4, 512, 512, 32, 32, 80, True, 0, 0, 0),
+    ("zamba2 training: B4 S2048 H32 KV32 hd80", 4, 2048, 2048, 32, 32, 80, True, 0, 0, 0),
 ]
 
 # (label, B, KV, G, S, hd, pos, window, softcap, ring, q_scale)
@@ -431,8 +467,8 @@ FD_SERVE = ("serving: B4 KV8 G4 hd128 S544", 4, 8, 4, 544, 128, 543, 0, 0.0, Fal
 # qwen3-moe-30b-a3b's shapes: 32 query heads over 4 kv heads (GQA 8),
 # hd 128; prefill (phase 20), a training batch (phases 21, 22) and decode
 FA_QWEN3_MOE = [
-    ("qwen3-moe prefill: B4 S512 H32 KV4 hd128", 4, 512, 512, 32, 4, 128, True, 0, 0),
-    ("qwen3-moe training: B2 S2048 H32 KV4 hd128", 2, 2048, 2048, 32, 4, 128, True, 0, 0),
+    ("qwen3-moe prefill: B4 S512 H32 KV4 hd128", 4, 512, 512, 32, 4, 128, True, 0, 0, 0),
+    ("qwen3-moe training: B2 S2048 H32 KV4 hd128", 2, 2048, 2048, 32, 4, 128, True, 0, 0, 0),
 ]
 FD_QWEN3_MOE = ("qwen3-moe decode: B4 KV4 G8 hd128 S544", 4, 4, 8, 544, 128, 543, 0, 0.0,
                 False, 1.0)
@@ -446,13 +482,24 @@ FD_ZAMBA2 = ("zamba2 decode: B4 KV32 G1 hd80 S544", 4, 32, 1, 544, 80, 543, 0, 0
 # cross-attention through the prefill kernel at Sq = 1, and the decoder's
 # self-attention at the training batch (16 x 448)
 FA_WHISPER = [
-    ("whisper encoder: B8 S1500 H8 hd64", 8, 1500, 1500, 8, 8, 64, False, 0, 0),
-    ("whisper cross: B8 Sq416 Sk1500 H8", 8, 416, 1500, 8, 8, 64, False, 0, 1084),
-    ("whisper decode cross: B8 Sq1 Sk1500", 8, 1, 1500, 8, 8, 64, False, 0, 1499),
-    ("whisper self: B16 S448 H8 hd64", 16, 448, 448, 8, 8, 64, True, 0, 0),
+    ("whisper encoder: B8 S1500 H8 hd64", 8, 1500, 1500, 8, 8, 64, False, 0, 0, 0),
+    ("whisper cross: B8 Sq416 Sk1500 H8", 8, 416, 1500, 8, 8, 64, False, 0, 1084, 0),
+    ("whisper decode cross: B8 Sq1 Sk1500", 8, 1, 1500, 8, 8, 64, False, 0, 1499, 0),
+    ("whisper self: B16 S448 H8 hd64", 16, 448, 448, 8, 8, 64, True, 0, 0, 0),
 ]
 FD_WHISPER = ("whisper decode: B8 KV8 G1 hd64 S448", 8, 8, 1, 448, 64, 447, 0, 0.0, False,
               1.0)
+# paligemma-3b's shapes (phases 28-30): 8 query heads over one kv head of
+# 256, so G x hd = 2048, the most the decode kernel takes.  The prefill
+# (and the training batch): B 4 x (256 image + 512 text) positions, the
+# first 256 a bidirectional prefix; decode against the 800-slot cache (256
+# + 512 + 32), linear at its last position, and a ring with a window
+FA_PALIGEMMA = ("paligemma prefill: B4 S768 H8 KV1 hd256 prefix 256", 4, 768, 768, 8, 1,
+                256, True, 0, 0, 256)
+FD_PALIGEMMA = ("paligemma decode: B4 KV1 G8 hd256 S800", 4, 1, 8, 800, 256, 799, 0, 0.0,
+                False, 1.0)
+FD_PALIGEMMA_RING = ("paligemma ring + window 300: hd256 S800", 4, 1, 8, 800, 256, 1500, 300,
+                     0.0, True, 1.0)
 
 SERVE_ARGS = ["--arch", "granite_8b", "--batch", "4", "--prompt-len", "512",
               "--gen", "32", "--backend", "auto", "--device", "cuda"]
@@ -498,6 +545,33 @@ WHISPER_SEQ = 448
 # whisper's block is host-bound on the card: its wgrad is a few percent of
 # its ~5 ms backward, so its profile takes more pairs than phase 12's
 WHISPER_PROFILE_ITERS = 100
+
+# Phases 28-30: paligemma-3b (the Gemma-2B language model of 18 layers, d
+# 2048, 8 query heads over 1 kv head of 256, GeGLU d_ff 16384, vocab
+# 257216, tied embeddings; 2.51 B parameters, 5.0 GB in bf16) behind 256
+# stub image tokens that enter as a bidirectional prefix, at full width
+# and depth.  Serving: batch 4 x (256 image + 512 prompt) + 32 tokens, an
+# 800-slot cache; training b 4 x 512 text (768 positions with the prefix):
+# 16 bytes a parameter of weights, gradients and AdamW state (~40 GB) and
+# the 2.1 GB of fp32 logits of the loss's one chunk fit the card whole.  At
+# the launcher's peak learning rate (3e-4, reached at step 5) a random-init
+# paligemma's loss falls from step 1 to 2 (lr 6e-5) and then rises past
+# its first value (12.88, 11.46, 16.13, 13.84, 13.86 on an H100 80GB HBM3
+# at 700 W); it is trained at peak 3e-5, as the four-card granite-8b run
+# at 1e-5
+PALIGEMMA_ARCH = "paligemma_3b"
+PALIGEMMA_LAYERS = 18
+PALIGEMMA_SERVE_ARGS = ["--arch", PALIGEMMA_ARCH, "--batch", "4", "--prompt-len", "512",
+                        "--gen", "32", "--backend", "auto", "--device", "cuda"]
+PALIGEMMA_TRAIN_ARGS = ["--arch", PALIGEMMA_ARCH, "--batch", "4", "--seq", "512", "--steps",
+                        "5", "--lr", "3e-5", "--backend", "auto", "--device", "cuda",
+                        "--log-every", "1"]
+PALIGEMMA_SEQ = 768                  # the profiler's length: 256 image + 512 text
+PALIGEMMA_PROFILE_ITERS = 40
+# Phase 30: the kernel path against the einsum path at full width cut to 4
+# layers, b 2 x (256 image + 256 text)
+PALIGEMMA_CUT_LAYERS = 4
+PALIGEMMA_CUT_BATCH = (2, 256)
 
 # Phase 16: HeteroPP on one card, two ranks sharing it through gloo
 # ("--p2p host": NCCL refuses two ranks on one card).  Each plan is two
@@ -701,6 +775,12 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def fa_kw(case):
+    """The mask arguments of an FA case, as ``flash_attention`` takes them."""
+    *_, causal, window, q_offset, prefix = case
+    return dict(causal=causal, window=window, q_offset=q_offset, prefix_len=prefix)
+
+
 def fa_inputs(case, dtype, gen):
     import torch
     _, B, Sq, Sk, H, KV, hd, *_ = case
@@ -725,19 +805,19 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     fa_err = fd_err = 0.0
-    for case in FA_CASES + [FA_SERVE] + FA_ZAMBA2 + FA_QWEN3_MOE + FA_WHISPER:
-        label, *_, causal, window, q_offset = case
+    for case in (FA_CASES + [FA_SERVE] + FA_ZAMBA2 + FA_QWEN3_MOE + FA_WHISPER
+                 + [FA_PALIGEMMA]):
+        label, kw = case[0], fa_kw(case)
         for dname, dt in dtypes.items():
             q, k, v = fa_inputs(case, dt, gen)
-            got = ops.flash_attention(q, k, v, causal=causal, window=window,
-                                      q_offset=q_offset)
+            got = ops.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            want = ref.flash_attention_ref(q, k, v, causal=causal,
-                                           window=window, q_offset=q_offset)
+            want = ref.flash_attention_ref(q, k, v, **kw)
             e = compare(got, want, dname, f"flash_attention [{label}, {dname}]")
             log(f"  flash_attention {label:32s} {dname:9s} max_abs_err={e:.3e}")
             fa_err = max(fa_err, e) if dname == "bfloat16" else fa_err
-    for case in FD_CASES + [FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE, FD_WHISPER]:
+    for case in FD_CASES + [FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE, FD_WHISPER, FD_PALIGEMMA,
+                            FD_PALIGEMMA_RING]:
         label, *_, pos, window, softcap, ring, _ = case
         for dname, dt in dtypes.items():
             q, [(k, v)] = fd_inputs(case, dt, gen)
@@ -751,17 +831,18 @@ def phase_kernels():
             fd_err = max(fd_err, e) if dname == "bfloat16" else fd_err
 
     # ---- times at the serving shapes (the profile's, zamba2's, qwen3-moe's,
-    # whisper's), bf16 ----
+    # whisper's, paligemma's), bf16 ----
     rows = {}
     fa_rows = {}
-    for case in (FA_SERVE, FA_PROFILE, *FA_ZAMBA2, *FA_QWEN3_MOE, *FA_WHISPER):
+    for case in (FA_SERVE, FA_PROFILE, *FA_ZAMBA2, *FA_QWEN3_MOE, *FA_WHISPER,
+                 FA_PALIGEMMA):
         fa_rows[case[0]], err = fa_timed(case, gen)
         fa_err = max(fa_err, err)
         torch.cuda.empty_cache()
     rows["flash_attention"] = dict(fa_rows[FA_SERVE[0]], max_abs_err=fa_err)
 
     fd_rows = {case[0]: fd_timed(case, gen, fd_err)
-               for case in (FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE, FD_WHISPER)}
+               for case in (FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE, FD_WHISPER, FD_PALIGEMMA)}
     rows["flash_decode"] = fd_rows[FD_SERVE[0]]
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     shown = list(fa_rows.items()) + list(fd_rows.items())
@@ -779,19 +860,25 @@ def fa_timed(case, gen):
     """``flash_attention``'s row of times at ``case`` (bf16), beside its
     plain version, ``scaled_dot_product_attention`` and the bound, and its
     error against the plain version.  The bound counts the (query, key)
-    pairs the mask keeps (causal with q_offset 0 and no window, or every
-    pair).  A single-query call (whisper's decode cross-attention) takes
+    pairs the mask keeps (causal with q_offset 0 and no window, a prefix
+    included: a query at q sees max(q + 1, prefix) keys; or every pair).
+    A prefix goes to the library call as a boolean mask.  A single-query call (whisper's decode cross-attention) takes
     its K/V from a rotation of sets, at least 64 MB of them, so every
     call reads them from device memory as each decoder layer does."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
-    label, B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
-    if window or (causal and q_offset):
+    label, B, Sq, Sk, H, KV, hd, causal, window, q_offset, prefix = case
+    if window or (causal and q_offset) or (prefix and Sq != Sk):
         raise ValueError(f"fa_timed: no bound for the mask of {label}")
-    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    kw = fa_kw(case)
     q, k, v = fa_inputs(case, torch.bfloat16, gen)
+    # SDPA's own causal flag, or the prefix-LM mask (True: attend)
+    lib_kw = dict(is_causal=causal)
+    if causal and prefix:
+        pos = torch.arange(Sq, device="cuda")
+        lib_kw = dict(attn_mask=(pos[None, :] <= pos[:, None]) | (pos[None, :] < prefix))
     kv_bytes = 2 * (k.numel() + v.numel())
     n = max(1, math.ceil(64e6 / kv_bytes)) if Sq == 1 else 1
     sets = [(k, v)] + [fa_inputs(case, torch.bfloat16, gen)[1:] for _ in range(n - 1)]
@@ -801,14 +888,14 @@ def fa_timed(case, gen):
     log(f"  flash_attention {label:32s} bfloat16  max_abs_err={err:.3e}")
     qt = q.transpose(1, 2)
     sets_t = [(kk.transpose(1, 2), vv.transpose(1, 2)) for kk, vv in sets]
-    lib = F.scaled_dot_product_attention(qt, *sets_t[0], is_causal=causal,
+    lib = F.scaled_dot_product_attention(qt, *sets_t[0], **lib_kw,
                                          enable_gqa=True).transpose(1, 2)
     lib_err = compare(lib, want, "bfloat16",
                       "scaled_dot_product_attention yardstick", tol=LIB_TOL)
     log(f"  scaled_dot_product_attention vs plain [{label}]: "
         f"max_abs_err={lib_err:.3e}")
     del lib, want
-    pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+    pairs = B * H * (sum(max(i + 1, prefix) for i in range(Sq)) if causal else Sq * Sk)
     b_ms, b_by = bound(4 * hd * pairs, 2 * 2 * q.numel() + kv_bytes)
     if n > 1:
         log(f"  flash_attention [{label}]: K/V taken in turn from {n} sets "
@@ -819,7 +906,7 @@ def fa_timed(case, gen):
         **timed(lambda i: ops.flash_attention(q, *sets[i % n], **kw),
                 lambda i: ref.flash_attention_ref(q, *sets[i % n], **kw),
                 lambda i: F.scaled_dot_product_attention(
-                    qt, *sets_t[i % n], is_causal=causal, enable_gqa=True),
+                    qt, *sets_t[i % n], **lib_kw, enable_gqa=True),
                 "attn_fwd", iters=200 if Sq == 1 else 20))
     return row, err
 
@@ -927,7 +1014,8 @@ def serve_logits(params, cfg, batch, backend, steps, feed=None):
     import torch
     from repro_torch.models import model as M
 
-    cache, lg, plen = M.prefill(params, cfg, batch, batch["tokens"].shape[1] + steps,
+    cache, lg, plen = M.prefill(params, cfg, batch,
+                                cfg.num_prefix_tokens + batch["tokens"].shape[1] + steps,
                                 backend=backend)
     out, fed = [lg.float()], []
     for i in range(steps):
@@ -946,8 +1034,8 @@ def phase_end_to_end(arch="granite_8b", layers=4, dtype="bfloat16", B=4, S=512):
     each limit is the larger of phase 5's and E2E_SPREAD x the einsum
     path's own distance from itself at other chunks, for an audio model
     from itself with its prefill attention's keys reversed (the same sums
-    in another order), measured on the same weights and tokens (see
-    E2E_SPREAD)."""
+    in another order; a vlm model likewise, its image prefix from the same
+    stream), measured on the same weights and tokens (see E2E_SPREAD)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
@@ -972,7 +1060,7 @@ def phase_end_to_end(arch="granite_8b", layers=4, dtype="bfloat16", B=4, S=512):
         ys = [serve_logits(params, dataclasses.replace(cfg, ssm_chunk=c), batch,
                            "einsum", steps, feed)[0] for c in chunks]
         spreads = [f"einsum at chunk {c}" for c in chunks]
-        if cfg.family == "audio":
+        if cfg.family in ("audio", "vlm"):
             with keys_reversed():
                 ys.append(serve_logits(params, cfg, batch, "einsum", steps, feed)[0])
             spreads.append("einsum with its keys reversed")
@@ -1021,7 +1109,8 @@ def phase_end_to_end(arch="granite_8b", layers=4, dtype="bfloat16", B=4, S=512):
 def phase_profile(arch="granite_8b", B=4, S=512):
     """Where the time goes on a serving path's model at full width and
     depth (granite-8b, 36 layers; qwen3-moe-30b-a3b, 48; whisper-base, 6 +
-    6), bf16, batch ``B``, prompt ``S``.  After a warm-up, one prefill and 4 decode steps are
+    6; paligemma-3b, 18, behind its 256 image tokens), bf16, batch ``B``,
+    prompt ``S``.  After a warm-up, one prefill and 4 decode steps are
     timed on the host clock untraced, then again under ``torch.profiler``
     for the device time by kernel (a separate traced run, so the serve
     phase's numbers carry no tracing cost); a moe model's traced runs
@@ -1044,12 +1133,13 @@ def phase_profile(arch="granite_8b", B=4, S=512):
                                device=dev)
         toks = SyntheticTokens(cfg, DataConfig(batch_size=B, seq_len=S)).next_batch()
         batch = {k: torch.from_numpy(v).to(dev) for k, v in toks.items()}
-        cache, logits, plen = M.prefill(params, cfg, batch, S + steps)
+        cache_len = cfg.num_prefix_tokens + S + steps      # a vlm's image prefix too
+        cache, logits, plen = M.prefill(params, cfg, batch, cache_len)
         tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
 
         def run(label):
             if label == "prefill":
-                M.prefill(params, cfg, batch, S + steps)
+                M.prefill(params, cfg, batch, cache_len)
             else:                     # each step writes its own slot in place
                 for i in range(steps):
                     M.decode_step(params, cfg, tok, cache, plen + i)
@@ -1293,11 +1383,12 @@ def grad_compare(got, want, dtype_name, what):
     return worst
 
 
-def plain_attention(q, k, v, causal, window, q_offset):
+def plain_attention(q, k, v, causal, window, q_offset, prefix_len):
     """Softmax attention written apart from ``ref.flash_attention_ref``
     (the function ``flash_attention``'s backward differentiates), so a
     wrong mask or head mapping in that backward shows: GQA by
-    ``repeat_interleave``, the mask from explicit positions, fp32 math."""
+    ``repeat_interleave``, the mask from explicit positions (the prefix
+    visible to every query under causal), fp32 math."""
     import torch
     r = q.shape[2] // k.shape[2]
     k, v = k.repeat_interleave(r, dim=2).float(), v.repeat_interleave(r, dim=2).float()
@@ -1306,7 +1397,7 @@ def plain_attention(q, k, v, causal, window, q_offset):
     kpos = torch.arange(k.shape[1], device=q.device)[None, :]
     keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device)
     if causal:
-        keep &= kpos <= qpos
+        keep &= (kpos <= qpos) | (kpos < prefix_len)
     if window:
         keep &= qpos - kpos < window
     s = s.masked_fill(~keep, float("-inf"))
@@ -1323,8 +1414,7 @@ def phase_grads():
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     for case in FA_GRAD:
-        label, *_, causal, window, q_offset = case
-        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        label, kw = case[0], fa_kw(case)
         for dname, dt_ in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             q, k, v = [t.requires_grad_() for t in fa_inputs(case, dt_, gen)]
             go = torch.randn(q.shape, generator=gen, device="cuda").to(dt_)
@@ -1438,8 +1528,8 @@ def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4, B
     own spread at other chunks).  A moe model in bf16 is held with the
     einsum path's routing replayed on the kernel path (``moe_routing``),
     its spread the einsum path's with its attention keys reversed, and the
-    free-running kernel path is printed beside it; an audio model (no ssm
-    chunk to vary) takes that spread too."""
+    free-running kernel path is printed beside it; an audio or vlm model
+    (no ssm chunk to vary) takes that spread too."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, make_loader
@@ -1481,7 +1571,7 @@ def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4, B
     names, ne, le = run(cfg, "einsum", steps, moe_routing(routes) if moe else None)
     _, nk, lk = run(cfg, "kernel", steps)
     loss_rtol = TRAIN_LOSS_RTOL if dtype == "float32" else TRAIN_BF16_LOSS_RTOL
-    if cfg.family == "audio" and dtype == "bfloat16":
+    if cfg.family in ("audio", "vlm") and dtype == "bfloat16":
         _, ny, _ = run(cfg, "einsum", 0, keys_reversed())
     if moe and dtype == "bfloat16":
         rel = max(abs(a - b) / b for a, b in zip(lk, le))
@@ -1504,7 +1594,7 @@ def phase_train_kernel_vs_plain(dtype="float32", arch="mamba2_780m", layers=4, B
             f"{worst:.2e} over {len(nk)} leaves (limit {TRAIN_GNORM_RTOL:.0e})")
         grads_ok = worst <= TRAIN_GNORM_RTOL
     else:
-        if moe or cfg.family == "audio":
+        if moe or cfg.family in ("audio", "vlm"):
             rows = bf16_gnorm_rows(names, nk, ne, [ny])
             what = "the einsum path's own spread with its attention keys reversed"
         else:
@@ -3097,6 +3187,55 @@ def phase_whisper_kernel_vs_plain():
         phase_end_to_end(WHISPER_ARCH, WHISPER_LAYERS, dtype, B=8, S=416)
 
 
+def phase_paligemma_serve():
+    """Phase 28: paligemma-3b at full width and depth, batch 4 x (256 image
+    + 512 prompt) + 32 tokens against an 800-slot cache.  The prefill
+    launches 18 ``flash_attention`` (the image prefix bidirectional, head_dim
+    256), each decode call 18 ``flash_decode`` (8 query heads on one kv head
+    of 256); then where the time goes (phase 6's method: the device's idle
+    share of a decode step) and the measured profiler at seq 768 (phase
+    12's method, launches pinned; the reference passes it no prefix)."""
+    L = PALIGEMMA_LAYERS
+    launches = serve_and_check(PALIGEMMA_SERVE_ARGS, "serve_paligemma_3b", L,
+                               lambda calls: {"flash_attention": L, "flash_decode": L * calls,
+                                              "ssd_scan": 0, "rmsnorm": 0})
+    log("  where the time goes: paligemma-3b, 18 layers, B4 x (256 + 512), traced")
+    phase_profile(PALIGEMMA_ARCH, B=4, S=512)
+    log(f"  the measured auto-profiler: paligemma-3b at full width, seq {PALIGEMMA_SEQ}")
+    prof = phase_profiler(PALIGEMMA_ARCH, seq=PALIGEMMA_SEQ, iters=PALIGEMMA_PROFILE_ITERS)
+    return {k: launches[k] + prof[k] for k in launches}
+
+
+def phase_paligemma_train():
+    """Phase 29: paligemma-3b at full width and depth, b 4 x 512 text
+    behind 256 image tokens, bf16, remat on: each step launches 2 x 18
+    ``flash_attention`` (the forward and the recompute, prefix included);
+    losses finite and falling; then a warm step traced."""
+    import torch
+    L = PALIGEMMA_LAYERS
+    launches, state = train_and_check(PALIGEMMA_TRAIN_ARGS, "train_paligemma_3b", L,
+                                      {"flash_attention": 2 * L})
+    log("  where the time goes: a warm paligemma-3b train step, traced")
+    phase_train_profile(state, PALIGEMMA_TRAIN_ARGS, "profile_train_paligemma_3b.txt")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_paligemma_kernel_vs_plain():
+    """Phase 30: paligemma-3b at full width cut to 4 layers, the kernel
+    path against the einsum path: training, 3 steps of b 2 x (256 image +
+    256 text) at phase 9's limits, and serving, prefill of the same batch
+    + 4 decode steps at phase 5's limits, each in fp32 and bf16 (bf16 held
+    to the einsum path's own spread with its keys reversed where that is
+    wider, as phase 27)."""
+    B, S = PALIGEMMA_CUT_BATCH
+    for dtype in ("float32", "bfloat16"):
+        phase_train_kernel_vs_plain(dtype, PALIGEMMA_ARCH, PALIGEMMA_CUT_LAYERS, B=B, S=S)
+    for dtype in ("float32", "bfloat16"):
+        phase_end_to_end(PALIGEMMA_ARCH, PALIGEMMA_CUT_LAYERS, dtype, B=B, S=S)
+
+
 def phase_transports():
     """``--transports``: phase 16 (a)'s qwen1.5-0.5b plan under 1f1b with
     one card a rank, through NCCL (traced: the tracer's object gather on
@@ -3295,6 +3434,20 @@ def main() -> int:
     for name in ("flash_attention", "flash_decode", "rmsnorm"):
         launches[name] += sum(got.get(name, 0) for got in (
             whisper_serve_launches, whisper_train_launches))
+
+    log("== 28. VLM serving: serve paligemma-3b, 18 layers, bf16, B4 x (256 image + 512) "
+        "+ 32")
+    paligemma_serve_launches = phase_paligemma_serve()
+
+    log("== 29. VLM training: train paligemma-3b, 18 layers, bf16, b4 x (256 image + 512)")
+    paligemma_train_launches = phase_paligemma_train()
+
+    log(f"== 30. kernel path vs einsum path, VLM: paligemma-3b width, "
+        f"{PALIGEMMA_CUT_LAYERS} layers; training and serving in fp32 and bf16")
+    phase_paligemma_kernel_vs_plain()
+    for name in ("flash_attention", "flash_decode", "rmsnorm"):
+        launches[name] += sum(got.get(name, 0) for got in (
+            paligemma_serve_launches, paligemma_train_launches))
 
     log("== done")
     kernels = []

@@ -363,9 +363,13 @@ def pipeline_block_kind(cfg: ModelConfig) -> str:
             f"(repro/models/config.py:89-95), and its pipeline slices "
             f"params['blocks'], which an encoder-decoder does not have "
             f"(KeyError: 'blocks'), so it has no audio path to port (ROADMAP C)")
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family == "vlm":
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP A12b)")
+            f"{cfg.name}: the pipeline runs dense, moe and ssm blocks only.  The "
+            f"JAX package's block_kind maps the vlm family to 'dense' "
+            f"(repro/models/config.py:94-95), and its pipeline embeds the tokens "
+            f"alone (repro/core/heteropp.py:708, :885, :1378), so it drops the "
+            f"image prefix silently and has no vlm path to port (ROADMAP C)")
     return cfg.block_kind
 
 

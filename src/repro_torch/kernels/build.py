@@ -30,7 +30,7 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # are c_void_p, or ctypes would pass them as 32-bit ints
 ENTRY_POINTS = {
     "flash_attention": ("repro_flash_attention",
-                        (P, P, P, P, I, I, I, I, I, I, I, I, I, I, P)),
+                        (P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P)),
     "flash_decode": ("repro_flash_decode",
                      (P, P, P, P, P, I, I, I, I, I, I, LL, I, I, F, I, P)),
     "ssd_scan": ("repro_ssd_scan",

@@ -3,9 +3,13 @@
 // Replaces src/repro/kernels/flash_attention.py:31 (_attn_kernel, the
 // Pallas TPU kernel behind repro.kernels.ops.flash_attention).  Same
 // contract as repro_torch/kernels/ref.py::attention_ref: scale 1/sqrt(hd),
-// causal k <= q + q_offset, window k > q + q_offset - window, masked scores
-// set to -1e30 before the softmax, fp32 (m, l, acc) statistics, output
-// divided by max(l, 1e-20) and written in the input type.
+// a key visible under causal when k <= q + q_offset or k < prefix_len (a
+// bidirectional prefix, paligemma's image tokens: the mask of
+// repro/models/attention.py::_mask_bias, which the Pallas kernel lacks and
+// the JAX package computes on its jnp paths), and under window also when
+// k > q + q_offset - window; masked scores set to -1e30 before the
+// softmax, fp32 (m, l, acc) statistics, output divided by max(l, 1e-20)
+// and written in the input type.  hd is 64, 80, 128 or 256.
 //
 // Layout: q (B, Sq, H, hd), k/v (B, Sk, KV, hd), out (B, Sq, H, hd), all
 // contiguous.  GQA is read by index (q head h uses kv head h / (H / KV)),
@@ -19,7 +23,9 @@
 // TFLOP/s bf16 tensor-core peak) and moves about 42 MB (12.5 us at 3.35
 // TB/s): bytes by a little, operations close behind.  At the profiler's
 // shape (1, 4096, 32, 128) it is 137 GFLOP (0.139 ms) against 134 MB
-// (0.040 ms): operations.  Either way the tensor cores set the pace, so
+// (0.040 ms): operations; at paligemma's prefill (4, 768, 8 over 1, 256)
+// with its 256-key prefix, 55.6% of the (q, k) pairs are visible: 10.7
+// GFLOP (0.0109 ms) against 28.3 MB (0.0085 ms), operations.  Either way the tensor cores set the pace, so
 // each dtype takes the design that its arithmetic allows:
 //
 // * bfloat16 -> attn_fwd_tc, on the tensor cores.  A block of two
@@ -35,7 +41,10 @@
 //   registers and V from shared memory (N-major).  hd 80 (zamba2) is held
 //   as two 64-column panels that TMA zero-fills past column 80: five k16
 //   steps of Q K^T, and P V as m64n128k16, the last 48 columns computed on
-//   zeros and never stored.  A warpgroup skips the
+//   zeros and never stored.  hd 256 (paligemma) is four panels: sixteen
+//   k16 steps of Q K^T, and P V as two m64n128k16 chains, one over panels
+//   0-1 and one over panels 2-3, into the two halves of a 128-register
+//   accumulator a thread.  A warpgroup skips the
 //   tiles fully masked for its own 64 rows.  Rounding P to bf16 is the one
 //   departure from the fp32 reference (which keeps P in fp32): rehearsed
 //   on the CPU against the JAX reference (tests/test_torch_kernels.py) it
@@ -62,14 +71,16 @@ constexpr int BK = 64;               // keys per tile
 constexpr float NEG_INF = -1e30f;    // the reference's mask value
 
 // The k tiles [begin, end) that hold an unmasked key for some row of the
-// `rows` q rows from q0 (the same run condition as _attn_kernel).
+// `rows` q rows from q0 (the same run condition as _attn_kernel); under
+// causal the prefix's tiles are visible to every row.
 __device__ __forceinline__ void k_tile_range(int q0, int rows, int Sk,
                                              int causal, int window,
-                                             int q_offset, int& begin,
-                                             int& end) {
+                                             int q_offset, int prefix_len,
+                                             int& begin, int& end) {
   const int q_lo = q0 + q_offset, q_hi = q0 + rows - 1 + q_offset;
   end = (Sk + BK - 1) / BK;
-  if (causal) end = min(end, q_hi < 0 ? 0 : q_hi / BK + 1);
+  if (causal)
+    end = min(end, max(q_hi < 0 ? 0 : q_hi / BK + 1, (prefix_len + BK - 1) / BK));
   begin = 0;
   if (window > 0) {
     const int lo = q_lo - window + 1;
@@ -95,7 +106,7 @@ __global__ void __launch_bounds__(THREADS)
 attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
          const float* __restrict__ v, float* __restrict__ out,
          int Sq, int Sk, int H, int KV, int causal, int window, int q_offset,
-         float scale) {
+         int prefix_len, float scale) {
   constexpr int LD = HD + 1;
   constexpr int CPT = HD / 16;       // accumulator columns per thread
   extern __shared__ float smem[];
@@ -136,7 +147,8 @@ attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
 
   int kt_begin, kt_end;
-  k_tile_range(q0, BQ, Sk, causal, window, q_offset, kt_begin, kt_end);
+  k_tile_range(q0, BQ, Sk, causal, window, q_offset, prefix_len, kt_begin,
+               kt_end);
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                 // last tile's readers are done
@@ -175,7 +187,7 @@ attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
         const int c = cg + 16 * j;
         const int kp = k0 + c;
         bool ok = true;
-        if (causal) ok = kp <= qp;
+        if (causal) ok = kp <= qp || kp < prefix_len;
         if (window > 0) ok = ok && kp > qp - window;
         // keys past Sk do not exist in the reference: -inf gives them
         // exactly zero weight; masked keys that do exist get -1e30 as there
@@ -249,7 +261,7 @@ attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int KV, int causal, int window,
-           int q_offset, cudaStream_t stream) {
+           int q_offset, int prefix_len, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       attn_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -258,7 +270,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   attn_fwd<HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KV,
-      causal, window, q_offset, 1.0f / sqrtf((float)HD));
+      causal, window, q_offset, prefix_len, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
@@ -280,7 +292,9 @@ constexpr uint32_t ROW_BYTES = 128;
 // swizzle that TMA writes and wgmma reads.  At hd 80 the second panel
 // holds columns 64-79 and TMA's zero fill past hd: Q K^T reads 5 k16 steps
 // and never the zeros; P V runs n128 over V's zero columns (37.5% of its
-// work), whose outputs are never stored.
+// work), whose outputs are never stored.  At hd 256 (four panels) Q, two
+// K stages and two V stages take 64 KiB each: 197,656 bytes with the
+// barriers and the slack, inside the 227 KB opt-in.
 template <int HD>
 struct Smem {
   static_assert(HD % 16 == 0, "Q K^T takes k16 steps");
@@ -413,9 +427,15 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 }
 
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128]: A from registers (the
-// accumulator layout of a 64 x 16 slice), B from shared memory N-major
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+// accumulator layout of a 64 x 16 slice), B from shared memory N-major; D
+// is d[OFF, OFF + 64), so that two calls fill the halves of an m64n256
+// accumulator with every element named by a constant index (a cast to a
+// sub-array could put the accumulator in local memory, which the
+// asynchronous wgmma must not write through)
+template <int OFF = 0, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N], const uint32_t (&a)[4],
                                                uint64_t db, int accumulate) {
+  static_assert(OFF % 64 == 0 && OFF + 64 <= N, "a 64-register slice of d");
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
@@ -429,22 +449,22 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+        "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
+        "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
+        "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
+        "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]),
+        "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]),
+        "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
+        "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
@@ -458,7 +478,7 @@ template <int HD>
 struct Tile {
   uint32_t q;                        // this warpgroup's Q rows in shared memory
   uint32_t k, v;                     // stage 0 of K and V
-  int q0, Sk, causal, window, q_offset;
+  int q0, Sk, causal, window, q_offset, prefix_len;
   float scale_log2;
 
   // S = Q K^T for the tile in `stage`, issued and committed, not awaited
@@ -480,17 +500,28 @@ struct Tile {
   }
 
   // o += P V for the tile in `stage`, issued and committed, not awaited
-  // (the caller fences o before the first wgmma of the stage)
+  // (the caller fences o before the first wgmma of the stage).  At ON 256
+  // two n128 chains: columns 0-127 from panels 0-1 into o[0, 64), columns
+  // 128-255 from panels 2-3 into o[64, 128), the accumulator layout of one
+  // m64n256 (8-column group j in o[4 j, 4 j + 4)).
   __device__ __forceinline__ void issue_pv(float (&o)[Smem<HD>::ON / 2],
                                            const uint32_t (&pa)[BK / 16][4],
                                            int stage) const {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {   // 16 keys: two 8-row groups of V
-      const uint64_t db = sw128_desc(v + stage * Smem<HD>::TILE + kk * 16 * ROW_BYTES,
-                                     BK * ROW_BYTES, 1024);
-      if constexpr (Smem<HD>::ON == 64) wgmma_rs_n64(o, pa[kk], db, 1);
-      else wgmma_rs_n128(o, pa[kk], db, 1);
+      const uint32_t at = v + stage * Smem<HD>::TILE + kk * 16 * ROW_BYTES;
+      const uint64_t db = sw128_desc(at, BK * ROW_BYTES, 1024);
+      if constexpr (Smem<HD>::ON == 64) {
+        wgmma_rs_n64(o, pa[kk], db, 1);
+      } else if constexpr (Smem<HD>::ON == 128) {
+        wgmma_rs_n128(o, pa[kk], db, 1);
+      } else {
+        static_assert(Smem<HD>::ON == 256, "P V covers 64, 128 or 256 columns");
+        wgmma_rs_n128<0>(o, pa[kk], db, 1);
+        wgmma_rs_n128<64>(o, pa[kk], sw128_desc(at + 2 * BK * ROW_BYTES, BK * ROW_BYTES,
+                                                1024), 1);
+      }
     }
     wgmma_commit();
   }
@@ -503,9 +534,11 @@ struct Tile {
                                           float (&l)[2], float (&alpha)[2],
                                           uint32_t (&pa)[BK / 16][4]) const {
     // scale into the log2 domain and mask; a tile inside every row's
-    // causal and window bounds, and inside Sk, needs no mask
+    // causal bound (or inside the prefix) and window bound, and inside Sk,
+    // needs no mask
     const bool unmasked =
-        k0 + BK <= Sk && (!causal || k0 + BK - 1 <= q0 + q_offset) &&
+        k0 + BK <= Sk &&
+        (!causal || k0 + BK - 1 <= q0 + q_offset || k0 + BK <= prefix_len) &&
         (window <= 0 || k0 > q0 + BQ - 1 + q_offset - window);
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
@@ -514,7 +547,7 @@ struct Tile {
         const int qp = q0 + row0 + ((j & 2) ? 8 : 0) + q_offset;
         const int kp = k0 + 8 * (j >> 2) + col0 + (j & 1);
         bool ok = true;
-        if (causal) ok = kp <= qp;
+        if (causal) ok = kp <= qp || kp < prefix_len;
         if (window > 0) ok = ok && kp > qp - window;
         // keys past Sk do not exist in the reference: -inf gives them
         // exactly zero weight; masked keys that do exist get -1e30 as there
@@ -575,7 +608,8 @@ attn_fwd_tc(const __grid_constant__ CUtensorMap q_map,
             const __grid_constant__ CUtensorMap k_map,
             const __grid_constant__ CUtensorMap v_map,
             __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H, int KV,
-            int causal, int window, int q_offset, float scale_log2) {
+            int causal, int window, int q_offset, int prefix_len,
+            float scale_log2) {
   using L = Smem<HD>;
   constexpr int NP = L::NP;
   extern __shared__ uint8_t smem_raw[];
@@ -592,8 +626,8 @@ attn_fwd_tc(const __grid_constant__ CUtensorMap q_map,
   const int q0 = qb + wg * BQ;                         // this warpgroup's rows
   const int kvh = h / (H / KV);
   int kt_begin, kt_end, wg_begin, wg_end;   // the block's tiles, and this warpgroup's
-  k_tile_range(qb, BQB, Sk, causal, window, q_offset, kt_begin, kt_end);
-  k_tile_range(q0, BQ, Sk, causal, window, q_offset, wg_begin, wg_end);
+  k_tile_range(qb, BQB, Sk, causal, window, q_offset, prefix_len, kt_begin, kt_end);
+  k_tile_range(q0, BQ, Sk, causal, window, q_offset, prefix_len, wg_begin, wg_end);
   if (q0 >= Sq) wg_end = wg_begin;          // rows past Sq: nothing to compute
   const int n_tiles = max(kt_end - kt_begin, 0);
   // does this warpgroup compute tile i of the block's run?  (uniform over it)
@@ -629,7 +663,7 @@ attn_fwd_tc(const __grid_constant__ CUtensorMap q_map,
   }
 
   const Tile<HD> tile{base + L::Q + wg * BQ * ROW_BYTES, base + L::K, base + L::V,
-                      q0, Sk, causal, window, q_offset, scale_log2};
+                      q0, Sk, causal, window, q_offset, prefix_len, scale_log2};
   const int row0 = 16 * warp + (lane >> 2);   // this thread's rows: row0, row0 + 8
   const int col0 = 2 * (lane & 3);
   float o[L::ON / 2];
@@ -719,7 +753,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int KV, int causal, int window,
-           int q_offset, cudaStream_t stream) {
+           int q_offset, int prefix_len, cudaStream_t stream) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v);
@@ -736,34 +770,47 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(H, B, (Sq + BQB - 1) / BQB);
   attn_fwd_tc<HD><<<grid, THREADS, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, causal,
-      window, q_offset, 1.4426950408889634f / sqrtf((float)HD));
+      window, q_offset, prefix_len, 1.4426950408889634f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  hd 64,
+// 80, 128 or 256; prefix_len >= 0 (0: none).  Returns a cudaError_t (0 =
+// launched).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Sk, int H, int KV, int hd, int causal,
-                                     int window, int q_offset, int dtype,
-                                     void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
+                                     int window, int q_offset, int prefix_len,
+                                     int dtype, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || prefix_len < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64)
-    return cuda_core::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, s);
+    return cuda_core::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+                                 q_offset, prefix_len, s);
   if (dtype == 0 && hd == 80)
-    return cuda_core::launch<80>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, s);
+    return cuda_core::launch<80>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+                                 q_offset, prefix_len, s);
   if (dtype == 0 && hd == 128)
-    return cuda_core::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, s);
+    return cuda_core::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+                                  q_offset, prefix_len, s);
+  if (dtype == 0 && hd == 256)
+    return cuda_core::launch<256>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+                                  q_offset, prefix_len, s);
   if (dtype == 1 && hd == 64)
-    return tc::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, s);
+    return tc::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+                          q_offset, prefix_len, s);
   if (dtype == 1 && hd == 80)
-    return tc::launch<80>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, s);
+    return tc::launch<80>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+                          q_offset, prefix_len, s);
   if (dtype == 1 && hd == 128)
-    return tc::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, s);
+    return tc::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+                           q_offset, prefix_len, s);
+  if (dtype == 1 && hd == 256)
+    return tc::launch<256>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+                           q_offset, prefix_len, s);
   return (int)cudaErrorInvalidValue;
 }

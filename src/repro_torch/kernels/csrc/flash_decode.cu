@@ -15,7 +15,8 @@
 //
 // What bounds it on the card: memory.  A call must read the live part of
 // K and V, 2*B*KV*S*hd*2 bytes in bf16: about 8.9 MB at B=4, KV=8, S=544,
-// hd=128, or 2.7 us at 3.35 TB/s; its arithmetic (4 G flops a byte of K/V
+// hd=128, or 2.7 us at 3.35 TB/s (3.3 MB, 1.0 us, at paligemma's B=4,
+// KV=1, S=800, hd=256); its arithmetic (4 G flops a byte of K/V
 // row) is far below the card's ridge.  Reaching that rate takes many
 // loads in flight on every SM, which one block per (batch row, kv head)
 // (32 blocks on 132 SMs at that shape) cannot give.  Measured on an H100,
@@ -34,7 +35,11 @@
 //     cross-lane reduction) and one 16-byte column chunk of JV V rows for
 //     P V (8 in bf16 at hd 128; at hd 80, whose 10 chunks do not divide
 //     128 threads, 12 subsets of 5 or 6 rows cover the page in bf16, 6 of
-//     10 or 11 in fp32, and 8 threads idle in P V).  The softmax update is one warp a head.  Each thread
+//     10 or 11 in fp32, and 8 threads idle in P V; at hd 256, paligemma's,
+//     4 subsets of 16 rows in bf16 and 2 of 32 in fp32, so a thread holds
+//     32 K and 16 V vectors in bf16, 64 and 32 in fp32, more than the
+//     255-register cap can keep: phase 2 of chip_smoke.py prints the
+//     spills).  The softmax update is one warp a head.  Each thread
 //     keeps its fp32 partial of P V in its own slice of shared memory, so
 //     G stays a runtime value; the block sums the slices and writes its
 //     partial (acc[G][hd], m, l) to scratch.
@@ -351,7 +356,8 @@ int launch(const void* q, const void* k, const void* v, void* part, void* out,
 
 // dtype: 0 = float32, 1 = bfloat16.  part: fp32 scratch of
 // B * KV * n_split * G * (hd + 2) floats.  ring: 0 linear cache, 1 ring
-// buffer.  G * hd above 2048 is refused.  Launches both passes; returns a
+// buffer.  hd 64, 80, 128 or 256; G * hd above 2048 is refused (paligemma's
+// G 8 at hd 256 is exactly 2048).  Launches both passes; returns a
 // cudaError_t (0 = launched).
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   void* part, void* out, int B, int KV, int G,
@@ -367,11 +373,15 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
     return launch<float, 80>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
   if (dtype == 0 && hd == 128)
     return launch<float, 128>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
+  if (dtype == 0 && hd == 256)
+    return launch<float, 256>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
   if (dtype == 1 && hd == 64)
     return launch<__nv_bfloat16, 64>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
   if (dtype == 1 && hd == 80)
     return launch<__nv_bfloat16, 80>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
   if (dtype == 1 && hd == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
+  if (dtype == 1 && hd == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

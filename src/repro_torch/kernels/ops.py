@@ -36,7 +36,7 @@ from . import ref as _ref
 
 NEG_INF = _ref.NEG_INF
 BACKENDS = ("auto", "einsum", "kernel")
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (64, 80, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -126,7 +126,7 @@ def recompute_vjp(name, body, plain, inputs, **static):
     return _RecomputeVJP.apply(f"{name}.backward", body, plain, static, *inputs)
 
 
-def _flash_attention_kernel(q, k, v, *, causal, window, q_offset):
+def _flash_attention_kernel(q, k, v, *, causal, window, q_offset, prefix_len):
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     _check("flash_attention", (q, k, v))
@@ -135,28 +135,34 @@ def _flash_attention_kernel(q, k, v, *, causal, window, q_offset):
     out = torch.empty_like(q)
     _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), B, Sq, Sk, H, KV, hd, int(bool(causal)),
-            int(window), int(q_offset), DTYPE_CODES[q.dtype], _stream())
+            int(window), int(q_offset), int(prefix_len), DTYPE_CODES[q.dtype],
+            _stream())
     flash_attention.launches += 1
     return out
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                    prefix_len=0):
     """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) with H % KV == 0.
     Returns (B, Sq, H, hd) in q's dtype, differentiable.  The kernel
     reads kv head h // (H / KV) in place; the plain path expands GQA
-    with a repeat, as the JAX wrapper does before its kernel."""
+    with a repeat, as the JAX wrapper does before its kernel.
+    ``prefix_len`` keys form a bidirectional prefix under ``causal``
+    (``ref.attention_ref``), which the JAX wrapper does not take."""
     B, Sq, H, hd = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if H % k.shape[2]:
         raise ValueError(f"flash_attention: {H} heads over {k.shape[2]} kv heads")
+    if prefix_len < 0:
+        raise ValueError(f"flash_attention: prefix_len {prefix_len} < 0")
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              prefix_len=prefix_len)
     if q.device.type == "cpu":
-        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                        q_offset=q_offset)
+        return _ref.flash_attention_ref(q, k, v, **kw)
     return recompute_vjp("flash_attention", _flash_attention_kernel,
-                         _ref.flash_attention_ref, (q, k, v), causal=causal,
-                         window=window, q_offset=q_offset)
+                         _ref.flash_attention_ref, (q, k, v), **kw)
 
 
 flash_attention.launches = 0

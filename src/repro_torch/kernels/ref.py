@@ -15,8 +15,13 @@ import torch
 NEG_INF = -1e30
 
 
-def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
-    """q/k/v: (B, Sq/Sk, H, hd), K/V already expanded to H heads."""
+def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0,
+                  prefix_len=0):
+    """q/k/v: (B, Sq/Sk, H, hd), K/V already expanded to H heads.  The
+    mask is ``_mask_bias``'s of ``repro/models/attention.py``: under
+    ``causal`` a key is visible when k <= q + q_offset or k < prefix_len
+    (a bidirectional prefix; it counts only under ``causal``), and under
+    ``window`` also when k > q + q_offset - window."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
@@ -26,6 +31,8 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
         mask = k_pos <= q_pos
+        if prefix_len:
+            mask = mask | (k_pos < prefix_len)
     if window:
         mask = mask & (k_pos > q_pos - window)
     s = torch.where(mask, s, NEG_INF)
@@ -34,7 +41,8 @@ def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
     return out.to(q.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
+def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0,
+                        prefix_len=0):
     """The plain version of ``ops.flash_attention``: k/v (B, Sk, KV, hd)
     expanded to H heads with a repeat, as the JAX wrapper does, then
     ``attention_ref``."""
@@ -43,7 +51,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0):
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     return attention_ref(q, k, v, causal=causal, window=window,
-                         q_offset=q_offset)
+                         q_offset=q_offset, prefix_len=prefix_len)
 
 
 def decode_slot_positions(pos, cache_len, *, ring=False, device=None):

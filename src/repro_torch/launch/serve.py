@@ -13,7 +13,10 @@ on the card and the plain paths on the CPU; ``kernel`` forces the
 kernels (and raises on the CPU).  An ssm model decodes with the
 recurrent update (no kernel, no KV cache); a hybrid one (zamba2) takes
 the recurrent update in its ssm layers and ``flash_decode`` in its
-shared attention block.
+shared attention block.  A vlm model (paligemma) takes the batch's
+``image_embeds`` (the stub frontend's P image tokens) as a bidirectional
+prefix: its linear cache holds P + prompt + gen slots, and decode starts
+at position P + prompt.
 Weights are random, drawn from ``--seed``.  Decode reports per-step
 p50/p95 latency and tokens/s; the same numbers land as histogram/gauge
 rows in ``<run-dir>/metrics.jsonl``.  ``main`` also returns them, with
@@ -81,6 +84,17 @@ def main(argv=None):
     return result
 
 
+def _cache_len(cfg, plan, total):
+    """The prefill's cache length: the plan's, at least the prompt and the
+    generated tokens, and on a linear cache a vlm model's image prefix
+    too, as ``training/serve_step.py::make_prefill_step`` sizes it.  The
+    JAX launcher leaves the prefix out (ROADMAP C), so its update raises
+    or clamps a decode position past the cache's end, and the port's
+    linear cache would raise."""
+    n = max(plan["cache_len"], total)
+    return n if plan["ring"] else n + cfg.num_prefix_tokens
+
+
 def _serve(args, dev, cfg, total, metrics):
     reg = MetricsRegistry()
     if dev.type == "cuda" and args.backend != "einsum":
@@ -102,7 +116,7 @@ def _serve(args, dev, cfg, total, metrics):
 
         t0 = time.perf_counter()
         cache, logits, plen = M.prefill(params, cfg, batch,
-                                        cache_len=max(plan["cache_len"], total),
+                                        cache_len=_cache_len(cfg, plan, total),
                                         backend=args.backend)
         devices.synchronize(dev)
         t_prefill = time.perf_counter() - t0

@@ -129,16 +129,18 @@ def attend(q, k, v, *, q_pos, k_pos, causal=True, window=0, prefix_len=0,
     scale = 1.0 / (q.shape[-1] ** 0.5)
     Sq, Sk = q.shape[1], k.shape[1]
     if backend == "kernel":
-        if softcap or prefix_len:
-            # the prefill kernel expresses neither logit softcap nor a
-            # bidirectional prefix; on the card nothing falls back to the
-            # plain paths (the decode kernel does take a softcap)
+        if softcap:
+            # the prefill kernel has no logit softcap, and on the card
+            # nothing falls back to the plain paths (the decode kernel does
+            # take a softcap)
             raise NotImplementedError(
-                "flash_attention (prefill kernel) has no logit softcap or "
-                f"bidirectional prefix (softcap={softcap}, "
-                f"prefix_len={prefix_len})")
+                f"flash_attention (prefill kernel) has no logit softcap "
+                f"(softcap={softcap})")
+        # the kernel takes the bidirectional prefix itself; the JAX package
+        # sends a prefix to its jnp paths (its Pallas kernel has none)
         return kops.flash_attention(q, k, v, causal=causal, window=window,
-                                    q_offset=int(k_pos.shape[0] - q_pos.shape[0]))
+                                    q_offset=int(k_pos.shape[0] - q_pos.shape[0]),
+                                    prefix_len=int(prefix_len))
     H = q.shape[2]
     k, v = _expand_kv(k, H), _expand_kv(v, H)
     if backend == "einsum" or (backend == "auto" and max(Sq, Sk) <= CHUNK_THRESHOLD):

@@ -1,6 +1,6 @@
 """Top-level model API: init / forward / loss / cache / prefill / decode
-(the counterpart of ``repro/models/model.py`` for the dense, moe, ssm,
-hybrid and audio families).
+(the counterpart of ``repro/models/model.py``, every family of it: dense,
+moe, ssm, hybrid, vlm and audio).
 
 A hybrid model (zamba2) is G = num_layers / hybrid_attn_every groups of
 ``per`` = hybrid_attn_every ssm layers, each group followed by ONE dense
@@ -20,7 +20,16 @@ encoder output.  No block of it applies RoPE.  Its cache is {"self": the
 decoder's {"k", "v"} (L, B, KV, S, hd), "cross": (k, v) each (L, B, Se,
 KV, hd)}; prefill fills both, decode writes "self" and reads "cross".
 
-The vlm family raises ``NotImplementedError`` when a model is built.
+A vlm model (paligemma) is a dense stack whose input is the stub
+frontend's ``image_embeds`` (B, P, d), cast to the embeddings' dtype,
+followed by the token embeddings: RoPE runs over all P + S positions, and
+the first P keys form a bidirectional prefix in every layer
+(``prefix_len = P``).  ``forward`` drops the prefix rows after the final
+norm, so logits and the loss cover the text only; ``prefill`` fills each
+layer's cache with P + S rows and returns P + S as the prompt length.
+Decode is the dense path: a query at position >= P sees the prefix
+causally, so no prefix mask is needed there.  The frontend is a stub: the
+model has no vision weights.
 """
 from __future__ import annotations
 
@@ -35,14 +44,6 @@ from . import attention, layers, ssm as ssm_lib, transformer as tfm
 from .config import ModelConfig
 
 PyTree = Any
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
-
-
-def _require_family(cfg: ModelConfig):
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(the port runs {FAMILIES})")
 
 
 def _hybrid_groups(cfg: ModelConfig):
@@ -62,7 +63,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device: torch.device) -> PyTree:
     """Random weights with the JAX package's distributions, names and
     layouts, drawn from ``generator`` (which must live on ``device``)."""
-    _require_family(cfg)
     dtype = layers.dtype_of(cfg)
     kw = dict(generator=generator, device=device)
     p = {"embed": layers.init_embeddings(cfg, dtype, **kw),
@@ -98,11 +98,10 @@ def param_count(params: PyTree) -> int:
 
 def forward(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, remat: bool = True, backend: str = "auto", unembed: bool = True):
-    """Returns (logits, metrics); with ``unembed=False`` returns the
-    final-norm hidden states instead (used by the chunked loss)."""
-    _require_family(cfg)
-    tokens = batch["tokens"]
-    x = layers.embed_tokens(params["embed"], tokens)
+    """Returns (logits over the text positions, metrics); with
+    ``unembed=False`` returns the final-norm hidden states instead (used
+    by the chunked loss)."""
+    x, prefix_len = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     if cfg.family == "audio":
         enc = _encode(params, cfg, batch["audio_embeds"], x.dtype, remat=remat,
@@ -116,12 +115,24 @@ def forward(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     else:
         x, aux = tfm.run_stacked(params["blocks"], cfg, x, cfg.block_kind,
                                  remat=remat, backend=backend,
-                                 positions=positions)
+                                 positions=positions, prefix_len=prefix_len)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
+    x = x[:, prefix_len:]
     metrics = {"aux_loss": aux}
     if not unembed:
         return x, metrics
     return layers.unembed(params["embed"], x), metrics
+
+
+def _embed_inputs(params, cfg, batch):
+    """The token embeddings, after a vlm model's ``image_embeds`` (B, P, d)
+    in their dtype.  Returns (x, the prefix length P; 0 for the other
+    families)."""
+    x = layers.embed_tokens(params["embed"], batch["tokens"])
+    if cfg.family != "vlm":
+        return x, 0
+    img = batch["image_embeds"].to(x.dtype)
+    return torch.cat([img, x], dim=1), img.shape[1]
 
 
 def _hybrid_forward(params, cfg, x, positions, *, remat, backend):
@@ -253,7 +264,6 @@ def init_cache(cfg, batch: int, cache_len: int, *, device, ring: bool = False):
     {"k", "v"} for each group, leading dim G}; audio: {"self": the
     decoder's {"k", "v"} as dense, "cross": (k, v) each (L, B,
     encoder_seq_len, KV, hd), which prefill overwrites}."""
-    _require_family(cfg)
     dtype = layers.dtype_of(cfg)
     if cfg.family == "ssm":
         return ssm_lib.init_ssm_cache(cfg, batch, dtype, device=device,
@@ -292,15 +302,17 @@ def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache_len: int, *,
             ring: bool = False, backend: str = "auto"):
     """Run the prompt through the model, filling caches.
 
-    Returns (cache, logits of the last position (B, V), prompt_len).
+    Returns (cache, logits of the last position (B, V), prompt_len): a
+    vlm model's prompt is its P image positions and its S tokens, and its
+    cache needs ``cache_len`` >= P + S.
     For ring caches the prompt must fit in the window (serving code feeds
     the window tail only) — standard SWA semantics.
     """
-    _require_family(cfg)
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
     cache = init_cache(cfg, B, cache_len, device=tokens.device)
-    x = layers.embed_tokens(params["embed"], tokens)
+    x, prefix_len = _embed_inputs(params, cfg, batch)
+    S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     if cfg.family == "ssm":
         x = _prefill_ssm(params["blocks"], cfg, x, cache, backend)
@@ -321,8 +333,8 @@ def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache_len: int, *,
                                      kv_cache=tfm.layer(cache["attn"], g))
     else:
         x, _ = tfm.run_stacked(params["blocks"], cfg, x, cfg.block_kind,
-                               positions=positions, backend=backend,
-                               caches=cache)
+                               positions=positions, prefix_len=prefix_len,
+                               backend=backend, caches=cache)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     logits = layers.unembed(params["embed"], x[:, -1:])[:, 0]
     return cache, logits, S
@@ -337,7 +349,6 @@ def decode_step(params, cfg, tokens, cache, pos: int, *, ring: bool = False,
     model's cross-attention runs ``attend`` non-causal at Sq = 1 against
     the cross cache (``flash_attention`` on the card).  The cache is
     updated in place.  Returns (logits (B, V), cache)."""
-    _require_family(cfg)
     x = layers.embed_tokens(params["embed"], tokens)
     kw = dict(ring=ring, window=window, backend=backend)
     if cfg.family == "audio":

@@ -234,7 +234,7 @@ def test_hybrid_moe_and_other_families_refused():
         THP.pipeline_block_kind(tsmoke("zamba2_2p7b"))
     with pytest.raises(NotImplementedError, match="audio.*ROADMAP C"):
         THP.pipeline_block_kind(tsmoke("whisper_base"))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="vlm.*image prefix.*ROADMAP C"):
         THP.pipeline_block_kind(tsmoke("paligemma_3b"))
     assert THP.pipeline_block_kind(tsmoke("granite_8b")) == "dense"
     assert THP.pipeline_block_kind(tsmoke("mamba2_780m")) == "ssm"

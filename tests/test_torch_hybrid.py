@@ -215,11 +215,11 @@ def _count_kernel_calls(monkeypatch):
             return plain(*ins, **kw)
         return body
 
-    def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, prefix_len=0):
         return tops.recompute_vjp(
             "flash_attention", counted("flash_attention", tref.flash_attention_ref),
             tref.flash_attention_ref, (q, k, v), causal=causal, window=window,
-            q_offset=q_offset)
+            q_offset=q_offset, prefix_len=prefix_len)
 
     def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None):
         assert initial_state is None

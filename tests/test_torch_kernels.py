@@ -65,6 +65,7 @@ FA_CASES = [
     (1, 20, 20, 2, 2, 128, True, 5, 0),       # hd 128 + window
     (2, 70, 70, 4, 4, 80, True, 0, 0),        # hd 80 (zamba2), ragged S
     (1, 24, 40, 4, 2, 80, True, 6, 16),       # hd 80, window, q_offset, GQA
+    (1, 20, 20, 8, 1, 256, True, 0, 0),       # hd 256, MQA 8/1 (paligemma)
 ]
 
 
@@ -90,20 +91,21 @@ def test_flash_attention_plain_matches_jax(B, Sq, Sk, H, KV, hd, causal,
     assert tops.flash_attention.launches == 0     # no kernel ran on the CPU
 
 
-def _k_tile_range(q0, Sk, causal, window, q_offset, bq=64, bk=64):
+def _k_tile_range(q0, Sk, causal, window, q_offset, prefix_len=0, bq=64, bk=64):
     """``k_tile_range`` of ``flash_attention.cu``: the 64-key tiles that
-    hold an unmasked key for some row of the q tile at q0."""
+    hold an unmasked key for some row of the q tile at q0 (under causal,
+    the prefix's tiles for every row)."""
     end = -(-Sk // bk)
     q_hi = q0 + bq - 1 + q_offset
     if causal:
-        end = min(end, 0 if q_hi < 0 else q_hi // bk + 1)
+        end = min(end, max(0 if q_hi < 0 else q_hi // bk + 1, -(-prefix_len // bk)))
     lo = q0 + q_offset - window + 1
     begin = lo // bk if window > 0 and lo > 0 else 0
     return begin, end
 
 
-def tc_attention_emulated(q, k, v, *, causal, window, q_offset, round_p=True,
-                          bq=64, bk=64, panel=64):
+def tc_attention_emulated(q, k, v, *, causal, window, q_offset, prefix_len=0,
+                          round_p=True, bq=64, bk=64, panel=64):
     """The bf16 tensor-core ``flash_attention``'s arithmetic in plain
     PyTorch: per 64-row q tile, its visited 64-key tiles in order; S = Q K^T
     summed in fp32 (products of bf16 inputs are exact); scores scaled into
@@ -111,8 +113,9 @@ def tc_attention_emulated(q, k, v, *, causal, window, q_offset, round_p=True,
     and exp2; P rounded to bf16 (``round_p``) before P V, summed in fp32;
     output / max(l, 1e-20) in the input dtype.  As in shared memory, Q, K
     and V are whole 64-column panels, zero past hd (hd 80: two panels, 48
-    zero columns), and P V computes every panel column; the first hd are
-    the output."""
+    zero columns; hd 256: four), and P V computes every panel column; the
+    first hd are the output.  Under causal the first ``prefix_len`` keys
+    are visible to every row."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     on = -(-hd // panel) * panel
@@ -128,12 +131,13 @@ def tc_attention_emulated(q, k, v, *, causal, window, q_offset, round_p=True,
         m = torch.full((B, H, rows.stop - q0, 1), tref.NEG_INF)
         l = torch.zeros_like(m)
         acc = torch.zeros(B, H, rows.stop - q0, on)
-        for kt in range(*_k_tile_range(q0, Sk, causal, window, q_offset, bq, bk)):
+        for kt in range(*_k_tile_range(q0, Sk, causal, window, q_offset, prefix_len,
+                                       bq, bk)):
             keys = slice(kt * bk, min(kt * bk + bk, Sk))
             kp = torch.arange(keys.start, keys.stop)[None, :]
             ok = torch.ones(qp.shape[0], kp.shape[1], dtype=torch.bool)
             if causal:
-                ok = kp <= qp
+                ok = (kp <= qp) | (kp < prefix_len)
             if window:
                 ok = ok & (kp > qp - window)
             s = torch.einsum("bqhd,bkhd->bhqk", q[:, rows].float(), kf[:, keys])
@@ -150,23 +154,43 @@ def tc_attention_emulated(q, k, v, *, causal, window, q_offset, round_p=True,
     return out[..., :hd].to(q.dtype)
 
 
+def jax_prefix_attention(q, k, v, *, causal, window, q_offset, prefix_len):
+    """The JAX package's prefix-LM attention in fp32: ``_attend_einsum``
+    with ``_mask_bias`` (``repro/models/attention.py``), on numpy or JAX
+    inputs, K/V (B, Sk, KV, hd) expanded to the query heads."""
+    q, k, v = (jnp.asarray(t, dtype=jnp.float32) for t in (q, k, v))
+    rep = q.shape[2] // k.shape[2]
+    q_pos = jnp.arange(q.shape[1], dtype=jnp.int32) + q_offset
+    k_pos = jnp.arange(k.shape[1], dtype=jnp.int32)
+    bias = jattn._mask_bias(q_pos, k_pos, causal, window, prefix_len)
+    return jattn._attend_einsum(q, jnp.repeat(k, rep, 2), jnp.repeat(v, rep, 2), bias,
+                                1.0 / math.sqrt(q.shape[-1]))
+
+
 @pytest.mark.parametrize("case", CS.FA_CASES, ids=[c[0] for c in CS.FA_CASES])
 def test_flash_attention_tensor_core_numerics_match_jax(case):
     """bf16 inputs at chip_smoke's FA_CASES shapes: the tensor-core
-    arithmetic (bf16 P) against the JAX ``attention_ref`` under
-    chip_smoke's unchanged bf16 tolerance (TOL["bfloat16"], the bound the
-    kernel meets against its plain version on the card)."""
-    _, B, Sq, Sk, H, KV, hd, causal, window, q_offset = case
+    arithmetic (bf16 P) against the JAX ``attention_ref`` (with a prefix,
+    the JAX package's ``_attend_einsum`` + ``_mask_bias`` in fp32 on the
+    same bf16 values) under chip_smoke's unchanged bf16 tolerance
+    (TOL["bfloat16"], the bound the kernel meets against its plain version
+    on the card)."""
+    _, B, Sq, Sk, H, KV, hd, causal, window, q_offset, prefix = case
     rng = np.random.default_rng(Sq * 7 + Sk + H)
     q, k, v = (torch.from_numpy(_randn(rng, *shape)).bfloat16()
                for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     rep = H // KV
-    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v))
-    want = np.asarray(jref.attention_ref(jq, jnp.repeat(jk, rep, 2),
-                                         jnp.repeat(jv, rep, 2), **kw)
-                      .astype(jnp.float32))
-    got = tc_attention_emulated(q, k, v, **kw)
+    if prefix:
+        want = np.asarray(jax_prefix_attention(*(t.float().numpy() for t in (q, k, v)),
+                                               prefix_len=prefix, **kw))
+    else:
+        jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (q, k, v))
+        want = np.asarray(jref.attention_ref(jq, jnp.repeat(jk, rep, 2),
+                                             jnp.repeat(jv, rep, 2), **kw)
+                          .astype(jnp.float32))
+    got = tc_attention_emulated(q, k, v, prefix_len=prefix, **kw)
     assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, hd)
     atol, rtol = CS.TOL["bfloat16"]
     np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=rtol)
@@ -209,6 +233,7 @@ FD_CASES = [
     (2, 2, 2, 40, 128, 39, dict(softcap=50.0), 30.0),             # softcap
     (2, 4, 1, 150, 80, 140, {}, 1.0),                             # hd 80, G 1 (zamba2)
     (1, 2, 4, 200, 80, 190, dict(ring=True, window=70), 1.0),     # hd 80, G 4, ring
+    (2, 1, 8, 100, 256, 90, {}, 1.0),                             # hd 256, G 8 (paligemma)
 ]
 
 
@@ -244,7 +269,7 @@ def pv_partition(hd, vec, threads=128, page=64):
 
 
 @pytest.mark.parametrize("vec", [4, 8], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 def test_flash_decode_pv_partition_covers_every_row(hd, vec):
     """Every row of a page is summed by exactly one subset, with no more
     threads than the block has.  At hd 80 the vectors of a row (10 in
@@ -449,20 +474,29 @@ def test_kernel_backend_raises_on_cpu_tensors():
 
 @pytest.mark.parametrize("kw", [dict(softcap=30.0), dict(prefix_len=2)])
 def test_kernel_backend_refuses_softcap_and_prefix(monkeypatch, kw):
-    """Where ``attend`` takes the prefill kernel (CUDA tensors), a logit
-    softcap or a bidirectional prefix raises instead of rerouting to the
-    plain paths.  The resolved backend is forced to ``kernel`` here, as
-    on the card, and the kernel must not be reached."""
+    """Where ``attend`` takes the prefill kernel (CUDA tensors), nothing is
+    rerouted to the plain paths: a logit softcap, which the kernel lacks,
+    raises before the kernel is reached; a bidirectional prefix reaches
+    ``flash_attention`` with its ``prefix_len``, which the kernel takes.
+    The resolved backend is forced to ``kernel`` here, as on the card."""
     x = torch.zeros(1, 4, 2, 64)
     pos = torch.arange(4, dtype=torch.int32)
     monkeypatch.setattr(tops, "resolve_backend", lambda backend, t: "kernel")
+    monkeypatch.setattr(tattn, "_attend_einsum", lambda *a, **k: pytest.fail("plain path"))
+    calls = []
 
-    def no_kernel(*a, **k):
-        raise AssertionError("flash_attention reached")
+    def kernel(q, k, v, **static):
+        calls.append(static)
+        return q
 
-    monkeypatch.setattr(tops, "flash_attention", no_kernel)
-    with pytest.raises(NotImplementedError, match="flash_attention"):
+    monkeypatch.setattr(tops, "flash_attention", kernel)
+    if "softcap" in kw:
+        with pytest.raises(NotImplementedError, match="flash_attention"):
+            tattn.attend(x, x, x, q_pos=pos, k_pos=pos, backend="kernel", **kw)
+        assert not calls
+    else:
         tattn.attend(x, x, x, q_pos=pos, k_pos=pos, backend="kernel", **kw)
+        assert calls == [dict(causal=True, window=0, q_offset=0, prefix_len=2)]
 
 
 def test_cpu_wrappers_check_shapes():
