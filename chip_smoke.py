@@ -21,19 +21,22 @@ result.  Phases, each of which fails the run by raising:
      and gradient, and its decode against 800 slots, linear and a ring;
      ragged prefixes at hd 64 and 128, a prefix under a window, a prefix
      given to a non-causal call) and
-     at edge cases, in fp32 and bf16, and the gradients of the three
-     autograd Functions (``flash_attention``, ``ssd_scan``, ``rmsnorm``)
+     at edge cases, in fp32, bf16 and fp16 (``TOL``; fp16 ``ssd_scan``
+     is the CUDA-core kernel), and the gradients of the three
+     autograd Functions (``flash_attention`` and ``rmsnorm`` in all
+     three dtypes, ``ssd_scan`` in fp32)
      against the gradients of plain versions written apart from the ones
      their backward passes recompute; timed with CUDA events and profiler
      device time beside one PyTorch library call (where there is one) and
-     the card's bound for the same work.
+     the card's bound for the same work, in bf16 at every main path's
+     shape and in fp16 at the serving / training / profile shape.
   4. serving path: ``repro_torch.launch.serve`` serves granite-8b at full
      width and depth (36 layers, bf16) from seeded random weights, batch
      4, prompt 512, 32 generated tokens; every attention call of prefill
      and decode must have launched a kernel (launch counts).
   5. kernel path vs plain path end to end: granite-8b at full width cut
      to 4 layers, prefill and 4 decode steps, ``--backend kernel`` vs
-     ``--backend einsum`` in bf16.
+     ``--backend einsum`` in bf16 and in fp16 (bf16's limits).
   6. where the time goes in serving: the same 36-layer model, warm
      prefill and decode steps timed untraced, then traced with
      ``torch.profiler`` (tables in ``build/chip_smoke/profile_*.txt``).
@@ -46,7 +49,8 @@ result.  Phases, each of which fails the run by raising:
   9. kernel path vs plain path in training: mamba2-780m width cut to 4
      layers, 3 steps from the same weights and batches with
      ``--backend kernel`` and ``--backend einsum``, in fp32 (the CUDA-core
-     ``ssd_scan``) and in bf16 (the tensor-core one).
+     ``ssd_scan``), in bf16 (the tensor-core one) and in fp16 (the
+     CUDA-core one reading fp16; bf16's limits).
  10. SSM serving: mamba2-780m, 48 layers, batch 4, prompt 512, 32 tokens;
      one ``ssd_scan`` per layer in the prefill.
  11. dense training through ``flash_attention``'s gradient: qwen1.5-0.5b
@@ -207,10 +211,25 @@ result.  Phases, each of which fails the run by raising:
  30. kernel path vs plain path, VLM: paligemma-3b's width cut to 4
      layers, b 2 x (256 image + 256 text): training as phase 9 and
      serving as phase 5, fp32 and bf16 (bf16 as phase 27).
+ 31. the DiTorch precision harness (``repro_torch.precision``), operator
+     level: ``operator_sweep`` on the card, 6 ops x 4 regimes (bf16 and
+     fp16, one and several accumulation chunks) against the fp32 one in
+     IEEE fp32 (TF32 off, the reduced-precision fp16 / bf16 reductions at
+     PyTorch's defaults, printed); every op and regime present, every
+     bf16 regime inside the 0.1 tolerance, every error finite.
+ 32. the harness, model level: qwen1.5-0.5b at full width and depth (24
+     layers, vocab 151936), b 4 x 512, trained 50 iterations each in
+     fp32, bf16 and fp16 from one seed on one stream through the card's
+     kernels in each dtype; first and last loss, step p50, peak memory,
+     24 ``flash_attention`` a step (pinned), the share of embedding rows
+     whose first gradient is zero; bf16's loss-curve MRE against fp32
+     under the paper's 1.5%, every loss finite, fp16's MRE printed (the
+     reference, without loss scaling, drops fp16's softmax gradient at
+     this vocabulary: ``ALIGN_HELD``).
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
-over the main paths that run it, phases 4, 7, 12, 13, 15–21, 23–26, 28
-and 29,
+over the main paths that run it, phases 4, 7, 12, 13, 15–21, 23–26, 28,
+29 and 32, each kernel's fp16 row under ``"float16"``,
 each counted from 0; the pipeline phases in each rank's own process,
 summed over the ranks), the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Each phase's heading carries the
@@ -246,7 +265,8 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores and HBM3 bandwidth
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores (fp16's peak is
+# the same) and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -260,7 +280,14 @@ PEAK_BYTES_PER_S = 3.35e12
 # was 1.95e-3, so 4e-3 abs gives it twice that margin: still about 5% of
 # a typical output at the serving shape (~0.07), so a dropped key or a
 # wrongly masked tile shows.
-TOL = {"float32": (1e-4, 0.0), "bfloat16": (4e-3, 1e-2)}
+# fp16: both compute in fp32 and round the result to fp16 once, so they
+# may land one fp16 step apart (2^-10 of the value, inside 2e-3 rel).  The
+# tensor-core flash_attention also rounds P to fp16 (11 significant bits)
+# before P V: at most 2^-11 of each P, so at most 2^-11 x max |v| on an
+# output (about 2.6e-3 at the ~5-sigma |v| of these draws); the CPU
+# rehearsal (tests/test_torch_kernels.py) reads 2.8e-3 over 2e-3 rel at
+# worst.  So fp16 keeps bf16's atol and a fifth of its rtol: no looser.
+TOL = {"float32": (1e-4, 0.0), "bfloat16": (4e-3, 1e-2), "float16": (4e-3, 2e-3)}
 # scaled_dot_product_attention (a yardstick for time only) rounds the
 # probabilities to bf16 before the product with V, as the einsum path
 # does; it sat 1.56e-2 from the plain version on an H100.
@@ -304,7 +331,9 @@ SSD_TOL = (1e-4, 1e-3)
 # chunked form against the sequential ``ref.ssd_ref``), so they agree to
 # fp32 rounding, or to one bf16 step of the gradient; atol as a share of
 # the largest entry.
-GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# fp16: both round their fp32 gradient to fp16 once, one fp16 step
+# (2^-10 of an entry, so at most ~1e-3 of the largest) apart.
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 2e-3}
 # Training, kernel path vs einsum path in fp32 (phase 9): the SSD forward
 # differs in summation order only (~1e-6 relative), and three AdamW steps
 # keep that size: losses within 1e-4 relative, per-leaf gradient norms
@@ -669,6 +698,26 @@ DOMAIN_SYNCS = [("ZeRO-1", "reduce_scatter", GRID_PARITY_BUCKET), ("per-leaf psu
 DOMAIN_PARITY = ("mamba2_780m", 4, 1, 2048)
 
 
+# Phases 31-32, the DiTorch precision harness (repro_torch.precision): the
+# operator sweep at the reference's tolerance, and qwen1.5-0.5b (the
+# harness's own model in the reference's tests) at full width and depth,
+# trained under fp32, bf16 and fp16 for the reference's default 50
+# iterations each from one seed on one stream, b 4 x 512 (2048 tokens a
+# step, as phase 11), remat off as in the reference's curves: one
+# flash_attention a layer a step (the backward recomputes the plain
+# version).
+# bf16's curve is held to the paper's criterion.  fp16's is held to finite
+# losses, its MRE printed: the reference has no loss scaling, and at this
+# vocabulary (151936) and batch (2048 tokens) the logits' gradient
+# p_j / 2048 (~3e-9) rounds to zero in fp16, so the softmax gradient of
+# every token absent from a batch is dropped, in the JAX package as in the
+# port (tests/test_torch_fp16.py; ROADMAP C).  The phase prints the share
+# of the tied embedding's rows whose first gradient is exactly zero.
+SWEEP_TOL = 0.1
+ALIGN_ARCH, ALIGN_ITERS, ALIGN_BATCH, ALIGN_SEQ = "qwen1p5_0p5b", 50, 4, 512
+ALIGN_DTYPES = ("float32", "bfloat16", "float16")
+ALIGN_HELD = ("bfloat16",)
+
 T0 = time.perf_counter()
 
 
@@ -775,6 +824,13 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def kernel_dtypes():
+    """The kernels' input types, by name: each check runs in all three."""
+    import torch
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}
+
+
 def fa_kw(case):
     """The mask arguments of an FA case, as ``flash_attention`` takes them."""
     *_, causal, window, q_offset, prefix = case
@@ -799,11 +855,16 @@ def fd_inputs(case, dtype, gen, n_caches=1):
 
 
 def phase_kernels():
+    """The attention kernels against their plain versions in fp32, bf16
+    and fp16 at every case; their rows of times in bf16 (the kernels
+    line) and in fp16 at the serving shape.  Returns (bf16 rows, fp16
+    rows) by kernel."""
     import torch
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    dtypes = kernel_dtypes()
+    err16 = {"flash_attention": 0.0, "flash_decode": 0.0}
     fa_err = fd_err = 0.0
     for case in (FA_CASES + [FA_SERVE] + FA_ZAMBA2 + FA_QWEN3_MOE + FA_WHISPER
                  + [FA_PALIGEMMA]):
@@ -816,6 +877,8 @@ def phase_kernels():
             e = compare(got, want, dname, f"flash_attention [{label}, {dname}]")
             log(f"  flash_attention {label:32s} {dname:9s} max_abs_err={e:.3e}")
             fa_err = max(fa_err, e) if dname == "bfloat16" else fa_err
+            if dname == "float16":
+                err16["flash_attention"] = max(err16["flash_attention"], e)
     for case in FD_CASES + [FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE, FD_WHISPER, FD_PALIGEMMA,
                             FD_PALIGEMMA_RING]:
         label, *_, pos, window, softcap, ring, _ = case
@@ -829,6 +892,8 @@ def phase_kernels():
             e = compare(got, want, dname, f"flash_decode [{label}, {dname}]")
             log(f"  flash_decode    {label:32s} {dname:9s} max_abs_err={e:.3e}")
             fd_err = max(fd_err, e) if dname == "bfloat16" else fd_err
+            if dname == "float16":
+                err16["flash_decode"] = max(err16["flash_decode"], e)
 
     # ---- times at the serving shapes (the profile's, zamba2's, qwen3-moe's,
     # whisper's, paligemma's), bf16 ----
@@ -844,8 +909,14 @@ def phase_kernels():
     fd_rows = {case[0]: fd_timed(case, gen, fd_err)
                for case in (FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE, FD_WHISPER, FD_PALIGEMMA)}
     rows["flash_decode"] = fd_rows[FD_SERVE[0]]
+    # the serving shapes in fp16
+    row16, err = fa_timed(FA_SERVE, gen, torch.float16)
+    rows16 = {"flash_attention": dict(row16, max_abs_err=max(err, err16["flash_attention"])),
+              "flash_decode": fd_timed(FD_SERVE, gen, err16["flash_decode"], torch.float16)}
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
-    shown = list(fa_rows.items()) + list(fd_rows.items())
+    shown = list(fa_rows.items()) + list(fd_rows.items()) + [
+        (f"{FA_SERVE[0]}, fp16", rows16["flash_attention"]),
+        (f"{FD_SERVE[0]}, fp16", rows16["flash_decode"])]
     for label, r in shown:
         log(f"  {r['name']} per call [{label}], CUDA events: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms; "
@@ -853,11 +924,12 @@ def phase_kernels():
         log(f"  {r['name']} per call [{label}], device time (profiler): kernel "
             f"{fmt(r['device_ms'])}, whole wrapper {fmt(r['wrapper_device_ms'])}, "
             f"plain {fmt(r['plain_device_ms'])}, library {fmt(r['library_device_ms'])}")
-    return rows
+    return rows, rows16
 
 
-def fa_timed(case, gen):
-    """``flash_attention``'s row of times at ``case`` (bf16), beside its
+def fa_timed(case, gen, dtype=None):
+    """``flash_attention``'s row of times at ``case`` (bf16 unless
+    ``dtype`` says otherwise; the bound is the same for fp16), beside its
     plain version, ``scaled_dot_product_attention`` and the bound, and its
     error against the plain version.  The bound counts the (query, key)
     pairs the mask keeps (causal with q_offset 0 and no window, a prefix
@@ -873,7 +945,9 @@ def fa_timed(case, gen):
     if window or (causal and q_offset) or (prefix and Sq != Sk):
         raise ValueError(f"fa_timed: no bound for the mask of {label}")
     kw = fa_kw(case)
-    q, k, v = fa_inputs(case, torch.bfloat16, gen)
+    dtype = dtype or torch.bfloat16
+    dname = str(dtype).split(".")[-1]
+    q, k, v = fa_inputs(case, dtype, gen)
     # SDPA's own causal flag, or the prefix-LM mask (True: attend)
     lib_kw = dict(is_causal=causal)
     if causal and prefix:
@@ -881,18 +955,18 @@ def fa_timed(case, gen):
         lib_kw = dict(attn_mask=(pos[None, :] <= pos[:, None]) | (pos[None, :] < prefix))
     kv_bytes = 2 * (k.numel() + v.numel())
     n = max(1, math.ceil(64e6 / kv_bytes)) if Sq == 1 else 1
-    sets = [(k, v)] + [fa_inputs(case, torch.bfloat16, gen)[1:] for _ in range(n - 1)]
+    sets = [(k, v)] + [fa_inputs(case, dtype, gen)[1:] for _ in range(n - 1)]
     want = ref.flash_attention_ref(q, k, v, **kw)
-    err = compare(ops.flash_attention(q, k, v, **kw), want, "bfloat16",
-                  f"flash_attention [{label}, bfloat16]")
-    log(f"  flash_attention {label:32s} bfloat16  max_abs_err={err:.3e}")
+    err = compare(ops.flash_attention(q, k, v, **kw), want, dname,
+                  f"flash_attention [{label}, {dname}]")
+    log(f"  flash_attention {label:32s} {dname:9s} max_abs_err={err:.3e}")
     qt = q.transpose(1, 2)
     sets_t = [(kk.transpose(1, 2), vv.transpose(1, 2)) for kk, vv in sets]
     lib = F.scaled_dot_product_attention(qt, *sets_t[0], **lib_kw,
                                          enable_gqa=True).transpose(1, 2)
-    lib_err = compare(lib, want, "bfloat16",
+    lib_err = compare(lib, want, dname,
                       "scaled_dot_product_attention yardstick", tol=LIB_TOL)
-    log(f"  scaled_dot_product_attention vs plain [{label}]: "
+    log(f"  scaled_dot_product_attention vs plain [{label}, {dname}]: "
         f"max_abs_err={lib_err:.3e}")
     del lib, want
     pairs = B * H * (sum(max(i + 1, prefix) for i in range(Sq)) if causal else Sq * Sk)
@@ -911,9 +985,10 @@ def fa_timed(case, gen):
     return row, err
 
 
-def fd_timed(case, gen, err):
-    """``flash_decode``'s row of times at ``case`` (bf16), beside its
-    plain version, ``scaled_dot_product_attention`` and the bound."""
+def fd_timed(case, gen, err, dtype=None):
+    """``flash_decode``'s row of times at ``case`` (bf16 unless ``dtype``
+    says otherwise), beside its plain version,
+    ``scaled_dot_product_attention`` and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -924,7 +999,7 @@ def fd_timed(case, gen, err):
     # qwen3-moe's: more than the 50 MB L2), so every call reads its cache
     # from device memory, as each layer's decode does
     per_cache = 2 * B * KV * S * hd * 2
-    q, caches = fd_inputs(case, torch.bfloat16, gen,
+    q, caches = fd_inputs(case, dtype or torch.bfloat16, gen,
                           n_caches=max(8, math.ceil(64e6 / per_cache)))
     live = int(ref.decode_valid(pos, S, device="cuda").sum())
     # the library call needs the mask as a bias; the kernel computes it
@@ -1220,14 +1295,18 @@ def ssd_bound(case, x_bytes):
 
 
 def phase_ssd_kernel():
+    """``ssd_scan`` against ``ref.ssd_ref`` in fp32, bf16 and fp16 (the
+    CUDA-core kernel, as fp32) at every case; its rows of times in bf16
+    (the kernels line) and fp16 at the training shape.  Returns (the bf16
+    row, the fp16 row)."""
     import torch
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    err = 0.0
+    err = err16 = 0.0
     for case in [SSD_TRAIN] + SSD_CASES + SSD_ZAMBA2:
         label, *_, chunk = case
-        for dname, dt_ in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for dname, dt_ in kernel_dtypes().items():
             x, dt, A, Bm, Cm = ssd_inputs(case, dt_, gen)
             y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
             torch.cuda.synchronize()
@@ -1237,18 +1316,22 @@ def phase_ssd_kernel():
                             tol=SSD_TOL))
             log(f"  ssd_scan        {label:36s} {dname:9s} max_abs_err={e:.3e} "
                 f"(|y| <= {float(yr.abs().max()):.2f})")
-            err = max(err, e)
+            if dname == "float16":
+                err16 = max(err16, e)
+            else:
+                err = max(err, e)
     # B and C as column slices of one tensor, read in place (the model's layout)
     label, b, S, h, p, g, n, chunk = SSD_CASES[0]
-    x, dt, A, _, _ = ssd_inputs(SSD_CASES[0], torch.bfloat16, gen)
-    BC = torch.randn(b, S, 2 * g * n, generator=gen, device="cuda").to(torch.bfloat16) * 0.3
-    Bm, Cm = BC[..., :g * n].view(b, S, g, n), BC[..., g * n:].view(b, S, g, n)
-    y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
-    yr, fr = ref.ssd_ref(x, dt, A, Bm, Cm)
-    e = max(compare(y, yr, "bfloat16", "ssd_scan, strided B/C", tol=SSD_TOL),
-            compare(fin, fr, "bfloat16", "ssd_scan state, strided B/C", tol=SSD_TOL))
-    log(f"  ssd_scan        {'B/C column slices of one tensor':36s} bfloat16  "
-        f"max_abs_err={e:.3e}")
+    for dname, dt_ in (("bfloat16", torch.bfloat16), ("float16", torch.float16)):
+        x, dt, A, _, _ = ssd_inputs(SSD_CASES[0], dt_, gen)
+        BC = torch.randn(b, S, 2 * g * n, generator=gen, device="cuda").to(dt_) * 0.3
+        Bm, Cm = BC[..., :g * n].view(b, S, g, n), BC[..., g * n:].view(b, S, g, n)
+        y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        yr, fr = ref.ssd_ref(x, dt, A, Bm, Cm)
+        e = max(compare(y, yr, dname, "ssd_scan, strided B/C", tol=SSD_TOL),
+                compare(fin, fr, dname, "ssd_scan state, strided B/C", tol=SSD_TOL))
+        log(f"  ssd_scan        {'B/C column slices of one tensor':36s} {dname:9s} "
+            f"max_abs_err={e:.3e}")
 
     # per call at the prefill shape, and the row's times at the training
     # shape, bf16 x/B/C as in the model
@@ -1261,18 +1344,21 @@ def phase_ssd_kernel():
         f"device time {fmt(summed(pre_dev, 'ssd_fwd'))}; "
         f"bound {ssd_bound(SSD_CASES[0], 2)[0]:.4f} ms")
     rows = [ssd_timed(case, gen, err) for case in [SSD_TRAIN] + SSD_ZAMBA2]
-    return rows[0]
+    return rows[0], ssd_timed(SSD_TRAIN, gen, err16, torch.float16)
 
 
-def ssd_timed(case, gen, err):
+def ssd_timed(case, gen, err, dtype=None):
     """``ssd_scan``'s row of times at ``case`` (bf16 x/B/C as in the
-    model), beside the plain ``ssd_ref`` and the bound, with the device
-    time split over its kernels."""
+    model unless ``dtype`` says otherwise; fp16 reads as many bytes),
+    beside the plain ``ssd_ref`` and the bound, with the device time split
+    over its kernels."""
     from repro_torch.kernels import ops, ref
     import torch
 
     label, *_, chunk = case
-    x, dt, A, Bm, Cm = ssd_inputs(case, torch.bfloat16, gen)
+    dtype = dtype or torch.bfloat16
+    tag = "fp16" if dtype == torch.float16 else "bf16"
+    x, dt, A, Bm, Cm = ssd_inputs(case, dtype, gen)
     b_ms, b_by = ssd_bound(case, 2)
     kern = lambda i: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     plain = lambda i: ref.ssd_ref(x, dt, A, Bm, Cm)
@@ -1283,7 +1369,7 @@ def ssd_timed(case, gen, err):
                library_ms=None, device_ms=summed(dev, "ssd_fwd"),
                wrapper_device_ms=summed(dev))
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
-    log(f"  ssd_scan per call [{label}, bf16], CUDA events: kernel {row['ms']:.4f} ms, "
+    log(f"  ssd_scan per call [{label}, {tag}], CUDA events: kernel {row['ms']:.4f} ms, "
         f"plain ssd_ref {row['plain_ms']:.4f} ms, no single PyTorch call; bound "
         f"{b_ms:.4f} ms ({b_by}); device time {fmt(row['device_ms'])} "
         f"(whole wrapper {fmt(row['wrapper_device_ms'])}): "
@@ -1301,16 +1387,16 @@ def rn_inputs(case, dtype, scale_dtype, gen):
 
 
 def phase_rmsnorm_kernel():
-    """``rmsnorm`` against ``ref.rmsnorm_ref`` on the card, x in fp32 and
-    bf16 with the scale in either, and its row of times at the profile's
-    shape (bf16 x and bf16 scale, as the profiler times it)."""
+    """``rmsnorm`` against ``ref.rmsnorm_ref`` on the card, x in fp32, bf16
+    and fp16 with the scale in any of them, and its rows of times at the
+    profile's shape (bf16 x and bf16 scale, as the profiler times it; and
+    fp16 x and scale).  Returns (the bf16 row, the fp16 row)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    err = 0.0
+    dtypes = kernel_dtypes()
+    err = err16 = 0.0
     for case in [RN_PROFILE] + RN_CASES:
         label = case[0]
         for dname, dt in dtypes.items():
@@ -1323,6 +1409,7 @@ def phase_rmsnorm_kernel():
                 log(f"  rmsnorm         {label:44s} x {dname:9s} scale {sname:9s} "
                     f"max_abs_err={e:.3e}")
                 err = max(err, e) if dname == "bfloat16" else err
+                err16 = max(err16, e) if dname == "float16" else err16
     x, _ = rn_inputs(RN_PROFILE, torch.float32, torch.float32, gen)
     try:
         ops.rmsnorm(x.t(), torch.ones(x.shape[0], device="cuda"))
@@ -1330,12 +1417,24 @@ def phase_rmsnorm_kernel():
         log(f"  rmsnorm refuses a non-contiguous x: {e}")
     else:
         raise AssertionError("rmsnorm took a non-contiguous x")
+    return rn_timed(gen, err), rn_timed(gen, err16, torch.float16)
 
+
+def rn_timed(gen, err, dtype=None):
+    """``rmsnorm``'s row of times at the profile's shape, x and scale in
+    ``dtype`` (bf16 unless it says otherwise; fp16 moves as many bytes),
+    beside its plain version, ``F.rms_norm`` and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    dtype = dtype or torch.bfloat16
+    tag = "fp16" if dtype == torch.float16 else "bf16"
     _, rows, d, _ = RN_PROFILE
     # three inputs taken in turn (200 MB with the outputs, > the 50 MB L2),
     # so every call reads x from device memory
-    xs = [rn_inputs(RN_PROFILE, torch.bfloat16, torch.bfloat16, gen)[0] for _ in range(3)]
-    scale = torch.ones(d, dtype=torch.bfloat16, device="cuda")
+    xs = [rn_inputs(RN_PROFILE, dtype, dtype, gen)[0] for _ in range(3)]
+    scale = torch.ones(d, dtype=dtype, device="cuda")
     lib = F.rms_norm(xs[0], (d,), scale, 1e-6)
     lib_err = float((lib.float() - ref.rmsnorm_ref(xs[0], scale).float()).abs().max())
     b_ms, b_by = bound(4 * rows * d, 2 * 2 * rows * d + 2 * d)
@@ -1347,12 +1446,12 @@ def phase_rmsnorm_kernel():
                        lambda i: F.rms_norm(xs[i % n], (d,), scale, 1e-6),
                        "rmsnorm_fwd", iters=200))
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
-    log(f"  torch.nn.functional.rms_norm vs plain: max_abs_err={lib_err:.3e} "
+    log(f"  torch.nn.functional.rms_norm vs plain [{tag}]: max_abs_err={lib_err:.3e} "
         "(a yardstick for time only)")
-    log(f"  rmsnorm per call [4096 x 4096 bf16], CUDA events: kernel {row['ms']:.4f} ms, "
+    log(f"  rmsnorm per call [4096 x 4096 {tag}], CUDA events: kernel {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms; "
         f"bound {b_ms:.4f} ms ({b_by})")
-    log(f"  rmsnorm per call, device time (profiler): kernel {fmt(row['device_ms'])}, "
+    log(f"  rmsnorm per call [{tag}], device time (profiler): kernel {fmt(row['device_ms'])}, "
         f"whole wrapper {fmt(row['wrapper_device_ms'])}, plain "
         f"{fmt(row['plain_device_ms'])}, library {fmt(row['library_device_ms'])}")
     return row
@@ -1415,7 +1514,7 @@ def phase_grads():
     gen = torch.Generator(device="cuda").manual_seed(2)
     for case in FA_GRAD:
         label, kw = case[0], fa_kw(case)
-        for dname, dt_ in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for dname, dt_ in kernel_dtypes().items():
             q, k, v = [t.requires_grad_() for t in fa_inputs(case, dt_, gen)]
             go = torch.randn(q.shape, generator=gen, device="cuda").to(dt_)
             out = ops.flash_attention(q, k, v, **kw)
@@ -1428,7 +1527,7 @@ def phase_grads():
                 f"worst err / max = {e:.3e}")
     for case in RN_GRAD:
         label = case[0]
-        for dname, dt_ in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for dname, dt_ in kernel_dtypes().items():
             x, scale = [t.requires_grad_() for t in
                         rn_inputs(case, dt_, torch.float32, gen)]
             go = torch.randn(x.shape, generator=gen, device="cuda").to(dt_)
@@ -3236,6 +3335,113 @@ def phase_paligemma_kernel_vs_plain():
         phase_end_to_end(PALIGEMMA_ARCH, PALIGEMMA_CUT_LAYERS, dtype, B=B, S=S)
 
 
+def phase_precision_ops():
+    """Phase 31: ``operator_sweep`` on the card, op x regime, held as
+    ``tests/test_precision.py`` holds the reference's: every op and every
+    regime present, every bf16 regime inside the tolerance, every error
+    finite."""
+    from repro_torch.precision import align, backends
+
+    log(f"  matmul flags (the card's regime): {align.regime_flags()}")
+    reports = align.operator_sweep(SWEEP_TOL)
+    names = [n for n in backends.BACKENDS if n != "a100_ref"]
+    log(f"  max_rel_err vs a100_ref (fp32), tolerance {SWEEP_TOL}: "
+        + "  ".join(f"{n} ({backends.BACKENDS[n].compute_dtype}, "
+                    f"{backends.BACKENDS[n].accum_chunks} chunk)" for n in names))
+    got = {(r.op, r.backend): r for r in reports}
+    for op in backends.OPS:
+        log(f"    {op:14s} " + "  ".join(
+            f"{got[op, n].max_rel_err:.3e}{'' if got[op, n].passed else ' OVER'}"
+            for n in names if (op, n) in got))
+    if set(got) != {(op, n) for op in backends.OPS for n in names}:
+        raise AssertionError(f"operator sweep covered {sorted(got)}")
+    bad = [k for k, r in got.items() if not math.isfinite(r.max_rel_err)
+           or (r.backend in ("chip_a", "chip_b") and not r.passed)]
+    if bad:
+        raise AssertionError(f"operator sweep: {bad} not finite or over {SWEEP_TOL}")
+    return reports
+
+
+def phase_precision_model():
+    """Phase 32: qwen1.5-0.5b at full width and depth under fp32, bf16 and
+    fp16 (``align.train_loss_curve``, the card's own kernels in each
+    dtype), ALIGN_ITERS iterations each from one seed on one stream:
+    each regime's first and last loss, its MRE against fp32, step p50,
+    peak memory and ``flash_attention`` launches a step (pinned: one a
+    layer), and the share of the embedding's rows whose first gradient
+    underflows to zero.  Every loss finite, and the MRE of each regime in
+    ALIGN_HELD under the criterion.  Returns the launches over the three
+    runs."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.precision import align
+
+    cfg = get_config(ALIGN_ARCH)
+    launches = {fn.__name__: 0 for fn in ops.KERNELS}
+    curves = {}
+    for dtype in ALIGN_DTYPES:
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        curves[dtype] = align.train_loss_curve(cfg, dtype=dtype, iters=ALIGN_ITERS,
+                                               batch=ALIGN_BATCH, seq=ALIGN_SEQ,
+                                               times=times)
+        peak = torch.cuda.max_memory_allocated()
+        got = {fn.__name__: fn.launches for fn in ops.KERNELS}
+        for name, n in got.items():
+            launches[name] += n
+        want = {"flash_attention": cfg.num_layers * ALIGN_ITERS}
+        if {k: v for k, v in got.items() if v} != want:
+            raise AssertionError(f"{dtype}: launches {got} over {ALIGN_ITERS} steps, "
+                                 f"expected {want}")
+        c = curves[dtype]
+        log(f"  {dtype:9s} losses {c[0]:.6f} -> {c[-1]:.6f} (min {c.min():.6f}); step p50 "
+            f"{statistics.median(times[1:]) * 1e3:.1f} ms (first {times[0] * 1e3:.1f}); "
+            f"peak {peak / 2**30:.2f} GiB; "
+            f"{got['flash_attention'] // ALIGN_ITERS} flash_attention a step; "
+            f"embedding rows with a zero first gradient {zero_grad_rows(cfg, dtype):.4f}")
+        torch.cuda.empty_cache()
+    mre = {dt: align.loss_mre(curves[dt], curves["float32"]) for dt in ALIGN_DTYPES[1:]}
+    log(f"  MRE against fp32 over {ALIGN_ITERS} iterations (criterion "
+        f"{align.MRE_CRITERION}): " + ", ".join(f"{dt} {v:.4e}" for dt, v in mre.items()))
+    every = [float(x) for dt in ALIGN_DTYPES for x in curves[dt]]
+    log("  curves (every 5th step): " + "; ".join(
+        f"{dt} " + " ".join(f"{x:.4f}" for x in curves[dt][::5]) for dt in ALIGN_DTYPES))
+    if not all(map(math.isfinite, every)):
+        raise AssertionError("a loss of the alignment curves is not finite")
+    over = {dt: v for dt, v in mre.items() if not v < align.MRE_CRITERION}
+    log(f"  over the criterion: {over or 'none'} (held: {', '.join(ALIGN_HELD)}; "
+        f"the others finite only)")
+    if set(over) & set(ALIGN_HELD):
+        raise AssertionError(f"loss-curve MRE over {align.MRE_CRITERION}: {over}")
+    return launches
+
+
+def zero_grad_rows(cfg, dtype):
+    """The share of the tied embedding's rows whose gradient is exactly
+    zero on the first batch of ``train_loss_curve``'s stream, from its
+    seed-0 weights, on the card (kernel path; no step is taken)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda")
+    mcfg = dataclasses.replace(cfg, dtype=dtype)
+    params = M.init_params(mcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    leaf = params["embed"]["tok"].requires_grad_()
+    batch = next(make_loader(mcfg, DataConfig(batch_size=ALIGN_BATCH, seq_len=ALIGN_SEQ,
+                                              seed=1234), device=dev))
+    loss, _ = M.loss_fn(params, mcfg, batch, remat=False)
+    grad = torch.autograd.grad(loss, leaf)[0]
+    share = float((grad.abs().amax(-1) == 0).float().mean())
+    del params, leaf, grad, loss
+    torch.cuda.empty_cache()
+    return share
+
+
 def phase_transports():
     """``--transports``: phase 16 (a)'s qwen1.5-0.5b plan under 1f1b with
     one card a rank, through NCCL (traced: the tracer's object gather on
@@ -3311,17 +3517,18 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
-    log("== 3. kernels vs plain versions")
-    rows = phase_kernels()
-    rows["ssd_scan"] = phase_ssd_kernel()
-    rows["rmsnorm"] = phase_rmsnorm_kernel()
+    log("== 3. kernels vs plain versions, fp32, bf16 and fp16")
+    rows, rows16 = phase_kernels()
+    rows["ssd_scan"], rows16["ssd_scan"] = phase_ssd_kernel()
+    rows["rmsnorm"], rows16["rmsnorm"] = phase_rmsnorm_kernel()
     phase_grads()
 
     log("== 4. serving path: serve granite-8b, 36 layers, bf16")
     launches = phase_main_path()
 
-    log("== 5. kernel path vs einsum path, granite-8b width, 4 layers")
+    log("== 5. kernel path vs einsum path, granite-8b width, 4 layers, bf16 and fp16")
     phase_end_to_end()
+    phase_end_to_end(dtype="float16")
 
     log("== 6. where the time goes: granite-8b, 36 layers, traced")
     phase_profile()
@@ -3335,9 +3542,10 @@ def main() -> int:
     del state
 
     log("== 9. training, kernel path vs einsum path: mamba2-780m width, 4 layers, "
-        "fp32 and bf16")
+        "fp32, bf16 and fp16")
     phase_train_kernel_vs_plain("float32")
     phase_train_kernel_vs_plain("bfloat16")
+    phase_train_kernel_vs_plain("float16")
 
     log("== 10. SSM serving: mamba2-780m, 48 layers, bf16")
     phase_ssm_serve()
@@ -3449,15 +3657,25 @@ def main() -> int:
         launches[name] += sum(got.get(name, 0) for got in (
             paligemma_serve_launches, paligemma_train_launches))
 
+    log(f"== 31. precision harness, operator level: {SWEEP_TOL} tolerance, 6 ops x 4 "
+        "regimes on the card")
+    phase_precision_ops()
+
+    log(f"== 32. precision harness, model level: {ALIGN_ARCH}, 24 layers, "
+        f"b{ALIGN_BATCH} x S{ALIGN_SEQ}, {ALIGN_ITERS} iterations in fp32, bf16 and fp16")
+    for name, n in phase_precision_model().items():
+        launches[name] += n
+
     log("== done")
     kernels = []
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms")
     for name in ("flash_attention", "flash_decode", "ssd_scan", "rmsnorm"):
         r = dict(rows[name])
         r["launches"] = launches[name]
         kernels.append({k: r[k] for k in (
-            "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_ms")})
+            "name", "route", "source", "replaces", "launches", *keys)})
+        kernels[-1]["float16"] = {k: rows16[name][k] for k in keys}
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

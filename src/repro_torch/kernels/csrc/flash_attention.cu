@@ -28,7 +28,10 @@
 // GFLOP (0.0109 ms) against 28.3 MB (0.0085 ms), operations.  Either way the tensor cores set the pace, so
 // each dtype takes the design that its arithmetic allows:
 //
-// * bfloat16 -> attn_fwd_tc, on the tensor cores.  A block of two
+// * bfloat16 and float16 -> attn_fwd_tc<T>, on the tensor cores, one
+//   template for both 2-byte types: the wgmmas read .bf16 or .f16
+//   operands into the same f32 sums, the TMA maps carry the element type,
+//   and P and the output are rounded to T (pack2).  A block of two
 //   warpgroups (256 threads) takes 128 q rows of one head, 64 rows a
 //   warpgroup, so each K/V tile in shared memory serves both.  TMA copies
 //   the Q rows once and each 64-key K/V tile into 128-byte-swizzled shared
@@ -36,7 +39,7 @@
 //   this tile's math.  S = Q K^T is a wgmma m64n64k16 chain with both
 //   operands in shared memory and the fp32 accumulator in registers; the
 //   mask and the online softmax run on those fragments (a row's max and
-//   sum are shuffles over the 4 lanes that hold it); P is rounded to bf16
+//   sum are shuffles over the 4 lanes that hold it); P is rounded to T
 //   in registers and P V is a second wgmma chain (m64n{hd}k16) with P from
 //   registers and V from shared memory (N-major).  hd 80 (zamba2) is held
 //   as two 64-column panels that TMA zero-fills past column 80: five k16
@@ -45,10 +48,13 @@
 //   k16 steps of Q K^T, and P V as two m64n128k16 chains, one over panels
 //   0-1 and one over panels 2-3, into the two halves of a 128-register
 //   accumulator a thread.  A warpgroup skips the
-//   tiles fully masked for its own 64 rows.  Rounding P to bf16 is the one
-//   departure from the fp32 reference (which keeps P in fp32): rehearsed
-//   on the CPU against the JAX reference (tests/test_torch_kernels.py) it
-//   stays inside the bf16 tolerance the card checks hold it to.  Blocks of
+//   tiles fully masked for its own 64 rows.  Rounding P to T is the one
+//   departure from the fp32 reference (which keeps P in fp32): bf16 keeps
+//   8 significant bits of P, fp16 11 (P = exp2(s - m) lies in [0, 1];
+//   below 2^-14 fp16 goes subnormal and keeps fewer bits, but such a P
+//   weighs under 2^-14 of the row's running maximum, whose P is 1).  Rehearsed on the CPU against the JAX reference
+//   (tests/test_torch_kernels.py) both stay inside the bf16 tolerance the
+//   card checks hold them to.  Blocks of
 //   the longest causal rows run first.  A software-pipelined variant
 //   (the next tile's Q K^T and this tile's P V in flight during the
 //   softmax) measured slower on an H100 and is not kept (PERF.md).
@@ -60,9 +66,12 @@
 
 #include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -276,14 +285,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace cuda_core
 
-// --------------------------------------------------------------- bfloat16
+// ---------------------------------------------------- bfloat16 and float16
 
 namespace tc {
 
 constexpr int WGS = 2;               // warpgroups a block, 64 q rows each
 constexpr int BQB = WGS * BQ;        // q rows a block
 constexpr int THREADS = 128 * WGS;
-constexpr int PANEL = 64;            // bf16 columns in one 128-byte swizzle row
+constexpr int PANEL = 64;            // 2-byte columns in one 128-byte swizzle row
 constexpr uint32_t ROW_BYTES = 128;
 
 // Shared memory, from a 1024-byte aligned base: the block's Q rows, then
@@ -378,52 +387,59 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
+// The accumulator's registers as asm operands: d[o] .. d[o + 7], each
+// named by a constant index
+#define REPRO_ACC8(d, o)                                                     \
+  "+f"(d[(o) + 0]), "+f"(d[(o) + 1]), "+f"(d[(o) + 2]), "+f"(d[(o) + 3]),    \
+  "+f"(d[(o) + 4]), "+f"(d[(o) + 5]), "+f"(d[(o) + 6]), "+f"(d[(o) + 7])
+#define REPRO_ACC32(d, o)                                                    \
+  REPRO_ACC8(d, o), REPRO_ACC8(d, (o) + 8), REPRO_ACC8(d, (o) + 16),         \
+  REPRO_ACC8(d, (o) + 24)
+#define REPRO_REGS32                                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "                                         \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                                 \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+
+// The element type's name in a wgmma: bf16 or f16 (the two inputs are of
+// one type; the sum is f32)
+template <typename T>
+__host__ __device__ constexpr bool is_f16() { return std::is_same<T, __half>::value; }
+
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64]: A and B from shared memory,
 // both K-major
+#define REPRO_WGMMA_SS_N64(TY)                                               \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %34, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"           \
+      REPRO_REGS32                                                           \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                     \
+      : REPRO_ACC32(d, 0)                                                    \
+      : "l"(da), "l"(db), "r"(accumulate))
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                                int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (is_f16<T>()) REPRO_WGMMA_SS_N64("f16");
+  else REPRO_WGMMA_SS_N64("bf16");
 }
 
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64]: A from registers (the
 // accumulator layout of a 64 x 16 slice), B from shared memory N-major
+#define REPRO_WGMMA_RS_N64(TY)                                               \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %37, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"           \
+      REPRO_REGS32                                                           \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                       \
+      : REPRO_ACC32(d, 0)                                                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate))
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                                uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  if constexpr (is_f16<T>()) REPRO_WGMMA_RS_N64("f16");
+  else REPRO_WGMMA_RS_N64("bf16");
 }
 
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128]: A from registers (the
@@ -432,49 +448,44 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 // accumulator with every element named by a constant index (a cast to a
 // sub-array could put the accumulator in local memory, which the
 // asynchronous wgmma must not write through)
-template <int OFF = 0, int N>
+#define REPRO_WGMMA_RS_N128(TY)                                              \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %69, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"          \
+      REPRO_REGS32 ", "                                                      \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                             \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                             \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                             \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                               \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                       \
+      : REPRO_ACC32(d, OFF), REPRO_ACC32(d, OFF + 32)                        \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate))
+template <typename T, int OFF = 0, int N>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[N], const uint32_t (&a)[4],
                                                uint64_t db, int accumulate) {
   static_assert(OFF % 64 == 0 && OFF + 64 <= N, "a 64-register slice of d");
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
-        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
-        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
-        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
-        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
-        "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
-        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
-        "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
-        "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
-        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
-        "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]),
-        "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
-        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]),
-        "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
-        "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
-        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  if constexpr (is_f16<T>()) REPRO_WGMMA_RS_N128("f16");
+  else REPRO_WGMMA_RS_N128("bf16");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// Two fp32 values rounded to the element type, packed in 32 bits (lo in
+// the low half): a P fragment of the A operand, or two output columns
+__device__ __forceinline__ uint32_t pack2(float lo, float hi, __nv_bfloat16*) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+__device__ __forceinline__ uint32_t pack2(float lo, float hi, __half*) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return pack2(lo, hi, static_cast<T*>(nullptr));
+}
 
 // What one warpgroup needs to issue its wgmmas and mask its scores.
-template <int HD>
+template <typename T, int HD>
 struct Tile {
   uint32_t q;                        // this warpgroup's Q rows in shared memory
   uint32_t k, v;                     // stage 0 of K and V
@@ -490,7 +501,7 @@ struct Tile {
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t col = (kk / 4) * BQB * ROW_BYTES + (kk % 4) * 32;
-      wgmma_ss_n64(s, sw128_desc(q + col, 16, 1024),
+      wgmma_ss_n64<T>(s, sw128_desc(q + col, 16, 1024),
                    sw128_desc(k + stage * Smem<HD>::TILE +
                                   (kk / 4) * BK * ROW_BYTES + (kk % 4) * 32,
                               16, 1024),
@@ -513,20 +524,20 @@ struct Tile {
       const uint32_t at = v + stage * Smem<HD>::TILE + kk * 16 * ROW_BYTES;
       const uint64_t db = sw128_desc(at, BK * ROW_BYTES, 1024);
       if constexpr (Smem<HD>::ON == 64) {
-        wgmma_rs_n64(o, pa[kk], db, 1);
+        wgmma_rs_n64<T>(o, pa[kk], db, 1);
       } else if constexpr (Smem<HD>::ON == 128) {
-        wgmma_rs_n128(o, pa[kk], db, 1);
+        wgmma_rs_n128<T>(o, pa[kk], db, 1);
       } else {
         static_assert(Smem<HD>::ON == 256, "P V covers 64, 128 or 256 columns");
-        wgmma_rs_n128<0>(o, pa[kk], db, 1);
-        wgmma_rs_n128<64>(o, pa[kk], sw128_desc(at + 2 * BK * ROW_BYTES, BK * ROW_BYTES,
+        wgmma_rs_n128<T, 0>(o, pa[kk], db, 1);
+        wgmma_rs_n128<T, 64>(o, pa[kk], sw128_desc(at + 2 * BK * ROW_BYTES, BK * ROW_BYTES,
                                                 1024), 1);
       }
     }
     wgmma_commit();
   }
 
-  // Scores of the tile at key k0 -> bf16 P in pa (the A fragment of P V),
+  // Scores of the tile at key k0 -> P in T in pa (the A fragment of P V),
   // with the online-softmax update of (m, l) and the factor alpha that
   // rescales the output so far.  Rows row0 (r = 0) and row0 + 8 (r = 1).
   __device__ __forceinline__ void softmax(float (&s)[32], int k0, int row0,
@@ -583,7 +594,7 @@ struct Tile {
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+        pa[kk][e] = pack2<T>(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
   }
 };
 
@@ -602,12 +613,12 @@ __device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) 
 // each 8-column group j, (row 16 w + t%32/4, cols 8 j + 2 (t%4) + {0, 1})
 // in d[4j], d[4j+1] and the same columns of row + 8 in d[4j+2], d[4j+3]
 // (w = t / 32).
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 attn_fwd_tc(const __grid_constant__ CUtensorMap q_map,
             const __grid_constant__ CUtensorMap k_map,
             const __grid_constant__ CUtensorMap v_map,
-            __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H, int KV,
+            T* __restrict__ out, int Sq, int Sk, int H, int KV,
             int causal, int window, int q_offset, int prefix_len,
             float scale_log2) {
   using L = Smem<HD>;
@@ -662,7 +673,7 @@ attn_fwd_tc(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < 2 && i < n_tiles; ++i) load_kv(i);
   }
 
-  const Tile<HD> tile{base + L::Q + wg * BQ * ROW_BYTES, base + L::K, base + L::V,
+  const Tile<T, HD> tile{base + L::Q + wg * BQ * ROW_BYTES, base + L::K, base + L::V,
                       q0, Sk, causal, window, q_offset, prefix_len, scale_log2};
   const int row0 = 16 * warp + (lane >> 2);   // this thread's rows: row0, row0 + 8
   const int col0 = 2 * (lane & 3);
@@ -699,11 +710,11 @@ attn_fwd_tc(const __grid_constant__ CUtensorMap q_map,
     const int q = q0 + row0 + 8 * r;
     if (q >= Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-20f);
-    __nv_bfloat16* ob = out + (((long)b * Sq + q) * H + h) * HD + col0;
+    T* ob = out + (((long)b * Sq + q) * H + h) * HD + col0;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)     // the first hd of the ON columns
-      *reinterpret_cast<__nv_bfloat162*>(ob + 8 * j) =
-          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      *reinterpret_cast<uint32_t*>(ob + 8 * j) =
+          pack2<T>(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
   }
 }
 
@@ -733,53 +744,75 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// (B, S, heads, hd) bf16 as a 4-d map, boxes of (rows x 64 columns) of one
-// head, 128-byte swizzle; rows past S read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-              int hd, int rows) {
+// (B, S, heads, hd) of 2-byte elements (bf16 or fp16: `type`) as a 4-d
+// map, boxes of (rows x 64 columns) of one head, 128-byte swizzle; rows
+// past S read as zeros.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+              int B, int S, int heads, int hd, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
                                  (cuuint64_t)S * heads * hd * 2};
   const cuuint32_t box[4] = {PANEL, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return encoder()(map, type, 4,
                    const_cast<void*>(ptr), dims, strides, box, unit,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int H, int KV, int causal, int window,
            int q_offset, int prefix_len, cudaStream_t stream) {
+  const CUtensorMapDataType type = is_f16<T>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v);
   if (addr % 16) return (int)cudaErrorMisalignedAddress;  // TMA needs 16 B
   if (!encoder()) return (int)cudaErrorNotSupported;
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, B, Sq, H, HD, BQB) || !make_map(&km, k, B, Sk, KV, HD, BK) ||
-      !make_map(&vm, v, B, Sk, KV, HD, BK))
+  if (!make_map(&qm, type, q, B, Sq, H, HD, BQB) ||
+      !make_map(&km, type, k, B, Sk, KV, HD, BK) ||
+      !make_map(&vm, type, v, B, Sk, KV, HD, BK))
     return (int)cudaErrorInvalidValue;
   const uint32_t smem = Smem<HD>::BYTES;
   const cudaError_t attr = cudaFuncSetAttribute(   // the current card's opt-in
-      attn_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_fwd_tc<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(H, B, (Sq + BQB - 1) / BQB);
-  attn_fwd_tc<HD><<<grid, THREADS, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, causal,
+  attn_fwd_tc<T, HD><<<grid, THREADS, smem, stream>>>(
+      qm, km, vm, static_cast<T*>(out), Sq, Sk, H, KV, causal,
       window, q_offset, prefix_len, 1.4426950408889634f / sqrtf((float)HD));
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
+              int Sq, int Sk, int H, int KV, int hd, int causal, int window,
+              int q_offset, int prefix_len, cudaStream_t s) {
+  switch (hd) {
+    case 64:
+      return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, prefix_len, s);
+    case 80:
+      return launch<T, 80>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, prefix_len, s);
+    case 128:
+      return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, prefix_len, s);
+    case 256:
+      return launch<T, 256>(q, k, v, out, B, Sq, Sk, H, KV, causal, window, q_offset, prefix_len, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace tc
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  hd 64,
-// 80, 128 or 256; prefix_len >= 0 (0: none).  Returns a cudaError_t (0 =
-// launched).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16, 2 = float16 (tensor
+// cores).  hd 64, 80, 128 or 256; prefix_len >= 0 (0: none).  Returns a
+// cudaError_t (0 = launched).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Sk, int H, int KV, int hd, int causal,
@@ -788,29 +821,29 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || prefix_len < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
-    return cuda_core::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+  if (dtype == 0) {
+    switch (hd) {
+      case 64:
+        return cuda_core::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+                                     q_offset, prefix_len, s);
+      case 80:
+        return cuda_core::launch<80>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+                                     q_offset, prefix_len, s);
+      case 128:
+        return cuda_core::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+                                      q_offset, prefix_len, s);
+      case 256:
+        return cuda_core::launch<256>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
+                                      q_offset, prefix_len, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (dtype == 1)
+    return tc::launch_hd<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, hd, causal,
+                                        window, q_offset, prefix_len, s);
+  if (dtype == 2)
+    return tc::launch_hd<__half>(q, k, v, out, B, Sq, Sk, H, KV, hd, causal, window,
                                  q_offset, prefix_len, s);
-  if (dtype == 0 && hd == 80)
-    return cuda_core::launch<80>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
-                                 q_offset, prefix_len, s);
-  if (dtype == 0 && hd == 128)
-    return cuda_core::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
-                                  q_offset, prefix_len, s);
-  if (dtype == 0 && hd == 256)
-    return cuda_core::launch<256>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
-                                  q_offset, prefix_len, s);
-  if (dtype == 1 && hd == 64)
-    return tc::launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
-                          q_offset, prefix_len, s);
-  if (dtype == 1 && hd == 80)
-    return tc::launch<80>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
-                          q_offset, prefix_len, s);
-  if (dtype == 1 && hd == 128)
-    return tc::launch<128>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
-                           q_offset, prefix_len, s);
-  if (dtype == 1 && hd == 256)
-    return tc::launch<256>(q, k, v, out, B, Sq, Sk, H, KV, causal, window,
-                           q_offset, prefix_len, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -49,9 +49,12 @@
 //     1e-20); a split that found no live page has m = -inf and adds nothing.
 //   * n_split is chosen by the wrapper (ops.decode_splits): about two
 //     blocks per SM, at least one page a split (9 at the serving shape:
-//     288 blocks).  Both kernels take either dtype.
+//     288 blocks).  Both kernels take fp32, bf16 or fp16; fp16 reads the
+//     same 16-byte vectors of eight as bf16 (Vec<__half>) and converts
+//     them to fp32 in registers, so it holds as many registers as bf16.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -93,12 +96,31 @@ template <> struct Vec<__nv_bfloat16> {
     }
   }
 };
+template <> struct Vec<__half> {
+  using Raw = uint4;
+  static constexpr int N = 8;
+  static __device__ __forceinline__ Raw load(const __half* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void convert(const Raw& v, float (&x)[8]) {
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+};
 
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // May the query at `pos` attend to cache slot i?  Linear cache: slot i
@@ -352,9 +374,29 @@ int launch(const void* q, const void* k, const void* v, void* part, void* out,
   return (int)cudaGetLastError();
 }
 
+// The head dim's instantiation, for elements of type T.
+template <typename T>
+int launch_hd(const void* q, const void* k, const void* v, void* part,
+              void* out, int B, int KV, int G, int S, int hd, int n_split,
+              long long pos, int window, int ring, float softcap,
+              cudaStream_t s) {
+  switch (hd) {
+    case 64:
+      return launch<T, 64>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
+    case 80:
+      return launch<T, 80>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
+    case 128:
+      return launch<T, 128>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
+    case 256:
+      return launch<T, 256>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  part: fp32 scratch of
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  part: fp32 scratch of
 // B * KV * n_split * G * (hd + 2) floats.  ring: 0 linear cache, 1 ring
 // buffer.  hd 64, 80, 128 or 256; G * hd above 2048 is refused (paligemma's
 // G 8 at hd 256 is exactly 2048).  Launches both passes; returns a
@@ -367,21 +409,14 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   if (B <= 0 || KV <= 0 || G <= 0 || S <= 0 || n_split <= 0 || G * hd > 2048)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
-  if (dtype == 0 && hd == 80)
-    return launch<float, 80>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
-  if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
-  if (dtype == 0 && hd == 256)
-    return launch<float, 256>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
-  if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
-  if (dtype == 1 && hd == 80)
-    return launch<__nv_bfloat16, 80>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
-  if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
-  if (dtype == 1 && hd == 256)
-    return launch<__nv_bfloat16, 256>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
-  return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0:
+      return launch_hd<float>(q, k, v, part, out, B, KV, G, S, hd, n_split, pos, window, ring, softcap, s);
+    case 1:
+      return launch_hd<__nv_bfloat16>(q, k, v, part, out, B, KV, G, S, hd, n_split, pos, window, ring, softcap, s);
+    case 2:
+      return launch_hd<__half>(q, k, v, part, out, B, KV, G, S, hd, n_split, pos, window, ring, softcap, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

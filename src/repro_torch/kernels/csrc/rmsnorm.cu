@@ -3,8 +3,10 @@
 // Replaces repro/kernels/rmsnorm.py::_rmsnorm_kernel (the Pallas TPU kernel
 // behind repro.kernels.ops.rmsnorm).  Same contract: x viewed as (rows, d),
 // scale (d,), statistics and products in fp32, output in x's type.  x is
-// float32 or bfloat16; scale may be either, independently of x (in the model
-// a norm's scale is fp32 while its input is bf16).
+// float32, bfloat16 or float16; scale may be any of the three,
+// independently of x (in the model a norm's scale is fp32 while its input
+// is bf16 or fp16).  fp16 and bf16 take the same code: 16-byte vectors of
+// eight 2-byte elements, converted to fp32 in registers.
 //
 // What bounds it on the card: memory.  It must read x once and write y once,
 // 2 * rows * d * sizeof(x) bytes (the scale is d elements): at the profile's
@@ -34,6 +36,7 @@
 // divides the rows are not needed.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,11 +49,15 @@ constexpr int WARP_KEEP = 32;        // most vectors a lane keeps on the warp pa
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // a 16-byte vector holds V elements of x's type
@@ -274,22 +281,32 @@ int launch(const void* x, const void* scale, void* out, int rows, int d,
   return (int)cudaGetLastError();
 }
 
+// The scale's type, for an x of type T.
+template <typename T>
+int launch_x(const void* x, const void* scale, void* out, int rows, int d,
+             float eps, int scale_dtype, cudaStream_t stream) {
+  switch (scale_dtype) {
+    case 0: return launch<T, float>(x, scale, out, rows, d, eps, stream);
+    case 1: return launch<T, __nv_bfloat16>(x, scale, out, rows, d, eps, stream);
+    case 2: return launch<T, __half>(x, scale, out, rows, d, eps, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // x, out: (rows, d) contiguous, of x_dtype; scale: (d,) of scale_dtype.
-// dtypes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtypes: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t
+// (0 = launched).
 extern "C" int repro_rmsnorm(const void* x, const void* scale, void* out,
                              int rows, int d, float eps, int x_dtype,
                              int scale_dtype, void* stream) {
   if (rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && scale_dtype == 0)
-    return launch<float, float>(x, scale, out, rows, d, eps, s);
-  if (x_dtype == 0 && scale_dtype == 1)
-    return launch<float, __nv_bfloat16>(x, scale, out, rows, d, eps, s);
-  if (x_dtype == 1 && scale_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, scale, out, rows, d, eps, s);
-  if (x_dtype == 1 && scale_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, d, eps, s);
-  return (int)cudaErrorInvalidValue;
+  switch (x_dtype) {
+    case 0: return launch_x<float>(x, scale, out, rows, d, eps, scale_dtype, s);
+    case 1: return launch_x<__nv_bfloat16>(x, scale, out, rows, d, eps, scale_dtype, s);
+    case 2: return launch_x<__half>(x, scale, out, rows, d, eps, scale_dtype, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

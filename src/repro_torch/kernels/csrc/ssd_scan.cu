@@ -68,8 +68,23 @@
 //   and carries the (p, n) fp32 state in shared memory; every product in
 //   fp32 FMAs from shared memory.  fp32 inputs need fp32 arithmetic (the
 //   checks hold them to 1e-4), which the tensor cores do not do.
+// * float16 x/B/C -> ssd_fwd as well, templated to read fp16: each input
+//   is converted to its exact fp32 value as it is staged in shared memory,
+//   so the kernel computes what ssd_ref computes from the same fp16 inputs
+//   and meets the same 1e-4 + 1e-3 rel tolerance.  The tensor-core passes
+//   do not carry over as they are: they rely on bf16 inputs, whose
+//   products are exact in bf16 wgmmas, and on bf16's range for the hi + lo
+//   halves of each fp32 intermediate.  An fp16 value has 11 significant
+//   bits, which one bf16 does not hold (C B^T of two fp16 inputs rounded
+//   to bf16 is not exact); fp16 halves instead of bf16 ones would overflow
+//   a state above 65504 or lose the lo half below 6e-5.  Splitting each
+//   fp16 input into an exact hi + lo bf16 pair at load (11 bits fit in
+//   8 + 8) would keep the tensor cores at twice the products for C B^T and
+//   M x; that redesign is left for later.  This path is right first, and
+//   its time is recorded beside the bf16 one (PERF.md).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -81,6 +96,7 @@ constexpr int MAX_N = 128;           // state dim
 constexpr int MAX_CHUNK = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 // ---------------------------------------------------------------- float32
 
@@ -938,11 +954,11 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
 }  // namespace
 
 // dtype of x, B and C: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
-// cores; dt and A are float32 either way).  x_rs / b_rs / c_rs: elements
+// cores), 2 = float16 (CUDA cores; dt and A are float32 in every case).  x_rs / b_rs / c_rs: elements
 // between sequence positions of x, B and C; their batch stride is S times
 // that.  cum (b, h, S) and states (b, h, S / chunk, p, n), both fp32, and
 // prev (b, h, S / chunk, 2, 64, 128) bf16 are the bfloat16 path's scratch
-// (null for float32).  Returns a cudaError_t (0 = launched).
+// (null for float32 and float16).  Returns a cudaError_t (0 = launched).
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
                               const void* Bm, const void* Cm, void* y,
                               void* fin, void* cum, void* states, void* prev,
@@ -958,6 +974,9 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
   if (dtype == 0)
     return cuda_core::launch<float>(x, dt, A, Bm, Cm, y, fin, Bsz, S, H, G, P,
                                     N, chunk, x_rs, b_rs, c_rs, s);
+  if (dtype == 2)
+    return cuda_core::launch<__half>(x, dt, A, Bm, Cm, y, fin, Bsz, S, H, G, P,
+                                     N, chunk, x_rs, b_rs, c_rs, s);
   if (dtype == 1)
     return tc::launch(x, dt, A, Bm, Cm, y, fin, cum, states, prev, Bsz, S, H,
                       G, P, N, chunk, x_rs, b_rs, c_rs, s);

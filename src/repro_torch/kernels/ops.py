@@ -37,7 +37,7 @@ from . import ref as _ref
 NEG_INF = _ref.NEG_INF
 BACKENDS = ("auto", "einsum", "kernel")
 HEAD_DIMS = (64, 80, 128, 256)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def preferred_backend(x: torch.Tensor) -> str:
@@ -318,7 +318,7 @@ def _ssd_scan_kernel(x, dt, A, Bm, Cm, *, chunk):
     dt, A = dt.contiguous(), A.contiguous()
     y = torch.empty((b, S, h, p), dtype=torch.float32, device=dev)
     fin = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    scratch = ()                      # the fp32 (CUDA-core) kernel needs none
+    scratch = ()                      # the CUDA-core kernel (fp32, fp16) needs none
     if x.dtype == torch.bfloat16:
         _ssd_check_copies(p, n, (("x", x, x_rs), ("B", Bm, b_rs), ("C", Cm, c_rs)))
         scratch = _ssd_scratch(b, S, h, p, n, chunk, dev)
@@ -334,7 +334,7 @@ def _ssd_scan_kernel(x, dt, A, Bm, Cm, *, chunk):
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None):
     """Chunked SSD scan; the signature mirrors ``models.ssm.ssd_chunked``.
 
-    x: (b, S, h, p) fp32 or bf16; dt: (b, S, h) fp32; A: (h,) fp32;
+    x: (b, S, h, p) fp32, bf16 or fp16; dt: (b, S, h) fp32; A: (h,) fp32;
     Bm/Cm: (b, S, g, n) in x's dtype, g dividing h.  ``chunk`` is cut to
     S, and S must be a multiple of it.  Returns (y (b, S, h, p) fp32,
     final state (b, h, p, n) fp32), differentiable.
@@ -342,8 +342,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None):
     The kernel starts from a zero state: an ``initial_state`` on the card
     raises (the JAX wrapper drops it silently).  bf16 runs the
     tensor-core kernels (three passes, one C call, scratch from
-    ``_ssd_scratch``; operands as ``_ssd_check_copies`` asks), fp32 the
-    CUDA-core one.  On CPU tensors this is the plain ``ref.ssd_ref``,
+    ``_ssd_scratch``; operands as ``_ssd_check_copies`` asks), fp32 and
+    fp16 the CUDA-core one (``ssd_scan.cu`` says why fp16 takes it).  On CPU tensors this is the plain ``ref.ssd_ref``,
     which takes one."""
     b, S, h, p = x.shape
     if dt.shape != (b, S, h) or A.shape != (h,) or Bm.dim() != 4 \
@@ -386,8 +386,8 @@ def _rmsnorm_kernel(x, scale, *, eps):
 def rmsnorm(x, scale):
     """Fused RMSNorm: x (..., d), scale (d,); fp32 statistics, eps 1e-6,
     the result in x's dtype, differentiable.  On the card x must be
-    contiguous; the scale may be fp32 or bf16 whatever x's dtype (the
-    model keeps norm scales in fp32), and is read as it is."""
+    contiguous; the scale may be fp32, bf16 or fp16 whatever x's dtype
+    (the model keeps norm scales in fp32), and is read as it is."""
     if scale.shape != x.shape[-1:] or x.numel() == 0:
         raise ValueError(f"rmsnorm: x {tuple(x.shape)}, scale {tuple(scale.shape)}")
     if x.device.type == "cpu":

@@ -1,5 +1,7 @@
 """Plain PyTorch versions of the kernels (the counterpart of
-``repro/kernels/ref.py``): numerics ground truth, no tiling.
+``repro/kernels/ref.py``): numerics ground truth, no tiling.  Each
+computes in fp32 and returns its input's dtype (fp32, bf16 or fp16; the
+SSD's outputs are fp32), as the Pallas bodies do.
 
 The kernel wrappers in ``ops`` take these only for tensors on the CPU;
 ``chip_smoke.py`` holds each CUDA kernel against them on the card, and

@@ -14,7 +14,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+          "float32": torch.float32}
 INIT_CHUNK_ELEMS = 1 << 26           # fp32 scratch per draw: 256 MB
 
 

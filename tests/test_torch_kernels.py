@@ -6,12 +6,17 @@ oracles), ``repro.kernels.ops`` (the Pallas kernels, which run their
 kernel bodies in interpret mode off-TPU) and the port's
 ``repro_torch.kernels`` / ``repro_torch.models.attention``.  Attention
 in fp32, atol 1e-5: the same fp32 arithmetic in two frameworks; rmsnorm
-in fp32 and bf16 within the JAX package's own kernel tolerances.  The
-CUDA kernels themselves run only on the card (``chip_smoke.py``; the
+in fp32 and bf16 within the JAX package's own kernel tolerances.  In
+fp16 (which the JAX package's Pallas kernels take, casting to fp32 and
+writing back in fp16) both sides compute in fp32 and round the output to
+fp16 once, so they may land one fp16 step apart: rtol 2^-10 (with the
+fp32 atol for the sums' order near zero).  The CUDA
+kernels themselves run only on the card (``chip_smoke.py``; the
 ``cuda``-marked tests skip without one); their arithmetic is rehearsed
-here in plain PyTorch: the bf16 tensor-core ``flash_attention`` (bf16
-P before P V) under chip_smoke's unchanged bf16 tolerance, and the
-split-K ``flash_decode`` (pass 1 and the combine) in fp32.
+here in plain PyTorch: the tensor-core ``flash_attention`` (P rounded to
+the input's bf16 or fp16 before P V) under chip_smoke's unchanged bf16
+tolerance and its fp16 one, and the split-K ``flash_decode`` (pass 1 and
+the combine) in fp32.
 """
 import importlib.util
 import math
@@ -31,6 +36,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as tattn
 
 ATOL = 1e-5
+FP16_STEP = 2.0 ** -10                # one fp16 step, relative to the value
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -91,6 +97,64 @@ def test_flash_attention_plain_matches_jax(B, Sq, Sk, H, KV, hd, causal,
     assert tops.flash_attention.launches == 0     # no kernel ran on the CPU
 
 
+def _fp16(*arrs):
+    return [a.astype(np.float16) for a in arrs]
+
+
+def _close_fp16(got, want):
+    """One fp16 step apart at most: both computed in fp32 and rounded
+    once.  Near zero the fp32 sums' own order shows, hence the fp32
+    cases' ATOL beside it."""
+    g = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(g.astype(np.float32),
+                               np.asarray(want).astype(np.float32),
+                               rtol=FP16_STEP, atol=ATOL)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window,q_offset", FA_CASES)
+def test_flash_attention_plain_matches_jax_fp16(B, Sq, Sk, H, KV, hd, causal,
+                                                window, q_offset):
+    """fp16 inputs: the plain version (and the wrapper on CPU tensors)
+    against the JAX oracle and its Pallas kernel in interpret mode, each
+    returning fp16."""
+    rng = np.random.default_rng(Sq * 31 + Sk + 1)
+    q, k, v = _fp16(_randn(rng, B, Sq, H, hd), _randn(rng, B, Sk, KV, hd),
+                    _randn(rng, B, Sk, KV, hd))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    rep = H // KV
+    want_ref = jref.attention_ref(jnp.asarray(q), jnp.repeat(k, rep, 2),
+                                  jnp.repeat(v, rep, 2), **kw)
+    want_pallas = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), **kw)
+    assert want_ref.dtype == want_pallas.dtype == jnp.float16
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    for got in (tref.flash_attention_ref(tq, tk, tv, **kw),
+                tops.flash_attention(tq, tk, tv, **kw)):
+        assert got.dtype == torch.float16
+        _close_fp16(got, want_ref)
+        _close_fp16(got, want_pallas)
+    assert tops.flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_vjp_returns_gradients_in_the_input_dtype(dtype):
+    """The autograd Function (its plain body in the kernel's place, as on
+    the card's backward) returns each gradient in its input's 2-byte
+    dtype, equal to autograd through the plain version."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(_randn(rng, *s)).to(dtype).requires_grad_()
+               for s in ((1, 70, 4, 64), (1, 70, 2, 64), (1, 70, 2, 64)))
+    go = torch.from_numpy(_randn(rng, 1, 70, 4, 64)).to(dtype)
+    kw = dict(causal=True, window=0, q_offset=0, prefix_len=0)
+    out = tops.recompute_vjp("flash_attention", tref.flash_attention_ref,
+                             tref.flash_attention_ref, (q, k, v), **kw)
+    got = torch.autograd.grad(out, (q, k, v), go)
+    want = torch.autograd.grad(tref.flash_attention_ref(q, k, v, **kw), (q, k, v), go)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 def _k_tile_range(q0, Sk, causal, window, q_offset, prefix_len=0, bq=64, bk=64):
     """``k_tile_range`` of ``flash_attention.cu``: the 64-key tiles that
     hold an unmasked key for some row of the q tile at q0 (under causal,
@@ -106,11 +170,12 @@ def _k_tile_range(q0, Sk, causal, window, q_offset, prefix_len=0, bq=64, bk=64):
 
 def tc_attention_emulated(q, k, v, *, causal, window, q_offset, prefix_len=0,
                           round_p=True, bq=64, bk=64, panel=64):
-    """The bf16 tensor-core ``flash_attention``'s arithmetic in plain
-    PyTorch: per 64-row q tile, its visited 64-key tiles in order; S = Q K^T
-    summed in fp32 (products of bf16 inputs are exact); scores scaled into
-    the log2 domain and masked to -1e30; online softmax with fp32 (m, l)
-    and exp2; P rounded to bf16 (``round_p``) before P V, summed in fp32;
+    """The tensor-core ``flash_attention``'s arithmetic (bf16 or fp16
+    inputs) in plain PyTorch: per 64-row q tile, its visited 64-key tiles
+    in order; S = Q K^T summed in fp32 (products of 2-byte inputs are
+    exact); scores scaled into the log2 domain and masked to -1e30; online
+    softmax with fp32 (m, l) and exp2; P rounded to the inputs' dtype
+    (``round_p``) before P V, summed in fp32;
     output / max(l, 1e-20) in the input dtype.  As in shared memory, Q, K
     and V are whole 64-column panels, zero past hd (hd 80: two panels, 48
     zero columns; hd 256: four), and P V computes every panel column; the
@@ -146,7 +211,7 @@ def tc_attention_emulated(q, k, v, *, causal, window, q_offset, prefix_len=0,
             alpha, p = torch.exp2(m - m_new), torch.exp2(x - m_new)
             l = alpha * l + p.sum(-1, keepdim=True)
             if round_p:
-                p = p.bfloat16().float()
+                p = p.to(q.dtype).float()
             acc = alpha * acc + p @ vf[:, keys].permute(0, 2, 1, 3)
             m = m_new
         out[:, rows] = (acc / l.clamp_min(1e-20)).permute(0, 2, 1, 3)
@@ -193,6 +258,33 @@ def test_flash_attention_tensor_core_numerics_match_jax(case):
     got = tc_attention_emulated(q, k, v, prefix_len=prefix, **kw)
     assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, hd)
     atol, rtol = CS.TOL["bfloat16"]
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("case", CS.FA_CASES, ids=[c[0] for c in CS.FA_CASES])
+def test_flash_attention_tensor_core_numerics_match_jax_fp16(case):
+    """fp16 inputs at chip_smoke's FA_CASES shapes: the tensor-core
+    arithmetic with P rounded to fp16 (11 significant bits, where bf16
+    keeps 8) against the JAX ``attention_ref`` in fp16 (with a prefix,
+    ``_attend_einsum`` + ``_mask_bias`` in fp32 on the same fp16 values)
+    under chip_smoke's fp16 tolerance (TOL["float16"])."""
+    _, B, Sq, Sk, H, KV, hd, causal, window, q_offset, prefix = case
+    rng = np.random.default_rng(Sq * 7 + Sk + H)
+    q, k, v = (torch.from_numpy(_randn(rng, *shape)).half()
+               for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if prefix:
+        want = np.asarray(jax_prefix_attention(*(t.float().numpy() for t in (q, k, v)),
+                                               prefix_len=prefix, **kw))
+    else:
+        rep = H // KV
+        jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
+        want = np.asarray(jref.attention_ref(jq, jnp.repeat(jk, rep, 2),
+                                             jnp.repeat(jv, rep, 2), **kw)
+                          .astype(jnp.float32))
+    got = tc_attention_emulated(q, k, v, prefix_len=prefix, **kw)
+    assert got.dtype == torch.float16 and got.shape == (B, Sq, H, hd)
+    atol, rtol = CS.TOL["float16"]
     np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=rtol)
 
 
@@ -253,6 +345,48 @@ def test_flash_decode_plain_matches_jax(B, KV, G, S, hd, pos, kw, q_scale):
         _close(got, want_ref)
         _close(got, want_pallas)
     assert tops.flash_decode.launches == 0
+
+
+@pytest.mark.parametrize("B,KV,G,S,hd,pos,kw,q_scale", FD_CASES)
+def test_flash_decode_plain_matches_jax_fp16(B, KV, G, S, hd, pos, kw, q_scale):
+    rng = np.random.default_rng(S * 7 + pos + 1)
+    q = _randn(rng, B, KV * G, hd, scale=q_scale).astype(np.float16)
+    k, v = _fp16(_randn(rng, B, KV, S, hd), _randn(rng, B, KV, S, hd))
+    want_ref = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), jnp.int32(pos), **kw)
+    want_pallas = jops.flash_decode(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.int32(pos), **kw)
+    assert want_ref.dtype == want_pallas.dtype == jnp.float16
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    for got in (tref.decode_attention_ref(tq, tk, tv, pos, **kw),
+                tops.flash_decode(tq[:, None], tk, tv, pos, **kw)):
+        assert got.dtype == torch.float16
+        _close_fp16(got, want_ref)
+        _close_fp16(got, want_pallas)
+    assert tops.flash_decode.launches == 0
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_scan_plain_matches_pallas_interpret_fp16(g):
+    """fp16 x, B and C: the plain version (the wrapper on CPU tensors)
+    against the Pallas kernel in interpret mode on the same fp16 values;
+    both compute in fp32 and return fp32, within the JAX package's own
+    ssd tolerance (tests/test_kernels.py: 1e-4 + 1e-3 rel)."""
+    rng = np.random.default_rng(50 + g)
+    b, S, h, p, n = 2, 64, 4, 32, 16
+    f = lambda *sh, scale=1.0: (rng.standard_normal(sh) * scale).astype(np.float32)
+    x = f(b, S, h, p).astype(np.float16)
+    dt = (np.log1p(np.exp(f(b, S, h))) * 0.5).astype(np.float32)
+    A = (-np.exp(f(h, scale=0.3))).astype(np.float32)
+    Bm, Cm = _fp16(f(b, S, g, n, scale=0.3), f(b, S, g, n, scale=0.3))
+    from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan
+    want_y, want_f = pallas_ssd_scan(*map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk=32,
+                                     interpret=True)
+    got_y, got_f = tops.ssd_scan(*map(torch.from_numpy, (x, dt, A, Bm, Cm)), chunk=32)
+    assert got_y.dtype == got_f.dtype == torch.float32
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), atol=1e-4, rtol=1e-3)
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), atol=1e-4, rtol=1e-3)
+    assert tops.ssd_scan.launches == 0
 
 
 def pv_partition(hd, vec, threads=128, page=64):
@@ -426,6 +560,31 @@ def test_flash_decode_kernel_path_builds_no_bias(monkeypatch):
                           tops.DTYPE_CODES[torch.bfloat16], 0]
 
 
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0), (torch.bfloat16, 1),
+                                        (torch.float16, 2)])
+def test_attention_kernel_paths_pass_the_dtype_code(monkeypatch, dtype, code):
+    """Both attention wrappers' kernel paths on meta tensors, the launch
+    captured: fp16 reaches the kernels with its own code (2), as bf16 (1)
+    and fp32 (0) do, and the output keeps the input's dtype."""
+    calls = []
+    monkeypatch.setattr(tops, "_check", lambda name, ts: None)
+    monkeypatch.setattr(tops, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(tops, "_stream", lambda: 0)
+    monkeypatch.setattr(tops, "_launch", lambda *a: calls.append(a))
+    meta = dict(device="meta", dtype=dtype)
+    q = torch.empty(2, 128, 8, 128, **meta)
+    kv = torch.empty(2, 128, 2, 128, **meta)
+    out = tops._flash_attention_kernel(q, kv, kv, causal=True, window=0, q_offset=0,
+                                       prefix_len=0)
+    assert out.dtype == dtype
+    out = tops.flash_decode(torch.empty(2, 8, 128, **meta), torch.empty(2, 2, 64, 128, **meta),
+                            torch.empty(2, 2, 64, 128, **meta), 63)
+    assert out.dtype == dtype
+    (fa, *fa_args), (fd, *fd_args) = calls
+    assert (fa, fd) == ("flash_attention", "flash_decode")
+    assert fa_args[-2] == fd_args[-2] == tops.DTYPE_CODES[dtype] == code
+
+
 @pytest.mark.parametrize("backend,Sq,window,softcap", [
     ("einsum", 16, 0, 0.0), ("einsum", 16, 5, 30.0),
     ("chunked", 1024, 0, 0.0), ("auto", 2304, 0, 0.0)])
@@ -512,18 +671,21 @@ def test_cpu_wrappers_check_shapes():
 # tests/test_kernels.py::TOL, the JAX package's own bound for its rmsnorm
 # kernel against rmsnorm_ref
 RN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 @pytest.mark.parametrize("x_dtype,s_dtype", [("float32", "float32"),
                                              ("bfloat16", "bfloat16"),
-                                             ("bfloat16", "float32")])
+                                             ("bfloat16", "float32"),
+                                             ("float16", "float16"),
+                                             ("float16", "float32")])
 @pytest.mark.parametrize("rows,d", [(64, 256), (128, 512), (37, 128)])
 def test_rmsnorm_plain_matches_jax(rows, d, x_dtype, s_dtype):
     """``ref.rmsnorm_ref`` and the wrapper on CPU tensors against the JAX
     oracle and its Pallas kernel (interpret mode), x and scale rounded to
-    their dtypes once, the same way, in both frameworks."""
+    their dtypes once, the same way, in both frameworks.  fp16 (the JAX
+    package's tests hold no fp16 rmsnorm): one fp16 step of the output."""
     rng = np.random.default_rng(rows * 3 + d)
     x, s = _randn(rng, rows, d), _randn(rng, d)
     jx, js = jnp.asarray(x).astype(JDT[x_dtype]), jnp.asarray(s).astype(JDT[s_dtype])
@@ -533,6 +695,9 @@ def test_rmsnorm_plain_matches_jax(rows, d, x_dtype, s_dtype):
     for got in gots:
         assert got.dtype == TDT[x_dtype] and got.shape == (rows, d)
         for want in wants:
+            if x_dtype == "float16":
+                _close_fp16(got, want)
+                continue
             err = np.abs(got.float().numpy() - np.asarray(want.astype(jnp.float32))).max()
             assert err < RN_TOL[x_dtype], err
     assert tops.rmsnorm.launches == 0         # no kernel ran on the CPU
@@ -567,7 +732,10 @@ def test_rmsnorm_checks_shapes():
 
 @pytest.mark.parametrize("x_dtype,s_dtype", [(torch.bfloat16, torch.bfloat16),
                                              (torch.bfloat16, torch.float32),
-                                             (torch.float32, torch.bfloat16)])
+                                             (torch.float32, torch.bfloat16),
+                                             (torch.float16, torch.float16),
+                                             (torch.float16, torch.float32),
+                                             (torch.bfloat16, torch.float16)])
 def test_rmsnorm_kernel_path_launches_once(monkeypatch, x_dtype, s_dtype):
     """The wrapper's kernel path on meta tensors, the launch captured: one
     C call with rows, d, eps and both dtype codes (the kernel picks its

@@ -114,7 +114,8 @@ def test_port_imports_no_jax_or_repro_ast():
         "analysis/diagnostics", "analysis/schedule_safety", "analysis/collectives",
         "analysis/resources", "analysis/kernel_lint", "analysis/plan_verifier",
         "analysis/lint", "obs/__init__", "obs/metrics", "obs/trace", "obs/align",
-        "obs/straggler", "obs/validate", "obs/runtime")}
+        "obs/straggler", "obs/validate", "obs/runtime",
+        "precision/__init__", "precision/backends", "precision/align")}
     assert planning <= scanned, planning - scanned
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in PORT_FILES
            for m in _imports(p) if _banned(m)]

@@ -312,6 +312,24 @@ def test_ssd_scan_kernel_path_passes_its_scratch(monkeypatch):
     assert args[7:10] == [0, 0, 0] and len(shapes) == 1     # fp32: no scratch
 
 
+def test_ssd_scan_fp16_takes_the_cuda_core_kernel(monkeypatch):
+    """fp16 x, B and C go to the CUDA-core kernel (``ssd_scan.cu`` says
+    why): dtype code 2, no scratch, and no 16-byte copy checks (head_dim
+    12 and a misaligned C are taken, as in fp32); y and the final state in
+    fp32.  One launch counted."""
+    calls = _capture_launches(monkeypatch)
+    monkeypatch.setattr(tops, "_ssd_scratch", lambda *a: pytest.fail("scratch"))
+    before = tops.ssd_scan.launches
+    for shape, kw in (((4, 2048, 48, 64, 1, 128), {}),
+                      ((1, 64, 4, 12, 1, 16), dict(bc_width=34, c_at=17))):
+        y, fin = tops.ssd_scan(*_meta_ssd(*shape, torch.float16, **kw), chunk=32)
+        assert y.dtype == fin.dtype == torch.float32
+    assert tops.ssd_scan.launches == before + 2
+    for name, *args in calls:
+        assert name == "ssd_scan" and args[7:10] == [0, 0, 0]
+        assert args[-2:] == [tops.DTYPE_CODES[torch.float16], 0] == [2, 0]
+
+
 @pytest.mark.parametrize("what,shape,kw", [
     ("C at 8 bytes past a 16-byte boundary", (1, 64, 4, 64, 1, 128),
      dict(bc_width=264, c_at=132)),
