@@ -226,10 +226,41 @@ result.  Phases, each of which fails the run by raising:
      under the paper's 1.5%, every loss finite, fp16's MRE printed (the
      reference, without loss scaling, drops fp16's softmax gradient at
      this vocabulary: ``ALIGN_HELD``).
+ 33. the (data, model) grid (``repro_torch.sharding.spmd``: the JAX
+     launcher's GSPMD path, its state placed by the copied sharding
+     rules, Megatron blocks over the model axis): ``launch.train
+     --model-parallel 2 --data-parallel 2 --p2p host`` on four ranks
+     sharing the card, qwen1.5-0.5b at full size (bf16), b 8 x 512, 6
+     steps; losses finite and falling, and each loss and the first step's
+     gradient norm within the larger of phase 9's bf16 limit and 3.5 x
+     the single device's own spread under the data axis's order of sums
+     (``GRID_LOSS_SPREAD``) of the single-device port's on the same seed
+     and batches (``--grid-faults`` below shows what these limits refuse);
+     each rank's
+     persistent bytes equal to the rules' blocks' closed form, exactly;
+     2 x 24 ``flash_attention`` a rank a step (8 of 16 heads each); the
+     step p50 beside the single device's, tokens/s, peak memory by rank,
+     each rank's all-gather, reduce-scatter and all-reduce bytes and ms a
+     step by axis and its step time outside them.
+ 34. the same grid on granite-8b at full width (32 / 8 heads of 128, GQA)
+     cut to 4 of 36 layers (``GSPMD_GQA``: at full depth its state does
+     not fit four ranks on one card), b 4 x 512, 3 steps at peak lr 1e-5;
+     phase 33's checks against the single device at the same cut.
+ 35. ZeRO-1 (``training/manual_dp.py``) on the same four ranks:
+     qwen1.5-0.5b at full size, data 2 x model 2, phase 33's batches, 3
+     steps; each rank's optimizer bytes equal to the ``_scatter_dim``
+     closed form, the losses within phase 33's limit of phase 33's,
+     2 x 24 ``flash_attention`` a rank a step.
+ 36. the grid at model axis 1: mamba2-780m at full size, ``--model-parallel
+     1 --data-parallel 2`` on two ranks, b 4 x 2048, 3 steps; phase 33's
+     checks against phase 7's first three losses (same seed, batches and
+     warmup learning rates); 2 x 48 ``ssd_scan`` a rank a step.
+     Every time and size of phases 33-36 is printed beside the card's
+     ``nvidia-smi`` name and power limit.
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
 over the main paths that run it, phases 4, 7, 12, 13, 15–21, 23–26, 28,
-29 and 32, each kernel's fp16 row under ``"float16"``,
+29 and 32–36, each kernel's fp16 row under ``"float16"``,
 each counted from 0; the pipeline phases in each rank's own process,
 summed over the ranks), the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Each phase's heading carries the
@@ -248,6 +279,18 @@ one card cannot hold, phase 17 (d)'s (pipe 2, tp 2) parity cases and
 phase 17 (b)'s ZeRO-1 run with NCCL's reduce-scatter and all-gather;
 with three cards or more also phase 18 (a) through ``--p2p device``,
 ``sr_ag`` (traced) against ``naive``.
+
+    python3 chip_smoke.py --grid-faults
+
+needs one card and runs phases 1, 2 and the controls of phases 33 and
+36's checks: phase 33's grid (qwen1.5-0.5b, 2 x 2, its batches and
+steps) and phase 36's (mamba2-780m, 1 x 2) with no fault and then with
+each fault of ``GRID_FAULTS`` planted in the ranks' processes (the
+data axis's gradient sum dropped, every data rank training on data
+rank 0's rows, the Megatron all-reduce dropped), each held to the
+single device by those phases' checks; it prints each check's reading
+and limit and which checks refuse the run, and fails if a faulty run
+passes them all or the run without a fault does not.
 """
 from __future__ import annotations
 
@@ -717,6 +760,51 @@ SWEEP_TOL = 0.1
 ALIGN_ARCH, ALIGN_ITERS, ALIGN_BATCH, ALIGN_SEQ = "qwen1p5_0p5b", 50, 4, 512
 ALIGN_DTYPES = ("float32", "bfloat16", "float16")
 ALIGN_HELD = ("bfloat16",)
+# Phases 33-36, the (data, model) grid (repro_torch.sharding.spmd, the JAX
+# launcher's GSPMD path; training/manual_dp.py's ZeRO-1) on one card, its
+# ranks sharing it through --p2p host.  Each run is held to the single
+# device's port run on the same seed and batches.  The grid sums its data
+# ranks' bf16 gradients (and its model members' bf16 partial outputs)
+# through fp32 and rounds them back, an order of sums the single device
+# does not take, and a random-init model's losses carry such roundings on
+# from step to step: qwen1.5-0.5b's sixth loss on the 2 x 2 grid lay
+# 1.03e-3 from the single device's, its first five within 3e-4.  So each
+# step's loss is held, as phase 9 holds its bf16 gradients, to the larger
+# of phase 9's bf16 loss limit (TRAIN_BF16_LOSS_RTOL) and GRID_LOSS_SPREAD
+# x the single device's own spread under the data axis's order of sums,
+# measured in the same run: the single device with the batch split in two
+# (--accum 2: two half-batch bf16 gradients summed in fp32).  The first
+# step's gradient norm, taken on the same weights and batch, is held to the
+# same limit: a grid that sums its gradients wrongly shows there at once,
+# where its losses may stay close for a few steps (--grid-faults).
+GRID_LOSS_SPREAD = 3.5
+# granite-8b at full depth is ~113 GB of bf16 parameters and fp32 AdamW
+# state, and four ranks share one 80 GB card, so phase 34 cuts its depth.
+# mamba2-780m's single-device reference is phase 7's run (same seed,
+# batches and, in the first 5 warmup steps, learning rates).  granite-8b
+# trains at peak lr 1e-5, as --transports' granite run: at 3e-4 its
+# random-init loss rises (11.29, 17.36, 12.88 on the single device as on
+# the grid).  Every collective of these phases goes through host memory
+# (~200-400 MB/s a rank on one card's host), so a qwen step takes ~6-8 s
+# and phases 34-36 take 3 steps to keep the script inside its limit.
+GSPMD_ARGS = ["--p2p", "host", "--backend", "auto", "--device", "cuda", "--log-every", "1"]
+GSPMD_DENSE = ("qwen1p5_0p5b", 24, ["--model-parallel", "2", "--data-parallel", "2"],
+               ["--batch", "8", "--seq", "512", "--steps", "6"])
+GSPMD_GQA = ("granite_8b", 4, 36, ["--model-parallel", "2", "--data-parallel", "2"],
+             ["--batch", "4", "--seq", "512", "--steps", "3", "--lr", "1e-5"])
+GSPMD_ZERO1 = ("qwen1p5_0p5b", 2, 2, 8, 512, 3)      # arch, model, data, b, seq, steps
+GSPMD_SSM = ("mamba2_780m", 48, ["--model-parallel", "1", "--data-parallel", "2"],
+             ["--batch", "4", "--seq", "2048", "--steps", "3"])
+_SINGLE = {}                  # single-device results by run, for the grid phases
+# --grid-faults: each fault planted in the grid's ranks (``planted``) and
+# the phases whose grid runs with it
+GRID_FAULTS = {
+    "data-sum": ("the data axis's gradient sum dropped: each rank keeps its "
+                 "own slice of its own gradient", ("33", "36")),
+    "rows": ("every data rank trains on data rank 0's rows", ("33", "36")),
+    "megatron": ("the Megatron blocks' model all-reduce dropped: each "
+                 "member's partial output alone", ("33",)),
+}
 
 T0 = time.perf_counter()
 
@@ -1568,6 +1656,7 @@ def train_and_check(args, run, layers, per_step):
     res = train.main(args + ["--run-dir", run_dir])
     launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
     L, losses, times = res["num_layers"], res["losses"], res["step_times_s"]
+    _SINGLE[run] = {k: res[k] for k in ("losses", "grad_norms", "step_times_s")}
     steps = len(losses)
     if L != layers:
         raise AssertionError(f"{res['arch']} trained {L} layers, expected {layers}")
@@ -3442,6 +3531,390 @@ def zero_grad_rows(cfg, dtype):
     return share
 
 
+def single_run(run, arch, args, layers=None, accum=1):
+    """The single-device port's run on ``args`` (the grid run's seed,
+    batches and steps), ``arch`` cut to ``layers`` when given, each batch
+    in ``accum`` microbatches: its losses, gradient norms and step times."""
+    import torch
+    from repro_torch.launch import train
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", run)
+    with cut_depth(layers):
+        res = train.main(["--arch", arch] + args + GSPMD_ARGS[2:] + ["--run-dir", out_dir,
+                                                                     "--accum", str(accum)])
+    del res["state"]
+    torch.cuda.empty_cache()
+    return {k: res[k] for k in ("losses", "grad_norms", "step_times_s")}
+
+
+def steady(xs):
+    import statistics
+    return statistics.median(xs[1:] or xs)
+
+
+def collectives_line(stats):
+    """One rank's collectives a step by axis (median over steps 2-):
+    bytes and wall ms of its all-gathers, reduce-scatters, all-reduces."""
+    part = lambda axis, kind: (f"{kind} {steady([s[f'{axis}_{kind}_bytes'] for s in stats]) / 2**20:.1f} MiB "
+                               f"{steady([s[f'{axis}_{kind}_ms'] for s in stats]):.1f} ms")
+    return "; ".join(f"{axis}: " + ", ".join(part(axis, k) for k in ("gather", "scatter", "reduce"))
+                     for axis in ("data", "model", "world"))
+
+
+def grid_diffs(got, want):
+    """(the worst relative difference of ``got``'s losses from ``want``'s,
+    that of its first step's gradient norm): two runs from the same seed
+    and batches."""
+    loss = max(abs(a - b) / b for a, b in zip(got["losses"], want["losses"]))
+    return loss, abs(got["grad_norms"][0] - want["grad_norms"][0]) / want["grad_norms"][0]
+
+
+def grid_limit(label, want, yard):
+    """The grid's limit on its losses and first gradient norm: the larger
+    of phase 9's bf16 limit and ``GRID_LOSS_SPREAD`` x the single device's
+    spread between ``want`` and ``yard`` (its run with the batch in two
+    microbatches) in either."""
+    loss, gnorm = grid_diffs(yard, want)
+    limit = max(TRAIN_BF16_LOSS_RTOL, GRID_LOSS_SPREAD * max(loss, gnorm))
+    log(f"  {label}: single device losses {', '.join(f'{x:.4f}' for x in want['losses'])}, "
+        f"first gradient norm {want['grad_norms'][0]:.6g}; with --accum 2 "
+        f"{', '.join(f'{x:.4f}' for x in yard['losses'])}, {yard['grad_norms'][0]:.6g}: "
+        f"spread {loss:.2e} (losses), {gnorm:.2e} (gradient norm); limit "
+        f"max({TRAIN_BF16_LOSS_RTOL}, {GRID_LOSS_SPREAD} x spread) = {limit:.2e}")
+    return limit
+
+
+def grid_checks(got, want, limit):
+    """The grid checks that ``got`` (a grid run) fails against ``want``
+    (the single device's on the same seed and batches): losses not finite
+    and falling, a loss or the first gradient norm outside ``limit``."""
+    loss, gnorm = grid_diffs(got, want)
+    losses = got["losses"]
+    failed = []
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        failed.append("losses finite and falling")
+    if len(losses) != len(want["losses"]) or not loss <= limit:
+        failed.append("losses within the limit")
+    if not gnorm <= limit:
+        failed.append("first gradient norm within the limit")
+    return failed
+
+
+def hold_grid(label, got, want, limit, ref="single device"):
+    loss, gnorm = grid_diffs(got, want)
+    log(f"  {label}: losses {', '.join(f'{x:.4f}' for x in got['losses'])}; {ref} "
+        f"{', '.join(f'{x:.4f}' for x in want['losses'])}; worst rel diff {loss:.2e}; "
+        f"first gradient norm {got['grad_norms'][0]:.6g} against "
+        f"{want['grad_norms'][0]:.6g}, rel diff {gnorm:.2e} (limit {limit:.2e})")
+    failed = grid_checks(got, want, limit)
+    if failed:
+        raise AssertionError(f"{label}: against the {ref}, the grid fails: "
+                             + "; ".join(failed))
+
+
+def run_grid(run, arch, layers, grid_args, args, fault=None):
+    """A launcher run on the (data, model) grid in the phase's
+    ``rank_pool`` (the launcher inside each rank, ``fault`` planted there
+    when given), the ranks' results merged as the launcher merges its
+    own, with its wall seconds."""
+    from repro_torch.launch import train
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", run)
+    argv = ["--arch", arch] + grid_args + args + GSPMD_ARGS + ["--run-dir", out_dir]
+    t0 = time.perf_counter()
+    with cut_depth(layers):
+        outs = _POOL.call(_launcher_rank, (argv,), 1800.0) if fault is None else \
+            _POOL.call(_faulty_launcher_rank, (argv, fault), 1800.0)
+    res = train.merge_gspmd_results(outs)
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def grid_and_hold(run, arch, layers, grid_args, args, kernel, per_rank, want, limit,
+                  label, smi, full_layers=None):
+    """A launcher run on the (data, model) grid (``run_grid``): losses
+    finite, falling and with the first gradient norm within ``limit`` of
+    ``want`` (the single device's run; ``grid_limit``), ``kernel``
+    launched ``per_rank`` times a step on each rank, each rank's
+    persistent bytes equal to the rules' blocks' closed form.  Prints the
+    step beside the single device's, tokens/s, memory, collectives and
+    the time outside them, each with the card's name and power limit.
+    Returns the merged result."""
+    from repro_torch.launch import train
+    cut = full_layers is not None and layers < full_layers
+    if cut:
+        log(f"  {label}: {arch} cut to {layers} of {full_layers} layers (full width)")
+    res = run_grid(run, arch, layers if cut else None, grid_args, args)
+    times, world = res["step_times_s"], len(res["grid_per_rank"])
+    steps = len(res["losses"])
+    if res["num_layers"] != layers:
+        raise AssertionError(f"{label}: trained {res['num_layers']} layers, not {layers}")
+    hold_grid(label, res, want, limit)
+    if res["launches"][kernel] != per_rank * world * steps:
+        raise AssertionError(f"{label}: {kernel} launched {res['launches'][kernel]} times "
+                             f"in {steps} steps over {world} ranks, expected {per_rank} a "
+                             f"rank a step")
+    if res["state_bytes_per_rank"] != res["block_bytes_per_rank"]:
+        raise AssertionError(f"{label}: state bytes by rank {res['state_bytes_per_rank']} "
+                             f"are not the rules' blocks {res['block_bytes_per_rank']}")
+    p50 = steady(times)
+    log(f"  {label}: {kernel} {res['launches'][kernel]} launches in {steps} steps = "
+        f"{per_rank} a rank a step x {world} ranks; persistent state by rank (params, "
+        f"master, m, v) " + ", ".join(f"{b / 2**20:.1f}" for b in res["state_bytes_per_rank"])
+        + " MiB = the rules' blocks, exactly")
+    log(f"  {label} [{smi}]: step p50 over steps 2-{steps} {p50 * 1e3:.1f} ms (all: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms); the single device's "
+        f"{steady(want['step_times_s']) * 1e3:.1f} ms at the same batch; "
+        f"{res['tokens_per_step'] / p50:.0f} tok/s; peak memory by rank "
+        + ", ".join(f"{(b or 0) / 2**30:.2f}" for b in res["peak_mem_bytes_per_rank"])
+        + f" GiB; {res['wall_s']:.1f} s of wall time")
+    for r in range(world):
+        rest = train.outside_collectives(res["step_times_s_per_rank"][r],
+                                         res["stats_per_rank"][r])
+        log(f"  {label} [{smi}]: rank {r} (d, m) {tuple(res['grid_per_rank'][r])} "
+            f"collectives a step: {collectives_line(res['stats_per_rank'][r])}; outside "
+            f"them {steady(rest) * 1e3:.1f} ms a step (p50)")
+    return res
+
+
+def phase_gspmd(smi):
+    """Phases 33-35 on four ranks.  Returns the launches of each."""
+    import torch
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    arch, layers, grid_args, args = GSPMD_DENSE
+    log(f"== 33. the (data, model) grid, dense: {arch} at full size, {' '.join(grid_args)}, "
+        f"{' '.join(args)}, 4 ranks sharing the card")
+    want = single_run("gspmd_single_qwen", arch, args)
+    limit33 = grid_limit("33", want, single_run("gspmd_single_qwen_accum2", arch, args,
+                                                accum=2))
+    dense = grid_and_hold("gspmd_qwen", arch, layers, grid_args, args, "flash_attention",
+                          2 * layers, want, limit33, "33", smi)
+    add(dense["launches"])
+
+    arch, layers, full, grid_args, args = GSPMD_GQA
+    log(f"== 34. the (data, model) grid, GQA: {arch} at full width, {layers} of {full} "
+        f"layers, {' '.join(grid_args)}, {' '.join(args)}")
+    want = single_run("gspmd_single_granite", arch, args, layers)
+    limit = grid_limit("34", want, single_run("gspmd_single_granite_accum2", arch, args,
+                                              layers, accum=2))
+    res = grid_and_hold("gspmd_granite", arch, layers, grid_args, args, "flash_attention",
+                        2 * layers, want, limit, "34", smi, full_layers=full)
+    add(res["launches"])
+
+    arch, model, data, B, S, steps = GSPMD_ZERO1
+    log(f"== 35. ZeRO-1 (training/manual_dp.py): {arch} at full size, data {data} x "
+        f"model {model}, b{B} x S{S}, {steps} steps")
+    total = int(GSPMD_DENSE[3][GSPMD_DENSE[3].index("--steps") + 1])
+    device = GSPMD_ARGS[GSPMD_ARGS.index("--device") + 1]
+    outs = _POOL.call(_zero1_rank, (device, arch, model, data, B, S, steps, total), 1800.0)
+    hold_grid("35", outs[0], {k: dense[k][:steps] for k in ("losses", "grad_norms")},
+              limit33, "phase 33's grid")
+    per_rank = 2 * GSPMD_DENSE[1]
+    for r, o in enumerate(outs):
+        if o["launches"]["flash_attention"] != per_rank * steps:
+            raise AssertionError(f"35: rank {r} launched {o['launches']['flash_attention']} "
+                                 f"flash_attention in {steps} steps, not {per_rank} a step")
+        if o["opt_bytes"] != o["opt_closed"]:
+            raise AssertionError(f"35: rank {r} holds {o['opt_bytes']} optimizer bytes, the "
+                                 f"_scatter_dim closed form {o['opt_closed']}")
+    add({k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]})
+    p50 = steady(outs[0]["step_times_s"])
+    log(f"  35: optimizer state (fp32 master, m, v) by rank " + ", ".join(
+        f"{o['opt_bytes'] / 2**20:.1f}" for o in outs) + " MiB = the _scatter_dim closed "
+        f"form, exactly ({outs[0]['opt_bytes'] / outs[0]['opt_full']:.4f} of the whole "
+        f"state's {outs[0]['opt_full'] / 2**20:.1f} MiB); {per_rank} flash_attention a rank "
+        f"a step")
+    log(f"  35 [{smi}]: step p50 over steps 2-{steps} {p50 * 1e3:.1f} ms; "
+        f"{B * S / p50:.0f} tok/s; peak memory by rank "
+        + ", ".join(f"{o['peak'] / 2**30:.2f}" for o in outs) + " GiB")
+    for r, o in enumerate(outs):
+        log(f"  35 [{smi}]: rank {r} (d, m) {tuple(o['grid'])} collectives a step: "
+            f"{collectives_line(o['stats'])}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _zero1_rank(rank, world, device, arch, model, data, B, S, steps, total_steps):
+    """Phase 35 on one rank: ``make_manual_dp_train_step`` on a grid of
+    the pool's ranks, its blocks of the seeded state, its rows of the
+    launcher's batches, the launcher's learning-rate schedule for
+    ``total_steps``.  Returns the losses, gradient norms, step times,
+    collectives a step, launches (from 0), peak memory and optimizer bytes
+    with their closed form."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import spmd
+    from repro_torch.training import manual_dp
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        build.load()
+    cfg = get_config(arch)
+    mesh, grid = make_local_mesh(model=model, data=data, transport="host", device=dev)
+    layout = spmd.Layout(mesh, grid)
+    opt = AdamWConfig(lr=3e-4, total_steps=total_steps,
+                      warmup_steps=max(total_steps // 20, 5))
+    step, specs = manual_dp.make_manual_dp_train_step(cfg, layout, opt)
+    state = spmd.init_state(cfg, layout, specs, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    loader = make_loader(cfg, DataConfig(batch_size=B, seq_len=S, seed=1234), device=dev,
+                         rows=spmd.local_rows(B, layout).numpy())
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    losses, norms, times, stats = [], [], [], []
+    try:
+        for _ in range(steps):
+            batch = next(loader)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+            stats.append(dict(step.stats))
+    finally:
+        loader.close()
+    return {"losses": losses, "grad_norms": norms, "step_times_s": times, "stats": stats,
+            "launches": {fn.__name__: fn.launches for fn in ops.KERNELS},
+            "peak": torch.cuda.max_memory_allocated(dev) if cuda else 0,
+            "grid": [grid.d, grid.k],
+            "opt_bytes": sum(t.numel() * t.element_size()
+                             for t in tree_leaves(state.opt_state)),
+            "opt_closed": manual_dp.optimizer_bytes(cfg, layout),
+            "opt_full": 12 * M.param_count(M.abstract_params(cfg))}
+
+
+def phase_gspmd_ssm(smi):
+    """Phase 36 on two ranks: model axis 1, an ssm model; phase 7's run is
+    the single device's.  Returns its launches."""
+    arch, layers, grid_args, args = GSPMD_SSM
+    steps = int(args[args.index("--steps") + 1])
+    want = {k: v[:steps] for k, v in _SINGLE["train_mamba2_780m"].items()}
+    limit = grid_limit("36", want, single_run("gspmd_single_mamba2_accum2", arch, args,
+                                              accum=2))
+    res = grid_and_hold("gspmd_mamba2", arch, layers, grid_args, args, "ssd_scan",
+                        2 * layers, want, limit, "36", smi)
+    return res["launches"]
+
+
+class _OwnSlice:
+    """A data group whose reduce-scatter keeps this rank's slice of its own
+    tensor and whose all-reduce leaves it as it is (the ``data-sum``
+    fault)."""
+
+    def __init__(self, comm):
+        self.comm, self.world_size, self.rank = comm, comm.world_size, comm.rank
+
+    def reduce_scatter_(self, t, dim):
+        w = t.shape[dim] // self.world_size
+        return t.narrow(dim, self.rank * w, w).contiguous()
+
+    def all_reduce_(self, t):
+        return t
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """``fault`` (a key of ``GRID_FAULTS``) planted in this process's
+    ``repro_torch`` while the context lasts."""
+    import torch
+    from repro_torch.core import heteropp as HP
+    from repro_torch.sharding import spmd
+    if fault == "data-sum":
+        reduce = spmd.Layout.reduce
+
+        def unsummed(self, full, spec, **kw):
+            real = self.grid.dp
+            self.grid.dp = None if real is None else _OwnSlice(real)
+            try:
+                return reduce(self, full, spec, **kw)
+            finally:
+                self.grid.dp = real
+
+        owner, name, new = spmd.Layout, "reduce", unsummed
+    elif fault == "rows":
+        owner, name = spmd, "local_rows"
+        new = lambda batch_size, layout, accum_steps=1: torch.arange(
+            batch_size // layout.data)
+    elif fault == "megatron":
+        owner, name = HP._TPReduce, "forward"
+        new = staticmethod(lambda ctx, x, comm: x.contiguous().clone())
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    old = owner.__dict__[name]
+    setattr(owner, name, new)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+def _faulty_launcher_rank(rank, world, argv, fault):
+    """``_launcher_rank`` with ``fault`` planted in this rank."""
+    with planted(fault):
+        return _launcher_rank(rank, world, argv)
+
+
+def grid_fault_controls(label, arch, grid_args, args, want, limit, smi):
+    """Phase ``label``'s grid run with no fault, then with each fault of
+    ``GRID_FAULTS`` that lists the phase, each held to ``want`` (the
+    single device's) by the phase's checks.  Returns the failures: the run
+    without a fault refused, or a faulty run passing every check."""
+    bad = []
+    faults = [None] + [f for f, (_, phases) in GRID_FAULTS.items() if label in phases]
+    for fault in faults:
+        res = run_grid(f"faults_{label}_{fault or 'none'}", arch, None, grid_args, args,
+                       fault=fault)
+        loss, gnorm = grid_diffs(res, want)
+        failed = grid_checks(res, want, limit)
+        what = "no fault" if fault is None else f"{fault} ({GRID_FAULTS[fault][0]})"
+        log(f"  {label}, {what} [{smi}]: losses "
+            f"{', '.join(f'{x:.4f}' for x in res['losses'])}; worst rel diff {loss:.2e}; "
+            f"first gradient norm {res['grad_norms'][0]:.6g}, rel diff {gnorm:.2e} "
+            f"(limit {limit:.2e}); refused by: {'; '.join(failed) or 'nothing'}; "
+            f"{res['wall_s']:.1f} s")
+        if (fault is None) == bool(failed):
+            bad.append(f"{label} {fault or 'without a fault'}: "
+                       + ("refused" if failed else "passes every check"))
+    return bad
+
+
+def phase_grid_faults(smi):
+    """``--grid-faults``: the controls of phases 33 and 36's checks."""
+    bad = []
+    arch, _, grid_args, args = GSPMD_DENSE
+    log(f"== 33 (controls): {arch} at full size, {' '.join(grid_args)}, {' '.join(args)}, "
+        f"4 ranks sharing the card, with each fault planted")
+    want = single_run("gspmd_single_qwen", arch, args)
+    limit = grid_limit("33", want, single_run("gspmd_single_qwen_accum2", arch, args,
+                                              accum=2))
+    with rank_pool(4, "gspmd_faults"):
+        bad += grid_fault_controls("33", arch, grid_args, args, want, limit, smi)
+    arch, _, grid_args, args = GSPMD_SSM
+    log(f"== 36 (controls): {arch} at full size, {' '.join(grid_args)}, {' '.join(args)}, "
+        f"2 ranks sharing the card, with each fault planted")
+    want = single_run("gspmd_single_mamba2", arch, args)
+    limit = grid_limit("36", want, single_run("gspmd_single_mamba2_accum2", arch, args,
+                                              accum=2))
+    with rank_pool(2, "gspmd_ssm_faults"):
+        bad += grid_fault_controls("36", arch, grid_args, args, want, limit, smi)
+    if bad:
+        raise AssertionError("grid fault controls: " + "; ".join(bad))
+
+
 def phase_transports():
     """``--transports``: phase 16 (a)'s qwen1.5-0.5b plan under 1f1b with
     one card a rank, through NCCL (traced: the tracer's object gather on
@@ -3483,7 +3956,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     transports = sys.argv[1:] == ["--transports"]
-    if sys.argv[1:] and not transports:
+    faults = sys.argv[1:] == ["--grid-faults"]
+    if sys.argv[1:] and not (transports or faults):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     if transports and torch.cuda.device_count() < 2:
@@ -3508,9 +3982,12 @@ def main() -> int:
         for line in ptxas_summary(out):
             log(f"  [{name}] {line}")
 
-    if transports:
-        log("== 16 (a) by transport: qwen1.5-0.5b 10 / 14, 1f1b, one card a rank")
-        phase_transports()
+    if transports or faults:
+        if transports:
+            log("== 16 (a) by transport: qwen1.5-0.5b 10 / 14, 1f1b, one card a rank")
+            phase_transports()
+        else:
+            phase_grid_faults(smi)
         print(smi_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3665,6 +4142,16 @@ def main() -> int:
         f"b{ALIGN_BATCH} x S{ALIGN_SEQ}, {ALIGN_ITERS} iterations in fp32, bf16 and fp16")
     for name, n in phase_precision_model().items():
         launches[name] += n
+
+    with rank_pool(4, "gspmd"):
+        for name, n in phase_gspmd(smi).items():
+            launches[name] += n
+    arch, layers, grid_args, args = GSPMD_SSM
+    log(f"== 36. the (data, model) grid, model axis 1: {arch} at full size, "
+        f"{' '.join(grid_args)}, {' '.join(args)}, 2 ranks sharing the card")
+    with rank_pool(2, "gspmd_ssm"):
+        for name, n in phase_gspmd_ssm(smi).items():
+            launches[name] += n
 
     log("== done")
     kernels = []

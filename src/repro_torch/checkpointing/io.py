@@ -79,33 +79,57 @@ def save_checkpoint(path: str, state, *, step: Optional[int] = None):
         json.dump(index, f, indent=1)
 
 
+class CheckpointReader:
+    """One leaf at a time from a checkpoint directory: ``reader(name)`` is
+    the stored leaf ``name`` (a flattened path) as a CPU tensor in its
+    stored dtype; each shard file is opened once.  ``step`` is the
+    index's step.  Close it (or use it as a context manager) when done."""
+
+    def __init__(self, path: str):
+        self.path = path
+        with open(os.path.join(path, "index.json")) as f:
+            index = json.load(f)
+        self.entries, self.step = index["entries"], index["step"]
+        self._files: Dict[str, Any] = {}
+
+    def __call__(self, name: str) -> torch.Tensor:
+        e = self.entries[name]
+        if e["file"] not in self._files:
+            self._files[e["file"]] = np.load(os.path.join(self.path, e["file"]))
+        return _from_numpy(self._files[e["file"]][e["key"]], e)
+
+    def close(self) -> None:
+        for f in self._files.values():
+            f.close()
+        self._files = {}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 def load_checkpoint(path: str, target, *, device=None):
     """Restore into the structure of ``target`` (a ``TrainState`` or a
     nested dict of tensors; values ignored), on ``device`` (default:
     each target leaf's device).  Shapes must match; the stored dtype is
     kept."""
-    with open(os.path.join(path, "index.json")) as f:
-        entries = json.load(f)["entries"]
-    files: Dict[str, Any] = {}
     flat_t = flatten(_as_tree(target))
-    missing = sorted(set(flat_t) - set(entries))
-    if missing:
-        raise KeyError(f"{path}: no entries for {missing[:5]}")
+    with CheckpointReader(path) as read:
+        missing = sorted(set(flat_t) - set(read.entries))
+        if missing:
+            raise KeyError(f"{path}: no entries for {missing[:5]}")
 
-    def get(name, leaf):
-        e = entries[name]
-        if e["file"] not in files:
-            files[e["file"]] = np.load(os.path.join(path, e["file"]))
-        t = _from_numpy(files[e["file"]][e["key"]], e)
-        if tuple(t.shape) != tuple(leaf.shape):
-            raise ValueError(f"{name}: checkpoint {tuple(t.shape)} vs "
-                             f"target {tuple(leaf.shape)}")
-        return t.to(device if device is not None else leaf.device)
+        def get(name, leaf):
+            t = read(name)
+            if tuple(t.shape) != tuple(leaf.shape):
+                raise ValueError(f"{name}: checkpoint {tuple(t.shape)} vs "
+                                 f"target {tuple(leaf.shape)}")
+            return t.to(device if device is not None else leaf.device)
 
-    tree = _as_tree(target)
-    restored = _unflatten(tree, {n: get(n, leaf) for n, leaf in flat_t.items()})
-    for f in files.values():
-        f.close()
+        restored = _unflatten(_as_tree(target),
+                              {n: get(n, leaf) for n, leaf in flat_t.items()})
     if isinstance(target, TrainState):
         return train_state_from(restored["0"], restored["1"], int(restored["2"]))
     return restored

@@ -80,17 +80,21 @@ class P2P:
     over every :meth:`ppermute` and :meth:`send_recv`;
     ``reduce_seconds``, ``scatter_seconds`` and ``gather_seconds`` over
     every :meth:`all_reduce_`, :meth:`reduce_scatter_` and
-    :meth:`all_gather_`, and ``gather_bytes`` (the other members' parts
-    that arrive) over every :meth:`all_gather_`.  On the card each
+    :meth:`all_gather_`; ``gather_bytes`` (the other members' parts
+    that arrive) over every :meth:`all_gather_`, and ``reduce_bytes`` and
+    ``scatter_bytes`` (the tensors given, in their own dtype) over every
+    :meth:`all_reduce_` and :meth:`reduce_scatter_`.  On the card each
     collective synchronizes the device before and after, so its time is
     its own.
 
     On the ``host`` transport (gloo) a bf16 or fp16 tensor is summed
-    through an fp32 host buffer and rounded back, a reduce-scatter is an
-    all-reduce of the whole tensor of which the rank keeps its slice (the
-    same sums as :meth:`all_reduce_`), and an all-gather moves the
-    tensor's bytes; on ``device`` (NCCL) each collective runs in the
-    tensor's dtype on the card."""
+    through an fp32 host buffer and rounded back; a reduce-scatter is an
+    all-to-all of the tensor's own bytes (each member receives its slice
+    of every member's tensor, a quarter of the bytes an fp32 all-reduce
+    of the whole bf16 tensor moves at two members) summed in fp32 in
+    member order and rounded back, the sums :meth:`all_reduce_` makes at
+    two members; an all-gather moves the tensor's bytes.  On ``device``
+    (NCCL) each collective runs in the tensor's dtype on the card."""
 
     def __init__(self, transport: str, device: torch.device, group=None):
         if transport not in TRANSPORTS:
@@ -110,7 +114,7 @@ class P2P:
     def reset_counts(self) -> None:
         self.bytes_sent, self.seconds, self.copy_seconds = 0, 0.0, 0.0
         self.reduce_seconds = self.scatter_seconds = self.gather_seconds = 0.0
-        self.gather_bytes = 0
+        self.gather_bytes = self.reduce_bytes = self.scatter_bytes = 0
 
     def _wire_zeros(self, like: torch.Tensor) -> torch.Tensor:
         """A cached zero tensor shaped like ``like`` where it goes on the
@@ -247,6 +251,7 @@ class P2P:
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the group in place."""
         t0 = self._start()
+        self.reduce_bytes += t.numel() * t.element_size()
         if self.transport == "host":
             buf = self._host_buffer(t)
             dist.all_reduce(buf, group=self.group)
@@ -263,12 +268,18 @@ class P2P:
         left as it was)."""
         n = self.world_size
         t0 = self._start()
+        self.scatter_bytes += t.numel() * t.element_size()
         if self.transport == "host":
-            buf = self._host_buffer(t)
-            if buf.data_ptr() == t.data_ptr():
-                buf = buf.clone()
-            dist.all_reduce(buf, group=self.group)
-            out = buf.chunk(n, dim)[self.rank].to(self.device, t.dtype).contiguous()
+            x = t.detach().movedim(dim, 0).contiguous().to("cpu")
+            rows = x.reshape(n, -1).view(torch.uint8)
+            got = torch.empty_like(rows)
+            dist.all_to_all_single(got, rows, group=self.group)
+            parts = got.view(x.dtype)
+            acc = parts[0].float() if x.dtype in NARROW else parts[0].clone()
+            for j in range(1, n):
+                acc += parts[j]
+            shape = (x.shape[0] // n, *x.shape[1:])
+            out = acc.to(x.dtype).reshape(shape).movedim(0, dim).to(self.device).contiguous()
         else:
             x = t.detach().movedim(dim, 0).contiguous()
             part = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,

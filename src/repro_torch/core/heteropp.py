@@ -531,7 +531,7 @@ class _TPReduce(torch.autograd.Function):
 
 
 def _tp_block_forward(p, cfg: ModelConfig, lcfg: ModelConfig, x, tp, *,
-                      backend: str = "auto"):
+                      backend: str = "auto", **attn_kw):
     """One dense block with manual Megatron tensor parallelism: ``p``
     holds this member's shards (column-parallel wq/wk/wv/bq/bk/bv/wi/wg,
     row-parallel wo), so attention runs on its ``lcfg`` heads and the MLP
@@ -539,12 +539,13 @@ def _tp_block_forward(p, cfg: ModelConfig, lcfg: ModelConfig, x, tp, *,
     the tp group (``tp``, a :class:`~repro_torch.comm.p2p.P2P`) before
     the residual add, so activations stay replicated across tp.  A
     replicated attention leaf (the per-head qk-norm scales) sees only
-    this member's heads, so it passes :class:`_TPCopy` too."""
+    this member's heads, so it passes :class:`_TPCopy` too.  ``attn_kw``
+    (positions, a vlm model's ``prefix_len``) goes to the attention."""
     h = _TPCopy.apply(layers.apply_norm(p["ln1"], x, cfg.norm), tp)
     attn = {k: v if k in TP_COLUMN_PARAMS | TP_ROW_PARAMS
             else tree_map(lambda t: _TPCopy.apply(t, tp), v)
             for k, v in p["attn"].items()}
-    a = attention.self_attention(attn, lcfg, h, backend=backend)
+    a = attention.self_attention(attn, lcfg, h, backend=backend, **attn_kw)
     x = x + _TPReduce.apply(a, tp)
     h = _TPCopy.apply(layers.apply_norm(p["ln2"], x, cfg.norm), tp)
     return x + _TPReduce.apply(layers.apply_mlp(p["mlp"], h, cfg.mlp), tp)

@@ -1,13 +1,16 @@
-"""Synthetic deterministic token stream (a numpy-only copy of
-``repro/data/pipeline.py``'s ``DataConfig`` and ``SyntheticTokens``; that
-module imports jax, so the port keeps its own copy).  The stream is
-bit-identical to the JAX package's for the same config and seed.
-``make_loader`` yields its batches as tensors on a device.
+"""Synthetic deterministic data pipeline (a numpy-only copy of
+``repro/data/pipeline.py``; that module imports jax, so the port keeps
+its own copy).  The stream is bit-identical to the JAX package's for the
+same config and seed.  ``make_loader`` returns a :class:`DataLoader`: a
+host thread prefetches the global batches, and the consumer takes a
+rank's rows of each and copies them to the rank's device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+import queue
+import threading
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -75,12 +78,69 @@ def _unit_noise(shape, seed) -> np.ndarray:
     return rng.standard_normal(shape).astype(np.float32)
 
 
-def make_loader(cfg: ModelConfig, dcfg: DataConfig, *, device
-                ) -> Iterator[Dict[str, torch.Tensor]]:
+def _worker(source, q: queue.Queue, stop: threading.Event):
+    try:
+        while not stop.is_set():
+            batch = source.next_batch()
+            while not stop.is_set():
+                try:
+                    q.put(batch, timeout=1.0)
+                    break
+                except queue.Full:
+                    continue
+    except BaseException as e:  # surface worker crashes to the consumer
+        q.put(e)
+
+
+class DataLoader:
+    """Host-side prefetching iterator (the JAX package's ``DataLoader``):
+    a daemon thread draws up to ``prefetch`` global batches of ``source``
+    ahead; ``next`` takes the next one, keeps the batch rows ``rows``
+    (all of them when None) and copies it to ``device``.  A worker's
+    exception surfaces as ``RuntimeError("data worker failed")`` from it;
+    :meth:`close` stops the thread."""
+
+    def __init__(self, source: SyntheticTokens, *, device, rows=None,
+                 prefetch: int = 2):
+        self.source, self.device = source, torch.device(device)
+        self.rows = None if rows is None else np.asarray(rows)
+        self._q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
+        self._stop = threading.Event()
+        # the thread holds the queue, not the loader, so that a loader
+        # nobody closes still stops once it is collected (``__del__``)
+        self._thread = threading.Thread(target=_worker, args=(source, self._q, self._stop),
+                                        daemon=True)
+        self._thread.start()
+
+    def __del__(self):
+        self._stop.set()
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        batch = self._q.get()
+        if isinstance(batch, BaseException):
+            raise RuntimeError("data worker failed") from batch
+        if self.rows is not None:
+            batch = {k: v[self.rows] for k, v in batch.items()}
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5.0)
+
+
+def make_loader(cfg: ModelConfig, dcfg: DataConfig, *, device,
+                rows: Optional[np.ndarray] = None) -> DataLoader:
     """The ``SyntheticTokens`` batches of the JAX loader, in the same
-    order, as tensors on ``device``.  No prefetch thread: a batch is a
-    few KB of host sampling, small beside a training step."""
-    source = SyntheticTokens(cfg, dcfg)
-    while True:
-        yield {k: torch.from_numpy(v).to(device)
-               for k, v in source.next_batch().items()}
+    order, as tensors on ``device``: of each, the batch rows ``rows``
+    (a rank's, ``sharding.spmd.local_rows``) or all of them."""
+    return DataLoader(SyntheticTokens(cfg, dcfg), device=device, rows=rows,
+                      prefetch=dcfg.prefetch)

@@ -4,6 +4,7 @@ device, or the HeteroPP pipeline with one process a stage.
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_780m \\
         --steps 50 --batch 8 --seq 256 [--backend auto|einsum|kernel] \\
         [--device cuda|cpu] [--smoke] [--ckpt-dir DIR --ckpt-every N] \\
+        [--accum A] [--model-parallel N [--data-parallel D] [--p2p device|host]] \\
         [--pipeline-parallel N [--tensor-parallel T] [--data-parallel D] \\
          [--schedule 1f1b] [--microbatches B] \\
          [--grad-sync psum|reduce_scatter] [--bucket-bytes N] \\
@@ -21,6 +22,26 @@ Prints ``arch=… family=… params~…M devices=…`` and every
 ``--log-every`` steps ``step N loss=… lr=… gnorm=… TGS=…``, with the
 same row in ``<run-dir>/metrics.jsonl``.  ``main`` also returns the
 per-step losses and times to a caller in Python.
+
+``--model-parallel N`` (or ``--data-parallel D`` without a pipeline)
+trains on a (data, model) rank grid (``launch.mesh.make_local_mesh``:
+rank = d·N + m) through ``sharding.spmd``: the JAX launcher's GSPMD path,
+its state placed by the copied ``sharding`` rules (FSDP over data, one
+dim over model), its collectives written out (Megatron blocks at N > 1,
+dense and vlm models only).  The data degree D is the world over N: a
+``torchrun`` job's ``WORLD_SIZE``, or one rank a visible card under
+``--p2p device`` (the default), the launcher spawning them.  JAX sees a
+host's devices from one process, torch needs a process a rank, so on the
+CPU, or with ranks sharing a card (``--p2p host``), ``--data-parallel D``
+gives the data degree (``make_local_mesh``'s ``data``; default 1).
+``--accum`` and ``--ckpt-dir`` / ``--ckpt-every`` work there: rank 0
+writes the single-device checkpoint format, gathered, so a checkpoint
+resumes on a grid or one device either way.  Rank 0 prints ``arch=…
+devices=D·N`` and the step lines, writes ``metrics.jsonl`` with ``"mode":
+"gspmd"`` and ends with a summary of the step p50 and the collectives a
+step by axis; ``main`` returns the losses, step times, each rank's peak
+memory and persistent state bytes (with their closed form) and the
+collectives.  A 1 x 1 grid is the single-device path.
 
 ``--pipeline-parallel N`` trains through ``core.heteropp`` on a rank
 grid of D·N·T ranks (``--data-parallel D`` replicas of N physical
@@ -167,7 +188,12 @@ def parse_args(argv=None):
     ap.add_argument("--data-parallel", type=int, default=0,
                     help="with --pipeline-parallel: N pipeline replicas, each "
                          "taking its share of the microbatches (default 1; "
-                         "plans carry their own dp)")
+                         "plans carry their own dp); without it, the data "
+                         "degree of the (data, model) grid under --p2p host")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="train on a (data, model) rank grid with a model "
+                         "axis of N (the JAX launcher's GSPMD path; dense and "
+                         "vlm models at N > 1)")
     ap.add_argument("--grad-sync", default=None, choices=GRAD_SYNC_MODES,
                     help="with --data-parallel: psum (replicated optimizer "
                          "state) or ZeRO-1 reduce_scatter + all-gather "
@@ -193,19 +219,30 @@ def _refuse(args, pipeline: bool) -> None:
         flag = "--search-dp" if args.search_dp else "--search-uneven-dp"
         raise SystemExit(f"{flag} only shapes the HeteroAuto search; "
                          f"add --search CHIP:N,...")
+    if args.model_parallel < 1 or args.data_parallel < 0:
+        raise SystemExit("--model-parallel and --data-parallel must be positive")
     if not pipeline:
+        if args.trace:
+            # the trace re-drives the pipeline's tick program; the grid has none
+            raise SystemExit("--trace re-drives the pipeline's tick program; "
+                             "add --pipeline-parallel N (or --plan/--search)")
+        if args.tensor_parallel:
+            raise SystemExit(
+                f"--tensor-parallel {args.tensor_parallel} only applies to the "
+                f"pipeline; add --pipeline-parallel N (or use --model-parallel "
+                f"for the (data, model) grid's tensor parallelism)")
         given = [flag for flag, on in (
             ("--schedule", args.schedule), ("--microbatches", args.microbatches),
-            ("--p2p", args.p2p), ("--no-verify-plan", args.no_verify_plan),
-            ("--tensor-parallel", args.tensor_parallel),
-            ("--data-parallel", args.data_parallel),
+            ("--no-verify-plan", args.no_verify_plan),
             ("--grad-sync", args.grad_sync),
-            ("--bucket-bytes", args.bucket_bytes), ("--reshard", args.reshard),
-            ("--trace", args.trace)) if on]
+            ("--bucket-bytes", args.bucket_bytes), ("--reshard", args.reshard)) if on]
         if given:
             raise SystemExit(f"{' '.join(given)} only apply to the pipeline; "
                              "add --pipeline-parallel N, --plan or --search")
         return
+    if args.model_parallel > 1:
+        raise SystemExit(f"--model-parallel {args.model_parallel} is the (data, model) "
+                         f"grid's; the pipeline takes --tensor-parallel")
     if args.plan and args.search:
         raise SystemExit("--plan and --search are mutually exclusive")
     if args.reshard and not (args.plan or args.search):
@@ -256,6 +293,9 @@ def main(argv=None):
     cfg = get_smoke_config(name) if args.smoke else get_config(name)
     if pipeline:
         return run_pipeline(args, cfg, dev)
+    grid = gspmd_grid(args, dev)
+    if grid != (1, 1):
+        return run_gspmd(args, cfg, dev, *grid)
     print(f"arch={cfg.name} family={cfg.family} "
           f"params~{cfg.param_count() / 1e6:.1f}M devices=1 ({dev})", flush=True)
     if dev.type == "cuda" and args.backend != "einsum":
@@ -279,7 +319,7 @@ def main(argv=None):
             "devices": 1, "batch": args.batch, "seq": args.seq,
             "backend": args.backend, "device": str(dev)}
     tokens_per_step = args.batch * args.seq
-    losses, step_times = [], []
+    losses, grad_norms, step_times = [], [], []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     with MetricsLogger(run_dir, meta=meta) as metrics:
@@ -292,6 +332,7 @@ def main(argv=None):
             losses.append(float(m["loss"]))          # waits for the step
             devices.synchronize(dev)
             step_times.append(time.perf_counter() - t1)
+            grad_norms.append(float(m["grad_norm"]))
             if (i + 1) % args.log_every == 0 or i == 0:
                 now = time.perf_counter()
                 tgs = tokens_per_step * (i + 1) / (now - t0)
@@ -310,13 +351,220 @@ def main(argv=None):
         save_checkpoint(args.ckpt_dir, state, step=args.steps)
         print(f"checkpoint saved to {args.ckpt_dir}")
     return {"arch": cfg.name, "num_layers": cfg.num_layers, "losses": losses,
-            "step_times_s": step_times, "tokens_per_step": tokens_per_step,
+            "grad_norms": grad_norms, "step_times_s": step_times,
+            "tokens_per_step": tokens_per_step,
             "peak_mem_bytes": device_memory_highwater(dev), "state": state}
+
+
+def _torchrun() -> bool:
+    return all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR"))
 
 
 def _opt(args) -> AdamWConfig:
     return AdamWConfig(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 20, 5))
+
+
+# ---------------------------------------------------------------------------
+# the (data, model) grid: the JAX launcher's GSPMD path
+# ---------------------------------------------------------------------------
+
+def gspmd_grid(args, dev):
+    """(D, M) of the (data, model) grid off the pipeline: (1, 1) unless
+    ``--model-parallel``, ``--data-parallel``, ``--p2p`` or a job of
+    several ranks asks for a grid.  The world is the job's (``torchrun``,
+    or the process group a caller has joined), else one rank a card
+    under ``--p2p device`` or ``--data-parallel`` x ``--model-parallel``
+    under ``--p2p host``."""
+    M = args.model_parallel
+    joined = torch.distributed.is_available() and torch.distributed.is_initialized()
+    if _torchrun():
+        world = int(os.environ["WORLD_SIZE"])
+    elif joined:
+        world = torch.distributed.get_world_size()
+    elif not (M > 1 or args.data_parallel or args.p2p):
+        return 1, 1
+    elif (args.p2p or "device") == "device":
+        try:
+            P2P.check_transport("device", dev, M * max(args.data_parallel, 1))
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        world = torch.cuda.device_count()
+    else:
+        world = (args.data_parallel or 1) * M
+    if world % M:
+        raise SystemExit(f"--model-parallel {M} does not divide the {world} ranks")
+    D = world // M
+    if args.data_parallel and args.data_parallel != D:
+        raise SystemExit(f"--data-parallel {args.data_parallel} x --model-parallel {M} "
+                         f"is not the job's {world} ranks")
+    return D, M
+
+
+def run_gspmd(args, cfg, dev, D, M):
+    """Train on the (data, model) grid: checks, then one rank a grid
+    cell (spawned here, or this process's rank of a job started outside
+    the launcher).  Returns rank 0's results with each rank's peak
+    memory, state bytes and collectives beside them and the kernels'
+    launches summed over the ranks (when spawned here)."""
+    from ..sharding import spmd
+    transport = args.p2p or "device"
+    world = D * M
+    try:
+        spmd.check_grid(cfg, M)
+        P2P.check_transport(transport, dev, int(os.environ.get("LOCAL_WORLD_SIZE", world))
+                            if _torchrun() else world)
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(str(e)) from None
+    if args.batch % (args.accum * D):
+        raise SystemExit(f"--batch {args.batch} does not split into --accum {args.accum} "
+                         f"microbatches over the {D} data ranks")
+    print(f"arch={cfg.name} family={cfg.family} "
+          f"params~{cfg.param_count() / 1e6:.1f}M devices={D}·{M} (data {D} x model "
+          f"{M}, {dev}, p2p {transport})", flush=True)
+    run_dir = args.run_dir or os.path.join("runs", cfg.name)
+    os.makedirs(run_dir, exist_ok=True)
+    job = (args, cfg, D, M, transport)
+    if _torchrun() or torch.distributed.is_initialized():
+        return _join_job(job, transport, world, _gspmd_rank)
+    threads = max(1, torch.get_num_threads() // world) if dev.type == "cpu" else None
+    outs = ranks.spawn(_gspmd_rank, world, job, workdir=os.path.join(run_dir, "ranks"),
+                       transport=transport, timeout=RANK_TIMEOUT_S, threads=threads)
+    return merge_gspmd_results(outs)
+
+
+def outside_collectives(step_times, stats):
+    """Each step's seconds outside its collectives: its wall time less the
+    wall ms of every all-gather, reduce-scatter and all-reduce it made
+    (``spmd.Layout.counts``, each collective timed alone)."""
+    return [t - sum(v for k, v in s.items() if k.endswith("_ms")) / 1e3
+            for t, s in zip(step_times, stats)]
+
+
+def merge_gspmd_results(outs):
+    """The ranks' results of one grid run as the launcher returns them:
+    rank 0's, each rank's peak memory, state bytes (and their closed
+    form), losses and collectives a step beside it, the largest peak, and
+    the kernels' launches summed over the ranks."""
+    res = dict(outs[0])
+    per_rank = [o["peak_mem_bytes"] for o in outs if o["peak_mem_bytes"] is not None]
+    res["peak_mem_bytes"] = max(per_rank) if per_rank else None
+    res["launches"] = {k: sum(o["launches"][k] for o in outs) for k in res["launches"]}
+    for key in ("peak_mem_bytes", "losses", "state_bytes", "block_bytes", "grid",
+                "stats", "step_times_s"):
+        res[key + "_per_rank"] = [o[key] for o in outs]
+    return res
+
+
+def _gspmd_rank(rank, world, args, cfg, D, M, transport, *, local_rank=None):
+    """One rank of the grid: its blocks of the seeded state (or of the
+    checkpoint it resumes), its rows of every batch, the sharded step.
+    Rank 0 prints and logs to ``metrics.jsonl``, every other rank to
+    ``rank<r>/metrics.jsonl``.  Returns the rank's losses, step times,
+    peak memory, persistent state bytes and their closed form, kernel
+    launches (counted from 0 in this process) and collectives a step."""
+    import statistics
+
+    from ..checkpointing.io import CheckpointReader
+    from ..launch.mesh import make_local_mesh
+    from ..sharding import spmd
+    base = devices.resolve(args.device)
+    dev = P2P.rank_device(base, rank if local_rank is None else local_rank, transport)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        if args.backend != "einsum":
+            kbuild.load()
+    mesh, grid = make_local_mesh(model=M, data=D, transport=transport, device=dev)
+    layout = spmd.Layout(mesh, grid)
+    step_fn = spmd.make_train_step(cfg, layout, _opt(args), accum_steps=args.accum,
+                                   backend=args.backend)
+    specs = step_fn.specs
+    if args.ckpt_dir and checkpoint_step(args.ckpt_dir) is not None:
+        with CheckpointReader(args.ckpt_dir) as read:
+            state = spmd.shard_state(read, layout, specs, device=dev)
+        if rank == 0:
+            print(f"resumed from {args.ckpt_dir} at step {state.step}")
+    else:
+        state = spmd.init_state(cfg, layout, specs,
+                                torch.Generator(device=dev).manual_seed(args.seed),
+                                device=dev)
+    loader = make_loader(cfg, DataConfig(batch_size=args.batch, seq_len=args.seq,
+                                         seed=1234 + args.seed), device=dev,
+                         rows=spmd.local_rows(args.batch, layout, args.accum).numpy())
+    run_dir = args.run_dir or os.path.join("runs", cfg.name)
+    meta = {"arch": cfg.name, "family": cfg.family, "mode": "gspmd", "devices": world,
+            "data_parallel": D, "model_parallel": M, "accum": args.accum,
+            "batch": args.batch, "seq": args.seq, "backend": args.backend,
+            "device": str(dev), "p2p": transport, "rank": rank, "grid": [grid.d, grid.k]}
+
+    def save(step):
+        full = spmd.full_state(state, layout, specs)
+        if rank == 0:
+            save_checkpoint(args.ckpt_dir, full, step=step)
+
+    tokens_per_step = args.batch * args.seq
+    losses, grad_norms, step_times, stats = [], [], [], []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    logger = MetricsLogger(run_dir if rank == 0 else os.path.join(run_dir, f"rank{rank}"),
+                           meta=meta)
+    try:
+        t0 = time.perf_counter()
+        t_last, i_last = t0, 0
+        for i in range(args.steps):
+            batch = next(loader)
+            t1 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            devices.synchronize(dev)
+            step_times.append(time.perf_counter() - t1)
+            losses.append(m["loss"])
+            grad_norms.append(m["grad_norm"])
+            stats.append(dict(step_fn.stats))
+            if (i + 1) % args.log_every == 0 or i == 0:
+                now = time.perf_counter()
+                tps = tokens_per_step * (i + 1) / (now - t0)
+                logger.log(step=i + 1, tokens_per_s=tps, tgs=tps / world,
+                           step_time_s=(now - t_last) / (i + 1 - i_last),
+                           peak_bytes_in_use=device_memory_highwater(dev), **m,
+                           **stats[-1])
+                t_last, i_last = now, i + 1
+                if rank == 0:
+                    print(f"step {i + 1:5d} loss={m['loss']:.4f} lr={m['lr']:.2e} "
+                          f"gnorm={m['grad_norm']:.2f} TGS={tps / world:.0f}", flush=True)
+            if args.ckpt_dir and args.ckpt_every and (i + 1) % args.ckpt_every == 0:
+                save(i + 1)
+        launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+        peak = device_memory_highwater(dev)
+        if args.ckpt_dir:
+            save(args.steps)
+            if rank == 0:
+                print(f"checkpoint saved to {args.ckpt_dir}")
+    finally:
+        loader.close()
+        logger.close()
+    if rank == 0 and stats:
+        steady = lambda k: statistics.median([s[k] for s in stats[1:] or stats])
+        p50 = statistics.median(step_times[1:] or step_times)
+        rest = outside_collectives(step_times, stats)
+        print(f"summary (rank 0): p50 {p50 * 1e3:.1f} ms over steps 2-{len(stats)}, "
+              f"{tokens_per_step / p50:.0f} tok/s, outside the collectives "
+              f"{statistics.median(rest[1:] or rest) * 1e3:.1f} ms; collectives a step: "
+              + "; ".join(
+                  f"{axis} all-gather {steady(axis + '_gather_bytes') / 2**20:.1f} MiB "
+                  f"{steady(axis + '_gather_ms'):.1f} ms, reduce-scatter "
+                  f"{steady(axis + '_scatter_bytes') / 2**20:.1f} MiB "
+                  f"{steady(axis + '_scatter_ms'):.1f} ms, all-reduce "
+                  f"{steady(axis + '_reduce_bytes') / 2**20:.1f} MiB "
+                  f"{steady(axis + '_reduce_ms'):.1f} ms"
+                  for axis in ("data", "model", "world")), flush=True)
+    return {"arch": cfg.name, "num_layers": cfg.num_layers, "losses": losses,
+            "grad_norms": grad_norms, "step_times_s": step_times,
+            "tokens_per_step": tokens_per_step,
+            "peak_mem_bytes": peak, "mode": "gspmd", "launches": launches,
+            "state_bytes": spmd.state_bytes(state),
+            "block_bytes": sum(spmd.block_bytes(cfg, layout, specs).values()),
+            "stats": stats, "rank": rank, "grid": [grid.d, grid.k], "device": str(dev)}
 
 
 # ---------------------------------------------------------------------------
@@ -445,7 +693,7 @@ def run_pipeline(args, cfg, dev):
     # a grouped plan runs on Σ tp_s ranks, stage s on tp_s of them
     world = spec.pipe_width if spec.grouped else D * S * T
     env = os.environ
-    torchrun = all(k in env for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR"))
+    torchrun = _torchrun()
     try:
         P2P.check_transport(transport, dev, int(env.get("LOCAL_WORLD_SIZE", world))
                             if torchrun else world)
@@ -590,7 +838,7 @@ STAT_KEYS = ("p2p_bytes", "p2p_s", "p2p_copy_s", "boundary_bytes", "boundary_s",
              "reduce_s", "tp_s", "dp_s", "dp_scatter_s", "dp_gather_s", "norm_s")
 
 
-def _join_job(job, transport, world_size):
+def _join_job(job, transport, world_size, rank_fn=None):
     """This process's rank of a job started outside the launcher: a
     ``torchrun`` job (joined here through ``env://``, on card
     ``LOCAL_RANK``), or a caller that has joined a process group already.
@@ -612,7 +860,7 @@ def _join_job(job, transport, world_size):
         raise SystemExit(f"the job's process group runs {dist.get_backend()}; "
                          f"--p2p {transport} needs {P2P.BACKENDS[transport]}")
     try:
-        return _pipeline_rank(rank, world, *job, local_rank=local_rank)
+        return (rank_fn or _pipeline_rank)(rank, world, *job, local_rank=local_rank)
     finally:
         if own:
             dist.destroy_process_group()

@@ -39,9 +39,12 @@ def init_attention(cfg, dtype, *, generator, device, stack=()):
         "wo": layers.dense_init((cfg.num_heads * hd, d), 0, dtype, **kw),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((*stack, cfg.num_heads * hd), dtype=dtype, device=device)
-        p["bk"] = torch.zeros((*stack, cfg.num_kv_heads * hd), dtype=dtype, device=device)
-        p["bv"] = torch.zeros((*stack, cfg.num_kv_heads * hd), dtype=dtype, device=device)
+        p["bq"] = layers.made(torch.zeros((*stack, cfg.num_heads * hd), dtype=dtype,
+                                           device=device))
+        p["bk"] = layers.made(torch.zeros((*stack, cfg.num_kv_heads * hd), dtype=dtype,
+                                           device=device))
+        p["bv"] = layers.made(torch.zeros((*stack, cfg.num_kv_heads * hd), dtype=dtype,
+                                           device=device))
     if cfg.qk_norm:
         p["q_norm"] = layers.init_norm("rmsnorm", hd, device=device, stack=stack)
         p["k_norm"] = layers.init_norm("rmsnorm", hd, device=device, stack=stack)

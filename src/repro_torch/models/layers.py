@@ -8,8 +8,9 @@ bits: parity tests carry the JAX weights over with ``repro_torch.bridge``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
 INIT_CHUNK_ELEMS = 1 << 26           # fp32 scratch per draw: 256 MB
+_LEAF_HOOK: Optional[Callable] = None
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -26,6 +28,26 @@ def dtype_of(cfg) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # initializers
 # ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def leaf_hook(fn: Callable):
+    """While the context lasts, every parameter leaf an initializer makes
+    is passed to ``fn`` as soon as it is made (in creation order, which
+    is the generator's draw order) and replaced by what ``fn`` returns.
+    The sharded train step builds its state with it, keeping its block
+    of each leaf and freeing the rest at once (``sharding.spmd``)."""
+    global _LEAF_HOOK
+    before, _LEAF_HOOK = _LEAF_HOOK, fn
+    try:
+        yield
+    finally:
+        _LEAF_HOOK = before
+
+
+def made(t: torch.Tensor) -> torch.Tensor:
+    """A new parameter leaf, through the active :func:`leaf_hook`."""
+    return t if _LEAF_HOOK is None else _LEAF_HOOK(t)
+
 
 def normal_(out: torch.Tensor, std: float, generator: torch.Generator):
     """Fill ``out`` with N(0, std²) drawn in fp32 and cast to its dtype,
@@ -46,13 +68,13 @@ def dense_init(shape: Sequence[int], in_axis: int, dtype, *, generator,
     """N(0, 1/fan_in) with fan_in = shape[in_axis]; ``stack`` prepends the
     stacked-layer dimensions."""
     out = torch.empty((*stack, *shape), dtype=dtype, device=device)
-    return normal_(out, 1.0 / math.sqrt(shape[in_axis]), generator)
+    return made(normal_(out, 1.0 / math.sqrt(shape[in_axis]), generator))
 
 
 def embed_init(shape: Sequence[int], dtype, *, generator, device,
                stack: Sequence[int] = ()):
     out = torch.empty((*stack, *shape), dtype=dtype, device=device)
-    return normal_(out, 0.02, generator)
+    return made(normal_(out, 0.02, generator))
 
 
 # ---------------------------------------------------------------------------
@@ -61,9 +83,9 @@ def embed_init(shape: Sequence[int], dtype, *, generator, device,
 
 def init_norm(kind: str, d: int, *, device, stack: Sequence[int] = ()):
     shape = (*stack, d)
-    p = {"scale": torch.ones(shape, dtype=torch.float32, device=device)}
+    p = {"scale": made(torch.ones(shape, dtype=torch.float32, device=device))}
     if kind != "rmsnorm":
-        p["bias"] = torch.zeros(shape, dtype=torch.float32, device=device)
+        p["bias"] = made(torch.zeros(shape, dtype=torch.float32, device=device))
     return p
 
 

@@ -30,6 +30,14 @@ layer's cache with P + S rows and returns P + S as the prompt length.
 Decode is the dense path: a query at position >= P sees the prefix
 causally, so no prefix mask is needed there.  The frontend is a stub: the
 model has no vision weights.
+
+``forward`` and ``loss_fn`` take the sharded train step's ``gather``
+(``sharding.spmd``) when the parameters are one rank's blocks: the
+non-stacked leaves (embeddings, norms, positions, a hybrid model's
+shared block) are gathered whole once, and each layer's blocks are
+gathered inside the layer's checkpoint, so the backward's recompute
+gathers them again and no whole layer outlives its use.  Without it
+(every other caller) the parameters are whole and nothing changes.
 """
 from __future__ import annotations
 
@@ -86,6 +94,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     return p
 
 
+def abstract_params(cfg: ModelConfig) -> PyTree:
+    """The parameter tree's names, shapes and dtypes on the meta device,
+    nothing allocated and nothing drawn: the counterpart of the JAX
+    package's ``jax.eval_shape`` of ``init_params``."""
+    return init_params(cfg, None, device=torch.device("meta"))
+
+
 def param_count(params: PyTree) -> int:
     if isinstance(params, dict):
         return sum(param_count(v) for v in params.values())
@@ -96,26 +111,45 @@ def param_count(params: PyTree) -> int:
 # forward (training / full-sequence)
 # ---------------------------------------------------------------------------
 
+_STACKS = ("blocks", "enc_blocks", "dec_blocks")
+
+
+def _gathered(params, gather):
+    """``params`` with its non-stacked leaves gathered whole by a sharded
+    step's ``gather`` (as they are without one)."""
+    if gather is None:
+        return params
+    return {k: v if k in _STACKS else gather(v, k) for k, v in params.items()}
+
+
 def forward(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            *, remat: bool = True, backend: str = "auto", unembed: bool = True):
+            *, remat: bool = True, backend: str = "auto", unembed: bool = True,
+            gather=None):
     """Returns (logits over the text positions, metrics); with
     ``unembed=False`` returns the final-norm hidden states instead (used
     by the chunked loss)."""
+    return _forward(_gathered(params, gather), cfg, batch, remat=remat,
+                    backend=backend, unembed=unembed, gather=gather)
+
+
+def _forward(params, cfg, batch, *, remat, backend, unembed, gather):
+    """``forward`` on parameters whose non-stacked leaves are whole."""
     x, prefix_len = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     if cfg.family == "audio":
         enc = _encode(params, cfg, batch["audio_embeds"], x.dtype, remat=remat,
-                      backend=backend)
+                      backend=backend, gather=gather)
         x = _decode_stack(params, cfg, x, enc, positions, remat=remat,
-                          backend=backend)
+                          backend=backend, gather=gather)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     elif cfg.family == "hybrid":
         x, aux = _hybrid_forward(params, cfg, x, positions, remat=remat,
-                                 backend=backend)
+                                 backend=backend, gather=gather)
     else:
         x, aux = tfm.run_stacked(params["blocks"], cfg, x, cfg.block_kind,
                                  remat=remat, backend=backend,
-                                 positions=positions, prefix_len=prefix_len)
+                                 positions=positions, prefix_len=prefix_len,
+                                 gather=gather)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     x = x[:, prefix_len:]
     metrics = {"aux_loss": aux}
@@ -135,7 +169,7 @@ def _embed_inputs(params, cfg, batch):
     return torch.cat([img, x], dim=1), img.shape[1]
 
 
-def _hybrid_forward(params, cfg, x, positions, *, remat, backend):
+def _hybrid_forward(params, cfg, x, positions, *, remat, backend, gather=None):
     """Each group's ``per`` ssm layers, then the shared dense block; past
     ``max_seq_len`` the shared block attends within the long-context
     window (``repro/models/model.py:121-137``).
@@ -153,6 +187,8 @@ def _hybrid_forward(params, cfg, x, positions, *, remat, backend):
     shared = params["shared_attn"]
 
     def group(x, gp):
+        if gather is not None:
+            gp = gather(gp, "blocks")
         x, _ = tfm.run_stacked(gp, cfg, x, "ssm", backend=backend)
         x, _ = tfm.block_forward(shared, cfg, x, "dense", positions=positions,
                                  window=window, backend=backend)
@@ -163,18 +199,19 @@ def _hybrid_forward(params, cfg, x, positions, *, remat, backend):
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _encode(params, cfg, audio_embeds, dtype, *, remat, backend):
+def _encode(params, cfg, audio_embeds, dtype, *, remat, backend, gather=None):
     """The audio encoder: frames + learned positions through the
     non-causal dense stack (one checkpoint a layer under ``remat``),
     then ``enc_final_norm``."""
     enc = audio_embeds.to(dtype) + params["enc_pos"]
     enc, _ = tfm.run_stacked(params["enc_blocks"], cfg, enc, "dense",
-                             remat=remat, backend=backend, causal=False)
+                             remat=remat, backend=backend, causal=False,
+                             gather=gather, where="enc_blocks")
     return layers.apply_norm(params["enc_final_norm"], enc, cfg.norm)
 
 
 def _decode_stack(params, cfg, x, enc, positions, *, remat, backend,
-                  cache=None):
+                  cache=None, gather=None):
     """The audio decoder over the full sequence: sinusoidal positions,
     then each ``dec_cross`` layer with its cross K/V projected from
     ``enc`` inside the layer's checkpoint under ``remat`` (as the
@@ -185,6 +222,8 @@ def _decode_stack(params, cfg, x, enc, positions, *, remat, backend,
         kv = None if cache is None else tfm.layer(cache["self"], i)
 
         def one(x, enc, p=p, i=i, kv=kv):
+            if gather is not None:
+                p = gather(p, "dec_blocks")
             ekv = attention.encode_cross_kv(p["xattn"], cfg, enc)
             if cache is not None:
                 cache["cross"][0][i].copy_(ekv[0])
@@ -236,11 +275,12 @@ def chunked_ce(embed_params, hidden, targets, mask, chunk=LOSS_CHUNK):
     return total
 
 
-def loss_fn(params, cfg, batch, *, remat=True, backend="auto"):
+def loss_fn(params, cfg, batch, *, remat=True, backend="auto", gather=None):
     """Mean next-token CE over the text positions (the last one masked)
     plus the auxiliary loss.  Returns (total, metrics)."""
-    hidden, metrics = forward(params, cfg, batch, remat=remat,
-                              backend=backend, unembed=False)
+    params = _gathered(params, gather)
+    hidden, metrics = _forward(params, cfg, batch, remat=remat, backend=backend,
+                               unembed=False, gather=gather)
     tokens = batch["tokens"]
     targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
     mask = batch.get("loss_mask")

@@ -20,7 +20,7 @@ package also computes outside any Pallas kernel.  Its sharding hints
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,10 +133,15 @@ def expert_mlp(params, cfg, buf):
     return torch.einsum("becf,efd->becd", h, params["wo"])
 
 
-def moe_block(params, cfg, x) -> Tuple[torch.Tensor, dict]:
+def moe_block(params, cfg, x, routing_sum: Optional[Callable] = None
+              ) -> Tuple[torch.Tensor, dict]:
     """x: (B, S, d) -> (y (B, S, d), metrics): ``moe_aux_loss`` (Switch
     load balance x ``router_aux_coef``), ``moe_z_loss`` (mean squared
-    router log-partition x ``router_z_coef``) and ``moe_drop_frac``."""
+    router log-partition x ``router_z_coef``) and ``moe_drop_frac``.
+    ``routing_sum(counts, n)``, where given, returns the top-1 counts and
+    the token count summed over the data-parallel ranks, so that the
+    load-balance loss's expert fractions are the whole batch's, as on the
+    single device (the sharded train step's, ``sharding.spmd``)."""
     B, S, d = x.shape
     E = cfg.num_experts
     C = capacity(cfg, S)
@@ -145,7 +150,10 @@ def moe_block(params, cfg, x) -> Tuple[torch.Tensor, dict]:
     ybuf = expert_mlp(params, cfg, buf.reshape(B, E, C, d))
     y = combine(ybuf.reshape(B, E * C, d), slot, valid, gate_vals)
 
-    frac_tokens = count(expert_ids[..., 0], E).float() / (B * S)
+    counts, n = count(expert_ids[..., 0], E), B * S
+    if routing_sum is not None:
+        counts, n = routing_sum(counts, n)
+    frac_tokens = counts.float() / n
     mean_probs = probs.mean(dim=(0, 1))
     aux = E * torch.sum(frac_tokens * mean_probs)
     z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))

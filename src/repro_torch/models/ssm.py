@@ -30,10 +30,11 @@ def init_ssm(cfg, dtype, *, generator, device, stack=()):
     return {
         "in_proj": layers.dense_init((d, in_dim), 0, dtype, **kw),
         "conv_w": layers.dense_init((cfg.ssm_conv_width, conv_dim), 0, dtype, **kw),
-        "conv_b": torch.zeros((*stack, conv_dim), dtype=dtype, device=device),
-        "A_log": a_log.expand(*stack, nh).clone(),
-        "D": torch.ones((*stack, nh), **f32),
-        "dt_bias": torch.zeros((*stack, nh), **f32),
+        "conv_b": layers.made(torch.zeros((*stack, conv_dim), dtype=dtype,
+                                          device=device)),
+        "A_log": layers.made(a_log.expand(*stack, nh).clone()),
+        "D": layers.made(torch.ones((*stack, nh), **f32)),
+        "dt_bias": layers.made(torch.zeros((*stack, nh), **f32)),
         "norm": layers.init_norm("rmsnorm", dinner, device=device, stack=stack),
         "out_proj": layers.dense_init((dinner, d), 0, dtype, **kw),
     }

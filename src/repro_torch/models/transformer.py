@@ -107,10 +107,11 @@ def unstack(tree: PyTree):
 
 def block_forward(p, cfg, x, kind: str, *, positions=None, causal=True,
                   prefix_len=0, enc_kv=None, window=None, backend="auto",
-                  kv_cache=None):
+                  kv_cache=None, routing_sum=None):
     """One block.  Returns (x, metrics): metrics non-empty for moe
-    (``moe_block``'s); ``kv_cache`` is filled in place with the block's
-    K/V (prefill); ``enc_kv`` is a ``dec_cross`` block's cross K/V."""
+    (``moe_block``'s, ``routing_sum`` passed on); ``kv_cache`` is filled
+    in place with the block's K/V (prefill); ``enc_kv`` is a
+    ``dec_cross`` block's cross K/V."""
     _require(kind)
     if kind == "ssm":
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
@@ -127,23 +128,29 @@ def block_forward(p, cfg, x, kind: str, *, positions=None, causal=True,
         x = x + attention.cross_attention(p["xattn"], cfg, h, enc_kv, backend)
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
     if kind == "moe":
-        y, metrics = moe_lib.moe_block(p["moe"], cfg, h)
+        y, metrics = moe_lib.moe_block(p["moe"], cfg, h, routing_sum)
         return x + y, metrics
     return x + layers.apply_mlp(p["mlp"], h, cfg.mlp), {}
 
 
 def run_stacked(blocks: PyTree, cfg, x, kind: str, *, remat=False,
-                backend="auto", caches=None, **fwd_kw):
+                backend="auto", caches=None, gather=None, where="blocks", **fwd_kw):
     """Loop over the stacked block params.  Returns (x, aux): aux is the
     fp32 sum over the layers of ``moe_aux_loss + moe_z_loss``, 0 for the
     other kinds.  ``caches`` (stacked like the blocks) is filled in place
     when given; ``remat`` checkpoints each layer, which returns its
-    metrics beside x."""
+    metrics beside x.  With a sharded step's ``gather`` the blocks are
+    one rank's (``where`` their path in the params): each layer runs
+    ``gather.block`` on ``gather(layer, where)``, inside its checkpoint."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(unstack(blocks)):
         kv = layer(caches, i) if caches is not None else None
-        fn = lambda x, p=p, kv=kv: block_forward(
-            p, cfg, x, kind, backend=backend, kv_cache=kv, **fwd_kw)
+        if gather is None:
+            fn = lambda x, p=p, kv=kv: block_forward(
+                p, cfg, x, kind, backend=backend, kv_cache=kv, **fwd_kw)
+        else:
+            fn = lambda x, p=p: gather.block(gather(p, where), cfg, x, kind,
+                                             backend=backend, **fwd_kw)
         x, m = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
         if m:
             aux = aux + (m["moe_aux_loss"] + m["moe_z_loss"])

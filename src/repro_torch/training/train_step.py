@@ -36,6 +36,14 @@ def make_train_state(cfg: ModelConfig, generator: torch.Generator, *,
     return train_state_from(params, adamw.init_opt_state(params), 0)
 
 
+def abstract_train_state(cfg: ModelConfig) -> TrainState:
+    """The state's names, shapes and dtypes on the meta device, nothing
+    allocated: the counterpart of the JAX package's ``jax.eval_shape`` of
+    ``make_train_state`` (its step is the int 0)."""
+    params = M.abstract_params(cfg)
+    return TrainState(params, adamw.init_opt_state(params), 0)
+
+
 def train_state_from(params: PyTree, opt_state: PyTree, step: int) -> TrainState:
     """A state whose parameters are gradient leaves."""
     params = tree_map(lambda p: p.detach().requires_grad_(
