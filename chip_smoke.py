@@ -78,7 +78,7 @@ result.  Phases, each of which fails the run by raising:
      ranks sharing the card (``--p2p host``: gloo through pinned host
      memory), each plan two stages on different chip types with a
      non-uniform split: (a) qwen1.5-0.5b at full size, layers 10 / 14,
-     recompute on / off, 4 microbatches of 2 x 1024, 4 steps under 1f1b
+     recompute on / off, 4 microbatches of 2 x 1024, 2 steps under 1f1b
      and again under zb_v (v 2: stage 0 hosts global stages 0 and 3),
      4 x (10 x 2 + 14) = 136 ``flash_attention`` a step over both ranks;
      (b) mamba2-780m at full size, 20 / 28, both recompute, 4
@@ -100,7 +100,7 @@ result.  Phases, each of which fails the run by raising:
  17. HeteroPP over tensor and data parallelism on one card: four ranks
      sharing it through ``--p2p host``.  (a) phase 16 (a)'s qwen1.5-0.5b
      10 / 14 plan under 1f1b with tp 2 a stage (Megatron blocks, each
-     member's 8 of 16 heads through ``flash_attention``): 4 steps, 2 x
+     member's 8 of 16 heads through ``flash_attention``): 2 steps, 2 x
      136 = 272 ``flash_attention`` a step over the ranks, twice phase 16
      (a)'s; (b) qwen1.5-0.5b, ``--pipeline-parallel 2 --data-parallel 2
      --grad-sync reduce_scatter`` (ZeRO-1), 8 microbatches of 2 x 1024
@@ -120,7 +120,7 @@ result.  Phases, each of which fails the run by raising:
 
  18. HeteroPP with grouped non-uniform tp on one card: Σ tp_s = 3 ranks
      sharing it through ``--p2p host``, ``launch.train --plan`` of
-     qwen1.5-0.5b at full size (14 / 10 layers, phase 16 (a)'s batch, 4
+     qwen1.5-0.5b at full size (14 / 10 layers, phase 16 (a)'s batch, 2
      steps) whose stages disagree on tp: (a) tp (2, 1), once with
      ``--reshard sr_ag`` and once with ``naive``; (b) tp (1, 2) with
      ``sr_ag``.  ``flash_attention`` launches a step = Σ_s tp_s x stage
@@ -230,13 +230,13 @@ result.  Phases, each of which fails the run by raising:
      launcher's GSPMD path, its state placed by the copied sharding
      rules, Megatron blocks over the model axis): ``launch.train
      --model-parallel 2 --data-parallel 2 --p2p host`` on four ranks
-     sharing the card, qwen1.5-0.5b at full size (bf16), b 8 x 512, 6
-     steps; losses finite and falling, and each loss and the first step's
-     gradient norm within the larger of phase 9's bf16 limit and 3.5 x
-     the single device's own spread under the data axis's order of sums
-     (``GRID_LOSS_SPREAD``) of the single-device port's on the same seed
-     and batches (``--grid-faults`` below shows what these limits refuse);
-     each rank's
+     sharing the card, qwen1.5-0.5b at full size (bf16), b 8 x 512, 2
+     steps; losses finite and falling, each loss within the larger of
+     phase 9's bf16 limit and 3.5 x the single device's own spread of its
+     losses under the data axis's order of sums (``GRID_LOSS_SPREAD``) of
+     the single-device port's on the same seed and batches, and the first
+     step's gradient norm within the same of that reading's spread
+     (``--grid-faults`` below shows what these limits refuse); each rank's
      persistent bytes equal to the rules' blocks' closed form, exactly;
      2 x 24 ``flash_attention`` a rank a step (8 of 16 heads each); the
      step p50 beside the single device's, tokens/s, peak memory by rank,
@@ -244,23 +244,60 @@ result.  Phases, each of which fails the run by raising:
      step by axis and its step time outside them.
  34. the same grid on granite-8b at full width (32 / 8 heads of 128, GQA)
      cut to 4 of 36 layers (``GSPMD_GQA``: at full depth its state does
-     not fit four ranks on one card), b 4 x 512, 3 steps at peak lr 1e-5;
+     not fit four ranks on one card), b 4 x 512, 2 steps at peak lr 1e-5;
      phase 33's checks against the single device at the same cut.
  35. ZeRO-1 (``training/manual_dp.py``) on the same four ranks:
-     qwen1.5-0.5b at full size, data 2 x model 2, phase 33's batches, 3
+     qwen1.5-0.5b at full size, data 2 x model 2, phase 33's batches, 2
      steps; each rank's optimizer bytes equal to the ``_scatter_dim``
      closed form, the losses within phase 33's limit of phase 33's,
      2 x 24 ``flash_attention`` a rank a step.
  36. the grid at model axis 1: mamba2-780m at full size, ``--model-parallel
-     1 --data-parallel 2`` on two ranks, b 4 x 2048, 3 steps; phase 33's
-     checks against phase 7's first three losses (same seed, batches and
+     1 --data-parallel 2`` on two ranks, b 4 x 2048, 2 steps; phase 33's
+     checks against phase 7's first two losses (same seed, batches and
      warmup learning rates); 2 x 48 ``ssd_scan`` a rank a step.
      Every time and size of phases 33-36 is printed beside the card's
      ``nvidia-smi`` name and power limit.
+ 37. the grid's model axis for moe (expert parallelism: each member
+     holds, fills and runs 64 of the 128 experts and the members sum
+     their combines): qwen3-moe-30b-a3b at full width cut to 2 of 48
+     layers (phase 22's cut; at 4, the single device's ``--accum 2``
+     yardstick does not fit the card), ``--model-parallel 2
+     --data-parallel 2`` on four ranks sharing the card, b 2 x 2048, 2
+     steps; phase 33's checks against the single device at the same cut
+     in the phase (same seed and batches); 2 x 2 ``flash_attention`` a
+     rank a step (16 / 2 heads).
+ 38. ssm (mamba2 head sharding: 24 of 48 heads a member, B and C whole,
+     the gated norm's sum of squares over the model group): mamba2-780m
+     at full size, 2 x 2, b 4 x 2048, 2 steps, against phase 7's first
+     two losses; 2 x 48 ``ssd_scan`` a rank a step (h 24).
+ 39. hybrid: zamba2-2.7b at full width cut to 2 groups of 6 (phase 14's
+     cut), 2 x 2, b 4 x 2048, 2 steps at peak lr 1e-4, against the single
+     device at the same cut in the phase; 2 x 12 ``ssd_scan`` (h 40) and
+     2 x 2 ``flash_attention`` (the shared block's 16 / 16 heads of 80) a
+     rank a step.
+ 40. audio (whisper's encoder, decoder and cross-attention heads, the
+     cross K/V from the replicated encoder output): whisper-base at full
+     size, 2 x 2, b 16 x 448, 2 steps, against phase 26's first two
+     losses; 2 x 18 ``flash_attention`` a rank a step (4 / 4 heads).
+     Phases 37-40 hold every rank's step to a model-axis sum
+     (``model_reduce_bytes`` > 0).  A member rounds its part of each
+     row-parallel product to bf16 before the members' sum, so the model
+     axis moves the bf16 forward's roundings, which the data axis's
+     ``--accum 2`` yardstick does not: the first gradient norm's limit
+     also takes 3.5 x how far bf16 moves that reading on the single
+     device (its first step in fp32 at the phase's shapes,
+     ``grid_limit``).  38, 39 and 40 then run the model axis in fp32 at a
+     depth cut (``GSPMD_FP32``: mamba2 2 layers, zamba2 2 groups of 1,
+     whisper at full depth; b 4, 2 steps), held to the fp32 single
+     device at the CPU tests' limits (``FP32_LIMITS``: first loss 1e-5,
+     first gradient norm 1e-4, second loss 1e-4 relative), with no
+     rounding allowance.  Phase 3 holds each kernel at the member shapes
+     of 37-40 against its plain version and times it beside its library
+     call and bound.
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
 over the main paths that run it, phases 4, 7, 12, 13, 15–21, 23–26, 28,
-29 and 32–36, each kernel's fp16 row under ``"float16"``,
+29 and 32–40, each kernel's fp16 row under ``"float16"``,
 each counted from 0; the pipeline phases in each rank's own process,
 summed over the ranks), the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Each phase's heading carries the
@@ -282,15 +319,18 @@ with three cards or more also phase 18 (a) through ``--p2p device``,
 
     python3 chip_smoke.py --grid-faults
 
-needs one card and runs phases 1, 2 and the controls of phases 33 and
-36's checks: phase 33's grid (qwen1.5-0.5b, 2 x 2, its batches and
-steps) and phase 36's (mamba2-780m, 1 x 2) with no fault and then with
-each fault of ``GRID_FAULTS`` planted in the ranks' processes (the
-data axis's gradient sum dropped, every data rank training on data
-rank 0's rows, the Megatron all-reduce dropped), each held to the
-single device by those phases' checks; it prints each check's reading
-and limit and which checks refuse the run, and fails if a faulty run
-passes them all or the run without a fault does not.
+needs one card and runs phases 1, 2 and the controls of phases 33, 36,
+37 and 38's checks: phase 33's grid (qwen1.5-0.5b, 2 x 2, its batches
+and steps), phase 36's (mamba2-780m, 1 x 2), phase 37's (qwen3-moe, 2
+layers, 2 x 2) and phase 38's (mamba2-780m, 2 x 2) with no fault and
+then with each fault of ``GRID_FAULTS`` planted in the ranks' processes
+(the data axis's gradient sum dropped, every data rank training on data
+rank 0's rows, the Megatron all-reduce dropped; in 37 the expert
+combine's model all-reduce dropped; in 38 the gated norm's model sum of
+squares dropped), each held to the single device by those phases'
+checks (38's fp32 model-axis check among them); it prints each check's
+reading and limit and which checks refuse the run, and fails if a
+faulty run passes them all or the run without a fault does not.
 """
 from __future__ import annotations
 
@@ -469,6 +509,13 @@ SSD_ZAMBA2 = [
     ("zamba2 prefill: b4 S512 h80 p64 g1 n64", 4, 512, 80, 64, 1, 64, 256),
 ]
 
+# a model member's ssd_scan at 2 x 2 (phases 38, 39): half of mamba2-780m's 48
+# and of zamba2-2.7b's 80 heads, at half of the batch of 4
+SSD_MEMBERS = [
+    ("mamba2 member: b2 S2048 h24 p64 g1 n128", 2, 2048, 24, 64, 1, 128, 256),
+    ("zamba2 member: b2 S2048 h40 p64 g1 n64", 2, 2048, 40, 64, 1, 64, 256),
+]
+
 TRAIN_ARGS = ["--arch", "mamba2_780m", "--batch", "4", "--seq", "2048",
               "--steps", "6", "--backend", "auto", "--device", "cuda",
               "--log-every", "1"]
@@ -558,6 +605,17 @@ FA_WHISPER = [
     ("whisper cross: B8 Sq416 Sk1500 H8", 8, 416, 1500, 8, 8, 64, False, 0, 1084, 0),
     ("whisper decode cross: B8 Sq1 Sk1500", 8, 1, 1500, 8, 8, 64, False, 0, 1499, 0),
     ("whisper self: B16 S448 H8 hd64", 16, 448, 448, 8, 8, 64, True, 0, 0, 0),
+]
+# a model member's flash_attention at 2 x 2 (phases 37, 39, 40): half of
+# the heads at half of the batch; qwen3-moe's 32 / 4, zamba2's shared
+# block's 32 / 32 at hd 80, whisper-base's 8 / 8 in its encoder, decoder
+# and cross-attention
+FA_MEMBERS = [
+    ("qwen3-moe member: B1 S2048 H16 KV2 hd128", 1, 2048, 2048, 16, 2, 128, True, 0, 0, 0),
+    ("zamba2 member: B2 S2048 H16 KV16 hd80", 2, 2048, 2048, 16, 16, 80, True, 0, 0, 0),
+    ("whisper enc member: B8 S1500 H4 hd64", 8, 1500, 1500, 4, 4, 64, False, 0, 0, 0),
+    ("whisper self member: B8 S448 H4 hd64", 8, 448, 448, 4, 4, 64, True, 0, 0, 0),
+    ("whisper cross member: B8 448x1500 H4", 8, 448, 1500, 4, 4, 64, False, 0, 1052, 0),
 ]
 FD_WHISPER = ("whisper decode: B8 KV8 G1 hd64 S448", 8, 8, 1, 448, 64, 447, 0, 0.0, False,
               1.0)
@@ -652,7 +710,7 @@ PALIGEMMA_CUT_BATCH = (2, 256)
 # recompute) a stage.  b microbatches of batch / b rows each.
 PP_ARGS = ["--backend", "auto", "--device", "cuda", "--log-every", "1"]
 PP_QWEN = ("qwen1p5_0p5b", (("A", 10, True), ("B", 14, False)), 4,
-           ["--batch", "8", "--seq", "1024", "--steps", "4"])
+           ["--batch", "8", "--seq", "1024", "--steps", "2"])
 PP_MAMBA2 = ("mamba2_780m", (("A", 20, True), ("B", 28, True)), 4,
              ["--batch", "4", "--seq", "2048", "--steps", "2"])
 # Phase 16 (c): both widths cut to 4 layers split 1 / 3, every schedule
@@ -717,7 +775,7 @@ GRID_PARITY_NCCL = [(a, n, mb, seq, ("tp",)) for a, n, mb, seq, k in GRID_PARITY
 # degree on chip A and one of another on chip B: (a) tp (2, 1) under
 # each boundary strategy, (b) tp (1, 2) under the one choose_strategy
 # picks (sr_ag).  (chip, tp, layers, recompute) a stage.
-HETERO_QWEN = ("qwen1p5_0p5b", 4, 2, 1024, ["--batch", "8", "--seq", "1024", "--steps", "4"])
+HETERO_QWEN = ("qwen1p5_0p5b", 4, 2, 1024, ["--batch", "8", "--seq", "1024", "--steps", "2"])
 HETERO_RUNS = [("(a)", (("A", 2, 14, True), ("B", 1, 10, False)), ("sr_ag", "naive")),
                ("(b)", (("A", 1, 14, True), ("B", 2, 10, False)), ("sr_ag",))]
 # (c): qwen's width at 4 layers split 1 / 3, both layouts, both
@@ -760,7 +818,7 @@ SWEEP_TOL = 0.1
 ALIGN_ARCH, ALIGN_ITERS, ALIGN_BATCH, ALIGN_SEQ = "qwen1p5_0p5b", 50, 4, 512
 ALIGN_DTYPES = ("float32", "bfloat16", "float16")
 ALIGN_HELD = ("bfloat16",)
-# Phases 33-36, the (data, model) grid (repro_torch.sharding.spmd, the JAX
+# Phases 33-40, the (data, model) grid (repro_torch.sharding.spmd, the JAX
 # launcher's GSPMD path; training/manual_dp.py's ZeRO-1) on one card, its
 # ranks sharing it through --p2p host.  Each run is held to the single
 # device's port run on the same seed and batches.  The grid sums its data
@@ -771,31 +829,82 @@ ALIGN_HELD = ("bfloat16",)
 # 1.03e-3 from the single device's, its first five within 3e-4.  So each
 # step's loss is held, as phase 9 holds its bf16 gradients, to the larger
 # of phase 9's bf16 loss limit (TRAIN_BF16_LOSS_RTOL) and GRID_LOSS_SPREAD
-# x the single device's own spread under the data axis's order of sums,
-# measured in the same run: the single device with the batch split in two
-# (--accum 2: two half-batch bf16 gradients summed in fp32).  The first
-# step's gradient norm, taken on the same weights and batch, is held to the
-# same limit: a grid that sums its gradients wrongly shows there at once,
-# where its losses may stay close for a few steps (--grid-faults).
+# x the single device's own spread of its losses under the data axis's
+# order of sums, measured in the same run: the single device with the
+# batch split in two (--accum 2: two half-batch bf16 gradients summed in
+# fp32).  The first step's gradient norm, taken on the same weights and
+# batch, is held to the same of that reading's spread: a grid that sums
+# its gradients wrongly shows there at once, where its losses may stay
+# close for a few steps (--grid-faults).  The model axis (37-40) moves
+# the forward's bf16 roundings too, which --accum 2 does not, so there
+# that spread also takes the single device's bf16-vs-fp32 one, and the
+# model axis is held in fp32 besides (GSPMD_FP32).
 GRID_LOSS_SPREAD = 3.5
 # granite-8b at full depth is ~113 GB of bf16 parameters and fp32 AdamW
 # state, and four ranks share one 80 GB card, so phase 34 cuts its depth.
-# mamba2-780m's single-device reference is phase 7's run (same seed,
-# batches and, in the first 5 warmup steps, learning rates).  granite-8b
-# trains at peak lr 1e-5, as --transports' granite run: at 3e-4 its
-# random-init loss rises (11.29, 17.36, 12.88 on the single device as on
-# the grid).  Every collective of these phases goes through host memory
-# (~200-400 MB/s a rank on one card's host), so a qwen step takes ~6-8 s
-# and phases 34-36 take 3 steps to keep the script inside its limit.
+# Phases 36's and 38's single-device reference is phase 7's run, 40's
+# phase 26's (same seed, batches and, in the first 5 warmup steps,
+# learning rates).  granite-8b trains at peak lr 1e-5, as --transports'
+# granite run: at 3e-4 its random-init loss rises (11.29, 17.36, 12.88 on
+# the single device as on the grid).  Every collective of these phases
+# goes through host memory (~100-400 MB/s a rank on one card's host, and
+# 15-30% slower on some hosts than on others), so a qwen step takes ~5-9
+# s and a 2 x 2 step of phases 37-40 5-25 s.  To keep the script inside
+# its limit phases 33-40 take 2 steps each, and the pipeline's qwen plans
+# (16-18) 2: at 3 steps (4 for the qwen plans) the script reached phase
+# 39 at 1204 s on a host that ran phases 1-32 in 832 s.
 GSPMD_ARGS = ["--p2p", "host", "--backend", "auto", "--device", "cuda", "--log-every", "1"]
 GSPMD_DENSE = ("qwen1p5_0p5b", 24, ["--model-parallel", "2", "--data-parallel", "2"],
-               ["--batch", "8", "--seq", "512", "--steps", "6"])
+               ["--batch", "8", "--seq", "512", "--steps", "2"])
 GSPMD_GQA = ("granite_8b", 4, 36, ["--model-parallel", "2", "--data-parallel", "2"],
-             ["--batch", "4", "--seq", "512", "--steps", "3", "--lr", "1e-5"])
-GSPMD_ZERO1 = ("qwen1p5_0p5b", 2, 2, 8, 512, 3)      # arch, model, data, b, seq, steps
+             ["--batch", "4", "--seq", "512", "--steps", "2", "--lr", "1e-5"])
+GSPMD_ZERO1 = ("qwen1p5_0p5b", 2, 2, 8, 512, 2)      # arch, model, data, b, seq, steps
 GSPMD_SSM = ("mamba2_780m", 48, ["--model-parallel", "1", "--data-parallel", "2"],
-             ["--batch", "4", "--seq", "2048", "--steps", "3"])
-_SINGLE = {}                  # single-device results by run, for the grid phases
+             ["--batch", "4", "--seq", "2048", "--steps", "2"])
+# Phases 37-40: the model axis of the moe, ssm, hybrid and audio families
+# (each model member's share of a block: experts, mamba2 heads, attention
+# heads), data 2 x model 2 on four ranks sharing the card, held by phase
+# 33's checks.  (phase, arch, layers, the config's depth, args, the single
+# device's run it is held to (an earlier phase's first steps; None: one
+# made in the phase at the same cut), each kernel's launches a rank a
+# step, what a member's kernel call sees).  qwen3-moe takes phase 22's cut
+# of 2 layers at phase 21's batch: the limit's yardstick, the single
+# device with --accum 2, adds an fp32 gradient accumulator to the state,
+# and at phase 21's 4 layers (3.1 B parameters) that ran out of the card's
+# 80 GB.  zamba2 takes phase 14's cut of 2 groups of 6 at peak lr 1e-4: at
+# 3e-4 its random-init loss rose at step 3 (10.89, 9.88, 14.70) on the
+# single device as on the grid.  Both are held to single device runs at
+# their cut made in the phase.
+GSPMD_FAMILY_GRID = ["--model-parallel", "2", "--data-parallel", "2"]
+GSPMD_FAMILIES = [
+    ("37", MOE_ARCH, MOE_CUT_LAYERS, 48, ["--batch", "2", "--seq", "2048", "--steps", "2"],
+     None, {"flash_attention": 2 * MOE_CUT_LAYERS},
+     "64 of 128 experts; flash_attention B1 S2048 H16 KV2 hd128"),
+    ("38", "mamba2_780m", 48, 48, ["--batch", "4", "--seq", "2048", "--steps", "2"],
+     "train_mamba2_780m", {"ssd_scan": 2 * 48}, "ssd_scan b2 S2048 h24 p64 n128"),
+    ("39", "zamba2_2p7b", HYBRID_CUT_LAYERS, 54,
+     ["--batch", "4", "--seq", "2048", "--steps", "2", "--lr", "1e-4"], None,
+     {"ssd_scan": 2 * HYBRID_CUT_LAYERS, "flash_attention": 2 * 2},
+     "ssd_scan b2 S2048 h40 p64 n64; flash_attention B2 S2048 H16 KV16 hd80"),
+    ("40", WHISPER_ARCH, WHISPER_LAYERS, WHISPER_LAYERS,
+     ["--batch", "16", "--seq", str(WHISPER_SEQ), "--steps", "2"], "train_whisper_base",
+     {"flash_attention": 2 * 3 * WHISPER_LAYERS},
+     "flash_attention H4 KV4 hd64: encoder B8 S1500, self B8 S448, cross B8 448 x 1500"),
+]
+# The model axis in fp32 (phases 38-40): the config fields that cut it
+# (depth; zamba2 to 2 groups of 1 ssm layer and the shared block) and the
+# args, the grid held to the fp32 single device at tests/test_torch_gspmd.py's
+# limits on the first loss, first gradient norm and second loss (relative).
+# qwen3-moe has none: at one layer its fp32 state is 3.7 GB of gathers a
+# step through host memory (~30 s of the script's limit).
+GSPMD_FP32 = {
+    "38": ({"num_layers": 2}, ["--batch", "4", "--seq", "512", "--steps", "2"]),
+    "39": ({"num_layers": 2, "hybrid_attn_every": 1},
+           ["--batch", "4", "--seq", "512", "--steps", "2", "--lr", "1e-4"]),
+    "40": ({}, ["--batch", "4", "--seq", str(WHISPER_SEQ), "--steps", "2"]),
+}
+FP32_LIMITS = (1e-5, 1e-4, 1e-4)
+_SINGLE = {}                  # single-device results by run name or by single_run's key
 # --grid-faults: each fault planted in the grid's ranks (``planted``) and
 # the phases whose grid runs with it
 GRID_FAULTS = {
@@ -804,6 +913,10 @@ GRID_FAULTS = {
     "rows": ("every data rank trains on data rank 0's rows", ("33", "36")),
     "megatron": ("the Megatron blocks' model all-reduce dropped: each "
                  "member's partial output alone", ("33",)),
+    "experts": ("the expert combine's model all-reduce dropped: each member's "
+                "experts' part of the moe output alone", ("37",)),
+    "ssm-norm": ("the gated norm's model sum of squares dropped: each member "
+                 "normalises by its own heads' channels", ("38",)),
 }
 
 T0 = time.perf_counter()
@@ -955,7 +1068,7 @@ def phase_kernels():
     err16 = {"flash_attention": 0.0, "flash_decode": 0.0}
     fa_err = fd_err = 0.0
     for case in (FA_CASES + [FA_SERVE] + FA_ZAMBA2 + FA_QWEN3_MOE + FA_WHISPER
-                 + [FA_PALIGEMMA]):
+                 + [FA_PALIGEMMA] + FA_MEMBERS):
         label, kw = case[0], fa_kw(case)
         for dname, dt in dtypes.items():
             q, k, v = fa_inputs(case, dt, gen)
@@ -988,7 +1101,7 @@ def phase_kernels():
     rows = {}
     fa_rows = {}
     for case in (FA_SERVE, FA_PROFILE, *FA_ZAMBA2, *FA_QWEN3_MOE, *FA_WHISPER,
-                 FA_PALIGEMMA):
+                 FA_PALIGEMMA, *FA_MEMBERS):
         fa_rows[case[0]], err = fa_timed(case, gen)
         fa_err = max(fa_err, err)
         torch.cuda.empty_cache()
@@ -1392,7 +1505,7 @@ def phase_ssd_kernel():
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     err = err16 = 0.0
-    for case in [SSD_TRAIN] + SSD_CASES + SSD_ZAMBA2:
+    for case in [SSD_TRAIN] + SSD_CASES + SSD_ZAMBA2 + SSD_MEMBERS:
         label, *_, chunk = case
         for dname, dt_ in kernel_dtypes().items():
             x, dt, A, Bm, Cm = ssd_inputs(case, dt_, gen)
@@ -1431,7 +1544,7 @@ def phase_ssd_kernel():
     log(f"  ssd_scan per call [{label}, bf16], CUDA events: kernel {pre_ms:.4f} ms; "
         f"device time {fmt(summed(pre_dev, 'ssd_fwd'))}; "
         f"bound {ssd_bound(SSD_CASES[0], 2)[0]:.4f} ms")
-    rows = [ssd_timed(case, gen, err) for case in [SSD_TRAIN] + SSD_ZAMBA2]
+    rows = [ssd_timed(case, gen, err) for case in [SSD_TRAIN] + SSD_ZAMBA2 + SSD_MEMBERS]
     return rows[0], ssd_timed(SSD_TRAIN, gen, err16, torch.float16)
 
 
@@ -2340,28 +2453,31 @@ def phase_pipeline(device="cuda:0"):
 
 
 @contextlib.contextmanager
-def cut_depth(layers):
-    """The launcher's full-size configs cut to ``layers`` layers while the
-    context lasts (ranks the launcher spawns get the config from it; the
-    ranks of a ``rank_pool`` apply the same cut themselves)."""
+def cut_depth(layers, **fields):
+    """The launcher's full-size configs cut to ``layers`` layers (where
+    given) and ``fields`` replaced (a dtype, say) while the context lasts
+    (ranks the launcher spawns get the config from it; the ranks of a
+    ``rank_pool`` apply the same cut themselves)."""
     global _CUT
     from unittest import mock
 
     from repro_torch.configs import get_config
     from repro_torch.launch import train
-    if layers is None:
+    if layers is not None:
+        fields = dict(fields, num_layers=layers)
+    if not fields:
         yield
         return
-    before, _CUT = _CUT, layers
+    before, _CUT = _CUT, fields
     try:
         with mock.patch.object(train, "get_config", lambda name: dataclasses.replace(
-                get_config(name), num_layers=layers)):
+                get_config(name), **fields)):
             yield
     finally:
         _CUT = before
 
 
-_CUT = None                           # the depth cut_depth applies, if any
+_CUT = None                           # the config fields cut_depth replaces, if any
 _POOL = None                          # the rank_pool of the running phase, if any
 
 
@@ -2445,7 +2561,7 @@ def _pool_rank(rank, world, transport, workdir, inboxes, outbox):
                 return
             name, args, cut = item
             try:
-                with cut_depth(cut), contextlib.redirect_stdout(
+                with cut_depth(None, **(cut or {})), contextlib.redirect_stdout(
                         sys.stdout if rank == 0 else quiet):
                     out = globals()[name](rank, world, *args)
                 path = os.path.join(workdir, f"rank{rank}.pt")
@@ -2503,8 +2619,13 @@ def spawn_ranks(fn, world, args, *, workdir, transport="host", timeout=600):
 def _launcher_rank(rank, world, argv):
     """One rank of a launcher run in a ``rank_pool``: the launcher joins the
     ranks' process group and runs this rank."""
+    import torch
     from repro_torch.launch import train
-    return train.main(argv)
+    res = train.main(argv)
+    # the rank's cached blocks back to the card before the next run, the
+    # main process's among them
+    torch.cuda.empty_cache()
+    return res
 
 
 def launch_pipeline(argv):
@@ -3531,19 +3652,25 @@ def zero_grad_rows(cfg, dtype):
     return share
 
 
-def single_run(run, arch, args, layers=None, accum=1):
+def single_run(run, arch, args, layers=None, accum=1, **fields):
     """The single-device port's run on ``args`` (the grid run's seed,
-    batches and steps), ``arch`` cut to ``layers`` when given, each batch
-    in ``accum`` microbatches: its losses, gradient norms and step times."""
+    batches and steps), ``arch`` cut to ``layers`` and ``fields`` (config
+    fields: a dtype, say) replaced where given, each batch in ``accum``
+    microbatches: its losses, gradient norms and step times.  A run made
+    before in the process is not made again."""
     import torch
     from repro_torch.launch import train
+    key = (arch, tuple(args), layers, accum, tuple(sorted(fields.items())))
+    if key in _SINGLE:
+        return _SINGLE[key]
     out_dir = os.path.join(ROOT, "build", "chip_smoke", run)
-    with cut_depth(layers):
+    with cut_depth(layers, **fields):
         res = train.main(["--arch", arch] + args + GSPMD_ARGS[2:] + ["--run-dir", out_dir,
                                                                      "--accum", str(accum)])
     del res["state"]
     torch.cuda.empty_cache()
-    return {k: res[k] for k in ("losses", "grad_norms", "step_times_s")}
+    _SINGLE[key] = {k: res[k] for k in ("losses", "grad_norms", "step_times_s")}
+    return _SINGLE[key]
 
 
 def steady(xs):
@@ -3568,59 +3695,102 @@ def grid_diffs(got, want):
     return loss, abs(got["grad_norms"][0] - want["grad_norms"][0]) / want["grad_norms"][0]
 
 
-def grid_limit(label, want, yard):
-    """The grid's limit on its losses and first gradient norm: the larger
-    of phase 9's bf16 limit and ``GRID_LOSS_SPREAD`` x the single device's
-    spread between ``want`` and ``yard`` (its run with the batch in two
-    microbatches) in either."""
+def grid_limit(label, want, yard, fp32=None):
+    """The grid's limits (on its losses, on its first gradient norm): each
+    the larger of phase 9's bf16 limit and ``GRID_LOSS_SPREAD`` x the
+    single device's spread of that reading between ``want`` and ``yard``
+    (its run with the batch in two microbatches) and, for the gradient
+    norm where given, between ``want`` and ``fp32`` (its first step in
+    fp32: how far bf16's roundings move that reading)."""
     loss, gnorm = grid_diffs(yard, want)
-    limit = max(TRAIN_BF16_LOSS_RTOL, GRID_LOSS_SPREAD * max(loss, gnorm))
     log(f"  {label}: single device losses {', '.join(f'{x:.4f}' for x in want['losses'])}, "
         f"first gradient norm {want['grad_norms'][0]:.6g}; with --accum 2 "
         f"{', '.join(f'{x:.4f}' for x in yard['losses'])}, {yard['grad_norms'][0]:.6g}: "
-        f"spread {loss:.2e} (losses), {gnorm:.2e} (gradient norm); limit "
-        f"max({TRAIN_BF16_LOSS_RTOL}, {GRID_LOSS_SPREAD} x spread) = {limit:.2e}")
-    return limit
+        f"spread {loss:.2e} (losses), {gnorm:.2e} (gradient norm)")
+    if fp32 is not None:
+        g32 = abs(want["grad_norms"][0] - fp32["grad_norms"][0]) / fp32["grad_norms"][0]
+        log(f"  {label}: first gradient norm in fp32 {fp32['grad_norms'][0]:.6g}: bf16's "
+            f"spread {g32:.2e}")
+        gnorm = max(gnorm, g32)
+    limits = tuple(max(TRAIN_BF16_LOSS_RTOL, GRID_LOSS_SPREAD * x) for x in (loss, gnorm))
+    log(f"  {label}: limits max({TRAIN_BF16_LOSS_RTOL}, {GRID_LOSS_SPREAD} x spread): "
+        f"losses {limits[0]:.2e}, first gradient norm {limits[1]:.2e}")
+    return limits
 
 
-def grid_checks(got, want, limit):
+def grid_checks(got, want, limits):
     """The grid checks that ``got`` (a grid run) fails against ``want``
     (the single device's on the same seed and batches): losses not finite
-    and falling, a loss or the first gradient norm outside ``limit``."""
+    and falling, a loss or the first gradient norm outside its limit of
+    ``limits`` (``grid_limit``)."""
     loss, gnorm = grid_diffs(got, want)
     losses = got["losses"]
     failed = []
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         failed.append("losses finite and falling")
-    if len(losses) != len(want["losses"]) or not loss <= limit:
+    if len(losses) != len(want["losses"]) or not loss <= limits[0]:
         failed.append("losses within the limit")
-    if not gnorm <= limit:
+    if not gnorm <= limits[1]:
         failed.append("first gradient norm within the limit")
     return failed
 
 
-def hold_grid(label, got, want, limit, ref="single device"):
+def hold_grid(label, got, want, limits, ref="single device"):
     loss, gnorm = grid_diffs(got, want)
     log(f"  {label}: losses {', '.join(f'{x:.4f}' for x in got['losses'])}; {ref} "
-        f"{', '.join(f'{x:.4f}' for x in want['losses'])}; worst rel diff {loss:.2e}; "
-        f"first gradient norm {got['grad_norms'][0]:.6g} against "
-        f"{want['grad_norms'][0]:.6g}, rel diff {gnorm:.2e} (limit {limit:.2e})")
-    failed = grid_checks(got, want, limit)
+        f"{', '.join(f'{x:.4f}' for x in want['losses'])}; worst rel diff {loss:.2e} "
+        f"(limit {limits[0]:.2e}); first gradient norm {got['grad_norms'][0]:.6g} against "
+        f"{want['grad_norms'][0]:.6g}, rel diff {gnorm:.2e} (limit {limits[1]:.2e})")
+    failed = grid_checks(got, want, limits)
     if failed:
         raise AssertionError(f"{label}: against the {ref}, the grid fails: "
                              + "; ".join(failed))
 
 
-def run_grid(run, arch, layers, grid_args, args, fault=None):
+def fp32_checks(got, want):
+    """The fp32 model-axis readings of ``got`` (a grid run in fp32) against
+    ``want`` (the fp32 single device's): the relative differences of the
+    first loss, the first gradient norm and the second loss, and those
+    outside ``FP32_LIMITS``."""
+    rel = lambda a, b: abs(a - b) / abs(b)
+    got_r = (rel(got["losses"][0], want["losses"][0]),
+             rel(got["grad_norms"][0], want["grad_norms"][0]),
+             rel(got["losses"][1], want["losses"][1]))
+    names = ("fp32 first loss", "fp32 first gradient norm", "fp32 second loss")
+    return got_r, [f"{n} within the limit" for n, x, lim in zip(names, got_r, FP32_LIMITS)
+                   if not x <= lim]
+
+
+def fp32_model_axis(label, arch, smi, fault=None):
+    """Phase ``label``'s model axis in fp32 (``GSPMD_FP32``): the grid run
+    (``fault`` planted where given) against the fp32 single device at the
+    same cut.  Returns the failed checks."""
+    fields, args = GSPMD_FP32[label]
+    fields = dict(fields, dtype="float32")
+    want = single_run(f"gspmd_fp32_single_{arch}", arch, args, **fields)
+    got = run_grid(f"gspmd_fp32_{arch}_{fault or 'none'}", arch, None, GSPMD_FAMILY_GRID,
+                   args, fault=fault, **fields)
+    readings, failed = fp32_checks(got, want)
+    log(f"  {label} fp32 ({', '.join(f'{k}={v}' for k, v in fields.items())}; "
+        f"{' '.join(args)}) [{smi}]: losses {', '.join(f'{x:.6f}' for x in got['losses'])}, "
+        f"single device {', '.join(f'{x:.6f}' for x in want['losses'])}; first gradient norm "
+        f"{got['grad_norms'][0]:.7g} against {want['grad_norms'][0]:.7g}; rel diffs "
+        + ", ".join(f"{x:.2e} (limit {lim:.0e})" for x, lim in zip(readings, FP32_LIMITS))
+        + f"; {got['wall_s']:.1f} s")
+    return failed
+
+
+def run_grid(run, arch, layers, grid_args, args, fault=None, **fields):
     """A launcher run on the (data, model) grid in the phase's
     ``rank_pool`` (the launcher inside each rank, ``fault`` planted there
-    when given), the ranks' results merged as the launcher merges its
+    when given; ``arch`` cut to ``layers`` and ``fields`` as
+    ``cut_depth``), the ranks' results merged as the launcher merges its
     own, with its wall seconds."""
     from repro_torch.launch import train
     out_dir = os.path.join(ROOT, "build", "chip_smoke", run)
     argv = ["--arch", arch] + grid_args + args + GSPMD_ARGS + ["--run-dir", out_dir]
     t0 = time.perf_counter()
-    with cut_depth(layers):
+    with cut_depth(layers, **fields):
         outs = _POOL.call(_launcher_rank, (argv,), 1800.0) if fault is None else \
             _POOL.call(_faulty_launcher_rank, (argv, fault), 1800.0)
     res = train.merge_gspmd_results(outs)
@@ -3628,16 +3798,17 @@ def run_grid(run, arch, layers, grid_args, args, fault=None):
     return res
 
 
-def grid_and_hold(run, arch, layers, grid_args, args, kernel, per_rank, want, limit,
+def grid_and_hold(run, arch, layers, grid_args, args, per_rank, want, limits,
                   label, smi, full_layers=None):
     """A launcher run on the (data, model) grid (``run_grid``): losses
-    finite, falling and with the first gradient norm within ``limit`` of
-    ``want`` (the single device's run; ``grid_limit``), ``kernel``
-    launched ``per_rank`` times a step on each rank, each rank's
-    persistent bytes equal to the rules' blocks' closed form.  Prints the
-    step beside the single device's, tokens/s, memory, collectives and
-    the time outside them, each with the card's name and power limit.
-    Returns the merged result."""
+    finite, falling and with each loss and the first gradient norm within
+    its limit of ``limits`` of ``want`` (the single device's run;
+    ``grid_limit``), each kernel of
+    ``per_rank`` launched that many times a step on each rank, each
+    rank's persistent bytes equal to the rules' blocks' closed form.
+    Prints the step beside the single device's, tokens/s, memory,
+    collectives and the time outside them, each with the card's name and
+    power limit.  Returns the merged result."""
     from repro_torch.launch import train
     cut = full_layers is not None and layers < full_layers
     if cut:
@@ -3647,18 +3818,21 @@ def grid_and_hold(run, arch, layers, grid_args, args, kernel, per_rank, want, li
     steps = len(res["losses"])
     if res["num_layers"] != layers:
         raise AssertionError(f"{label}: trained {res['num_layers']} layers, not {layers}")
-    hold_grid(label, res, want, limit)
-    if res["launches"][kernel] != per_rank * world * steps:
-        raise AssertionError(f"{label}: {kernel} launched {res['launches'][kernel]} times "
-                             f"in {steps} steps over {world} ranks, expected {per_rank} a "
-                             f"rank a step")
+    hold_grid(label, res, want, limits)
+    for kernel, n in per_rank.items():
+        if res["launches"][kernel] != n * world * steps:
+            raise AssertionError(f"{label}: {kernel} launched {res['launches'][kernel]} "
+                                 f"times in {steps} steps over {world} ranks, expected {n} "
+                                 f"a rank a step")
     if res["state_bytes_per_rank"] != res["block_bytes_per_rank"]:
         raise AssertionError(f"{label}: state bytes by rank {res['state_bytes_per_rank']} "
                              f"are not the rules' blocks {res['block_bytes_per_rank']}")
     p50 = steady(times)
-    log(f"  {label}: {kernel} {res['launches'][kernel]} launches in {steps} steps = "
-        f"{per_rank} a rank a step x {world} ranks; persistent state by rank (params, "
-        f"master, m, v) " + ", ".join(f"{b / 2**20:.1f}" for b in res["state_bytes_per_rank"])
+    log(f"  {label}: " + "; ".join(
+        f"{kernel} {res['launches'][kernel]} launches in {steps} steps = {n} a rank a "
+        f"step x {world} ranks" for kernel, n in per_rank.items())
+        + "; persistent state by rank (params, master, m, v) "
+        + ", ".join(f"{b / 2**20:.1f}" for b in res["state_bytes_per_rank"])
         + " MiB = the rules' blocks, exactly")
     log(f"  {label} [{smi}]: step p50 over steps 2-{steps} {p50 * 1e3:.1f} ms (all: "
         f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms); the single device's "
@@ -3688,20 +3862,21 @@ def phase_gspmd(smi):
     log(f"== 33. the (data, model) grid, dense: {arch} at full size, {' '.join(grid_args)}, "
         f"{' '.join(args)}, 4 ranks sharing the card")
     want = single_run("gspmd_single_qwen", arch, args)
-    limit33 = grid_limit("33", want, single_run("gspmd_single_qwen_accum2", arch, args,
-                                                accum=2))
-    dense = grid_and_hold("gspmd_qwen", arch, layers, grid_args, args, "flash_attention",
-                          2 * layers, want, limit33, "33", smi)
+    limits33 = grid_limit("33", want, single_run("gspmd_single_qwen_accum2", arch, args,
+                                                 accum=2))
+    dense = grid_and_hold("gspmd_qwen", arch, layers, grid_args, args,
+                          {"flash_attention": 2 * layers}, want, limits33, "33", smi)
     add(dense["launches"])
 
     arch, layers, full, grid_args, args = GSPMD_GQA
     log(f"== 34. the (data, model) grid, GQA: {arch} at full width, {layers} of {full} "
         f"layers, {' '.join(grid_args)}, {' '.join(args)}")
     want = single_run("gspmd_single_granite", arch, args, layers)
-    limit = grid_limit("34", want, single_run("gspmd_single_granite_accum2", arch, args,
-                                              layers, accum=2))
-    res = grid_and_hold("gspmd_granite", arch, layers, grid_args, args, "flash_attention",
-                        2 * layers, want, limit, "34", smi, full_layers=full)
+    limits = grid_limit("34", want, single_run("gspmd_single_granite_accum2", arch, args,
+                                               layers, accum=2))
+    res = grid_and_hold("gspmd_granite", arch, layers, grid_args, args,
+                        {"flash_attention": 2 * layers}, want, limits, "34", smi,
+                        full_layers=full)
     add(res["launches"])
 
     arch, model, data, B, S, steps = GSPMD_ZERO1
@@ -3711,7 +3886,7 @@ def phase_gspmd(smi):
     device = GSPMD_ARGS[GSPMD_ARGS.index("--device") + 1]
     outs = _POOL.call(_zero1_rank, (device, arch, model, data, B, S, steps, total), 1800.0)
     hold_grid("35", outs[0], {k: dense[k][:steps] for k in ("losses", "grad_norms")},
-              limit33, "phase 33's grid")
+              limits33, "phase 33's grid")
     per_rank = 2 * GSPMD_DENSE[1]
     for r, o in enumerate(outs):
         if o["launches"]["flash_attention"] != per_rank * steps:
@@ -3803,11 +3978,56 @@ def phase_gspmd_ssm(smi):
     arch, layers, grid_args, args = GSPMD_SSM
     steps = int(args[args.index("--steps") + 1])
     want = {k: v[:steps] for k, v in _SINGLE["train_mamba2_780m"].items()}
-    limit = grid_limit("36", want, single_run("gspmd_single_mamba2_accum2", arch, args,
-                                              accum=2))
-    res = grid_and_hold("gspmd_mamba2", arch, layers, grid_args, args, "ssd_scan",
-                        2 * layers, want, limit, "36", smi)
+    limits = grid_limit("36", want, single_run("gspmd_single_mamba2_accum2", arch, args,
+                                               accum=2))
+    res = grid_and_hold("gspmd_mamba2", arch, layers, grid_args, args,
+                        {"ssd_scan": 2 * layers}, want, limits, "36", smi)
     return res["launches"]
+
+
+def family_reference(label, arch, cut, args, single):
+    """(the single device's run phase ``label``'s grid is held to, the
+    grid's limits): the first steps of the earlier phase's run ``single``
+    where given, else a run made here at ``arch``'s cut (``cut`` layers,
+    or its full depth); the limits from its runs with the batch in two
+    microbatches and, for the gradient norm, its first step in fp32."""
+    steps = int(args[args.index("--steps") + 1])
+    if single is not None:
+        want = {k: v[:steps] for k, v in _SINGLE[single].items()}
+    else:
+        want = single_run(f"gspmd_single_{arch}", arch, args, cut)
+    yard = single_run(f"gspmd_single_{arch}_accum2", arch, args, cut, accum=2)
+    one = list(args)
+    one[one.index("--steps") + 1] = "1"
+    fp32 = single_run(f"gspmd_single_{arch}_fp32", arch, one, cut, dtype="float32")
+    return want, grid_limit(label, want, yard, fp32)
+
+
+def phase_gspmd_families(smi):
+    """Phases 37-40 on four ranks: the model axis of the moe, ssm, hybrid
+    and audio families, each held to the single device by phase 33's
+    checks.  Returns their launches."""
+    import torch
+    launches = {}
+    for label, arch, layers, full, args, single, per_rank, shapes in GSPMD_FAMILIES:
+        cut = layers if layers < full else None
+        log(f"== {label}. the (data, model) grid, {arch}: full width, {layers} of {full} "
+            f"layers, {' '.join(GSPMD_FAMILY_GRID)}, {' '.join(args)}, 4 ranks sharing the "
+            f"card; a member's share: {shapes}")
+        want, limits = family_reference(label, arch, cut, args, single)
+        res = grid_and_hold(f"gspmd_{arch}", arch, layers, GSPMD_FAMILY_GRID, args, per_rank,
+                            want, limits, label, smi, full_layers=full)
+        if not all(s["model_reduce_bytes"] > 0 for r in res["stats_per_rank"] for s in r):
+            raise AssertionError(f"{label}: a rank's step summed nothing over the model axis")
+        if label in GSPMD_FP32:
+            failed = fp32_model_axis(label, arch, smi)
+            if failed:
+                raise AssertionError(f"{label}: the model axis in fp32 fails: "
+                                     + "; ".join(failed))
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+    return launches
 
 
 class _OwnSlice:
@@ -3852,6 +4072,11 @@ def planted(fault):
     elif fault == "megatron":
         owner, name = HP._TPReduce, "forward"
         new = staticmethod(lambda ctx, x, comm: x.contiguous().clone())
+    elif fault == "experts":
+        owner, name, new = spmd, "_experts_sum", lambda y, tp: y
+    elif fault == "ssm-norm":
+        owner, name = spmd, "_norm_mean_sq"
+        new = lambda xf, tp: xf.square().mean(dim=-1, keepdim=True)
     else:
         raise ValueError(f"unknown fault {fault!r}")
     old = owner.__dict__[name]
@@ -3868,24 +4093,28 @@ def _faulty_launcher_rank(rank, world, argv, fault):
         return _launcher_rank(rank, world, argv)
 
 
-def grid_fault_controls(label, arch, grid_args, args, want, limit, smi):
-    """Phase ``label``'s grid run with no fault, then with each fault of
-    ``GRID_FAULTS`` that lists the phase, each held to ``want`` (the
-    single device's) by the phase's checks.  Returns the failures: the run
-    without a fault refused, or a faulty run passing every check."""
+def grid_fault_controls(label, arch, grid_args, args, want, limits, smi, layers=None):
+    """Phase ``label``'s grid run (``arch`` cut to ``layers`` where given)
+    with no fault, then with each fault of ``GRID_FAULTS`` that lists the
+    phase, each held to ``want`` (the single device's) by the phase's
+    checks, its fp32 model-axis check among them where it has one.
+    Returns the failures: the run without a fault refused, or a faulty
+    run passing every check."""
     bad = []
     faults = [None] + [f for f, (_, phases) in GRID_FAULTS.items() if label in phases]
     for fault in faults:
-        res = run_grid(f"faults_{label}_{fault or 'none'}", arch, None, grid_args, args,
+        res = run_grid(f"faults_{label}_{fault or 'none'}", arch, layers, grid_args, args,
                        fault=fault)
         loss, gnorm = grid_diffs(res, want)
-        failed = grid_checks(res, want, limit)
+        failed = grid_checks(res, want, limits)
         what = "no fault" if fault is None else f"{fault} ({GRID_FAULTS[fault][0]})"
         log(f"  {label}, {what} [{smi}]: losses "
-            f"{', '.join(f'{x:.4f}' for x in res['losses'])}; worst rel diff {loss:.2e}; "
-            f"first gradient norm {res['grad_norms'][0]:.6g}, rel diff {gnorm:.2e} "
-            f"(limit {limit:.2e}); refused by: {'; '.join(failed) or 'nothing'}; "
-            f"{res['wall_s']:.1f} s")
+            f"{', '.join(f'{x:.4f}' for x in res['losses'])}; worst rel diff {loss:.2e} "
+            f"(limit {limits[0]:.2e}); first gradient norm {res['grad_norms'][0]:.6g}, rel "
+            f"diff {gnorm:.2e} (limit {limits[1]:.2e}); {res['wall_s']:.1f} s")
+        if label in GSPMD_FP32:
+            failed += fp32_model_axis(label, arch, smi, fault)
+        log(f"  {label}, {fault or 'no fault'}: refused by: {'; '.join(failed) or 'nothing'}")
         if (fault is None) == bool(failed):
             bad.append(f"{label} {fault or 'without a fault'}: "
                        + ("refused" if failed else "passes every check"))
@@ -3893,24 +4122,35 @@ def grid_fault_controls(label, arch, grid_args, args, want, limit, smi):
 
 
 def phase_grid_faults(smi):
-    """``--grid-faults``: the controls of phases 33 and 36's checks."""
+    """``--grid-faults``: the controls of phases 33, 36, 37 and 38's checks."""
     bad = []
     arch, _, grid_args, args = GSPMD_DENSE
     log(f"== 33 (controls): {arch} at full size, {' '.join(grid_args)}, {' '.join(args)}, "
         f"4 ranks sharing the card, with each fault planted")
     want = single_run("gspmd_single_qwen", arch, args)
-    limit = grid_limit("33", want, single_run("gspmd_single_qwen_accum2", arch, args,
-                                              accum=2))
+    limits = grid_limit("33", want, single_run("gspmd_single_qwen_accum2", arch, args,
+                                               accum=2))
     with rank_pool(4, "gspmd_faults"):
-        bad += grid_fault_controls("33", arch, grid_args, args, want, limit, smi)
+        bad += grid_fault_controls("33", arch, grid_args, args, want, limits, smi)
     arch, _, grid_args, args = GSPMD_SSM
     log(f"== 36 (controls): {arch} at full size, {' '.join(grid_args)}, {' '.join(args)}, "
         f"2 ranks sharing the card, with each fault planted")
     want = single_run("gspmd_single_mamba2", arch, args)
-    limit = grid_limit("36", want, single_run("gspmd_single_mamba2_accum2", arch, args,
-                                              accum=2))
+    limits = grid_limit("36", want, single_run("gspmd_single_mamba2_accum2", arch, args,
+                                               accum=2))
     with rank_pool(2, "gspmd_ssm_faults"):
-        bad += grid_fault_controls("36", arch, grid_args, args, want, limit, smi)
+        bad += grid_fault_controls("36", arch, grid_args, args, want, limits, smi)
+    with rank_pool(4, "gspmd_family_faults"):
+        for label, arch, layers, full, args, *_ in GSPMD_FAMILIES:
+            if not any(label in phases for _, phases in GRID_FAULTS.values()):
+                continue
+            cut = layers if layers < full else None
+            log(f"== {label} (controls): {arch} at full width, {layers} of {full} layers, "
+                f"{' '.join(GSPMD_FAMILY_GRID)}, {' '.join(args)}, 4 ranks sharing the "
+                f"card, with each fault planted")
+            want, limits = family_reference(label, arch, cut, args, None)
+            bad += grid_fault_controls(label, arch, GSPMD_FAMILY_GRID, args, want, limits,
+                                       smi, layers=cut)
     if bad:
         raise AssertionError("grid fault controls: " + "; ".join(bad))
 
@@ -4151,6 +4391,9 @@ def main() -> int:
         f"{' '.join(grid_args)}, {' '.join(args)}, 2 ranks sharing the card")
     with rank_pool(2, "gspmd_ssm"):
         for name, n in phase_gspmd_ssm(smi).items():
+            launches[name] += n
+    with rank_pool(4, "gspmd_families"):
+        for name, n in phase_gspmd_families(smi).items():
             launches[name] += n
 
     log("== done")

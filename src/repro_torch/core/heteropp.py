@@ -473,13 +473,21 @@ def validate_tensor_parallel(cfg: ModelConfig, tp: int) -> None:
             f"dense decoder blocks only; {cfg.name} has block kind "
             f"{kind!r} (family {cfg.family!r}) — tp stays a cost-model "
             f"dimension for it (DESIGN.md §8)")
-    for what, n in (("num_heads", cfg.num_heads),
-                    ("num_kv_heads", cfg.num_kv_heads),
-                    ("d_ff", cfg.d_ff)):
+    refuse_undivided(cfg, tp, (("num_heads", cfg.num_heads),
+                               ("num_kv_heads", cfg.num_kv_heads),
+                               ("d_ff", cfg.d_ff)),
+                     "tensor_parallel", "pick a tp that divides heads, kv heads and d_ff")
+
+
+def refuse_undivided(cfg: ModelConfig, tp: int, counts, flag: str, why: str) -> None:
+    """Raise ``ValueError`` naming the first of ``counts`` ((name, n)
+    pairs: the counts tp members split) that ``tp`` (given as ``flag``)
+    does not divide."""
+    for what, n in counts:
         if n % tp:
             raise ValueError(
-                f"tensor_parallel={tp} does not divide {cfg.name}.{what}"
-                f"={n}; pick a tp that divides heads, kv heads and d_ff")
+                f"{flag}={tp} does not divide {cfg.name}.{what}"
+                f"={n}; {why}")
 
 
 def validate_spec_tp(cfg: ModelConfig, spec: PipelineSpec) -> None:
@@ -493,11 +501,13 @@ def validate_spec_tp(cfg: ModelConfig, spec: PipelineSpec) -> None:
 def _tp_local_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
     """The per-member view of the model: each tp member owns 1/tp of the
     heads, kv heads and ff width; everything else (d_model, head_dim,
-    rope, norms) is unchanged."""
+    rope, norms) is unchanged.  Where the kv heads are fewer than the
+    members, a member's query heads share one kv head (the sharded train
+    step's grid; the pipeline refuses such a tp)."""
     if tp == 1:
         return cfg
     return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
-                               num_kv_heads=cfg.num_kv_heads // tp,
+                               num_kv_heads=max(1, cfg.num_kv_heads // tp),
                                d_ff=cfg.d_ff // tp)
 
 
@@ -531,24 +541,36 @@ class _TPReduce(torch.autograd.Function):
 
 
 def _tp_block_forward(p, cfg: ModelConfig, lcfg: ModelConfig, x, tp, *,
-                      backend: str = "auto", **attn_kw):
-    """One dense block with manual Megatron tensor parallelism: ``p``
-    holds this member's shards (column-parallel wq/wk/wv/bq/bk/bv/wi/wg,
+                      backend: str = "auto", enc_kv=None, ffn=None, **attn_kw):
+    """One block with manual Megatron tensor parallelism: ``p`` holds
+    this member's shards (column-parallel wq/wk/wv/bq/bk/bv/wi/wg,
     row-parallel wo), so attention runs on its ``lcfg`` heads and the MLP
     on its ff slice; each sub-block's row-parallel output is summed over
     the tp group (``tp``, a :class:`~repro_torch.comm.p2p.P2P`) before
     the residual add, so activations stay replicated across tp.  A
     replicated attention leaf (the per-head qk-norm scales) sees only
     this member's heads, so it passes :class:`_TPCopy` too.  ``attn_kw``
-    (positions, a vlm model's ``prefix_len``) goes to the attention."""
-    h = _TPCopy.apply(layers.apply_norm(p["ln1"], x, cfg.norm), tp)
-    attn = {k: v if k in TP_COLUMN_PARAMS | TP_ROW_PARAMS
-            else tree_map(lambda t: _TPCopy.apply(t, tp), v)
+    (positions, a vlm model's ``prefix_len``, an encoder's ``causal``)
+    goes to the attention.  ``enc_kv`` (this member's cross K/V heads)
+    adds a ``dec_cross`` block's cross-attention, sharded the same way;
+    ``ffn(h)``, where given, takes the MLP's place and returns the
+    members' summed output and metrics (a moe block's experts).  Returns
+    (x, metrics) as ``transformer.block_forward``."""
+    copy = lambda t: _TPCopy.apply(t, tp)
+    total = lambda t: _TPReduce.apply(t, tp)
+    h = copy(layers.apply_norm(p["ln1"], x, cfg.norm))
+    attn = {k: v if k in TP_COLUMN_PARAMS | TP_ROW_PARAMS else tree_map(copy, v)
             for k, v in p["attn"].items()}
-    a = attention.self_attention(attn, lcfg, h, backend=backend, **attn_kw)
-    x = x + _TPReduce.apply(a, tp)
-    h = _TPCopy.apply(layers.apply_norm(p["ln2"], x, cfg.norm), tp)
-    return x + _TPReduce.apply(layers.apply_mlp(p["mlp"], h, cfg.mlp), tp)
+    x = x + total(attention.self_attention(attn, lcfg, h, backend=backend,
+                                           rope=cfg.family != "audio", **attn_kw))
+    if enc_kv is not None:
+        h = copy(layers.apply_norm(p["ln3"], x, cfg.norm))
+        x = x + total(attention.cross_attention(p["xattn"], lcfg, h, enc_kv, backend))
+    h = copy(layers.apply_norm(p["ln2"], x, cfg.norm))
+    if ffn is not None:
+        y, metrics = ffn(h)
+        return x + y, metrics
+    return x + total(layers.apply_mlp(p["mlp"], h, cfg.mlp)), {}
 
 
 def _stage_forward(blocks, mask_row, cfg, x, kind: str, remat: bool, *,
@@ -570,8 +592,7 @@ def _stage_forward(blocks, mask_row, cfg, x, kind: str, remat: bool, *,
         if tp is None:
             fn = lambda x, p=p: tfm.block_forward(p, cfg, x, kind, backend=backend)
         else:
-            fn = lambda x, p=p: (_tp_block_forward(p, cfg, lcfg, x, tp,
-                                                   backend=backend), {})
+            fn = lambda x, p=p: _tp_block_forward(p, cfg, lcfg, x, tp, backend=backend)
         x, m = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
         if m:
             a = m["moe_aux_loss"] + m["moe_z_loss"]

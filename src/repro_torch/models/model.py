@@ -36,8 +36,11 @@ model has no vision weights.
 non-stacked leaves (embeddings, norms, positions, a hybrid model's
 shared block) are gathered whole once, and each layer's blocks are
 gathered inside the layer's checkpoint, so the backward's recompute
-gathers them again and no whole layer outlives its use.  Without it
-(every other caller) the parameters are whole and nothing changes.
+gathers them again and no whole layer outlives its use.  Every block
+then runs as ``gather.block`` (one model member's share of it), and a
+whisper decoder layer projects its cross K/V through ``gather.cross_kv``.
+Without it (every other caller) the parameters are whole and nothing
+changes.
 """
 from __future__ import annotations
 
@@ -186,12 +189,15 @@ def _hybrid_forward(params, cfg, x, positions, *, remat, backend, gather=None):
     window = cfg.effective_long_window if S > cfg.max_seq_len else cfg.sliding_window
     shared = params["shared_attn"]
 
+    run = tfm.block_forward if gather is None else gather.block
+
     def group(x, gp):
         if gather is not None:
             gp = gather(gp, "blocks")
-        x, _ = tfm.run_stacked(gp, cfg, x, "ssm", backend=backend)
-        x, _ = tfm.block_forward(shared, cfg, x, "dense", positions=positions,
-                                 window=window, backend=backend)
+        for p in tfm.unstack(gp):
+            x, _ = run(p, cfg, x, "ssm", backend=backend)
+        x, _ = run(shared, cfg, x, "dense", positions=positions, window=window,
+                   backend=backend)
         return x
 
     for gp in tfm.unstack(params["blocks"]):
@@ -224,6 +230,9 @@ def _decode_stack(params, cfg, x, enc, positions, *, remat, backend,
         def one(x, enc, p=p, i=i, kv=kv):
             if gather is not None:
                 p = gather(p, "dec_blocks")
+                ekv = gather.cross_kv(p["xattn"], cfg, enc)
+                return gather.block(p, cfg, x, "dec_cross", positions=positions,
+                                    enc_kv=ekv, backend=backend)[0]
             ekv = attention.encode_cross_kv(p["xattn"], cfg, enc)
             if cache is not None:
                 cache["cross"][0][i].copy_(ekv[0])

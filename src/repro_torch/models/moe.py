@@ -76,11 +76,23 @@ def count(ids, n: int) -> torch.Tensor:
         0, flat, torch.ones_like(flat))
 
 
-def dispatch(x, expert_ids, E: int, C: int):
+def own(slot, valid, C: int, experts: Tuple[int, int]):
+    """Of ``dispatch``'s assignments, those of the ``experts`` (first, n):
+    their slots in those experts' (n*C)-row buffer (the others at its
+    sentinel row n*C) and which they are."""
+    first, n = experts
+    local = slot - first * C
+    mine = valid & (local >= 0) & (local < n * C)
+    return torch.where(mine, local, torch.full_like(local, n * C)), mine
+
+
+def dispatch(x, expert_ids, E: int, C: int, experts: Optional[Tuple[int, int]] = None):
     """x: (B, g, d); expert_ids: (B, g, k).  Returns (buffer (B, E*C, d),
     slot (B, g*k), valid (B, g*k)), each group as the reference's
     ``_dispatch_one_group``: an assignment past its expert's capacity
-    goes to the sentinel row E*C, multiplied by 0."""
+    goes to the sentinel row E*C, multiplied by 0.  With ``experts``
+    (first, n) the buffer holds those n experts' rows only, (B, n*C, d)
+    (:func:`own`); slot and valid stay every expert's."""
     B, g, k = expert_ids.shape
     flat_ids = expert_ids.reshape(B, g * k)          # token-major, as the reference
     sort_idx = torch.argsort(flat_ids, dim=-1, stable=True)
@@ -97,12 +109,14 @@ def dispatch(x, expert_ids, E: int, C: int):
     inv = torch.empty_like(sort_idx).scatter_(1, sort_idx, ar)
     slot = torch.gather(slot_sorted, 1, inv)
     valid = torch.gather(valid_sorted, 1, inv)
+    n = E if experts is None else experts[1]
+    fill, kept = (slot, valid) if experts is None else own(slot, valid, C, experts)
     d = x.shape[-1]
     tok_idx = (ar // k + rows * g).reshape(-1)
-    src = x.reshape(B * g, d)[tok_idx] * valid.reshape(-1, 1).to(x.dtype)
-    buf = torch.zeros((B * (E * C + 1), d), dtype=x.dtype, device=x.device)
-    buf = buf.index_add(0, (slot + rows * (E * C + 1)).reshape(-1), src)
-    return buf.view(B, E * C + 1, d)[:, :E * C], slot, valid
+    src = x.reshape(B * g, d)[tok_idx] * kept.reshape(-1, 1).to(x.dtype)
+    buf = torch.zeros((B * (n * C + 1), d), dtype=x.dtype, device=x.device)
+    buf = buf.index_add(0, (fill + rows * (n * C + 1)).reshape(-1), src)
+    return buf.view(B, n * C + 1, d)[:, :n * C], slot, valid
 
 
 def combine(ybuf, slot, valid, gate_vals):
@@ -133,22 +147,31 @@ def expert_mlp(params, cfg, buf):
     return torch.einsum("becf,efd->becd", h, params["wo"])
 
 
-def moe_block(params, cfg, x, routing_sum: Optional[Callable] = None
-              ) -> Tuple[torch.Tensor, dict]:
+def moe_block(params, cfg, x, routing_sum: Optional[Callable] = None,
+              experts: Optional[Tuple[int, int]] = None) -> Tuple[torch.Tensor, dict]:
     """x: (B, S, d) -> (y (B, S, d), metrics): ``moe_aux_loss`` (Switch
     load balance x ``router_aux_coef``), ``moe_z_loss`` (mean squared
     router log-partition x ``router_z_coef``) and ``moe_drop_frac``.
     ``routing_sum(counts, n)``, where given, returns the top-1 counts and
     the token count summed over the data-parallel ranks, so that the
     load-balance loss's expert fractions are the whole batch's, as on the
-    single device (the sharded train step's, ``sharding.spmd``)."""
+    single device (the sharded train step's, ``sharding.spmd``).
+
+    ``experts`` (first, n), where given, says that ``params`` holds those
+    n experts' weights alone (expert parallelism over a model axis): the
+    whole router routes every token as before, but only those experts'
+    capacity buffer is filled and run, and ``y`` is their part of the
+    output, which the model members sum.  Capacity, drops and the
+    auxiliary losses are every expert's, so the parts add up exactly."""
     B, S, d = x.shape
     E = cfg.num_experts
     C = capacity(cfg, S)
+    n = E if experts is None else experts[1]
     logits, probs, gate_vals, expert_ids = route(params, cfg, x)
-    buf, slot, valid = dispatch(x, expert_ids, E, C)
-    ybuf = expert_mlp(params, cfg, buf.reshape(B, E, C, d))
-    y = combine(ybuf.reshape(B, E * C, d), slot, valid, gate_vals)
+    buf, slot, valid = dispatch(x, expert_ids, E, C, experts)
+    ybuf = expert_mlp(params, cfg, buf.reshape(B, n, C, d))
+    mine = (slot, valid) if experts is None else own(slot, valid, C, experts)
+    y = combine(ybuf.reshape(B, n * C, d), *mine, gate_vals)
 
     counts, n = count(expert_ids[..., 0], E), B * S
     if routing_sum is not None:

@@ -40,9 +40,10 @@ def init_ssm(cfg, dtype, *, generator, device, stack=()):
     }
 
 
-def _split_in_proj(cfg, zxbcdt):
-    dinner, ng, st, nh = (cfg.ssm_dinner, cfg.ssm_ngroups, cfg.ssm_state,
-                          cfg.ssm_nheads)
+def _split_in_proj(cfg, zxbcdt, nh):
+    """[z | x | B | C | dt] of ``nh`` heads' in_proj output."""
+    ng, st = cfg.ssm_ngroups, cfg.ssm_state
+    dinner = nh * cfg.ssm_headdim
     z = zxbcdt[..., :dinner]
     x = zxbcdt[..., dinner:2 * dinner]
     Bm = zxbcdt[..., 2 * dinner:2 * dinner + ng * st]
@@ -169,16 +170,33 @@ def _ssd_backend(backend, initial_state, x):
     return "kernel" if resolved == "kernel" and initial_state is None else "chunked"
 
 
-def mamba2_forward(params, cfg, u, *, initial_state=None, backend="auto"):
+def _gated_norm(params, x, mean_sq=None, eps: float = 1e-6):
+    """The rmsnorm of the gated output, whose mean of squares ``mean_sq(xf)``
+    gives where the channels are one model member's share of dinner."""
+    if mean_sq is None:
+        return layers.apply_norm(params, x, "rmsnorm", eps)
+    xf = x.float()
+    return (xf * torch.rsqrt(mean_sq(xf) + eps) * params["scale"].float()).to(x.dtype)
+
+
+def mamba2_forward(params, cfg, u, *, initial_state=None, backend="auto", mean_sq=None):
     """u: (B, S, d) -> (y (B, S, d), final ssm state (B, h, p, n), conv
     tail (B, W-1, conv_dim)).  The conv tail is the last W-1 positions of
     the conv input (before the conv), which a prefill leaves in the
-    decode cache."""
+    decode cache.
+
+    The head count is ``A_log``'s, so ``params`` may be one model
+    member's heads (``sharding.spmd``): in_proj's columns [z | x | B | C
+    | dt] and the conv's [x | B | C] of those heads (B and C whole), their
+    ``A_log``, ``D``, ``dt_bias`` and norm channels, and out_proj's rows,
+    whose output is then the member's part of the sum.  The gated norm
+    runs over the whole dinner, so ``mean_sq`` then returns the mean of
+    squares over every member's channels."""
     B, S, d = u.shape
-    dinner, nh, hp = cfg.ssm_dinner, cfg.ssm_nheads, cfg.ssm_headdim
-    ng, st = cfg.ssm_ngroups, cfg.ssm_state
+    nh, hp = params["A_log"].shape[-1], cfg.ssm_headdim
+    dinner, ng, st = nh * hp, cfg.ssm_ngroups, cfg.ssm_state
     zxbcdt = u @ params["in_proj"]
-    z, x, Bm, Cm, dt = _split_in_proj(cfg, zxbcdt)
+    z, x, Bm, Cm, dt = _split_in_proj(cfg, zxbcdt, nh)
     # x | B | C are adjacent columns of zxbcdt: the conv input, in place
     conv_tail = zxbcdt[:, -(cfg.ssm_conv_width - 1):, dinner:2 * dinner + 2 * ng * st]
     BC = torch.cat([Bm, Cm], dim=-1)                           # (B, S, 2·ng·st)
@@ -204,7 +222,7 @@ def mamba2_forward(params, cfg, u, *, initial_state=None, backend="auto"):
     y = y + xh.float() * params["D"][None, None, :, None]
     y = y.reshape(B, S, dinner).to(u.dtype)
 
-    y = layers.apply_norm(params["norm"], y * F.silu(z), "rmsnorm")
+    y = _gated_norm(params["norm"], y * F.silu(z), mean_sq)
     return y @ params["out_proj"], final, conv_tail
 
 
@@ -226,7 +244,7 @@ def mamba2_decode_step(params, cfg, u, cache):
     dinner, nh, hp = cfg.ssm_dinner, cfg.ssm_nheads, cfg.ssm_headdim
     ng, st = cfg.ssm_ngroups, cfg.ssm_state
     zxbcdt = u[:, 0] @ params["in_proj"]                       # (B, in_dim)
-    z, x, Bm, Cm, dt = _split_in_proj(cfg, zxbcdt)
+    z, x, Bm, Cm, dt = _split_in_proj(cfg, zxbcdt, nh)
     xBC = torch.cat([x, Bm, Cm], dim=-1)                       # (B, conv_dim)
     window = torch.cat([cache["conv"], xBC[:, None]], dim=1)   # (B, W, conv)
     conv_out = torch.sum(window * params["conv_w"][None], dim=1) + params["conv_b"]

@@ -30,20 +30,44 @@ gradient of its loss / D, the gradient of the global batch's mean loss.
 AdamW then runs on the blocks (``optim.adamw``'s math), clipped by the
 global norm summed from the blocks, each counted once.
 
-**Compute, model axis > 1.**  The blocks run Megatron tensor parallelism
-through the pipeline runtime's ``core.heteropp._tp_block_forward`` (its
-``_TPCopy`` and ``_TPReduce`` all-reduces over the model group): each
-member keeps its Megatron shard of each layer leaf
-(``rules.tp_body_dim``: column ``wq wk wv bq bk bv wi wg``, row ``wo``):
-where the rules put the model axis on that dim its block is the shard
-and only the data axes are gathered, else it gathers the leaf whole and
-slices it; activations stay replicated over the model axis.  A Megatron leaf's
-gradient is summed over the model members (each holds its shard's part);
-a leaf every member computes alike (norms, embeddings) is sliced, or
-averaged where its spec does not name the model axis.  Dense and vlm
-models only: GSPMD runs every family at model > 1, but the port lacks
-moe's expert parallelism and the head sharding of the ssm, hybrid and
-audio blocks, and refuses them by name (:func:`check_grid`).
+**Compute, model axis > 1.**  Each model member computes its share of
+every block, with explicit collectives over the grid's ``tp`` group
+(``core.heteropp``'s ``_TPCopy``, identity forward and summed backward,
+on each replicated input a member uses in part, and ``_TPReduce``, the
+summed forward, on each member's part of an output); activations stay
+replicated over the model axis.  :func:`member_cut` says which part of
+each block leaf a member uses:
+
+- attention and MLP (dense, vlm, the moe and whisper attention, whisper's
+  encoder, decoder and cross-attention, zamba2's shared block): Megatron
+  shards (``rules.tp_body_dim``: column ``wq wk wv bq bk bv wi wg``, row
+  ``wo``) over the member's heads and ff slice; where the kv heads are
+  fewer than the members, each member uses its query heads' kv head
+  whole.  Whisper's cross K/V come from the replicated encoder output,
+  which passes ``_TPCopy`` (:meth:`Gather.cross_kv`);
+- moe: expert parallelism.  A member holds E / M experts, routes the
+  replicated tokens with the whole router, fills and runs its experts'
+  capacity buffer and combines them into its part of the output, which
+  one all-reduce sums (``models.moe.moe_block(experts=)``);
+- ssm (mamba2, zamba2's ssm blocks): head sharding.  A member owns nh / M
+  heads: its dinner / M channels of z and x (in_proj's and the conv's
+  columns), of ``dt``, ``A_log``, ``D``, ``dt_bias`` and the gated norm,
+  and out_proj's rows (row-parallel).  B and C are every head's, so each
+  member computes them whole; the gated norm's mean of squares is the
+  model group's sum (``models.ssm.mamba2_forward(mean_sq=)``).
+
+Where the rules put the model axis on a leaf's member dim and the
+member's part is its block, only the data axes are gathered; else the
+leaf is gathered whole and the member's part taken from it.  The backward
+sums each leaf's gradient over the members (each holds its part's, zero
+elsewhere, or, for a leaf every member uses in part, such as B and C's
+columns, the router or a shared kv head, a partial sum); a leaf every
+member computes alike (norms, embeddings) is sliced, or averaged where
+its spec does not name the model axis.  A moe block's auxiliary and z
+losses are alike on every member, so their gradient is scaled by 1 / M
+before the sums, which count it once.  A block count that does not
+divide the model axis is refused by name (:func:`check_grid`); nothing
+is quietly replicated.
 
 **What is exact.**  The persistent state is exactly what the JAX rules
 give each device.  Only the transient activation layout departs from
@@ -67,7 +91,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..core.dataparallel.grad_sync import replica_grad_norm
-from ..models import layers, transformer as tfm
+from ..core.heteropp import (_TPCopy, _TPReduce, _tp_block_forward, _tp_local_cfg,
+                             refuse_undivided)
+from ..models import attention, layers, moe as moe_lib, ssm as ssm_lib, transformer as tfm
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optim import adamw
@@ -76,14 +102,6 @@ from ..tree import flatten, tree_leaves
 from . import rules
 
 PyTree = Any
-
-# what the port lacks to run each family at model > 1
-MISSING_AT_MODEL = {
-    "moe": "expert parallelism (the experts over the model axis)",
-    "ssm": "SSM head sharding (the mamba2 heads over the model axis)",
-    "hybrid": "SSM head sharding (the mamba2 heads over the model axis)",
-    "audio": "encoder-decoder head sharding (whisper's cross-attention)",
-}
 
 
 def _unflatten(flat: Dict[str, Any]) -> PyTree:
@@ -264,42 +282,126 @@ class _Gathered(torch.autograd.Function):
         return layout.reduce(g, spec, model=model, data=data), None, None, None, None
 
 
+class _AllSum(torch.autograd.Function):
+    """The sum over the model group in the forward and in the backward:
+    a total that every member computes from its part and uses whole (the
+    gated norm's sum of squares)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce_(g.contiguous().clone()), None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``s`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def _experts_sum(y, tp):
+    """A moe block's output: the members' expert combines summed."""
+    return _TPReduce.apply(y, tp)
+
+
+def _norm_mean_sq(xf, tp):
+    """The gated norm's mean of squares over the whole dinner, from this
+    member's channels ``xf``: the model group's sum of squares."""
+    total = _AllSum.apply(xf.square().sum(dim=-1, keepdim=True), tp)
+    return total / (xf.shape[-1] * tp.world_size)
+
+
+def member_cut(cfg: ModelConfig, M: int, k: int):
+    """``cut(path, shape)`` for a leaf of whole shape ``shape``: None where
+    member ``k`` of ``M`` uses it whole and alike with the others (norms,
+    embeddings, positions), else (dim, ranges): the ranges (start, length)
+    of dim ``dim`` (counted from the end) it computes with, in order,
+    gathered whole where they are not its block."""
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def ssm(name):
+        di, nh = cfg.ssm_dinner, cfg.ssm_nheads
+        bc, ch, hh = 2 * cfg.ssm_ngroups * cfg.ssm_state, di // M, nh // M
+        x, heads = (k * ch, ch), (k * hh, hh)
+        return {"in_proj": (-1, [x, (di + k * ch, ch), (2 * di, bc),
+                                 (2 * di + bc + k * hh, hh)]),
+                "conv_w": (-1, [x, (di, bc)]), "conv_b": (-1, [x, (di, bc)]),
+                "A_log": (-1, [heads]), "D": (-1, [heads]), "dt_bias": (-1, [heads]),
+                "scale": (-1, [x]), "out_proj": (-2, [x])}[name]
+
+    def cut(path, shape):
+        parts = path.split("/")
+        name = parts[-1]
+        if "ssm" in parts:
+            return ssm(name)
+        if "moe" in parts:
+            n = cfg.num_experts // M
+            return (-1, [(0, shape[-1])]) if name == "router" else (-3, [(k * n, n)])
+        stacked = 0 if parts[0] == "shared_attn" else \
+            2 if cfg.family == "hybrid" and parts[0] == "blocks" else 1
+        d = rules.tp_body_dim(path, len(shape) - stacked)
+        if d is None:
+            return None
+        dim = d - (len(shape) - stacked)
+        if name in ("wk", "wv", "bk", "bv") and KV < M:
+            return dim, [(k * KV // M * hd, hd)]        # its query heads' kv head
+        w = shape[dim] // M
+        return dim, [(k * w, w)]
+
+    return cut
+
+
 class Gather:
     """The model's access to one rank's blocks (``models.model.loss_fn(...,
     gather=)``): ``gather(tree, where)`` gathers a (sub)tree whose path in
-    the params is ``where`` (a layer of a stack, or a whole non-stacked
-    entry), and ``block`` runs one layer on what it returns.  At model > 1
-    a dense layer's leaves come back as this member's Megatron shards and
-    ``block`` is the Megatron block; where the rules put the model axis
-    on a leaf's Megatron dim, the member's block is its shard already,
-    and only the data axes are gathered (and reduced).  ``data`` False
-    leaves the data axes out of the backward (ZeRO-1); ``routing`` is the
-    moe blocks' ``routing_sum`` (:meth:`Layout.routing_sum`)."""
+    the params is ``where`` (a layer of a stack, a hybrid group, or a
+    whole non-stacked entry), and ``block`` runs one block on what it
+    returns.  At model > 1 a block's leaves come back as this member's
+    parts of them (:func:`member_cut`) and ``block`` is the member's share
+    of the block (:meth:`member_block`).  ``data`` False leaves the data
+    axes out of the backward (ZeRO-1); ``routing`` is the moe blocks'
+    ``routing_sum`` (:meth:`Layout.routing_sum`)."""
 
     def __init__(self, cfg: ModelConfig, layout: Layout, specs: Dict[str, Any],
                  shapes: Dict[str, Tuple[int, ...]], *, data: bool = True, routing=None):
-        from ..core import heteropp as HP
         self.cfg, self.layout, self.specs, self.shapes = cfg, layout, specs, shapes
         self.data, self.routing = data, routing
-        self.tp = layout.model > 1
-        self.lcfg = HP._tp_local_cfg(cfg, layout.model)
-        self._tp_block = HP._tp_block_forward
+        M, k = layout.model, layout.grid.k
+        self.tp = M > 1
+        self.lcfg = _tp_local_cfg(cfg, M)
+        self.cut = member_cut(cfg, M, k)
+        self.experts = (k * cfg.num_experts // M, cfg.num_experts // M) \
+            if cfg.family == "moe" else None
 
     def __call__(self, tree, where: str):
+        layout = self.layout
+
         def one(path, leaf):
             full = self.shapes[path]
             spec = self.specs[path][len(full) - leaf.ndim:]
-            d = rules.tp_body_dim(path, leaf.ndim) \
-                if self.tp and where == "blocks" else None
-            if d is not None and rules.entry_axes(spec[d]) == (self.layout.model_axis,):
+            cut = self.cut(path, full) if self.tp else None
+            if cut is None:
+                return _Gathered.apply(leaf, layout, spec, "equal", self.data)
+            dim, ranges = cut
+            d, w = leaf.ndim + dim, full[dim] // layout.model
+            if ranges == [(layout.grid.k * w, w)] and \
+                    rules.entry_axes(spec[d]) == (layout.model_axis,):
                 own = spec[:d] + (None,) + spec[d + 1:]
-                return _Gathered.apply(leaf, self.layout, own, "local", self.data)
-            x = _Gathered.apply(leaf, self.layout, spec, "equal" if d is None else "sum",
-                                self.data)
-            if d is not None:
-                w = x.shape[d] // self.layout.model
-                x = x.narrow(d, self.layout.grid.k * w, w)
-            return x
+                return _Gathered.apply(leaf, layout, own, "local", self.data)
+            x = _Gathered.apply(leaf, layout, spec, "sum", self.data)
+            parts = [x.narrow(d, start, n) for start, n in ranges]
+            return parts[0] if len(parts) == 1 else torch.cat(parts, d)
 
         return rules.map_with_path(one, tree, where + "/")
 
@@ -307,23 +409,57 @@ class Gather:
         if not self.tp:
             return tfm.block_forward(p, cfg, x, kind, backend=backend,
                                      routing_sum=self.routing, **kw)
-        return self._tp_block(p, cfg, self.lcfg, x, self.layout.grid.tp,
-                              backend=backend, **kw), {}
+        return self.member_block(p, cfg, x, kind, backend=backend, **kw)
+
+    def cross_kv(self, p, cfg, enc):
+        """A decoder layer's cross K/V (``attention.encode_cross_kv``): at
+        model > 1 this member's kv heads, from the replicated encoder
+        output, whose gradient is then the members' sum."""
+        if not self.tp:
+            return attention.encode_cross_kv(p, cfg, enc)
+        return attention.encode_cross_kv(p, self.lcfg, _TPCopy.apply(enc, self.layout.grid.tp))
+
+    def member_block(self, p, cfg, x, kind, *, backend="auto", **kw):
+        """This member's share of one block on the replicated ``x``, each
+        part of an output summed over the model group before its residual
+        add: the Megatron block (``heteropp._tp_block_forward``; a moe
+        block's experts in its MLP's place), or a mamba2 block's heads.
+        Returns (x, metrics) as ``transformer.block_forward``."""
+        tp, M = self.layout.grid.tp, self.layout.model
+        if kind == "ssm":
+            h = _TPCopy.apply(layers.apply_norm(p["ln1"], x, cfg.norm), tp)
+            y, _, _ = ssm_lib.mamba2_forward(p["ssm"], cfg, h, backend=backend,
+                                             mean_sq=lambda xf: _norm_mean_sq(xf, tp))
+            return x + _TPReduce.apply(y, tp), {}
+        ffn = None
+        if kind == "moe":
+            def ffn(h):
+                y, m = moe_lib.moe_block(p["moe"], cfg, h, self.routing, experts=self.experts)
+                return _experts_sum(y, tp), {
+                    k: _ScaleGrad.apply(v, 1.0 / M) if k in ("moe_aux_loss", "moe_z_loss")
+                    else v for k, v in m.items()}
+        return _tp_block_forward(p, cfg, self.lcfg, x, tp, backend=backend, ffn=ffn, **kw)
 
 
 def check_grid(cfg: ModelConfig, model: int) -> None:
-    """Refuse a model a grid of model axis ``model`` cannot run: at model
-    > 1 the Megatron blocks cover dense and vlm models whose heads, kv
-    heads and d_ff divide the model axis."""
+    """Refuse a model a grid of model axis ``model`` cannot run: a count
+    the members split (experts, mamba2 heads, attention heads, ff width)
+    that does not divide the model axis, or kv heads that neither divide
+    it nor are divided by it.  Names the count."""
     if model == 1:
         return
-    from ..core.heteropp import validate_tensor_parallel
-    if cfg.family in MISSING_AT_MODEL:
-        raise NotImplementedError(
-            f"--model-parallel {model}: {cfg.name} is a {cfg.family} model, and "
-            f"the port lacks {MISSING_AT_MODEL[cfg.family]}; it runs dense and vlm "
-            f"models at model > 1 (Megatron blocks) and every family at model 1")
-    validate_tensor_parallel(cfg, model)
+    counts = []
+    if cfg.family == "moe":
+        counts.append(("num_experts", cfg.num_experts))
+    if cfg.family in ("ssm", "hybrid"):
+        counts.append(("ssm_nheads", cfg.ssm_nheads))
+    if cfg.family != "ssm":
+        counts.append(("num_heads", cfg.num_heads))
+        if model % cfg.num_kv_heads:          # fewer kv heads than members share them
+            counts.append(("num_kv_heads", cfg.num_kv_heads))
+    if cfg.family not in ("ssm", "moe"):          # a moe model's experts keep their ff
+        counts.append(("d_ff", cfg.d_ff))
+    refuse_undivided(cfg, model, counts, "--model-parallel", "the model members split it")
 
 
 # ---------------------------------------------------------------------------

@@ -17,11 +17,11 @@ Parameters are placed by the rules with ``fsdp=False`` (sharded over the
 model axis only; replicated over data), and master / m / v are also
 sharded over the data axes at ``_scatter_dim``, so each rank's optimizer
 bytes equal the JAX package's (``state_specs``).  At model > 1 the
-layers run the sharded step's Megatron blocks (``spmd.Gather`` over the
-model axis alone).  The loss is each data rank's ``loss_fn`` on its own
-rows, averaged over the ranks, as in the JAX package (a moe model's
-load-balance loss is each rank's own, where GSPMD's is the global
-batch's).
+blocks run the sharded step's member shares of every family
+(``spmd.Gather`` over the model axis alone).  The loss is each data
+rank's ``loss_fn`` on its own rows, averaged over the ranks, as in the
+JAX package (a moe model's load-balance loss is each rank's own, where
+GSPMD's is the global batch's).
 """
 from __future__ import annotations
 

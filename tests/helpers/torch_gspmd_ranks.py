@@ -50,12 +50,26 @@ def _step(cfg, layout, opt, accum, mode):
     return step, step.specs
 
 
+class _FirstGrads:
+    """``adamw.apply_update`` that keeps the gradient blocks of its first
+    call (the step's reduced gradient on this rank's blocks)."""
+
+    def __init__(self):
+        self.grads, self.update = None, adamw.apply_update
+
+    def __call__(self, cfg, opt_state, grads, *args, **kw):
+        if self.grads is None:
+            self.grads = flatten(grads)
+        return self.update(cfg, opt_state, grads, *args, **kw)
+
+
 def train_cases(rank, world, cases, opt_fields):
     """Each case ``(name, cfg fields, params tree, batches, model, data,
     accum, mode)``: a grid of that shape, the state cut from the tree,
     one step a batch.  Returns per case the metrics of each step, the
-    whole parameters after the first step (rank 0) and the rank's
-    persistent bytes with their closed form."""
+    whole parameters after the first step and the whole gradient that
+    step applied (rank 0), the rank's persistent bytes with their closed
+    form, and the last step's collectives."""
     opt = adamw.AdamWConfig(**opt_fields)
     out = {}
     for name, fields, tree, batches, model, data, accum, mode in cases:
@@ -64,15 +78,20 @@ def train_cases(rank, world, cases, opt_fields):
         step, specs = _step(cfg, layout, opt, accum, mode)
         state = _blocks_of(tree, layout, specs)
         rows = spmd.local_rows(len(batches[0]["tokens"]), layout, accum).numpy()
-        metrics, params1 = [], None
+        metrics, params1, grads1 = [], None, None
+        first = _FirstGrads()
         for i, b in enumerate(batches):
             local = {k: torch.from_numpy(np.ascontiguousarray(v[rows])) for k, v in b.items()}
-            state, m = step(state, local)
+            with mock.patch.object(adamw, "apply_update", first):
+                state, m = step(state, local)
             metrics.append(m)
             if i == 0:
                 full = spmd.full_state(state, layout, specs).params
-                params1 = flatten(full) if rank == 0 else None
-        out[name] = {"metrics": metrics, "params1": params1,
+                gspecs = flatten(specs.opt_state["master"])
+                with torch.no_grad():
+                    grads = {p: layout.gather(g, gspecs[p]) for p, g in first.grads.items()}
+                params1, grads1 = (flatten(full), grads) if rank == 0 else (None, None)
+        out[name] = {"metrics": metrics, "params1": params1, "grads1": grads1,
                      "state_bytes": spmd.state_bytes(state),
                      "block_bytes": sum(spmd.block_bytes(cfg, layout, specs).values()),
                      "stats": step.stats}
