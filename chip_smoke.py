@@ -77,13 +77,14 @@ result.  Phases, each of which fails the run by raising:
  16. HeteroPP on one card: ``repro_torch.launch.train --plan`` on two
      ranks sharing the card (``--p2p host``: gloo through pinned host
      memory), each plan two stages on different chip types with a
-     non-uniform split: (a) qwen1.5-0.5b at full size, layers 10 / 14,
-     recompute on / off, 4 microbatches of 2 x 1024, 2 steps under 1f1b
-     and again under zb_v (v 2: stage 0 hosts global stages 0 and 3),
-     4 x (10 x 2 + 14) = 136 ``flash_attention`` a step over both ranks;
-     (b) mamba2-780m at full size, 20 / 28, both recompute, 4
-     microbatches of 1 x 2048, 2 steps, 4 x 48 x 2 = 384 ``ssd_scan`` a
-     step; losses finite and falling; (c) both widths cut to 4 layers
+     non-uniform split: (a) qwen1.5-0.5b at full width cut to 8 of 24
+     layers, 3 / 5, recompute on / off, 4 microbatches of 2 x 1024, 2
+     steps under 1f1b and again under zb_v (v 2: stage 0 hosts global
+     stages 0 and 3), 4 x (3 x 2 + 5) = 44 ``flash_attention`` a step over
+     both ranks; (b) mamba2-780m at full width cut to 16 of 48 layers, 6 /
+     10, both recompute, 4 microbatches of 1 x 2048, 2 steps, 4 x 16 x 2 =
+     128 ``ssd_scan`` a step (the depth cuts of 16-19, ``PP_QWEN``: room
+     for phase 41 under the time limit); losses finite and falling; (c) both widths cut to 4 layers
      (1 / 3), every library schedule against the single-device loss and
      gradient in fp32 and bf16 at phase 9's limits, the single-chunk
      schedules' losses equal bit for bit and the chunked ones equal to
@@ -99,17 +100,16 @@ result.  Phases, each of which fails the run by raising:
      step p50.
  17. HeteroPP over tensor and data parallelism on one card: four ranks
      sharing it through ``--p2p host``.  (a) phase 16 (a)'s qwen1.5-0.5b
-     10 / 14 plan under 1f1b with tp 2 a stage (Megatron blocks, each
+     3 / 5 plan under 1f1b with tp 2 a stage (Megatron blocks, each
      member's 8 of 16 heads through ``flash_attention``): 2 steps, 2 x
-     136 = 272 ``flash_attention`` a step over the ranks, twice phase 16
-     (a)'s; (b) qwen1.5-0.5b, ``--pipeline-parallel 2 --data-parallel 2
-     --grad-sync reduce_scatter`` (ZeRO-1), 8 microbatches of 2 x 1024
-     (4 a replica), 3 steps, 2 x 4 x 24 x 2 = 384 ``flash_attention`` a
-     step, each rank's optimizer state half of what its stage holds at
-     dp 1; (c) mamba2-780m at full width cut to 24 of 48 layers (12 /
-     12; the cut keeps the phase inside the time limit), dp 2 x pipe 2
-     under psum in 25 MB buckets, 8 microbatches of 1 x 2048, 2 steps,
-     384 ``ssd_scan`` a step; losses finite and falling, step, memory and
+     44 = 88 ``flash_attention`` a step over the ranks, twice phase 16
+     (a)'s; (b) qwen1.5-0.5b cut to 8 layers, ``--pipeline-parallel 2
+     --data-parallel 2 --grad-sync reduce_scatter`` (ZeRO-1), 8
+     microbatches of 2 x 1024 (4 a replica), 3 steps, 2 x 4 x 8 x 2 = 128
+     ``flash_attention`` a step, each rank's optimizer state half of what
+     its stage holds at dp 1; (c) mamba2-780m at full width cut to 8 of
+     48 layers (4 / 4), dp 2 x pipe 2 under psum in 25 MB buckets, 8
+     microbatches of 1 x 2048, 2 steps, 128 ``ssd_scan`` a step; losses finite and falling, step, memory and
      the collectives' ms a step by rank and group; (d) both widths at 4
      layers (1 / 3) against the single device in fp32 and bf16 at phase
      16 (c)'s limits under (pipe 2, tp 2) (qwen only, tp shards dense
@@ -120,8 +120,8 @@ result.  Phases, each of which fails the run by raising:
 
  18. HeteroPP with grouped non-uniform tp on one card: Σ tp_s = 3 ranks
      sharing it through ``--p2p host``, ``launch.train --plan`` of
-     qwen1.5-0.5b at full size (14 / 10 layers, phase 16 (a)'s batch, 2
-     steps) whose stages disagree on tp: (a) tp (2, 1), once with
+     qwen1.5-0.5b at full width cut to 8 layers (5 / 3, phase 16 (a)'s
+     batch, 2 steps) whose stages disagree on tp: (a) tp (2, 1), once with
      ``--reshard sr_ag`` and once with ``naive``; (b) tp (1, 2) with
      ``sr_ag``.  ``flash_attention`` launches a step = Σ_s tp_s x stage
      s's launches at tp 1; the boundary's bytes per exchange each way
@@ -133,9 +133,9 @@ result.  Phases, each of which fails the run by raising:
      16 (a)'s, its exchange printed tick by tick too.
  19. HeteroPP with an uneven batch domain on one card: four ranks, (dp
      2, pipe 2), replica 0 taking 4 microbatches and replica 1 taking 3:
-     mamba2-780m at full width cut to phase 17 (c)'s 24 layers, 7 x (1 x
+     mamba2-780m at full width cut to phase 17 (c)'s 8 layers, 7 x (1 x
      2048) a step, 2 steps under ZeRO-1, per-leaf psum and bucketed psum
-     (7 x 24 x 2 = 336 ``ssd_scan`` a step; each replica's tick count its
+     (7 x 8 x 2 = 112 ``ssd_scan`` a step; each replica's tick count its
      own allocation's); at 4 layers in fp32 against the single device on
      the same 7 microbatches, the padded token layout and the padded one
      with its pad slots overwritten giving the tight layout's loss bit
@@ -294,10 +294,23 @@ result.  Phases, each of which fails the run by raising:
      rounding allowance.  Phase 3 holds each kernel at the member shapes
      of 37-40 against its plain version and times it beside its library
      call and bound.
+ 41. the dry-run against the card (``repro_torch.launch.dryrun``: the
+     port's train step on the meta device as one rank of a grid of
+     counting stand-ins): (a) each grid phase of 33-40, estimated on the
+     host's CPU at its arch, cut, mesh, batch and dp mode by a process
+     started after phase 2 (``Estimator``), held exactly to what the
+     phase measured (each rank's persistent bytes, rank 0's collective
+     bytes and calls a step by axis and kind, ZeRO-1's optimizer bytes)
+     and its peak to ``PEAK_BAND`` of each rank's
+     ``max_memory_allocated``; (b) phase 11's run again under
+     ``--remat-policy dots`` (each layer's checkpoint keeping its
+     projections' outputs): its losses phase 11's within 1e-6 relative,
+     its peak above phase 11's, both step p50s and the estimate's two
+     peaks printed; 2 x 24 ``flash_attention`` a step.
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
 over the main paths that run it, phases 4, 7, 12, 13, 15–21, 23–26, 28,
-29 and 32–40, each kernel's fp16 row under ``"float16"``,
+29 and 32–41, each kernel's fp16 row under ``"float16"``,
 each counted from 0; the pipeline phases in each rank's own process,
 summed over the ranks), the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Each phase's heading carries the
@@ -347,11 +360,6 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores (fp16's peak is
-# the same) and HBM3 bandwidth
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
 
 # Tolerances of a kernel against its plain version on the same inputs.
 # fp32: both do the same fp32 arithmetic, summed in another order (64-wide
@@ -709,9 +717,13 @@ PALIGEMMA_CUT_BATCH = (2, 256)
 # split, as HeteroAuto gives a heterogeneous cluster: (chip, layers,
 # recompute) a stage.  b microbatches of batch / b rows each.
 PP_ARGS = ["--backend", "auto", "--device", "cuda", "--log-every", "1"]
-PP_QWEN = ("qwen1p5_0p5b", (("A", 10, True), ("B", 14, False)), 4,
+# Both models at full width cut in depth (qwen1.5-0.5b to 8 of 24 layers,
+# mamba2-780m to 16 of 48; phases 17-19 likewise, PIPELINE_CUT): the full
+# depth ran here until phase 41 needed room under the time limit, and
+# what the full depth adds is more of the same layers and their bytes.
+PP_QWEN = ("qwen1p5_0p5b", (("A", 3, True), ("B", 5, False)), 4,
            ["--batch", "8", "--seq", "1024", "--steps", "2"])
-PP_MAMBA2 = ("mamba2_780m", (("A", 20, True), ("B", 28, True)), 4,
+PP_MAMBA2 = ("mamba2_780m", (("A", 6, True), ("B", 10, True)), 4,
              ["--batch", "4", "--seq", "2048", "--steps", "2"])
 # Phase 16 (c): both widths cut to 4 layers split 1 / 3, every schedule
 # of the library, against the single-device loss and gradient on the
@@ -729,19 +741,19 @@ PP_HOPS = [("qwen 2 x 1024 x 1024", (2, 1024, 1024)),
            ("mamba2 1 x 2048 x 1536", (1, 2048, 1536))]
 PP_HOP_ITERS = 20
 # Phase 17: tensor and data parallelism in HeteroPP, four ranks sharing
-# the card through gloo.  (a) phase 16 (a)'s qwen1.5-0.5b 10 / 14 plan
-# with two Megatron members a stage; (b) qwen1.5-0.5b, even split, two
-# replicas under ZeRO-1, 4 microbatches of 2 x 1024 each; (c)
-# mamba2-780m at full width cut to 24 of 48 layers (to stay inside the
+# the card through gloo.  (a) phase 16 (a)'s qwen1.5-0.5b 3 / 5 plan
+# with two Megatron members a stage; (b) qwen1.5-0.5b cut to 8 layers,
+# even split, two replicas under ZeRO-1, 4 microbatches of 2 x 1024 each;
+# (c) mamba2-780m at full width cut to 8 of 48 layers (to stay inside the
 # time limit), two replicas under bucketed psum, 4 microbatches of 1 x
 # 2048 each; (d) parity at 4 layers against the single device, phase 16
 # (c)'s limits, with bucketed psum bit for bit per-leaf psum and ZeRO-1's
 # master weights after one step within ZERO_MASTER_RTOL of psum's.
 GRID_TP, GRID_DP = 2, 2
-GRID_DENSE_DP = ("qwen1p5_0p5b", 24, ["--pipeline-parallel", "2", "--data-parallel", "2",
+GRID_DENSE_DP = ("qwen1p5_0p5b", 8, ["--pipeline-parallel", "2", "--data-parallel", "2",
                                       "--grad-sync", "reduce_scatter", "--microbatches",
                                       "4", "--batch", "16", "--seq", "1024", "--steps", "3"])
-GRID_SSM_DP = ("mamba2_780m", 24, ["--pipeline-parallel", "2", "--data-parallel", "2",
+GRID_SSM_DP = ("mamba2_780m", 8, ["--pipeline-parallel", "2", "--data-parallel", "2",
                                    "--grad-sync", "psum", "--bucket-bytes", "25000000",
                                    "--microbatches", "4", "--batch", "8", "--seq", "2048",
                                    "--steps", "2"])
@@ -770,14 +782,14 @@ TRANSPORT_TP = ("granite_8b", 36, ["--pipeline-parallel", "2", "--tensor-paralle
 GRID_PARITY_NCCL = [(a, n, mb, seq, ("tp",)) for a, n, mb, seq, k in GRID_PARITY
                     if "tp" in k]
 # Phase 18: grouped non-uniform tp, Σ tp_s = 3 ranks sharing the card
-# through gloo.  qwen1.5-0.5b at full size, phase 16 (a)'s batch (4
-# microbatches of 2 x 1024), 14 / 10 layers between a stage of one tp
+# through gloo.  qwen1.5-0.5b at full width, phase 16 (a)'s batch (4
+# microbatches of 2 x 1024), 5 / 3 layers (of 24) between a stage of one tp
 # degree on chip A and one of another on chip B: (a) tp (2, 1) under
 # each boundary strategy, (b) tp (1, 2) under the one choose_strategy
 # picks (sr_ag).  (chip, tp, layers, recompute) a stage.
 HETERO_QWEN = ("qwen1p5_0p5b", 4, 2, 1024, ["--batch", "8", "--seq", "1024", "--steps", "2"])
-HETERO_RUNS = [("(a)", (("A", 2, 14, True), ("B", 1, 10, False)), ("sr_ag", "naive")),
-               ("(b)", (("A", 1, 14, True), ("B", 2, 10, False)), ("sr_ag",))]
+HETERO_RUNS = [("(a)", (("A", 2, 5, True), ("B", 1, 3, False)), ("sr_ag", "naive")),
+               ("(b)", (("A", 1, 5, True), ("B", 2, 3, False)), ("sr_ag",))]
 # (c): qwen's width at 4 layers split 1 / 3, both layouts, both
 # strategies, fp32, against the single device at phase 17 (d)'s limits
 HETERO_PARITY = ("qwen1p5_0p5b", 4, 2, 1024)
@@ -785,15 +797,15 @@ HETERO_LAYOUTS = ((2, 1), (1, 2))
 HETERO_STRATEGIES = ("sr_ag", "naive")
 # Phase 19: an uneven batch domain, replica 0 taking 4 microbatches and
 # replica 1 taking 3, on a (dp 2, pipe 2, tp 1) grid of four ranks sharing
-# the card: mamba2-780m at full width cut to phase 17 (c)'s 24 layers (12
-# / 12), 7 microbatches of 1 x 2048 a step, 2 steps in each dp sync mode
+# the card: mamba2-780m at full width cut to phase 17 (c)'s 8 layers (4 /
+# 4), 7 microbatches of 1 x 2048 a step, 2 steps in each dp sync mode
 # ((name, dp_sync, bucket_bytes); ZeRO-1 ignores the bucket size, and the
 # plan verifier prices in buckets only, refusing bucket_bytes 0, so the
 # per-leaf psum run passes --no-verify-plan); and at 4 layers in fp32 against the single device on
 # the same 7 microbatches
 DOMAIN = (4, 3)
-DOMAIN_SSM = ("mamba2_780m", 24, 48, 1, 2048, ["--batch", "7", "--seq", "2048",
-                                              "--steps", "2"])
+DOMAIN_SSM = ("mamba2_780m", 8, 48, 1, 2048, ["--batch", "7", "--seq", "2048",
+                                             "--steps", "2"])
 DOMAIN_SYNCS = [("ZeRO-1", "reduce_scatter", GRID_PARITY_BUCKET), ("per-leaf psum", "psum", 0),
                 ("bucketed psum", "psum", GRID_PARITY_BUCKET)]
 DOMAIN_PARITY = ("mamba2_780m", 4, 1, 2048)
@@ -919,6 +931,23 @@ GRID_FAULTS = {
                  "normalises by its own heads' channels", ("38",)),
 }
 
+# Phase 41: the dry-run (repro_torch.launch.dryrun: the port's train step
+# on the meta device as one rank of a grid of counting stand-ins) against
+# the card.  (a) every grid phase of 33-40, estimated on the host's CPU at
+# the phase's arch, cut, mesh, batch, sequence, dp mode and dtype, in a
+# process of its own started after phase 2 (``Estimator``), held exactly
+# to what the phase measured (each rank's persistent bytes, rank 0's bytes
+# and calls a step by axis and kind, ZeRO-1's optimizer bytes), its peak
+# to PEAK_BAND of each rank's max_memory_allocated (stated before the
+# first run on the card).  (b) remat_policy "dots" on the single device
+# at phase 11's run (qwen1.5-0.5b, b2 x S1024, through flash_attention):
+# the losses phase 11's ("full") within DOTS_LOSS_RTOL, and more memory.
+PEAK_BAND = (0.8, 1.25)
+DOTS_LOSS_RTOL = 1e-6
+_GRID_RUNS = {}               # what each grid phase measured, by phase
+_PEAKS = {}                   # train_and_check's peak memory, by run
+_ESTIMATOR = None             # phase 41's estimates, made beside phases 3-40
+
 T0 = time.perf_counter()
 
 
@@ -1018,11 +1047,6 @@ def kernel_name(signature):
     """A kernel's function name from the profiler's demangled signature."""
     m = re.search(r"(\w+)(?:<[^(]*>)?\(", signature)
     return m.group(1) if m else signature[:40]
-
-
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def kernel_dtypes():
@@ -1132,19 +1156,19 @@ def fa_timed(case, gen, dtype=None):
     """``flash_attention``'s row of times at ``case`` (bf16 unless
     ``dtype`` says otherwise; the bound is the same for fp16), beside its
     plain version, ``scaled_dot_product_attention`` and the bound, and its
-    error against the plain version.  The bound counts the (query, key)
-    pairs the mask keeps (causal with q_offset 0 and no window, a prefix
-    included: a query at q sees max(q + 1, prefix) keys; or every pair).
+    error against the plain version.  The bound is the package's closed
+    form (``kernels/cost.py``, which the dry-run counts with too): the
+    (query, key) pairs the mask keeps, a prefix included.
     A prefix goes to the library call as a boolean mask.  A single-query call (whisper's decode cross-attention) takes
     its K/V from a rotation of sets, at least 64 MB of them, so every
     call reads them from device memory as each decoder layer does."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
 
     label, B, Sq, Sk, H, KV, hd, causal, window, q_offset, prefix = case
     if window or (causal and q_offset) or (prefix and Sq != Sk):
-        raise ValueError(f"fa_timed: no bound for the mask of {label}")
+        raise ValueError(f"fa_timed: no library mask for the mask of {label}")
     kw = fa_kw(case)
     dtype = dtype or torch.bfloat16
     dname = str(dtype).split(".")[-1]
@@ -1170,8 +1194,7 @@ def fa_timed(case, gen, dtype=None):
     log(f"  scaled_dot_product_attention vs plain [{label}, {dname}]: "
         f"max_abs_err={lib_err:.3e}")
     del lib, want
-    pairs = B * H * (sum(max(i + 1, prefix) for i in range(Sq)) if causal else Sq * Sk)
-    b_ms, b_by = bound(4 * hd * pairs, 2 * 2 * q.numel() + kv_bytes)
+    b_ms, b_by = cost.bound(*cost.flash_attention_cost(q.shape, k.shape, 2, **kw))
     if n > 1:
         log(f"  flash_attention [{label}]: K/V taken in turn from {n} sets "
             f"({n * kv_bytes / 1e6:.1f} MB)")
@@ -1192,7 +1215,7 @@ def fd_timed(case, gen, err, dtype=None):
     ``scaled_dot_product_attention`` and the bound."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
 
     _, B, KV, G, S, hd, pos, window, softcap, ring, _ = case
     # caches taken in turn, at least eight and at least 64 MB of them (71
@@ -1206,8 +1229,7 @@ def fd_timed(case, gen, err, dtype=None):
     # the library call needs the mask as a bias; the kernel computes it
     bias = ops.decode_bias(pos, S, device="cuda").view(1, 1, 1, S)
     q4 = q.view(B, KV * G, 1, hd)
-    b_ms, b_by = bound(4 * B * KV * G * live * hd,
-                       2 * 2 * B * KV * live * hd + 2 * 2 * q.numel())
+    b_ms, b_by = cost.bound(*cost.flash_decode_cost(B, KV, G, hd, live, 2))
     n = len(caches)
     log(f"  flash_decode [{case[0]}] splits the {S}-slot cache "
         f"{ops.decode_splits(B * KV, S)} ways: "
@@ -1481,18 +1503,11 @@ def ssd_inputs(case, dtype, gen):
 
 
 def ssd_bound(case, x_bytes):
-    """(bound ms, what bounds it) of one ssd_scan call: each input read
-    once and each output written once; operations as the chunked form
-    needs them, at the bf16 tensor-core peak: C·Bᵀ once per group and
-    L·X per head over the lower triangle of each chunk (diagonal
-    included), and the carried term and state update per head."""
+    """(bound ms, what bounds it) of one ssd_scan call: the package's
+    closed form (``kernels/cost.py``) at the bf16 tensor-core peak."""
+    from repro_torch.kernels import cost
     _, b, S, h, p, g, n, chunk = case
-    nbytes = (x_bytes * b * S * (h * p + 2 * g * n)    # x, B, C
-              + 4 * b * S * h + 4 * h                  # dt, A
-              + 4 * b * S * h * p + 4 * b * h * p * n)  # y, final state
-    tri = chunk * (chunk + 1)                  # 2 x the (i, j <= i) pairs
-    flops = b * (S // chunk) * (g * tri * n + h * (tri * p + 4 * chunk * n * p))
-    return bound(flops, nbytes)
+    return cost.bound(*cost.ssd_scan_cost(b, S, h, p, g, n, chunk, x_bytes))
 
 
 def phase_ssd_kernel():
@@ -1627,7 +1642,7 @@ def rn_timed(gen, err, dtype=None):
     beside its plain version, ``F.rms_norm`` and the bound."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
 
     dtype = dtype or torch.bfloat16
     tag = "fp16" if dtype == torch.float16 else "bf16"
@@ -1638,7 +1653,7 @@ def rn_timed(gen, err, dtype=None):
     scale = torch.ones(d, dtype=dtype, device="cuda")
     lib = F.rms_norm(xs[0], (d,), scale, 1e-6)
     lib_err = float((lib.float() - ref.rmsnorm_ref(xs[0], scale).float()).abs().max())
-    b_ms, b_by = bound(4 * rows * d, 2 * 2 * rows * d + 2 * d)
+    b_ms, b_by = cost.bound(*cost.rmsnorm_cost(rows, d, 2, 2))
     n = len(xs)
     row = dict(name="rmsnorm", route="cuda", source=RN_SOURCE, replaces=RN_REPLACES,
                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
@@ -1770,6 +1785,7 @@ def train_and_check(args, run, layers, per_step):
     launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
     L, losses, times = res["num_layers"], res["losses"], res["step_times_s"]
     _SINGLE[run] = {k: res[k] for k in ("losses", "grad_norms", "step_times_s")}
+    _PEAKS[run] = res["peak_mem_bytes"]
     steps = len(losses)
     if L != layers:
         raise AssertionError(f"{res['arch']} trained {L} layers, expected {layers}")
@@ -2136,10 +2152,22 @@ def plan_and_check(arch, stages, microbatches, args, schedule, kernel, transport
     path = write_plan(run, pp_plan([(chip, tp, L, rec) for chip, L, rec in stages],
                                    microbatches, schedule=schedule))
     per_step = tp * microbatches * sum(L * (2 if rec else 1) for _, L, rec in stages)
-    return pipeline_and_check(run, ["--arch", arch, "--plan", path] + args, kernel,
-                              per_step, sum(L for _, L, _ in stages), schedule, transport,
-                              trace=(schedule, len(stages), (microbatches,), False)
-                              if trace else None)
+    layers = sum(L for _, L, _ in stages)
+    with plan_cut(arch, layers, schedule):
+        return pipeline_and_check(run, ["--arch", arch, "--plan", path] + args, kernel,
+                                  per_step, layers, schedule, transport,
+                                  trace=(schedule, len(stages), (microbatches,), False)
+                                  if trace else None)
+
+
+def plan_cut(arch, layers, label):
+    """``cut_depth`` to a plan's ``layers`` where they are fewer than the
+    config's (the cut printed)."""
+    from repro_torch.configs import get_config
+    full = get_config(arch).num_layers
+    if layers < full:
+        log(f"  {label}: {arch} cut to {layers} of {full} layers (full width)")
+    return cut_depth(layers if layers < full else None)
 
 
 def pipeline_and_check(run, argv, kernel, per_step, layers, label, transport="host",
@@ -2433,8 +2461,8 @@ def phase_pipeline_parity(device="cuda:0", microbatches=4):
 
 
 def phase_pipeline(device="cuda:0"):
-    """Phase 16: HeteroPP on one card: (a) qwen1.5-0.5b from the 10 / 14
-    plan under 1f1b and zb_v, (b) mamba2-780m from the 20 / 28 plan, (c)
+    """Phase 16: HeteroPP on one card: (a) qwen1.5-0.5b from the 3 / 5
+    plan under 1f1b and zb_v, (b) mamba2-780m from the 6 / 10 plan, (c)
     parity at 4 layers.  Returns the launches of (a) and (b)."""
     arch, stages, b, args = PP_QWEN
     launches, per_step = {}, {}
@@ -2692,7 +2720,7 @@ def phase_grid(qwen_1f1b_per_step, device="cuda:0"):
     arch, layers, args = GRID_DENSE_DP
     label = f"(b) dp {GRID_DP} x pipe 2, ZeRO-1"
     res = grid_and_check("grid_dense_dp", arch, layers, args, "flash_attention",
-                         GRID_DP * 4 * layers * 2, label)
+                         GRID_DP * 4 * layers * 2, label, full_layers=24)
     check_zero1_state(res, "(b)")
     add(res)
 
@@ -2909,11 +2937,12 @@ def phase_hetero(transport="host", runs=HETERO_RUNS):
             name = f"{label} tp {tps} {strategy}"
             # (a) under sr_ag traced, its exchange printed tick by tick
             traced = label == "(a)" and strategy == "sr_ag"
-            res = pipeline_and_check(run, ["--arch", arch, "--plan", path, "--reshard",
-                                           strategy] + args, "flash_attention",
-                                     per_step, sum(L for _, _, L, _ in stages), name,
-                                     transport,
-                                     trace=("1f1b", 2, (b,), True) if traced else None)
+            layers = sum(L for _, _, L, _ in stages)
+            with plan_cut(arch, layers, name):
+                res = pipeline_and_check(run, ["--arch", arch, "--plan", path, "--reshard",
+                                               strategy] + args, "flash_attention",
+                                         per_step, layers, name, transport,
+                                         trace=("1f1b", 2, (b,), True) if traced else None)
             log(f"  {name}: {per_step} flash_attention a step = "
                 + " + ".join(f"{tp} x {n}" for tp, n in zip(tps, at_tp1))
                 + " (tp_s x stage s's launches at tp 1)")
@@ -2993,9 +3022,9 @@ def phase_hetero_parity(device="cuda:0", microbatches=4):
 
 
 def phase_domain():
-    """Phase 19: mamba2-780m at full width (phase 17 (c)'s 24 layers) on
+    """Phase 19: mamba2-780m at full width (phase 17 (c)'s 8 layers) on
     a (dp 2, pipe 2) grid with the uneven batch domain (4, 3), through
-    ``launch.train --plan``, one run in each dp sync mode: 7 x 24 x 2
+    ``launch.train --plan``, one run in each dp sync mode: 7 x 8 x 2
     ``ssd_scan`` a step, and replica d's tick program its own allocation's
     (b + 1 ticks under 1f1b).  Returns the runs' launches."""
     arch, layers, full, mb, seq, args = DOMAIN_SSM
@@ -3680,8 +3709,10 @@ def steady(xs):
 
 def collectives_line(stats):
     """One rank's collectives a step by axis (median over steps 2-):
-    bytes and wall ms of its all-gathers, reduce-scatters, all-reduces."""
+    bytes, calls and wall ms of its all-gathers, reduce-scatters,
+    all-reduces."""
     part = lambda axis, kind: (f"{kind} {steady([s[f'{axis}_{kind}_bytes'] for s in stats]) / 2**20:.1f} MiB "
+                               f"in {steady([s[f'{axis}_{kind}_calls'] for s in stats]):.0f} calls "
                                f"{steady([s[f'{axis}_{kind}_ms'] for s in stats]):.1f} ms")
     return "; ".join(f"{axis}: " + ", ".join(part(axis, k) for k in ("gather", "scatter", "reduce"))
                      for axis in ("data", "model", "world"))
@@ -3846,6 +3877,9 @@ def grid_and_hold(run, arch, layers, grid_args, args, per_rank, want, limits,
         log(f"  {label} [{smi}]: rank {r} (d, m) {tuple(res['grid_per_rank'][r])} "
             f"collectives a step: {collectives_line(res['stats_per_rank'][r])}; outside "
             f"them {steady(rest) * 1e3:.1f} ms a step (p50)")
+    _GRID_RUNS[label] = {"grid": res["grid_per_rank"], "state": res["state_bytes_per_rank"],
+                         "opt": None, "stats": res["stats_per_rank"][0][-1],
+                         "peaks": res["peak_mem_bytes_per_rank"]}
     return res
 
 
@@ -3908,6 +3942,10 @@ def phase_gspmd(smi):
     for r, o in enumerate(outs):
         log(f"  35 [{smi}]: rank {r} (d, m) {tuple(o['grid'])} collectives a step: "
             f"{collectives_line(o['stats'])}")
+    _GRID_RUNS["35"] = {"grid": [o["grid"] for o in outs],
+                        "state": [o["state_bytes"] for o in outs],
+                        "opt": [o["opt_bytes"] for o in outs], "stats": outs[0]["stats"][-1],
+                        "peaks": [o["peak"] for o in outs]}
     torch.cuda.empty_cache()
     return launches
 
@@ -3968,6 +4006,7 @@ def _zero1_rank(rank, world, device, arch, model, data, B, S, steps, total_steps
             "grid": [grid.d, grid.k],
             "opt_bytes": sum(t.numel() * t.element_size()
                              for t in tree_leaves(state.opt_state)),
+            "state_bytes": spmd.state_bytes(state),
             "opt_closed": manual_dp.optimizer_bytes(cfg, layout),
             "opt_full": 12 * M.param_count(M.abstract_params(cfg))}
 
@@ -4155,6 +4194,173 @@ def phase_grid_faults(smi):
         raise AssertionError("grid fault controls: " + "; ".join(bad))
 
 
+def grid_estimate_cases():
+    """Phase 41's runs to estimate: (label, arch, config fields, data,
+    model, batch, seq, dp mode, remat policy) of each grid phase of 33-40
+    at its cut, and of (b)'s single device under each policy."""
+    arg = lambda args, flag: int(args[args.index(flag) + 1])
+    grid = lambda args: (arg(args, "--data-parallel"), arg(args, "--model-parallel"))
+    cut = lambda arch, layers, full: {"num_layers": layers} if layers < full else {}
+    arch, layers, grid_args, args = GSPMD_DENSE
+    cases = [("33", arch, {}, *grid(grid_args), arg(args, "--batch"), arg(args, "--seq"),
+              "gspmd", None)]
+    arch, layers, full, grid_args, args = GSPMD_GQA
+    cases.append(("34", arch, cut(arch, layers, full), *grid(grid_args), arg(args, "--batch"),
+                  arg(args, "--seq"), "gspmd", None))
+    arch, model, data, B, S, _ = GSPMD_ZERO1
+    cases.append(("35", arch, {}, data, model, B, S, "manual", None))
+    arch, layers, grid_args, args = GSPMD_SSM
+    cases.append(("36", arch, {}, *grid(grid_args), arg(args, "--batch"), arg(args, "--seq"),
+                  "gspmd", None))
+    for label, arch, layers, full, args, *_ in GSPMD_FAMILIES:
+        cases.append((label, arch, cut(arch, layers, full), *grid(GSPMD_FAMILY_GRID),
+                      arg(args, "--batch"), arg(args, "--seq"), "gspmd", None))
+    args = DENSE_TRAIN_ARGS
+    for policy in ("full", "dots"):
+        cases.append((f"41 {policy}", args[args.index("--arch") + 1], {}, 1, 1,
+                      arg(args, "--batch"), arg(args, "--seq"), "gspmd",
+                      None if policy == "full" else policy))
+    return cases
+
+
+def _estimate_cases(path):
+    """The estimates of ``grid_estimate_cases`` on the host's CPU (no
+    card: the process sees none), each with every rank's persistent and
+    optimizer bytes, written to ``path`` as JSON as each is made."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(2)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch.mesh import Mesh
+    out = {}
+    for label, arch, fields, data, model, B, S, mode, policy in grid_estimate_cases():
+        t0 = time.perf_counter()
+        try:
+            cfg = dataclasses.replace(get_config(arch), **fields)
+            mesh = Mesh.of((data, model), ("data", "model"))
+            rec = dryrun.estimate(cfg, mesh, shapes.InputShape(label, "train", S, B),
+                                  dp_mode=mode, remat_policy=policy)
+            rec["ranks"] = {f"{d},{k}": dryrun.rank_state_bytes(cfg, mesh, (d, k), mode)
+                            for d in range(data) for k in range(model)}
+        except Exception:
+            rec = {"error": traceback.format_exc()}
+        rec["host_s"] = time.perf_counter() - t0
+        out[label] = rec
+        with open(path + ".tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(path + ".tmp", path)
+
+
+class Estimator:
+    """``_estimate_cases`` in a process of its own, started at once, so
+    that its host seconds pass while the card runs other phases."""
+
+    def __init__(self):
+        import multiprocessing
+        out_dir = os.path.join(ROOT, "build", "chip_smoke")
+        os.makedirs(out_dir, exist_ok=True)
+        self.path = os.path.join(out_dir, "dryrun_estimates.json")
+        if os.path.exists(self.path):
+            os.remove(self.path)
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=_estimate_cases, args=(self.path,), daemon=True)
+        self.proc.start()
+
+    def result(self, timeout=600.0):
+        self.proc.join(timeout)
+        if self.proc.is_alive() or self.proc.exitcode != 0:
+            raise AssertionError(f"41: the estimates' process "
+                                 f"{'did not end' if self.proc.is_alive() else 'failed'} "
+                                 f"(exit code {self.proc.exitcode})")
+        with open(self.path) as f:
+            return json.load(f)
+
+    def close(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join(10)
+
+
+def hold_estimate(label, est, got, smi):
+    """Phase 41 (a) for one grid phase: the estimate ``est`` against what
+    the phase measured (``got``).  Returns the checks it fails."""
+    from repro_torch.launch import dryrun
+    failed = []
+    if "error" in est:
+        return [f"{label}: the estimate failed: {est['error'].strip().splitlines()[-1]}"]
+    for r, (d, k) in enumerate(got["grid"]):
+        state, opt = est["ranks"][f"{d},{k}"]
+        if got["state"][r] != state:
+            failed.append(f"{label}: rank ({d}, {k}) holds {got['state'][r]} persistent bytes, "
+                          f"the estimate {state}")
+        if got["opt"] is not None and got["opt"][r] != opt:
+            failed.append(f"{label}: rank ({d}, {k}) holds {got['opt'][r]} optimizer bytes, "
+                          f"the estimate {opt}")
+    measured = dryrun.collectives(got["stats"])
+    for axis, kinds in est["collectives"].items():
+        for kind, want in kinds.items():
+            if measured[axis][kind] != want:
+                failed.append(f"{label}: rank 0's {axis} {kind} a step {measured[axis][kind]}, "
+                              f"the estimate {want}")
+    ratios = [est["peak_bytes"] / p for p in got["peaks"]]
+    if not all(PEAK_BAND[0] <= x <= PEAK_BAND[1] for x in ratios):
+        failed.append(f"{label}: the estimated peak over the measured ones "
+                      f"{', '.join(f'{x:.3f}' for x in ratios)}, outside {PEAK_BAND}")
+    coll = "; ".join(f"{axis} " + ", ".join(
+        f"{kind} {v['bytes'] / 2**20:.1f} MiB in {v['calls']}" for kind, v in kinds.items())
+        for axis, kinds in est["collectives"].items())
+    log(f"  41 (a) {label}: persistent bytes by rank "
+        + ", ".join(f"{b / 2**20:.1f}" for b in got["state"]) + " MiB"
+        + ("; ZeRO-1 optimizer bytes by rank " + ", ".join(
+            f"{b / 2**20:.1f}" for b in got["opt"]) + " MiB" if got["opt"] else "")
+        + f"; rank 0's collectives a step: {coll}: "
+        + ("the estimate's, exactly" if not failed else "see below"))
+    log(f"  41 (a) {label} [{smi}]: peak: estimate {est['peak_bytes'] / 2**30:.3f} GiB, "
+        f"measured by rank " + ", ".join(f"{p / 2**30:.3f}" for p in got["peaks"])
+        + " GiB; ratios " + ", ".join(f"{x:.3f}" for x in ratios)
+        + f" (band {PEAK_BAND[0]}-{PEAK_BAND[1]}); estimated {est['flops'] / 1e12:.2f} TFLOP "
+        f"and {est['bytes'] / 1e9:.1f} GB of operand traffic a step; {est['host_s']:.1f} s "
+        "on the host")
+    return failed
+
+
+def phase_dryrun(smi):
+    """Phase 41: (a) the estimate of every grid phase of 33-40 held to
+    what the phase measured (``hold_estimate``); (b) phase 11's run under
+    ``--remat-policy dots``: the same losses, more memory, the step p50s
+    and the estimate's peaks beside them.  Returns (b)'s launches."""
+    import torch
+    est = _ESTIMATOR.result()
+    failed = []
+    for label in [c[0] for c in grid_estimate_cases() if not c[0].startswith("41")]:
+        failed += hold_estimate(label, est[label], _GRID_RUNS[label], smi)
+    launches, state = train_and_check(DENSE_TRAIN_ARGS + ["--remat-policy", "dots"],
+                                      "dryrun_qwen_dots", 24, {"flash_attention": 2 * 24})
+    del state
+    torch.cuda.empty_cache()
+    full, dots = _SINGLE["train_qwen1p5_0p5b"], _SINGLE["dryrun_qwen_dots"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(dots["losses"], full["losses"]))
+    peaks = (_PEAKS["train_qwen1p5_0p5b"], _PEAKS["dryrun_qwen_dots"])
+    guess = tuple(est[f"41 {p}"].get("peak_bytes", float("nan")) for p in ("full", "dots"))
+    log(f"  41 (b) [{smi}]: qwen1.5-0.5b b2 x S1024, full (phase 11) and dots: losses "
+        f"{', '.join(f'{x:.6f}' for x in full['losses'])} and "
+        f"{', '.join(f'{x:.6f}' for x in dots['losses'])}, worst rel diff {rel:.2e} (limit "
+        f"{DOTS_LOSS_RTOL:.0e}); step p50 {steady(full['step_times_s']) * 1e3:.1f} and "
+        f"{steady(dots['step_times_s']) * 1e3:.1f} ms; peak {peaks[0] / 2**30:.3f} and "
+        f"{peaks[1] / 2**30:.3f} GiB, the estimate {guess[0] / 2**30:.3f} and "
+        f"{guess[1] / 2**30:.3f} GiB (ratios {guess[0] / peaks[0]:.3f}, "
+        f"{guess[1] / peaks[1]:.3f})")
+    if not rel <= DOTS_LOSS_RTOL:
+        failed.append(f"41 (b): dots' losses {rel:.2e} from full's")
+    if not peaks[1] > peaks[0]:
+        failed.append("41 (b): dots holds no more memory than full")
+    if failed:
+        raise AssertionError("41: " + "; ".join(failed))
+    return launches
+
+
 def phase_transports():
     """``--transports``: phase 16 (a)'s qwen1.5-0.5b plan under 1f1b with
     one card a rank, through NCCL (traced: the tracer's object gather on
@@ -4170,7 +4376,7 @@ def phase_transports():
         log(f"  phase 18 (a) through --p2p device needs three cards; this machine has "
             f"{cards}: skipped")
     else:
-        log("  phase 18 (a): qwen1.5-0.5b 14 / 10 at tp (2, 1), one card a rank, "
+        log("  phase 18 (a): qwen1.5-0.5b 5 / 3 at tp (2, 1), one card a rank, "
             "--p2p device, sr_ag against naive:")
         phase_hetero(transport="device", runs=HETERO_RUNS[:1])
     if cards < 4:
@@ -4224,7 +4430,7 @@ def main() -> int:
 
     if transports or faults:
         if transports:
-            log("== 16 (a) by transport: qwen1.5-0.5b 10 / 14, 1f1b, one card a rank")
+            log("== 16 (a) by transport: qwen1.5-0.5b 3 / 5, 1f1b, one card a rank")
             phase_transports()
         else:
             phase_grid_faults(smi)
@@ -4234,6 +4440,17 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    global _ESTIMATOR
+    _ESTIMATOR = Estimator()
+    try:
+        return main_phases(smi)
+    finally:
+        _ESTIMATOR.close()
+
+
+def main_phases(smi) -> int:
+    """Phases 3-41, the kernels line and the last lines."""
+    import torch
     log("== 3. kernels vs plain versions, fp32, bf16 and fp16")
     rows, rows16 = phase_kernels()
     rows["ssd_scan"], rows16["ssd_scan"] = phase_ssd_kernel()
@@ -4291,15 +4508,15 @@ def main() -> int:
     for name in ("flash_attention", "flash_decode", "ssd_scan"):
         launches[name] += hybrid_launches[name] + serve_launches[name]
 
-    log("== 16. HeteroPP on one card: 2 ranks, --p2p host; qwen1.5-0.5b 10 / 14 "
-        "(1f1b, zb_v), mamba2-780m 20 / 28, parity at 4 layers")
+    log("== 16. HeteroPP on one card: 2 ranks, --p2p host; qwen1.5-0.5b 3 / 5 "
+        "(1f1b, zb_v), mamba2-780m 6 / 10, parity at 4 layers")
     with rank_pool(2, "pipeline"):
         pipeline_launches, qwen_1f1b_per_step = phase_pipeline()
     for name in ("flash_attention", "ssd_scan"):
         launches[name] += pipeline_launches[name]
 
-    log(f"== 17. HeteroPP tp and dp on one card: 4 ranks, --p2p host; qwen1.5-0.5b 10 / 14 "
-        f"x tp {GRID_TP}, qwen1.5-0.5b dp {GRID_DP} ZeRO-1, mamba2-780m 24 layers dp "
+    log(f"== 17. HeteroPP tp and dp on one card: 4 ranks, --p2p host; qwen1.5-0.5b 3 / 5 "
+        f"x tp {GRID_TP}, qwen1.5-0.5b 8 layers dp {GRID_DP} ZeRO-1, mamba2-780m 8 layers dp "
         f"{GRID_DP} bucketed psum, parity at 4 layers")
     with rank_pool(4, "grid"):
         grid_launches = phase_grid(qwen_1f1b_per_step)
@@ -4307,12 +4524,12 @@ def main() -> int:
         launches[name] += grid_launches[name]
 
     log("== 18. HeteroPP grouped tp on one card: 3 ranks, --p2p host; qwen1.5-0.5b "
-        "14 / 10 at tp (2, 1) (sr_ag, naive) and (1, 2), parity at 4 layers")
+        "5 / 3 at tp (2, 1) (sr_ag, naive) and (1, 2), parity at 4 layers")
     with rank_pool(3, "hetero"):
         hetero_launches = phase_hetero()
         phase_hetero_parity()
     log(f"== 19. HeteroPP uneven batch domain {DOMAIN} on one card: 4 ranks, --p2p host; "
-        f"mamba2-780m 24 layers dp 2 x pipe 2 in each dp sync mode, parity at 4 layers")
+        f"mamba2-780m 8 layers dp 2 x pipe 2 in each dp sync mode, parity at 4 layers")
     with rank_pool(4, "domain"):
         domain_launches = phase_domain()
         phase_domain_parity()
@@ -4395,6 +4612,11 @@ def main() -> int:
     with rank_pool(4, "gspmd_families"):
         for name, n in phase_gspmd_families(smi).items():
             launches[name] += n
+
+    log("== 41. the dry-run against the card: the estimates of phases 33-40 (made on the "
+        "host beside them) and remat_policy dots on qwen1.5-0.5b, b2 x S1024")
+    for name, n in phase_dryrun(smi).items():
+        launches[name] += n
 
     log("== done")
     kernels = []

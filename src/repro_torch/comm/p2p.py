@@ -22,7 +22,10 @@ Two transports, which the caller names; nothing picks one quietly:
 (waiting for the peer included) and, of that, the time of the staging
 copies, so a run can report them a tick; and the wall time of each kind
 of collective (and the bytes an all-gather brings in), so a run can
-report it for each group.
+report it for each group.  :class:`CountingComm` is a stand-in for one
+group that keeps the same collective counters by the same lines
+(:class:`Counted`) and moves nothing: the meta-device dry-run's grid
+(:meth:`Grid.standin`).
 """
 from __future__ import annotations
 
@@ -71,7 +74,40 @@ def rank_device(device: torch.device, local_rank: int, transport: str) -> torch.
     return torch.device("cuda", local_rank if transport == "device" else local_rank % n)
 
 
-class P2P:
+def nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class Counted:
+    """The counters of a group's collectives and the lines that add to
+    them, shared by :class:`P2P` and its stand-in :class:`CountingComm`:
+    a call of each kind adds one to ``reduce_calls``, ``scatter_calls``
+    or ``gather_calls``; an all-reduce and a reduce-scatter add the
+    bytes of the tensor given, in its own dtype (``reduce_bytes``,
+    ``scatter_bytes``), an all-gather those of the other members' parts
+    that arrive (``gather_bytes``).  ``world_size`` is the group's."""
+
+    world_size: int
+
+    def reset_counts(self) -> None:
+        self.reduce_seconds = self.scatter_seconds = self.gather_seconds = 0.0
+        self.gather_bytes = self.reduce_bytes = self.scatter_bytes = 0
+        self.gather_calls = self.reduce_calls = self.scatter_calls = 0
+
+    def _count_reduce(self, t: torch.Tensor) -> None:
+        self.reduce_bytes += nbytes(t)
+        self.reduce_calls += 1
+
+    def _count_scatter(self, t: torch.Tensor) -> None:
+        self.scatter_bytes += nbytes(t)
+        self.scatter_calls += 1
+
+    def _count_gather(self, part: torch.Tensor) -> None:
+        self.gather_bytes += (self.world_size - 1) * nbytes(part)
+        self.gather_calls += 1
+
+
+class P2P(Counted):
     """Collectives of one rank over ``group`` (the default group when
     None).  Peers are named by their rank in the group; the exchange
     maps them to the global ranks ``torch.distributed`` addresses.
@@ -112,9 +148,8 @@ class P2P:
         self.reset_counts()
 
     def reset_counts(self) -> None:
+        super().reset_counts()
         self.bytes_sent, self.seconds, self.copy_seconds = 0, 0.0, 0.0
-        self.reduce_seconds = self.scatter_seconds = self.gather_seconds = 0.0
-        self.gather_bytes = self.reduce_bytes = self.scatter_bytes = 0
 
     def _wire_zeros(self, like: torch.Tensor) -> torch.Tensor:
         """A cached zero tensor shaped like ``like`` where it goes on the
@@ -251,7 +286,7 @@ class P2P:
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the group in place."""
         t0 = self._start()
-        self.reduce_bytes += t.numel() * t.element_size()
+        self._count_reduce(t)
         if self.transport == "host":
             buf = self._host_buffer(t)
             dist.all_reduce(buf, group=self.group)
@@ -268,7 +303,7 @@ class P2P:
         left as it was)."""
         n = self.world_size
         t0 = self._start()
-        self.scatter_bytes += t.numel() * t.element_size()
+        self._count_scatter(t)
         if self.transport == "host":
             x = t.detach().movedim(dim, 0).contiguous().to("cpu")
             rows = x.reshape(n, -1).view(torch.uint8)
@@ -293,7 +328,7 @@ class P2P:
         """Fill ``out`` with every rank's ``part`` laid end to end along
         ``dim`` in group-rank order (in place; returns ``out``)."""
         t0 = self._start()
-        self.gather_bytes += (self.world_size - 1) * part.numel() * part.element_size()
+        self._count_gather(part)
         if self.transport == "host":
             # a gather sums nothing: it moves the bytes as they are
             buf = part.detach().to("cpu").contiguous()
@@ -308,6 +343,37 @@ class P2P:
             dist.all_gather_into_tensor(full, x, group=self.group)
             out.copy_(full.movedim(0, dim))
         self.gather_seconds += self._since(t0)
+        return out
+
+
+class CountingComm(Counted):
+    """A stand-in for one rank's group of ``world_size`` members, this
+    rank ``rank`` of them: :class:`P2P`'s collectives with its counters
+    (:class:`Counted`), moving nothing.  Each returns what P2P's returns,
+    shaped as its result, allocated as a rank allocates it on the card
+    (a reduce-scatter's slice; an all-reduce and an all-gather fill the
+    tensor given) and left as it is: on meta tensors, nothing at all.
+    Its wall times stay 0."""
+
+    transport = "count"
+
+    def __init__(self, world_size: int, rank: int = 0):
+        self.world_size, self.rank = int(world_size), int(rank)
+        self.reset_counts()
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        self._count_reduce(t)
+        return t
+
+    def reduce_scatter_(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        self._count_scatter(t)
+        x = t.detach().movedim(dim, 0).contiguous()
+        part = torch.empty((x.shape[0] // self.world_size, *x.shape[1:]), dtype=x.dtype,
+                           device=x.device)
+        return part.movedim(0, dim).contiguous()
+
+    def all_gather_(self, out: torch.Tensor, part: torch.Tensor, dim: int) -> torch.Tensor:
+        self._count_gather(part)
         return out
 
 
@@ -378,6 +444,18 @@ class Grid:
             rep=family([[at(a, i, c) for a in range(dp) for i in range(pipe)]
                         for c in range(tp)]),
             world=P2P(transport, device))
+
+    @classmethod
+    def standin(cls, *, dp: int = 1, tp: int = 1, d: int = 0, k: int = 0) -> "Grid":
+        """Rank (d, 0, k) of a (dp, 1, tp) grid whose groups are
+        :class:`CountingComm` stand-ins: no process group, nothing moved,
+        each collective counted as the rank would count it."""
+        if not (0 <= d < dp and 0 <= k < tp):
+            raise ValueError(f"rank (d {d}, k {k}) outside a (dp {dp}, tp {tp}) grid")
+        return cls(dp, 1, tp, d, 0, k, pipe=CountingComm(1),
+                   tp=CountingComm(tp, k) if tp > 1 else None,
+                   dp=CountingComm(dp, d) if dp > 1 else None,
+                   rep=CountingComm(dp, d), world=CountingComm(dp * tp, d * tp + k))
 
     @classmethod
     def grouped(cls, transport: str, device: torch.device,

@@ -453,6 +453,13 @@ def split_stage_params(params: PyTree, cfg: ModelConfig, spec: PipelineSpec
              "final_norm": per[0]["final_norm"]}, mask)
 
 
+def abstract_stage_params(cfg: ModelConfig, spec: PipelineSpec) -> PyTree:
+    """``split_stage_params``' stage layout of the parameters on the meta
+    device, nothing allocated (the JAX package's ``jax.eval_shape`` of
+    it, ``repro/core/heteropp.py:499``)."""
+    return split_stage_params(M.abstract_params(cfg), cfg, spec)[0]
+
+
 # ---------------------------------------------------------------------------
 # stage compute
 # ---------------------------------------------------------------------------

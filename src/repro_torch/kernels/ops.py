@@ -15,6 +15,16 @@ launches in a plain integer attribute (``flash_attention.launches``),
 incremented only where the kernel is launched, so a run can show that
 its path went through the kernel.
 
+Inside :func:`estimating` (the meta-device dry-run) a wrapper given meta
+tensors takes the card's path without the card: it checks what the
+kernel checks, allocates the kernel's outputs and scratch, launches
+nothing (and counts no launch) and reports the call's operations and
+bytes by their closed form (``kernels/cost.py``); ``backend="auto"``
+takes the kernels for such tensors, as on the card.  So the dry-run's
+forward holds what the card's holds (no S x S scores), and its backward
+recomputes the plain version, as on the card.  Outside it a meta tensor
+reaches the kernel path and raises there, as any tensor not on the card.
+
 The differentiable kernels (``flash_attention``, ``ssd_scan``,
 ``rmsnorm``) run inside a
 ``torch.autograd.Function``, the port of the JAX package's
@@ -27,11 +37,13 @@ inference only.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 
 from . import build
+from . import cost as _cost
 from . import ref as _ref
 
 NEG_INF = _ref.NEG_INF
@@ -40,10 +52,31 @@ HEAD_DIMS = (64, 80, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+_ESTIMATE = None          # the dry-run's ``record(name, flops, nbytes)``
+
+
+@contextlib.contextmanager
+def estimating(record):
+    """Within: each wrapper given meta tensors runs its kernel's path
+    without launching it, calling ``record(name, flops, nbytes)`` with
+    the call's closed-form cost instead (see the module's docstring)."""
+    global _ESTIMATE
+    before, _ESTIMATE = _ESTIMATE, record
+    try:
+        yield
+    finally:
+        _ESTIMATE = before
+
+
+def _estimating(x: torch.Tensor) -> bool:
+    return _ESTIMATE is not None and x.device.type == "meta"
+
+
 def preferred_backend(x: torch.Tensor) -> str:
     """What ``backend="auto"`` executes for tensors like ``x``: the CUDA
-    kernels on the card, the plain PyTorch paths on the CPU."""
-    return "kernel" if x.device.type == "cuda" else "einsum"
+    kernels on the card (and on meta tensors inside :func:`estimating`),
+    the plain PyTorch paths on the CPU."""
+    return "kernel" if x.device.type == "cuda" or _estimating(x) else "einsum"
 
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
@@ -52,7 +85,7 @@ def resolve_backend(backend: str, x: torch.Tensor) -> str:
     ``auto`` elsewhere (the einsum/chunked choice is by length)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    if backend == "kernel" and x.device.type != "cuda":
+    if backend == "kernel" and x.device.type != "cuda" and not _estimating(x):
         raise RuntimeError(
             f"backend='kernel' needs CUDA tensors, got a tensor on {x.device}")
     if backend == "auto" and preferred_backend(x) == "kernel":
@@ -61,10 +94,11 @@ def resolve_backend(backend: str, x: torch.Tensor) -> str:
 
 
 def _check(name, tensors):
-    """The kernels take contiguous CUDA tensors of one device and one
-    dtype from ``DTYPE_CODES``; anything else raises."""
+    """The kernels take contiguous CUDA tensors (meta ones inside
+    :func:`estimating`) of one device and one dtype from
+    ``DTYPE_CODES``; anything else raises."""
     dev, dtype = tensors[0].device, tensors[0].dtype
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not _estimating(tensors[0]):
         raise ValueError(f"{name}: tensors on {dev}; the kernel needs CUDA")
     if dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {dtype} not in {list(DTYPE_CODES)}")
@@ -133,6 +167,11 @@ def _flash_attention_kernel(q, k, v, *, causal, window, q_offset, prefix_len):
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     out = torch.empty_like(q)
+    if _estimating(q):
+        _ESTIMATE("flash_attention", *_cost.flash_attention_cost(
+            q.shape, k.shape, q.element_size(), causal=causal, window=window,
+            q_offset=q_offset, prefix_len=prefix_len))
+        return out
     _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), B, Sq, Sk, H, KV, hd, int(bool(causal)),
             int(window), int(q_offset), int(prefix_len), DTYPE_CODES[q.dtype],
@@ -224,10 +263,16 @@ def flash_decode(q, k, v, pos, *, window=0, softcap=0.0, ring=False):
     _check("flash_decode", (q, k, v))
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_decode: head_dim {hd} not in {HEAD_DIMS}")
-    n_split = decode_splits(B * KV, S, _sm_count(q.device.index))
+    estimate = _estimating(q)
+    n_split = decode_splits(B * KV, S, H100_SMS if estimate else _sm_count(q.device.index))
     part = torch.empty((B * KV, n_split, G, hd + 2), dtype=torch.float32,
                        device=q.device)
     out = torch.empty_like(q)
+    if estimate:
+        live = int(_ref.decode_valid(pos, S, window=window, ring=ring).sum())
+        _ESTIMATE("flash_decode", *_cost.flash_decode_cost(B, KV, G, hd, live,
+                                                           q.element_size()))
+        return out
     _launch("flash_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             part.data_ptr(), out.data_ptr(), B, KV, G, S, hd, n_split,
             int(pos), int(window), int(bool(ring)), float(softcap or 0.0),
@@ -322,6 +367,10 @@ def _ssd_scan_kernel(x, dt, A, Bm, Cm, *, chunk):
     if x.dtype == torch.bfloat16:
         _ssd_check_copies(p, n, (("x", x, x_rs), ("B", Bm, b_rs), ("C", Cm, c_rs)))
         scratch = _ssd_scratch(b, S, h, p, n, chunk, dev)
+    if _estimating(x):
+        _ESTIMATE("ssd_scan", *_cost.ssd_scan_cost(b, S, h, p, g, n, chunk,
+                                                   x.element_size()))
+        return y, fin
     ptrs = [t.data_ptr() for t in scratch] or [0, 0, 0]
     _launch("ssd_scan", x.data_ptr(), dt.data_ptr(), A.data_ptr(),
             Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), fin.data_ptr(),
@@ -376,6 +425,10 @@ def _rmsnorm_kernel(x, scale, *, eps):
     scale = scale.contiguous()
     d = x.shape[-1]
     out = torch.empty_like(x)
+    if _estimating(x):
+        _ESTIMATE("rmsnorm", *_cost.rmsnorm_cost(x.numel() // d, d, x.element_size(),
+                                                 scale.element_size()))
+        return out
     _launch("rmsnorm", x.data_ptr(), scale.data_ptr(), out.data_ptr(),
             x.numel() // d, d, float(eps), DTYPE_CODES[x.dtype],
             DTYPE_CODES[scale.dtype], _stream())

@@ -4,7 +4,8 @@ device, or the HeteroPP pipeline with one process a stage.
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_780m \\
         --steps 50 --batch 8 --seq 256 [--backend auto|einsum|kernel] \\
         [--device cuda|cpu] [--smoke] [--ckpt-dir DIR --ckpt-every N] \\
-        [--accum A] [--model-parallel N [--data-parallel D] [--p2p device|host]] \\
+        [--accum A] [--remat-policy full|dots] \\
+        [--model-parallel N [--data-parallel D] [--p2p device|host]] \\
         [--pipeline-parallel N [--tensor-parallel T] [--data-parallel D] \\
          [--schedule 1f1b] [--microbatches B] \\
          [--grad-sync psum|reduce_scatter] [--bucket-bytes N] \\
@@ -138,6 +139,10 @@ def parse_args(argv=None):
                          "plain PyTorch on the CPU), einsum, or kernel "
                          "(forced; raises on the CPU)")
     ap.add_argument("--device", default="cuda", choices=devices.DEVICES)
+    ap.add_argument("--remat-policy", default="full", choices=("full", "dots"),
+                    help="what each layer's checkpoint keeps: its input alone "
+                         "(full), or also its projections' outputs (dots, "
+                         "jax.checkpoint_policies.dots_with_no_batch_dims_saveable)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-friendly)")
     ap.add_argument("--seed", type=int, default=0)
@@ -243,6 +248,10 @@ def _refuse(args, pipeline: bool) -> None:
     if args.model_parallel > 1:
         raise SystemExit(f"--model-parallel {args.model_parallel} is the (data, model) "
                          f"grid's; the pipeline takes --tensor-parallel")
+    if args.remat_policy != "full":
+        raise SystemExit(f"--remat-policy {args.remat_policy}: the pipeline's stages "
+                         f"checkpoint each layer whole (each plan stage's recompute "
+                         f"flag); drop --remat-policy")
     if args.plan and args.search:
         raise SystemExit("--plan and --search are mutually exclusive")
     if args.reshard and not (args.plan or args.search):
@@ -307,7 +316,7 @@ def main(argv=None):
     state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(args.seed),
                              device=dev)
     step_fn = make_train_step(cfg, opt, accum_steps=args.accum,
-                              backend=args.backend)
+                              remat_policy=_remat_policy(args), backend=args.backend)
     loader = make_loader(cfg, DataConfig(batch_size=args.batch, seq_len=args.seq,
                                          seed=1234 + args.seed), device=dev)
     if args.ckpt_dir and checkpoint_step(args.ckpt_dir) is not None:
@@ -358,6 +367,10 @@ def main(argv=None):
 
 def _torchrun() -> bool:
     return all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR"))
+
+
+def _remat_policy(args):
+    return None if args.remat_policy == "full" else args.remat_policy
 
 
 def _opt(args) -> AdamWConfig:
@@ -477,7 +490,7 @@ def _gspmd_rank(rank, world, args, cfg, D, M, transport, *, local_rank=None):
     mesh, grid = make_local_mesh(model=M, data=D, transport=transport, device=dev)
     layout = spmd.Layout(mesh, grid)
     step_fn = spmd.make_train_step(cfg, layout, _opt(args), accum_steps=args.accum,
-                                   backend=args.backend)
+                                   remat_policy=_remat_policy(args), backend=args.backend)
     specs = step_fn.specs
     if args.ckpt_dir and checkpoint_step(args.ckpt_dir) is not None:
         with CheckpointReader(args.ckpt_dir) as read:

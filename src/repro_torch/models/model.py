@@ -41,6 +41,13 @@ then runs as ``gather.block`` (one model member's share of it), and a
 whisper decoder layer projects its cross K/V through ``gather.cross_kv``.
 Without it (every other caller) the parameters are whole and nothing
 changes.
+
+``remat_policy`` (``None`` or ``"dots"``, ``transformer.rematted``) is
+the JAX package's: it applies to the layers of a dense, moe, ssm or vlm
+stack, whisper's encoder layers and a hybrid model's groups; whisper's
+decoder layers and the loss's chunks stay fully rematerialised, as the
+reference's ``jax.checkpoint`` without a policy
+(``repro/models/model.py:118,189``).
 """
 from __future__ import annotations
 
@@ -126,33 +133,31 @@ def _gathered(params, gather):
 
 
 def forward(params: PyTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            *, remat: bool = True, backend: str = "auto", unembed: bool = True,
-            gather=None):
+            *, remat: bool = True, remat_policy=None, backend: str = "auto",
+            unembed: bool = True, gather=None):
     """Returns (logits over the text positions, metrics); with
     ``unembed=False`` returns the final-norm hidden states instead (used
     by the chunked loss)."""
     return _forward(_gathered(params, gather), cfg, batch, remat=remat,
-                    backend=backend, unembed=unembed, gather=gather)
+                    remat_policy=remat_policy, backend=backend, unembed=unembed,
+                    gather=gather)
 
 
-def _forward(params, cfg, batch, *, remat, backend, unembed, gather):
+def _forward(params, cfg, batch, *, remat, backend, unembed, gather, remat_policy=None):
     """``forward`` on parameters whose non-stacked leaves are whole."""
     x, prefix_len = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    kw = dict(remat=remat, remat_policy=remat_policy, backend=backend, gather=gather)
     if cfg.family == "audio":
-        enc = _encode(params, cfg, batch["audio_embeds"], x.dtype, remat=remat,
-                      backend=backend, gather=gather)
+        enc = _encode(params, cfg, batch["audio_embeds"], x.dtype, **kw)
         x = _decode_stack(params, cfg, x, enc, positions, remat=remat,
                           backend=backend, gather=gather)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     elif cfg.family == "hybrid":
-        x, aux = _hybrid_forward(params, cfg, x, positions, remat=remat,
-                                 backend=backend, gather=gather)
+        x, aux = _hybrid_forward(params, cfg, x, positions, **kw)
     else:
         x, aux = tfm.run_stacked(params["blocks"], cfg, x, cfg.block_kind,
-                                 remat=remat, backend=backend,
-                                 positions=positions, prefix_len=prefix_len,
-                                 gather=gather)
+                                 positions=positions, prefix_len=prefix_len, **kw)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     x = x[:, prefix_len:]
     metrics = {"aux_loss": aux}
@@ -172,7 +177,8 @@ def _embed_inputs(params, cfg, batch):
     return torch.cat([img, x], dim=1), img.shape[1]
 
 
-def _hybrid_forward(params, cfg, x, positions, *, remat, backend, gather=None):
+def _hybrid_forward(params, cfg, x, positions, *, remat, backend, gather=None,
+                    remat_policy=None):
     """Each group's ``per`` ssm layers, then the shared dense block; past
     ``max_seq_len`` the shared block attends within the long-context
     window (``repro/models/model.py:121-137``).
@@ -184,7 +190,8 @@ def _hybrid_forward(params, cfg, x, positions, *, remat, backend, gather=None):
     checkpoint a group every kernel of the group runs twice a step (the
     forward and the backward's recompute): 2·num_layers ``ssd_scan`` and
     2·G ``flash_attention`` launches, and the backward's memory peak is
-    one group's activations."""
+    one group's activations (under ``remat_policy`` "dots", the group's
+    projections' outputs too)."""
     S = x.shape[1]
     window = cfg.effective_long_window if S > cfg.max_seq_len else cfg.sliding_window
     shared = params["shared_attn"]
@@ -201,18 +208,19 @@ def _hybrid_forward(params, cfg, x, positions, *, remat, backend, gather=None):
         return x
 
     for gp in tfm.unstack(params["blocks"]):
-        x = checkpoint(group, x, gp, use_reentrant=False) if remat else group(x, gp)
+        x = tfm.rematted(group, x, gp, policy=remat_policy) if remat else group(x, gp)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _encode(params, cfg, audio_embeds, dtype, *, remat, backend, gather=None):
+def _encode(params, cfg, audio_embeds, dtype, *, remat, backend, gather=None,
+            remat_policy=None):
     """The audio encoder: frames + learned positions through the
     non-causal dense stack (one checkpoint a layer under ``remat``),
     then ``enc_final_norm``."""
     enc = audio_embeds.to(dtype) + params["enc_pos"]
     enc, _ = tfm.run_stacked(params["enc_blocks"], cfg, enc, "dense",
-                             remat=remat, backend=backend, causal=False,
-                             gather=gather, where="enc_blocks")
+                             remat=remat, remat_policy=remat_policy, backend=backend,
+                             causal=False, gather=gather, where="enc_blocks")
     return layers.apply_norm(params["enc_final_norm"], enc, cfg.norm)
 
 
@@ -284,12 +292,13 @@ def chunked_ce(embed_params, hidden, targets, mask, chunk=LOSS_CHUNK):
     return total
 
 
-def loss_fn(params, cfg, batch, *, remat=True, backend="auto", gather=None):
+def loss_fn(params, cfg, batch, *, remat=True, remat_policy=None, backend="auto",
+            gather=None):
     """Mean next-token CE over the text positions (the last one masked)
     plus the auxiliary loss.  Returns (total, metrics)."""
     params = _gathered(params, gather)
-    hidden, metrics = _forward(params, cfg, batch, remat=remat, backend=backend,
-                               unembed=False, gather=gather)
+    hidden, metrics = _forward(params, cfg, batch, remat=remat, remat_policy=remat_policy,
+                               backend=backend, unembed=False, gather=gather)
     tokens = batch["tokens"]
     targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
     mask = batch.get("loss_mask")

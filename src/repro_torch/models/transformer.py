@@ -23,7 +23,12 @@ stack.  With ``remat=True`` (training) each layer runs under
 ``jax.checkpoint``: only the layer's input is kept, and the backward
 recomputes the layer, so every kernel of a layer runs twice a step.  A
 moe layer's auxiliary loss leaves the checkpoint beside x, so its
-gradient reaches the router.  Other block kinds raise
+gradient reaches the router.  ``remat_policy="dots"`` (:func:`rematted`) is
+the counterpart of ``jax.checkpoint_policies.
+dots_with_no_batch_dims_saveable``: the checkpoint also keeps the
+outputs of the matrix products without batch dims (``aten.mm``,
+``aten.addmm``: the projections) and recomputes the rest, the batched
+attention products and every kernel included.  Other block kinds raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -31,12 +36,37 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention, layers, moe as moe_lib, ssm as ssm_lib
 
 PyTree = Any
 KINDS = ("dense", "moe", "ssm", "dec_cross")
+REMAT_POLICIES = (None, "dots")
+# the products without batch dims whose outputs "dots" keeps
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def rematted(fn, *args, policy=None):
+    """``fn(*args)`` under a non-reentrant checkpoint: with ``policy``
+    None only its inputs are kept and the backward recomputes all of it;
+    with ``"dots"`` the outputs of its ``DOTS`` are kept as well and the
+    recompute takes them from there."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; expected one of "
+                         f"{REMAT_POLICIES}")
+    if policy is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=_dots_context)
 
 
 def _require(kind: str):
@@ -133,13 +163,14 @@ def block_forward(p, cfg, x, kind: str, *, positions=None, causal=True,
     return x + layers.apply_mlp(p["mlp"], h, cfg.mlp), {}
 
 
-def run_stacked(blocks: PyTree, cfg, x, kind: str, *, remat=False,
+def run_stacked(blocks: PyTree, cfg, x, kind: str, *, remat=False, remat_policy=None,
                 backend="auto", caches=None, gather=None, where="blocks", **fwd_kw):
     """Loop over the stacked block params.  Returns (x, aux): aux is the
     fp32 sum over the layers of ``moe_aux_loss + moe_z_loss``, 0 for the
     other kinds.  ``caches`` (stacked like the blocks) is filled in place
-    when given; ``remat`` checkpoints each layer, which returns its
-    metrics beside x.  With a sharded step's ``gather`` the blocks are
+    when given; ``remat`` checkpoints each layer under ``remat_policy``
+    (:func:`rematted`), which returns its metrics beside x.  With a
+    sharded step's ``gather`` the blocks are
     one rank's (``where`` their path in the params): each layer runs
     ``gather.block`` on ``gather(layer, where)``, inside its checkpoint."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -151,7 +182,7 @@ def run_stacked(blocks: PyTree, cfg, x, kind: str, *, remat=False,
         else:
             fn = lambda x, p=p: gather.block(gather(p, where), cfg, x, kind,
                                              backend=backend, **fwd_kw)
-        x, m = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+        x, m = rematted(fn, x, policy=remat_policy) if remat else fn(x)
         if m:
             aux = aux + (m["moe_aux_loss"] + m["moe_z_loss"])
     return x, aux

@@ -78,10 +78,14 @@ fractions over the whole batch (:class:`Gather` gives ``moe_block`` the
 data ranks' sum of its top-1 counts), as the single device's does.  The batch must split evenly over the data axes
 (where GSPMD would replicate a batch that does not, this raises).
 
-**Counts.**  The step's ``stats`` after each call: the bytes and wall ms
-of the step's all-gathers, reduce-scatters and all-reduces by axis
-(``data``, ``model``, ``world``); :func:`state_bytes` the rank's
+**Counts.**  The step's ``stats`` after each call: the bytes, calls and
+wall ms of the step's all-gathers, reduce-scatters and all-reduces by
+axis (``data``, ``model``, ``world``); :func:`state_bytes` the rank's
 persistent bytes, :func:`block_bytes` their closed form from the specs.
+On a grid of counting stand-ins (``comm.p2p.Grid.standin``) the same
+step runs on meta tensors (:func:`abstract_state`, ``read_metrics``
+False) and counts each collective without moving it: the dry-run's
+estimate (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -256,14 +260,14 @@ class Layout:
     def counts(self) -> Dict[str, float]:
         """The collectives since :meth:`reset_counts`, by axis: bytes
         (all-gathers: what arrives; reduce-scatters and all-reduces: the
-        tensors given) and wall ms."""
+        tensors given), calls and wall ms."""
         out = {}
         for axis, comm in self.groups().items():
-            for kind, b, s in (("gather", "gather_bytes", "gather_seconds"),
-                               ("scatter", "scatter_bytes", "scatter_seconds"),
-                               ("reduce", "reduce_bytes", "reduce_seconds")):
-                out[f"{axis}_{kind}_bytes"] = getattr(comm, b) if comm else 0
-                out[f"{axis}_{kind}_ms"] = getattr(comm, s) * 1e3 if comm else 0.0
+            for kind in ("gather", "scatter", "reduce"):
+                out[f"{axis}_{kind}_bytes"] = getattr(comm, kind + "_bytes") if comm else 0
+                out[f"{axis}_{kind}_calls"] = getattr(comm, kind + "_calls") if comm else 0
+                out[f"{axis}_{kind}_ms"] = getattr(comm, kind + "_seconds") * 1e3 \
+                    if comm else 0.0
         return out
 
 
@@ -506,6 +510,21 @@ def init_state(cfg: ModelConfig, layout: Layout, specs: TrainState,
     return train_state_from(params, {"master": master, "m": zeros(), "v": zeros()}, 0)
 
 
+def abstract_state(cfg: ModelConfig, layout: Layout, specs: TrainState) -> TrainState:
+    """This rank's blocks of the state on the meta device, nothing drawn
+    or allocated: ``abstract_train_state`` cut by ``specs`` as
+    :func:`init_state` cuts the drawn one."""
+    whole = abstract_train_state(cfg)
+
+    def cut(tree, spec):
+        sp = flatten(spec)
+        return _unflatten({p: layout.block(t, sp[p]) for p, t in sorted(flatten(tree).items())})
+
+    return train_state_from(cut(whole.params, specs.params),
+                            {k: cut(whole.opt_state[k], specs.opt_state[k])
+                             for k in ("master", "m", "v")}, 0)
+
+
 def state_bytes(state: TrainState) -> int:
     """The rank's persistent bytes: parameters, master, m and v."""
     return sum(t.numel() * t.element_size()
@@ -584,11 +603,11 @@ def local_rows(batch_size: int, layout: Layout, accum_steps: int = 1) -> torch.T
 # ---------------------------------------------------------------------------
 
 def grads_and_metrics(cfg, state, batch, gather, *, accum_steps, remat, backend,
-                      scale):
+                      scale, remat_policy=None, accum_dtype="float32"):
     """Each microbatch's loss (``M.loss_fn`` through ``gather``) and the
     gradient of ``scale`` x it w.r.t. the rank's blocks, accumulated in
-    fp32 and averaged over ``accum_steps`` as the single device's step
-    does.  Returns (block gradients in leaf order, the rank's mean loss
+    ``accum_dtype`` and averaged over ``accum_steps`` as the single
+    device's step does.  Returns (block gradients in leaf order, the rank's mean loss
     and metrics as one fp32 vector, the metric names)."""
     leaves = tree_leaves(state.params)
     mbs = [{k: v.chunk(accum_steps, dim=0)[i] for k, v in batch.items()}
@@ -596,10 +615,11 @@ def grads_and_metrics(cfg, state, batch, gather, *, accum_steps, remat, backend,
     grads, sums, names = None, None, None
     for mb in mbs:
         loss, metrics = M.loss_fn(state.params, cfg, mb, remat=remat,
-                                  backend=backend, gather=gather)
+                                  remat_policy=remat_policy, backend=backend,
+                                  gather=gather)
         g = torch.autograd.grad(loss * scale, leaves)
         if accum_steps > 1:
-            g = [t.float() for t in g]
+            g = [t.to(layers.DTYPES[accum_dtype]) for t in g]
         grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
         names = ["loss"] + sorted(metrics)
         vec = torch.stack([loss.detach().float()] +
@@ -611,15 +631,32 @@ def grads_and_metrics(cfg, state, batch, gather, *, accum_steps, remat, backend,
     return grads, sums, names
 
 
+def read_out(names, vec, opt_m, read: bool = True) -> Dict[str, Any]:
+    """A step's metrics by name from the vector of its loss and model
+    metrics and the optimizer's: floats read from the device, or with
+    ``read`` False the 0-d tensors (a step on meta tensors has nothing
+    to read)."""
+    if not read:
+        return dict(zip(names, vec.unbind(0)), grad_norm=opt_m["grad_norm"], lr=opt_m["lr"])
+    out = dict(zip(names, vec.tolist()))
+    out.update(grad_norm=float(opt_m["grad_norm"]), lr=opt_m["lr"])
+    return out
+
+
 def make_train_step(cfg: ModelConfig, layout: Layout,
                     opt_cfg: Optional[adamw.AdamWConfig] = None, *,
-                    accum_steps: int = 1, remat: bool = True, backend: str = "auto"):
+                    accum_steps: int = 1, accum_dtype: str = "float32",
+                    remat: bool = True, remat_policy=None, backend: str = "auto",
+                    read_metrics: bool = True):
     """``train_step(state, batch) -> (state, metrics)`` on this rank's
     blocks (:func:`init_state`) and rows (:func:`local_rows`); the
     metrics are the single device's (the loss and each model metric the
-    mean over the data ranks) as floats; ``train_step.stats`` holds the
-    last step's collectives (:meth:`Layout.counts`) and ``train_step.specs``
-    the state's specs."""
+    mean over the data ranks) as floats (0-d tensors with
+    ``read_metrics`` False: :func:`read_out`); ``train_step.stats`` holds
+    the last step's collectives (:meth:`Layout.counts`) and
+    ``train_step.specs`` the state's specs.  ``remat_policy`` as
+    ``models.model.loss_fn``'s, ``accum_dtype`` as the single device's
+    ``make_train_step``'s."""
     check_grid(cfg, layout.model)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     specs = state_specs(cfg, layout.mesh)
@@ -635,7 +672,8 @@ def make_train_step(cfg: ModelConfig, layout: Layout,
         layout.reset_counts()
         grads, vec, names = grads_and_metrics(
             cfg, state, batch, gather, accum_steps=accum_steps, remat=remat,
-            backend=backend, scale=1.0 / D)
+            remat_policy=remat_policy, accum_dtype=accum_dtype, backend=backend,
+            scale=1.0 / D)
         with torch.no_grad():
             if layout.grid.dp is not None:
                 layout.grid.dp.all_reduce_(vec).div_(D)
@@ -647,9 +685,7 @@ def make_train_step(cfg: ModelConfig, layout: Layout,
                                              state.params, grad_norm=gnorm)
         state.step += 1
         train_step.stats = layout.counts()
-        out = dict(zip(names, vec.tolist()))
-        out.update(grad_norm=float(opt_m["grad_norm"]), lr=opt_m["lr"])
-        return state, out
+        return state, read_out(names, vec, opt_m, read_metrics)
 
     train_step.stats = {}
     train_step.specs = specs

@@ -76,13 +76,15 @@ def state_specs(cfg: ModelConfig, mesh) -> Tuple[TrainState, Dict[str, Optional[
 
 def make_manual_dp_train_step(cfg: ModelConfig, layout: "spmd.Layout",
                               opt_cfg: Optional[adamw.AdamWConfig] = None, *,
-                              accum_steps: int = 1, remat: bool = True,
-                              backend: str = "auto"):
+                              accum_steps: int = 1, accum_dtype: str = "float32",
+                              remat: bool = True, remat_policy=None,
+                              backend: str = "auto", read_metrics: bool = True):
     """Returns (train_step, state_specs).  ``train_step(state, batch)``
     takes this rank's blocks (``spmd.init_state(cfg, layout, state_specs,
     ...)``) and its rows of the batch (``spmd.local_rows``) and keeps the
-    sharded step's contract, with the data-parallel reduction done by
-    hand: one reduce-scatter + one all-gather per parameter per step.
+    sharded step's contract (``accum_dtype``, ``read_metrics`` and
+    ``remat_policy`` as there), with the data-parallel reduction done by hand: one
+    reduce-scatter + one all-gather per parameter per step.
     ``train_step.stats`` holds the step's collectives by axis."""
     spmd.check_grid(cfg, layout.model)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
@@ -102,7 +104,8 @@ def make_manual_dp_train_step(cfg: ModelConfig, layout: "spmd.Layout",
         layout.reset_counts()
         grads, vec, metric_names = spmd.grads_and_metrics(
             cfg, state, batch, gather, accum_steps=accum_steps, remat=remat,
-            backend=backend, scale=1.0)
+            remat_policy=remat_policy, accum_dtype=accum_dtype, backend=backend,
+            scale=1.0)
         with torch.no_grad():
             if comm is not None:
                 comm.all_reduce_(vec).div_(dp)
@@ -133,9 +136,7 @@ def make_manual_dp_train_step(cfg: ModelConfig, layout: "spmd.Layout",
                     comm.all_gather_(flat_params[p], new[p], dims[p])
         state.step += 1
         train_step.stats = layout.counts()
-        out = dict(zip(metric_names, vec.tolist()))
-        out.update(grad_norm=float(opt_m["grad_norm"]), lr=opt_m["lr"])
-        return state, out
+        return state, spmd.read_out(metric_names, vec, opt_m, read_metrics)
 
     train_step.stats = {}
     train_step.specs = specs

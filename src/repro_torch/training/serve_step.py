@@ -75,3 +75,10 @@ def init_serve_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                      device) -> PyTree:
     plan = cache_plan(cfg, seq_len)
     return M.init_cache(cfg, batch, max(plan["cache_len"], 1), device=device)
+
+
+def abstract_serve_cache(cfg: ModelConfig, batch: int, seq_len: int) -> PyTree:
+    """``init_serve_cache`` on the meta device: the cache's names, shapes
+    and dtypes, nothing allocated (the JAX package's ``jax.eval_shape``
+    of it)."""
+    return init_serve_cache(cfg, batch, seq_len, device=torch.device("meta"))

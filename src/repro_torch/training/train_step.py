@@ -52,11 +52,12 @@ def train_state_from(params: PyTree, opt_state: PyTree, step: int) -> TrainState
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = None,
-                    *, remat: bool = True, backend: str = "auto",
+                    *, remat: bool = True, remat_policy=None, backend: str = "auto",
                     accum_steps: int = 1, accum_dtype: str = "float32"):
     """``accum_steps`` > 1 splits the batch into that many microbatches
     along dim 0, run one after another, with the gradients summed in
-    ``accum_dtype`` and averaged.  Returns ``train_step(state, batch) ->
+    ``accum_dtype`` and averaged.  ``remat_policy`` (None or ``"dots"``)
+    as ``models.model.loss_fn``'s.  Returns ``train_step(state, batch) ->
     (state, metrics)``; the metrics are 0-d tensors (reading one waits
     for the device)."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
@@ -65,7 +66,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = Non
     def grads_of(params, batch):
         leaves = tree_leaves(params)
         loss, metrics = M.loss_fn(params, cfg, batch, remat=remat,
-                                  backend=backend)
+                                  remat_policy=remat_policy, backend=backend)
         grads = torch.autograd.grad(loss, leaves)
         it = iter(grads)
         return loss.detach(), metrics, tree_map(lambda _: next(it), params)

@@ -22,7 +22,7 @@ from repro_torch.optim import adamw
 from repro_torch.sharding import spmd
 from repro_torch.training import manual_dp
 from repro_torch.training.train_step import train_state_from
-from repro_torch.tree import flatten
+from repro_torch.tree import flatten, tree_leaves
 
 CPU = torch.device("cpu")
 
@@ -69,7 +69,8 @@ def train_cases(rank, world, cases, opt_fields):
     one step a batch.  Returns per case the metrics of each step, the
     whole parameters after the first step and the whole gradient that
     step applied (rank 0), the rank's persistent bytes with their closed
-    form, and the last step's collectives."""
+    form and its optimizer bytes, its grid coordinate (d, k), and the
+    last step's collectives (bytes and calls by axis and kind)."""
     opt = adamw.AdamWConfig(**opt_fields)
     out = {}
     for name, fields, tree, batches, model, data, accum, mode in cases:
@@ -94,7 +95,9 @@ def train_cases(rank, world, cases, opt_fields):
         out[name] = {"metrics": metrics, "params1": params1, "grads1": grads1,
                      "state_bytes": spmd.state_bytes(state),
                      "block_bytes": sum(spmd.block_bytes(cfg, layout, specs).values()),
-                     "stats": step.stats}
+                     "opt_bytes": sum(t.numel() * t.element_size()
+                                      for t in tree_leaves(state.opt_state)),
+                     "coord": (layout.grid.d, layout.grid.k), "stats": step.stats}
     return out
 
 

@@ -46,7 +46,9 @@ from repro.training import manual_dp as jmdp, train_step as JTS
 from repro_torch.checkpointing.io import load_checkpoint
 from repro_torch.configs import get_smoke_config as tsmoke
 from repro_torch.data import pipeline as tpipe
-from repro_torch.launch import ranks, train
+from repro_torch.launch import dryrun, ranks, train
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.shapes import InputShape
 from repro_torch.models.config import ModelConfig as TConfig
 from repro_torch.optim import adamw as tadamw
 from repro_torch.training import train_step as TTS
@@ -210,6 +212,37 @@ def test_grid_2x2_matches_jax_single_device(grid4, name):
 def test_model1_data2_matches_jax_single_device(grid2, name):
     outs, refs = grid2
     _hold(outs, refs, name)
+
+
+def _hold_standin(outs, refs, case):
+    """The dry-run's estimate of each rank of ``case`` (its counting
+    stand-in grid on the meta device) against what that gloo rank
+    counted in its last step: every collective's bytes and calls by
+    axis and kind, its persistent bytes and its optimizer bytes, exactly."""
+    name, _, model, data, accum, mode = case
+    jcfg = refs[name][0]
+    mesh = Mesh.of((data, model), ("data", "model"))
+    for o in outs:
+        got = o["cases"][name]
+        rec = dryrun.estimate(TConfig(**dataclasses.asdict(jcfg)), mesh,
+                              InputShape(name, "train", SEQ, B), rank=got["coord"],
+                              accum=accum, dp_mode=mode)
+        assert rec["collectives"] == dryrun.collectives(got["stats"]), got["coord"]
+        assert rec["state_bytes"] == got["state_bytes"] == rec["block_bytes"]
+        if mode == "manual":
+            assert rec["optimizer_bytes"] == got["opt_bytes"] == rec["optimizer_closed"]
+
+
+@pytest.mark.parametrize("name", [c[0] for c in GRID_CASES])
+def test_standin_counts_the_2x2_ranks_collectives(grid4, name):
+    outs, refs, *_ = grid4
+    _hold_standin(outs, refs, next(c for c in GRID_CASES if c[0] == name))
+
+
+@pytest.mark.parametrize("name", [c[0] for c in FAMILY_CASES])
+def test_standin_counts_the_data2_ranks_collectives(grid2, name):
+    outs, refs = grid2
+    _hold_standin(outs, refs, next(c for c in FAMILY_CASES if c[0] == name))
 
 
 @pytest.mark.parametrize("members", [3, 4])

@@ -39,7 +39,7 @@ import pytest
 import torch
 
 from repro.models import model as JM
-from test_torch_gspmd import OPT, _case_jobs, _hold, _spawn
+from test_torch_gspmd import OPT, _case_jobs, _hold, _hold_standin, _spawn
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -130,3 +130,12 @@ def test_family_grid_2x2_matches_jax(families, name):
     _hold_grads(outs[0]["cases"][name]["grads1"], jcfg, tree, batches[0], data)
     stats = outs[0]["cases"][name]["stats"]
     assert stats["model_reduce_bytes"] > 0        # the members' parts summed
+
+
+@pytest.mark.parametrize("name", [c[0] for c in CASES])
+def test_standin_counts_the_family_ranks_collectives(families, name):
+    """The dry-run's counting stand-in against each gloo rank of the
+    model axis (expert parallelism's routing sums, the ssm heads' norm
+    sums, the Megatron and ZeRO-1 collectives): bytes and calls exact."""
+    outs, refs, _ = families
+    _hold_standin(outs, refs, next(c for c in CASES if c[0] == name))
