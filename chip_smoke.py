@@ -20,7 +20,11 @@ result.  Phases, each of which fails the run by raising:
      its 256-token bidirectional image prefix at B4 S768 H8 KV1, prefill
      and gradient, and its decode against 800 slots, linear and a ring;
      ragged prefixes at hd 64 and 128, a prefix under a window, a prefix
-     given to a non-causal call) and
+     given to a non-causal call; a grid member's decode on its block of a
+     longer cache, with the block's slot offset and each head's
+     log-sum-exp, at phase 42 (a)'s sequence-sharded and (b)'s shapes,
+     linear, ring and with no live slot, bf16 and fp32, and two members'
+     partials combined against the whole cache) and
      at edge cases, in fp32, bf16 and fp16 (``TOL``; fp16 ``ssd_scan``
      is the CUDA-core kernel), and the gradients of the three
      autograd Functions (``flash_attention`` and ``rmsnorm`` in all
@@ -142,11 +146,12 @@ result.  Phases, each of which fails the run by raising:
      for bit and its gradient within a second tight backward's spread.
      The ZeRO-1 run passes ``--trace``, held as phase 16 (a)'s (the
      pacing replica's 5 ticks, replica stragglers against 4 : 3).
-     Each of phases 16-19 and 24 starts its ranks once (``rank_pool``):
-     its launcher runs and its parity check run one after another in the
-     same rank processes, so only its first run pays their start (the
-     processes' imports, CUDA and the libraries' first calls: a first
-     step of 13-36 s, which a warm process does not pay again).
+     The script starts the ranks of each world size once (``rank_pool``):
+     phases 16-19, 24 and 33-42 run their launcher runs and parity checks
+     one after another in the same rank processes, so only the first run
+     of each size pays their start (the processes' imports, CUDA and the
+     libraries' first calls: a first step of 13-36 s, which a warm
+     process does not pay again).
  20. MoE serving: ``repro_torch.launch.serve`` serves qwen3-moe-30b-a3b
      at full width and depth (48 layers of 128 experts, top 8, 61 GB of
      bf16 weights), batch 4, prompt 512, 32 tokens; the prefill launches
@@ -251,10 +256,11 @@ result.  Phases, each of which fails the run by raising:
      steps; each rank's optimizer bytes equal to the ``_scatter_dim``
      closed form, the losses within phase 33's limit of phase 33's,
      2 x 24 ``flash_attention`` a rank a step.
- 36. the grid at model axis 1: mamba2-780m at full size, ``--model-parallel
-     1 --data-parallel 2`` on two ranks, b 4 x 2048, 2 steps; phase 33's
-     checks against phase 7's first two losses (same seed, batches and
-     warmup learning rates); 2 x 48 ``ssd_scan`` a rank a step.
+ 36. the grid at model axis 1: mamba2-780m at full width cut to 16 of 48
+     layers (to make room for phase 42), ``--model-parallel 1
+     --data-parallel 2`` on two ranks, b 4 x 2048, 2 steps; phase 33's
+     checks against the single device at the same cut in the phase (same
+     seed and batches); 2 x 16 ``ssd_scan`` a rank a step.
      Every time and size of phases 33-36 is printed beside the card's
      ``nvidia-smi`` name and power limit.
  37. the grid's model axis for moe (expert parallelism: each member
@@ -268,13 +274,14 @@ result.  Phases, each of which fails the run by raising:
      rank a step (16 / 2 heads).
  38. ssm (mamba2 head sharding: 24 of 48 heads a member, B and C whole,
      the gated norm's sum of squares over the model group): mamba2-780m
-     at full size, 2 x 2, b 4 x 2048, 2 steps, against phase 7's first
-     two losses; 2 x 48 ``ssd_scan`` a rank a step (h 24).
- 39. hybrid: zamba2-2.7b at full width cut to 2 groups of 6 (phase 14's
-     cut), 2 x 2, b 4 x 2048, 2 steps at peak lr 1e-4, against the single
-     device at the same cut in the phase; 2 x 12 ``ssd_scan`` (h 40) and
-     2 x 2 ``flash_attention`` (the shared block's 16 / 16 heads of 80) a
-     rank a step.
+     at full width cut to 16 of 48 layers (as 36), 2 x 2, b 4 x
+     2048, 2 steps, against the single device at the same cut in the
+     phase; 2 x 16 ``ssd_scan`` a rank a step (h 24).
+ 39. hybrid: zamba2-2.7b at full width cut to one group of 6 (to make
+     room for phase 42), 2 x 2, b 4 x 2048, 2 steps at peak lr 1e-4,
+     against the single device at the same cut in the phase; 2 x 6
+     ``ssd_scan`` (h 40) and 2 x 1 ``flash_attention`` (the shared block's
+     16 / 16 heads of 80) a rank a step.
  40. audio (whisper's encoder, decoder and cross-attention heads, the
      cross K/V from the replicated encoder output): whisper-base at full
      size, 2 x 2, b 16 x 448, 2 steps, against phase 26's first two
@@ -306,11 +313,35 @@ result.  Phases, each of which fails the run by raising:
      ``--remat-policy dots`` (each layer's checkpoint keeping its
      projections' outputs): its losses phase 11's within 1e-6 relative,
      its peak above phase 11's, both step p50s and the estimate's two
-     peaks printed; 2 x 24 ``flash_attention`` a step.
+     peaks printed; 2 x 24 ``flash_attention`` a step; (e), after 42: the
+     serve estimate (``dryrun.estimate_serve``) of each bf16 case of 42, its
+     prefill and a decode step, made on the host beside phases 3-41: its
+     argument bytes and its collectives' bytes and calls rank 0's exactly,
+     its peak within ``PEAK_BAND`` of each rank's.
+ 42. the grid's serve steps (``sharding/spmd.py``: ``make_prefill_step``,
+     ``make_decode_step``, the JAX dry-run's sharded serve steps under the
+     copied cache rules) on four ranks sharing the card (data 2 x model
+     2, ``--p2p host``), every case in one call of the four-rank pool, bf16
+     at full width, b 4 x 512 (+ 256 image tokens) into a cache of 8 more
+     slots, 2 of the 8 decode steps: (a) paligemma-3b cut to 2 of 18
+     layers, the cache sharded over its sequence (388 of 776 slots a
+     member, the partial softmaxes combined); (b) granite-8b cut to 4 of 36, the cache's 8 kv
+     heads 4 a member; (c) mamba2-780m cut to 8 of 48, 24 of 48 heads'
+     state a member, the conv cache whole; (d) qwen3-moe cut to 2 of 48,
+     64 experts a member; (a) and (c) again in fp32 at 1 layer (1 decode
+     step).  Each held to the single device at the same cut in the phase,
+     on the same seed and prompts, each decode step fed its tokens: every
+     rank's cache bytes the closed form exactly; its logits within phase
+     5's bf16 limit (an ssm case: or ``E2E_SPREAD`` x the single device's
+     own spread at other SSD chunks and in fp32; a moe case with the single
+     device's routing replayed), fp32 within ``GRID_SERVE_FP32_RTOL``;
+     launches pinned a rank a call; prefill ms, decode p50, peak memory by
+     rank and each call's collectives by axis printed beside the card's
+     name and power limit.
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
 over the main paths that run it, phases 4, 7, 12, 13, 15–21, 23–26, 28,
-29 and 32–41, each kernel's fp16 row under ``"float16"``,
+29 and 32–42 (42's bf16 cases), each kernel's fp16 row under ``"float16"``,
 each counted from 0; the pipeline phases in each rank's own process,
 summed over the ranks), the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Each phase's heading carries the
@@ -333,17 +364,20 @@ with three cards or more also phase 18 (a) through ``--p2p device``,
     python3 chip_smoke.py --grid-faults
 
 needs one card and runs phases 1, 2 and the controls of phases 33, 36,
-37 and 38's checks: phase 33's grid (qwen1.5-0.5b, 2 x 2, its batches
+37, 38 and 42's checks: phase 33's grid (qwen1.5-0.5b, 2 x 2, its batches
 and steps), phase 36's (mamba2-780m, 1 x 2), phase 37's (qwen3-moe, 2
-layers, 2 x 2) and phase 38's (mamba2-780m, 2 x 2) with no fault and
-then with each fault of ``GRID_FAULTS`` planted in the ranks' processes
-(the data axis's gradient sum dropped, every data rank training on data
-rank 0's rows, the Megatron all-reduce dropped; in 37 the expert
-combine's model all-reduce dropped; in 38 the gated norm's model sum of
-squares dropped), each held to the single device by those phases'
-checks (38's fp32 model-axis check among them); it prints each check's
-reading and limit and which checks refuse the run, and fails if a
-faulty run passes them all or the run without a fault does not.
+layers, 2 x 2), phase 38's (mamba2-780m, 2 x 2) and phase 42 (a)'s serve
+steps (paligemma-3b, 2 layers, the cache sharded over its sequence) with
+no fault and then with each fault of ``GRID_FAULTS`` planted in the
+ranks' processes (the data axis's gradient sum dropped, every data rank
+training on data rank 0's rows, the Megatron all-reduce dropped; in 37
+the expert combine's model all-reduce dropped; in 38 the gated norm's
+model sum of squares dropped; in 42 the members' partial softmaxes kept
+uncombined, and the decode's slot offset dropped to 0), each held to the
+single device by those phases' checks (38's fp32 model-axis check among
+them); it prints each check's reading and limit and which checks refuse
+the run, and fails if a faulty run passes them all or the run without a
+fault does not.
 """
 from __future__ import annotations
 
@@ -638,6 +672,34 @@ FD_PALIGEMMA = ("paligemma decode: B4 KV1 G8 hd256 S800", 4, 1, 8, 800, 256, 799
                 False, 1.0)
 FD_PALIGEMMA_RING = ("paligemma ring + window 300: hd256 S800", 4, 1, 8, 800, 256, 1500, 300,
                      0.0, True, 1.0)
+# A model member's decode on the grid's serve path (phase 42): a block of a
+# longer cache, (label, B, KV, G, S, hd, pos, window, softcap, ring,
+# q_scale, slot0, the whole cache's length), the kernel also returning each
+# head's log-sum-exp.  (a) paligemma at 2 x 2: the cache of 256 image + 512
+# + 8 slots sharded over its sequence, 388 of 776 slots a member, every one
+# of its 8 heads over the one kv head; (b) granite-8b at 2 x 2: 4 of 8 kv
+# heads a member, 16 / 4 heads, the whole 520 slots (and, for the offset,
+# half of them).  Each at the block's last decode position, in a ring with
+# a window, and where the block holds no live slot (out 0, lse -inf).
+FD_MEMBERS = [
+    ("paligemma member: 388 of 776 at 388", 2, 1, 8, 388, 256, 775, 0, 0.0, False, 1.0,
+     388, 776),
+    ("paligemma member 0: 388 of 776 at 0", 2, 1, 8, 388, 256, 775, 0, 0.0, False, 1.0,
+     0, 776),
+    ("paligemma member ring + window 300", 2, 1, 8, 388, 256, 1500, 300, 0.0, True, 1.0,
+     388, 776),
+    ("paligemma member, no live slot", 2, 1, 8, 388, 256, 300, 0, 0.0, False, 1.0, 388, 776),
+    ("granite member: B2 KV4 G4 hd128 S520", 2, 4, 4, 520, 128, 519, 0, 0.0, False, 1.0,
+     0, 520),
+    ("granite member: 260 of 520 at 260", 2, 4, 4, 260, 128, 519, 0, 0.0, False, 1.0,
+     260, 520),
+    ("granite member ring + window 300", 2, 4, 4, 260, 128, 1000, 300, 0.0, True, 1.0,
+     260, 520),
+]
+FD_MEMBER_ROWS = (FD_MEMBERS[0], FD_MEMBERS[4])          # timed: (a)'s and (b)'s
+# the log-sum-exp against the plain version's: both fp32 from the same
+# inputs, summed in another order (the kernel's splits); ~10 in size
+LSE_TOL = (1e-4, 1e-5)
 
 SERVE_ARGS = ["--arch", "granite_8b", "--batch", "4", "--prompt-len", "512",
               "--gen", "32", "--backend", "auto", "--device", "cuda"]
@@ -854,24 +916,24 @@ ALIGN_HELD = ("bfloat16",)
 GRID_LOSS_SPREAD = 3.5
 # granite-8b at full depth is ~113 GB of bf16 parameters and fp32 AdamW
 # state, and four ranks share one 80 GB card, so phase 34 cuts its depth.
-# Phases 36's and 38's single-device reference is phase 7's run, 40's
-# phase 26's (same seed, batches and, in the first 5 warmup steps,
-# learning rates).  granite-8b trains at peak lr 1e-5, as --transports'
-# granite run: at 3e-4 its random-init loss rises (11.29, 17.36, 12.88 on
-# the single device as on the grid).  Every collective of these phases
-# goes through host memory (~100-400 MB/s a rank on one card's host, and
-# 15-30% slower on some hosts than on others), so a qwen step takes ~5-9
-# s and a 2 x 2 step of phases 37-40 5-25 s.  To keep the script inside
-# its limit phases 33-40 take 2 steps each, and the pipeline's qwen plans
-# (16-18) 2: at 3 steps (4 for the qwen plans) the script reached phase
-# 39 at 1204 s on a host that ran phases 1-32 in 832 s.
+# Phase 40's single-device reference is phase 26's run (same seed, batches
+# and, in the first 5 warmup steps, learning rates); 36's and 38's, at their
+# cut, are made in the phase.  granite-8b trains at peak lr 1e-5, as
+# --transports' granite run: at 3e-4 its random-init loss rises (11.29,
+# 17.36, 12.88 on the single device as on the grid).  Every collective of
+# these phases goes through host memory (~100-400 MB/s a rank on one card's
+# host, and 15-30% slower on some hosts than on others), so a qwen step
+# takes ~5-9 s and a 2 x 2 step of phases 37-40 5-25 s.  To keep the script
+# inside its limit phases 33-40 take 2 steps each, and the pipeline's qwen
+# plans (16-18) 2: at 3 steps (4 for the qwen plans) the script reached
+# phase 39 at 1204 s on a host that ran phases 1-32 in 832 s.
 GSPMD_ARGS = ["--p2p", "host", "--backend", "auto", "--device", "cuda", "--log-every", "1"]
 GSPMD_DENSE = ("qwen1p5_0p5b", 24, ["--model-parallel", "2", "--data-parallel", "2"],
                ["--batch", "8", "--seq", "512", "--steps", "2"])
 GSPMD_GQA = ("granite_8b", 4, 36, ["--model-parallel", "2", "--data-parallel", "2"],
              ["--batch", "4", "--seq", "512", "--steps", "2", "--lr", "1e-5"])
 GSPMD_ZERO1 = ("qwen1p5_0p5b", 2, 2, 8, 512, 2)      # arch, model, data, b, seq, steps
-GSPMD_SSM = ("mamba2_780m", 48, ["--model-parallel", "1", "--data-parallel", "2"],
+GSPMD_SSM = ("mamba2_780m", 16, 48, ["--model-parallel", "1", "--data-parallel", "2"],
              ["--batch", "4", "--seq", "2048", "--steps", "2"])
 # Phases 37-40: the model axis of the moe, ssm, hybrid and audio families
 # (each model member's share of a block: experts, mamba2 heads, attention
@@ -883,20 +945,23 @@ GSPMD_SSM = ("mamba2_780m", 48, ["--model-parallel", "1", "--data-parallel", "2"
 # of 2 layers at phase 21's batch: the limit's yardstick, the single
 # device with --accum 2, adds an fp32 gradient accumulator to the state,
 # and at phase 21's 4 layers (3.1 B parameters) that ran out of the card's
-# 80 GB.  zamba2 takes phase 14's cut of 2 groups of 6 at peak lr 1e-4: at
-# 3e-4 its random-init loss rose at step 3 (10.89, 9.88, 14.70) on the
-# single device as on the grid.  Both are held to single device runs at
-# their cut made in the phase.
+# 80 GB.  zamba2 trains at peak lr 1e-4: at 3e-4 its random-init loss rose
+# at step 3 (10.89, 9.88, 14.70) on the single device as on the grid.
+# Since phase 42 needed room under the time limit, 36 and 38 run mamba2
+# cut to 16 of 48 layers and 39 zamba2 to one group of 6 (were 48, 48 and
+# 2 groups of 6: 47, 52 and 67 s of a run on an H100 at 700 W that
+# reached 1061.7 s with 42; 27, 23 and 31 s at the cut).
+# Each is held to single device runs at its cut made in the phase.
 GSPMD_FAMILY_GRID = ["--model-parallel", "2", "--data-parallel", "2"]
 GSPMD_FAMILIES = [
     ("37", MOE_ARCH, MOE_CUT_LAYERS, 48, ["--batch", "2", "--seq", "2048", "--steps", "2"],
      None, {"flash_attention": 2 * MOE_CUT_LAYERS},
      "64 of 128 experts; flash_attention B1 S2048 H16 KV2 hd128"),
-    ("38", "mamba2_780m", 48, 48, ["--batch", "4", "--seq", "2048", "--steps", "2"],
-     "train_mamba2_780m", {"ssd_scan": 2 * 48}, "ssd_scan b2 S2048 h24 p64 n128"),
-    ("39", "zamba2_2p7b", HYBRID_CUT_LAYERS, 54,
+    ("38", "mamba2_780m", 16, 48, ["--batch", "4", "--seq", "2048", "--steps", "2"],
+     None, {"ssd_scan": 2 * 16}, "ssd_scan b2 S2048 h24 p64 n128"),
+    ("39", "zamba2_2p7b", 6, 54,
      ["--batch", "4", "--seq", "2048", "--steps", "2", "--lr", "1e-4"], None,
-     {"ssd_scan": 2 * HYBRID_CUT_LAYERS, "flash_attention": 2 * 2},
+     {"ssd_scan": 2 * 6, "flash_attention": 2 * 1},
      "ssd_scan b2 S2048 h40 p64 n64; flash_attention B2 S2048 H16 KV16 hd80"),
     ("40", WHISPER_ARCH, WHISPER_LAYERS, WHISPER_LAYERS,
      ["--batch", "16", "--seq", str(WHISPER_SEQ), "--steps", "2"], "train_whisper_base",
@@ -929,6 +994,10 @@ GRID_FAULTS = {
                 "experts' part of the moe output alone", ("37",)),
     "ssm-norm": ("the gated norm's model sum of squares dropped: each member "
                  "normalises by its own heads' channels", ("38",)),
+    "combine": ("the serve decode's combine of the members' partial softmaxes skipped: "
+                "each member keeps its own block's", ("42",)),
+    "slot0": ("the serve decode's slot offset dropped to 0: each member masks its block "
+              "as the cache's first slots", ("42",)),
 }
 
 # Phase 41: the dry-run (repro_torch.launch.dryrun: the port's train step
@@ -944,6 +1013,50 @@ GRID_FAULTS = {
 # the losses phase 11's ("full") within DOTS_LOSS_RTOL, and more memory.
 PEAK_BAND = (0.8, 1.25)
 DOTS_LOSS_RTOL = 1e-6
+# Phase 42: the grid's serve steps (sharding/spmd.py: make_prefill_step,
+# make_decode_step; the JAX dry-run's jitted serve steps under the copied
+# rules) on four ranks sharing the card (data 2 x model 2, --p2p host), in
+# one call, each case at full width from the single device's seeded weights
+# and prompts: (label, arch, layers, the config's depth, dtype, launches a
+# rank a prefill, a rank a decode step, what a member holds).  Batch 4 x
+# prompt 512 (a vlm model behind its 256 image tokens), a cache of prompt +
+# 8 slots, GRID_SERVE_STEPS of the 8 decode steps run (fp32:
+# GRID_SERVE_FP32_STEPS), each fed the single device's token.  The weights
+# are gathered through host memory on every step (FSDP over data, as the
+# rules place them), so a step moves 0.2-1.6 GiB a rank and takes 1-8 s
+# (0.2-0.25 GB/s on an H100 host); at 4 decode steps (and 2 in fp32) the
+# phase took 124 s there, so the bf16 cases run 2 and fp32 1.  Held: each
+# rank's cache bytes to the closed form exactly, the logits of its rows to
+# the single device's at the same cut in the phase (bf16: phase 5's rel-L2
+# limit; fp32 at 1 layer: GRID_SERVE_FP32_RTOL, no rounding allowance), each
+# kernel's launches a rank a call.  In bf16 a member rounds its part of each
+# row-parallel product before the members' sum, which the single device does
+# not: on an H100, mamba2 (c) read 3.0e-2 to 5.9e-2 rel L2 over its 8 layers
+# and qwen3-moe (d) 5.8e-2 and 6.9e-2 at two decode steps, a routing flip
+# (max abs 0.43).  So, as phases 14 and 22 hold those families' kernel paths:
+# an ssm case's bf16 limit is the larger of phase 5's and E2E_SPREAD x the
+# single device's own spread at SSD chunk / 2 and / 4 (the same sums in
+# another order) and in fp32 (bf16's reach, as phases 37-40 take it), and a
+# moe case is held with the single device's routing replayed on the ranks
+# (each rank its rows of it).
+GRID_SERVE = [
+    ("(a)", PALIGEMMA_ARCH, 2, PALIGEMMA_LAYERS, "bfloat16", {"flash_attention": 2},
+     {"flash_decode": 2}, "the cache sharded over its sequence: 388 of 776 slots of the one "
+     "kv head, 4 of 8 heads (every head over the member's slots, the partials combined)"),
+    ("(b)", "granite_8b", 4, 36, "bfloat16", {"flash_attention": 4}, {"flash_decode": 4},
+     "the cache sharded over its kv heads: 4 of 8, 16 of 32 heads"),
+    ("(c)", "mamba2_780m", 8, 48, "bfloat16", {"ssd_scan": 8}, {},
+     "24 of 48 heads' state, the conv cache whole"),
+    ("(d)", MOE_ARCH, 2, 48, "bfloat16", {"flash_attention": 2}, {"flash_decode": 2},
+     "64 of 128 experts; the cache's kv heads 2 of 4, 16 of 32 heads"),
+    ("(a) fp32", PALIGEMMA_ARCH, 1, PALIGEMMA_LAYERS, "float32", {"flash_attention": 1},
+     {"flash_decode": 1}, "as (a)"),
+    ("(c) fp32", "mamba2_780m", 1, 48, "float32", {"ssd_scan": 1}, {}, "as (c)"),
+]
+GRID_SERVE_BATCH, GRID_SERVE_PROMPT, GRID_SERVE_GEN = 4, 512, 8
+GRID_SERVE_STEPS, GRID_SERVE_FP32_STEPS = 2, 1
+GRID_SERVE_FP32_RTOL = 1e-4
+_SERVE_RUNS = {}              # phase 42's ranks' results by case, for 41 (e)
 _GRID_RUNS = {}               # what each grid phase measured, by phase
 _PEAKS = {}                   # train_and_check's peak memory, by run
 _ESTIMATOR = None             # phase 41's estimates, made beside phases 3-40
@@ -1069,9 +1182,15 @@ def fa_inputs(case, dtype, gen):
     return mk(B, Sq, H, hd), mk(B, Sk, KV, hd), mk(B, Sk, KV, hd)
 
 
+def fd_block(case):
+    """(slot0, the whole cache's length) of an FD case: a member's block
+    (``FD_MEMBERS``) or the whole cache."""
+    return tuple(case[11:13]) if len(case) > 11 else (0, case[4])
+
+
 def fd_inputs(case, dtype, gen, n_caches=1):
     import torch
-    _, B, KV, G, S, hd, *_, q_scale = case
+    _, B, KV, G, S, hd, *_, q_scale = case[:11]
     mk = lambda *s: torch.randn(s, generator=gen, device="cuda")
     q = (mk(B, KV * G, hd) * q_scale).to(dtype)
     caches = [(mk(B, KV, S, hd).to(dtype), mk(B, KV, S, hd).to(dtype))
@@ -1119,6 +1238,7 @@ def phase_kernels():
             fd_err = max(fd_err, e) if dname == "bfloat16" else fd_err
             if dname == "float16":
                 err16["flash_decode"] = max(err16["flash_decode"], e)
+    fd_err = max(fd_err, fd_member_checks(gen))
 
     # ---- times at the serving shapes (the profile's, zamba2's, qwen3-moe's,
     # whisper's, paligemma's), bf16 ----
@@ -1132,7 +1252,8 @@ def phase_kernels():
     rows["flash_attention"] = dict(fa_rows[FA_SERVE[0]], max_abs_err=fa_err)
 
     fd_rows = {case[0]: fd_timed(case, gen, fd_err)
-               for case in (FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE, FD_WHISPER, FD_PALIGEMMA)}
+               for case in (FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE, FD_WHISPER, FD_PALIGEMMA,
+                            *FD_MEMBER_ROWS)}
     rows["flash_decode"] = fd_rows[FD_SERVE[0]]
     # the serving shapes in fp16
     row16, err = fa_timed(FA_SERVE, gen, torch.float16)
@@ -1209,15 +1330,86 @@ def fa_timed(case, gen, dtype=None):
     return row, err
 
 
+def fd_member_checks(gen):
+    """``flash_decode`` on a member's block of a longer cache
+    (``FD_MEMBERS``: ``slot0``, the whole cache's length, the log-sum-exp)
+    against its plain version in bf16 and fp32, the output at ``TOL`` and
+    the log-sum-exp at ``LSE_TOL`` (-inf, with an output of 0, where the
+    block holds no live slot); and (a)'s two members' partials combined
+    against the plain version over the whole cache.  Returns the worst
+    bf16 error."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.sharding import spmd
+
+    worst = 0.0
+    for case in FD_MEMBERS:
+        label, *_, pos, window, softcap, ring, _ = case[:11]
+        slot0, total = fd_block(case)
+        kw = dict(window=window, softcap=softcap, ring=ring, slot0=slot0, cache_len=total,
+                  return_lse=True)
+        for dname in ("float32", "bfloat16"):
+            q, [(k, v)] = fd_inputs(case, kernel_dtypes()[dname], gen)
+            got, lse = ops.flash_decode(q, k, v, pos, **kw)
+            torch.cuda.synchronize()
+            want, want_lse = ref.decode_attention_ref(q, k, v, pos, **kw)
+            e = compare(got, want, dname, f"flash_decode [{label}, {dname}]")
+            dead = torch.isinf(want_lse)
+            if not torch.equal(torch.isinf(lse), dead) or bool((got[dead] != 0).any()):
+                raise AssertionError(f"flash_decode [{label}, {dname}]: a head with no live "
+                                     "slot is not out 0, lse -inf")
+            le = compare(lse[~dead], want_lse[~dead], "float32",
+                         f"flash_decode lse [{label}, {dname}]", tol=LSE_TOL) \
+                if bool((~dead).any()) else 0.0
+            log(f"  flash_decode    {label:32s} {dname:9s} max_abs_err={e:.3e}, lse "
+                f"{le:.3e}" + (" (no live slot: out 0, lse -inf)" if bool(dead.all()) else ""))
+            worst = max(worst, e) if dname == "bfloat16" else worst
+    # (a)'s whole cache of 776 slots as its two members' blocks, combined
+    _, B, KV, G, _, hd, pos, *_ = FD_MEMBERS[0]
+    total = FD_MEMBERS[0][12]
+    for dname in ("float32", "bfloat16"):
+        q, [(k, v)] = fd_inputs(FD_MEMBERS[0][:4] + (total,) + FD_MEMBERS[0][5:11],
+                                kernel_dtypes()[dname], gen)
+        n = total // 2
+        parts = [ops.flash_decode(q, k[:, :, i * n:(i + 1) * n].contiguous(),
+                                  v[:, :, i * n:(i + 1) * n].contiguous(), pos, slot0=i * n,
+                                  cache_len=total, return_lse=True) for i in range(2)]
+        every = torch.cat([torch.cat([o.float(), l[..., None]], -1)[None] for o, l in parts])
+        got = spmd.combine_partials(parts[0][0], parts[0][1], _Members(every))
+        e = compare(got, ref.decode_attention_ref(q, k, v, pos), dname,
+                    f"flash_decode [two members combined, {dname}]")
+        log(f"  flash_decode    {'two members of 388, combined':32s} {dname:9s} "
+            f"max_abs_err={e:.3e}")
+        worst = max(worst, e) if dname == "bfloat16" else worst
+    return worst
+
+
+class _Members:
+    """The model group's all-gather of ``combine_partials``, handed the
+    members' partials already stacked."""
+
+    def __init__(self, every):
+        self.every, self.world_size = every, every.shape[0]
+
+    def all_gather_(self, out, part, dim):
+        return out.copy_(self.every)
+
+
 def fd_timed(case, gen, err, dtype=None):
     """``flash_decode``'s row of times at ``case`` (bf16 unless ``dtype``
     says otherwise), beside its plain version,
-    ``scaled_dot_product_attention`` and the bound."""
+    ``scaled_dot_product_attention`` and the bound.  A member's block
+    (``FD_MEMBERS``) runs with its slot offset and returns its
+    log-sum-exp, as on the grid's serve path; its bound counts the
+    block's live slots."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import cost, ops, ref
 
-    _, B, KV, G, S, hd, pos, window, softcap, ring, _ = case
+    _, B, KV, G, S, hd, pos, window, softcap, ring, _ = case[:11]
+    slot0, total = fd_block(case)
+    member = len(case) > 11
+    kw = dict(slot0=slot0, cache_len=total, return_lse=True) if member else {}
     # caches taken in turn, at least eight and at least 64 MB of them (71
     # MB at the granite shape, 178 MB at zamba2's, 67 MB in 15 at
     # qwen3-moe's: more than the 50 MB L2), so every call reads its cache
@@ -1225,20 +1417,23 @@ def fd_timed(case, gen, err, dtype=None):
     per_cache = 2 * B * KV * S * hd * 2
     q, caches = fd_inputs(case, dtype or torch.bfloat16, gen,
                           n_caches=max(8, math.ceil(64e6 / per_cache)))
-    live = int(ref.decode_valid(pos, S, device="cuda").sum())
+    valid = ref.decode_valid(pos, total, device="cuda", slot0=slot0, n=S)
+    live = int(valid.sum())
     # the library call needs the mask as a bias; the kernel computes it
-    bias = ops.decode_bias(pos, S, device="cuda").view(1, 1, 1, S)
+    zero = torch.zeros((), device="cuda")
+    bias = torch.where(valid, zero, torch.full_like(zero, ops.NEG_INF)).view(1, 1, 1, S)
     q4 = q.view(B, KV * G, 1, hd)
     b_ms, b_by = cost.bound(*cost.flash_decode_cost(B, KV, G, hd, live, 2))
     n = len(caches)
-    log(f"  flash_decode [{case[0]}] splits the {S}-slot cache "
-        f"{ops.decode_splits(B * KV, S)} ways: "
+    log(f"  flash_decode [{case[0]}] splits the {S}-slot "
+        + (f"block (slots {slot0}-{slot0 + S - 1} of {total}) " if member else "cache ")
+        + f"{ops.decode_splits(B * KV, S)} ways: "
         f"{B * KV * ops.decode_splits(B * KV, S)} blocks in pass 1")
     return dict(
         name="flash_decode", route="cuda", source=FD_SOURCE,
         replaces=FD_REPLACES, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        **timed(lambda i: ops.flash_decode(q, *caches[i % n], pos),
-                lambda i: ref.decode_attention_ref(q, *caches[i % n], pos),
+        **timed(lambda i: ops.flash_decode(q, *caches[i % n], pos, **kw),
+                lambda i: ref.decode_attention_ref(q, *caches[i % n], pos, **kw),
                 lambda i: F.scaled_dot_product_attention(
                     q4, *caches[i % n], attn_mask=bias, enable_gqa=True),
                 "decode_", iters=200))
@@ -2082,9 +2277,10 @@ def phase_profiler(arch=PROFILE_ARCH, layers=None, seq=PROFILE_SEQ,
     calls = iters + 1                            # one warm call, then the timed ones
     cross = cfg.num_layers if cfg.family == "audio" else 0
     want = {"rmsnorm": calls,
-            # block forward, forward + full backward, forward + dgrad,
-            # attention; an audio decode step's cross-attention
-            "flash_attention": (4 + cross) * calls,
+            # block forward, forward + full backward, attention, an
+            # audio decode step's cross-attention; and the one forward
+            # whose graph the wgrad pairs' backward passes share
+            "flash_attention": (3 + cross) * calls + 1,
             "flash_decode": cfg.num_layers * calls,   # every layer of each decode step
             "ssd_scan": 0}
     if launches != want:
@@ -2507,6 +2703,7 @@ def cut_depth(layers, **fields):
 
 _CUT = None                           # the config fields cut_depth replaces, if any
 _POOL = None                          # the rank_pool of the running phase, if any
+_POOLS = {}                           # world -> RankPool, kept until close_pools
 
 
 class RankPool:
@@ -2591,6 +2788,10 @@ def _pool_rank(rank, world, transport, workdir, inboxes, outbox):
             try:
                 with cut_depth(None, **(cut or {})), contextlib.redirect_stdout(
                         sys.stdout if rank == 0 else quiet):
+                    if torch.cuda.is_available():
+                        print(f"  [pool of {world}] rank {rank} holds "
+                              f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+                              f"before {name}", flush=True)
                     out = globals()[name](rank, world, *args)
                 path = os.path.join(workdir, f"rank{rank}.pt")
                 torch.save(out, path + ".tmp")
@@ -2598,6 +2799,10 @@ def _pool_rank(rank, world, transport, workdir, inboxes, outbox):
                 del out
                 gc.collect()
                 if torch.cuda.is_available():
+                    # the cuBLAS workspaces back to the allocator as well:
+                    # the next call starts from what a fresh rank holds,
+                    # so that its peak memory is its own
+                    torch._C._cuda_clearCublasWorkspaces()
                     torch.cuda.empty_cache()
                 outbox.put((rank, ""))
             except BaseException:
@@ -2609,18 +2814,28 @@ def _pool_rank(rank, world, transport, workdir, inboxes, outbox):
 
 
 @contextlib.contextmanager
-def rank_pool(world, name):
-    """The phase's ``RankPool`` of ``world`` ranks while the context lasts:
+def rank_pool(world):
+    """The ``RankPool`` of ``world`` ranks while the context lasts:
     ``launch_pipeline`` and ``spawn_ranks`` calls of that many ranks on
-    the host transport run in it."""
+    the host transport run in it.  The pool is started on the first use
+    of its size and kept for the later ones until ``close_pools``: an
+    idle rank holds its CUDA context and no cached blocks."""
     global _POOL
-    pool = RankPool(world, os.path.join(ROOT, "build", "chip_smoke", f"pool_{name}"))
+    pool = _POOLS.get(world)
+    if pool is None:
+        pool = _POOLS[world] = RankPool(
+            world, os.path.join(ROOT, "build", "chip_smoke", f"pool_{world}"))
     _POOL = pool
     try:
         yield pool
     finally:
         _POOL = None
-        pool.close()
+
+
+def close_pools():
+    """Stop every rank of every ``rank_pool``."""
+    while _POOLS:
+        _POOLS.popitem()[1].close()
 
 
 def _in_pool(world, transport):
@@ -3187,10 +3402,11 @@ STAGE_RANGES = ("attention", "moe.route", "moe.dispatch", "moe.experts", "moe.co
 # attention takes its keys in reverse order (the same sums in another
 # order).  fp32 is held free-running.
 @contextlib.contextmanager
-def moe_routing(routes, replay=False):
+def moe_routing(routes, replay=False, rows=None):
     """While the context lasts, every ``moe.route`` call appends its expert
     ids to ``routes`` (in call order), or with ``replay`` takes the next
-    recorded ids in place of its own top-k."""
+    recorded ids in place of its own top-k (of ``rows`` of them where
+    given: a grid rank's rows of a single device's routing)."""
     from unittest import mock
 
     import torch
@@ -3205,6 +3421,7 @@ def moe_routing(routes, replay=False):
             routes.append(ids.clone())
             return logits, probs, gate_vals, ids
         ids = next(replayed)
+        ids = (ids if rows is None else ids[rows]).to(probs.device)
         gate_vals = torch.gather(probs, -1, ids)
         gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
         return logits, probs, gate_vals, ids
@@ -4012,15 +4229,14 @@ def _zero1_rank(rank, world, device, arch, model, data, B, S, steps, total_steps
 
 
 def phase_gspmd_ssm(smi):
-    """Phase 36 on two ranks: model axis 1, an ssm model; phase 7's run is
-    the single device's.  Returns its launches."""
-    arch, layers, grid_args, args = GSPMD_SSM
-    steps = int(args[args.index("--steps") + 1])
-    want = {k: v[:steps] for k, v in _SINGLE["train_mamba2_780m"].items()}
+    """Phase 36 on two ranks: model axis 1, an ssm model cut in depth,
+    held to the single device at the cut.  Returns its launches."""
+    arch, layers, full, grid_args, args = GSPMD_SSM
+    want = single_run("gspmd_single_mamba2", arch, args, layers)
     limits = grid_limit("36", want, single_run("gspmd_single_mamba2_accum2", arch, args,
-                                               accum=2))
+                                               layers, accum=2))
     res = grid_and_hold("gspmd_mamba2", arch, layers, grid_args, args,
-                        {"ssd_scan": 2 * layers}, want, limits, "36", smi)
+                        {"ssd_scan": 2 * layers}, want, limits, "36", smi, full_layers=full)
     return res["launches"]
 
 
@@ -4116,6 +4332,13 @@ def planted(fault):
     elif fault == "ssm-norm":
         owner, name = spmd, "_norm_mean_sq"
         new = lambda xf, tp: xf.square().mean(dim=-1, keepdim=True)
+    elif fault == "combine":
+        owner, name, new = spmd, "combine_partials", lambda out, lse, tp: out
+    elif fault == "slot0":
+        from repro_torch.models import attention
+        real = attention.decode_on_block
+        owner, name = attention, "decode_on_block"
+        new = lambda *a, slot0, **kw: real(*a, slot0=0, **kw)
     else:
         raise ValueError(f"unknown fault {fault!r}")
     old = owner.__dict__[name]
@@ -4169,17 +4392,19 @@ def phase_grid_faults(smi):
     want = single_run("gspmd_single_qwen", arch, args)
     limits = grid_limit("33", want, single_run("gspmd_single_qwen_accum2", arch, args,
                                                accum=2))
-    with rank_pool(4, "gspmd_faults"):
+    with rank_pool(4):
         bad += grid_fault_controls("33", arch, grid_args, args, want, limits, smi)
-    arch, _, grid_args, args = GSPMD_SSM
-    log(f"== 36 (controls): {arch} at full size, {' '.join(grid_args)}, {' '.join(args)}, "
-        f"2 ranks sharing the card, with each fault planted")
-    want = single_run("gspmd_single_mamba2", arch, args)
+    arch, layers, full, grid_args, args = GSPMD_SSM
+    log(f"== 36 (controls): {arch} at full width, {layers} of {full} layers, "
+        f"{' '.join(grid_args)}, {' '.join(args)}, 2 ranks sharing the card, with each "
+        "fault planted")
+    want = single_run("gspmd_single_mamba2", arch, args, layers)
     limits = grid_limit("36", want, single_run("gspmd_single_mamba2_accum2", arch, args,
-                                               accum=2))
-    with rank_pool(2, "gspmd_ssm_faults"):
-        bad += grid_fault_controls("36", arch, grid_args, args, want, limits, smi)
-    with rank_pool(4, "gspmd_family_faults"):
+                                               layers, accum=2))
+    with rank_pool(2):
+        bad += grid_fault_controls("36", arch, grid_args, args, want, limits, smi,
+                                   layers=layers)
+    with rank_pool(4):
         for label, arch, layers, full, args, *_ in GSPMD_FAMILIES:
             if not any(label in phases for _, phases in GRID_FAULTS.values()):
                 continue
@@ -4190,6 +4415,11 @@ def phase_grid_faults(smi):
             want, limits = family_reference(label, arch, cut, args, None)
             bad += grid_fault_controls(label, arch, GSPMD_FAMILY_GRID, args, want, limits,
                                        smi, layers=cut)
+    log(f"== 42 (controls): {GRID_SERVE[0][1]} at full width, {GRID_SERVE[0][2]} layers, "
+        "data 2 x model 2, the cache sharded over its sequence, 4 ranks sharing the card, "
+        "with each serve fault planted")
+    with rank_pool(4):
+        bad += phase_serve_faults(smi)
     if bad:
         raise AssertionError("grid fault controls: " + "; ".join(bad))
 
@@ -4209,9 +4439,9 @@ def grid_estimate_cases():
                   arg(args, "--seq"), "gspmd", None))
     arch, model, data, B, S, _ = GSPMD_ZERO1
     cases.append(("35", arch, {}, data, model, B, S, "manual", None))
-    arch, layers, grid_args, args = GSPMD_SSM
-    cases.append(("36", arch, {}, *grid(grid_args), arg(args, "--batch"), arg(args, "--seq"),
-                  "gspmd", None))
+    arch, layers, full, grid_args, args = GSPMD_SSM
+    cases.append(("36", arch, cut(arch, layers, full), *grid(grid_args), arg(args, "--batch"),
+                  arg(args, "--seq"), "gspmd", None))
     for label, arch, layers, full, args, *_ in GSPMD_FAMILIES:
         cases.append((label, arch, cut(arch, layers, full), *grid(GSPMD_FAMILY_GRID),
                       arg(args, "--batch"), arg(args, "--seq"), "gspmd", None))
@@ -4248,6 +4478,20 @@ def _estimate_cases(path):
             rec = {"error": traceback.format_exc()}
         rec["host_s"] = time.perf_counter() - t0
         out[label] = rec
+        with open(path + ".tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(path + ".tmp", path)
+    for label, arch, layers, dtype, kind, seq, cache_len in serve_estimate_cases():
+        t0 = time.perf_counter()
+        try:
+            cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
+            rec = dryrun.estimate_serve(cfg, Mesh.of((2, 2), ("data", "model")),
+                                        shapes.InputShape(label, kind, seq, GRID_SERVE_BATCH),
+                                        cache_len=cache_len)
+        except Exception:
+            rec = {"error": traceback.format_exc()}
+        rec["host_s"] = time.perf_counter() - t0
+        out[f"42 {label} {kind}"] = rec
         with open(path + ".tmp", "w") as f:
             json.dump(out, f)
         os.replace(path + ".tmp", path)
@@ -4361,6 +4605,359 @@ def phase_dryrun(smi):
     return launches
 
 
+def serve_case_cfg(case):
+    """(config, steps) of a ``GRID_SERVE`` case: the arch at full width cut
+    to its layers, in its dtype."""
+    from repro_torch.configs import get_config
+    _, arch, layers, _, dtype, *_ = case
+    steps = GRID_SERVE_FP32_STEPS if dtype == "float32" else GRID_SERVE_STEPS
+    return dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype), steps
+
+
+def serve_prompts(cfg, dev):
+    """The seeded prompts of phase 42 (a vlm model's image embeddings from
+    the same stream), on ``dev``."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    toks = SyntheticTokens(cfg, DataConfig(batch_size=GRID_SERVE_BATCH,
+                                           seq_len=GRID_SERVE_PROMPT)).next_batch()
+    return {k: torch.from_numpy(v).to(dev) for k, v in toks.items()}
+
+
+def single_serve(case, feed=None, routes=None, **fields):
+    """The single device's serve steps (``training/serve_step.py``) at a
+    ``GRID_SERVE`` case's cut (config ``fields`` replaced where given): the
+    prefill's and each decode step's logits (on the host, fp32), the
+    tokens fed (``feed``, or else its own greedy tokens), its prefill ms
+    and decode step times; ``routes``, where given, gets a moe model's
+    routing of each call (``moe_routing``)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.training import serve_step as SS
+    cfg, steps = serve_case_cfg(case)
+    cfg = dataclasses.replace(cfg, **fields)
+    dev = torch.device("cuda")
+    record = moe_routing(routes) if routes is not None else contextlib.nullcontext()
+    with torch.inference_mode(), record:
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        batch = serve_prompts(cfg, dev)
+        cache_len = GRID_SERVE_PROMPT + GRID_SERVE_GEN
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = SS.make_prefill_step(cfg, cache_len)(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        decode, _ = SS.make_decode_step(cfg, cache_len + cfg.num_prefix_tokens)
+        pos = GRID_SERVE_PROMPT + cfg.num_prefix_tokens
+        out, times = [logits.float().cpu()], []
+        own, feed = feed, []
+        for i in range(steps):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None] if own is None \
+                else own[i].to(dev)
+            feed.append(tok.cpu())
+            t0 = time.perf_counter()
+            logits, _, cache = decode(params, cache, tok, pos + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            out.append(logits.float().cpu())
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"logits": out, "feed": feed, "prefill_s": prefill_s, "decode_s": times}
+
+
+def _grid_serve_rank(rank, world, cases, feeds, routes, fault=None):
+    """Phase 42 on one rank: each ``GRID_SERVE`` case's prefill and decode
+    steps on the (data 2, model 2) grid of the ranks (``serve_on_rank``),
+    a moe case with the single device's routing ``routes`` replayed,
+    ``fault`` planted where given."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import spmd
+    dev = torch.device("cuda")
+    layout = spmd.Layout(*make_local_mesh(model=2, data=2, transport="host", device=dev))
+    rows = spmd.local_rows(GRID_SERVE_BATCH, layout, serving=True)
+    out = {}
+    with planted(fault) if fault else contextlib.nullcontext():
+        for case in cases:
+            label = case[0]
+            replay = moe_routing(list(routes[label]), replay=True, rows=rows) \
+                if label in routes else contextlib.nullcontext()
+            with replay:
+                out[label] = serve_on_rank(case, layout, rows, feeds[label])
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_on_rank(case, layout, rows, feed):
+    """One ``GRID_SERVE`` case on this rank: its blocks of the seeded
+    weights, its ``rows`` of the prompts, the prefill and the decode steps
+    fed ``feed``.  Returns its grid coordinate, rows, logits (fp32, on the
+    host), times, peak memory and launches of each call, its argument and
+    cache bytes and the last call's collectives of the prefill and of a
+    decode step."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import spmd
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    launches = lambda: {fn.__name__: fn.launches for fn in ops.KERNELS}
+    cfg, steps = serve_case_cfg(case)
+    cache_len = GRID_SERVE_PROMPT + GRID_SERVE_GEN
+    params = spmd.init_params(cfg, layout, torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    batch = {k: v[rows.to(dev)] for k, v in serve_prompts(cfg, dev).items()}
+    prefill = spmd.make_prefill_step(cfg, layout, cache_len)
+    decode = spmd.make_decode_step(cfg, layout, cache_len + cfg.num_prefix_tokens)
+    res = {"coord": (layout.grid.d, layout.grid.k), "rows": rows.tolist(),
+           "prefill_args": nbytes(tree_leaves(params)) + nbytes(batch.values())}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, _, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    res.update(prefill_s=time.perf_counter() - t0, prefill_stats=prefill.stats,
+               prefill_peak=torch.cuda.max_memory_allocated(), prefill_launches=launches(),
+               logits=[logits.float().cpu()], cache_bytes=spmd.cache_bytes(cache),
+               cache_closed=spmd.cache_block_bytes(cfg, layout, GRID_SERVE_BATCH,
+                                                   max(decode.plan["cache_len"], 1)))
+    # the decode's arguments: the reference's also hold the int32 position
+    # where its step reads it (not an ssm model's)
+    res["decode_args"] = nbytes(tree_leaves(params)) + res["cache_bytes"] + \
+        nbytes([feed[0][rows]]) + (4 if cfg.family != "ssm" else 0)
+    del logits
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    pos, times = GRID_SERVE_PROMPT + cfg.num_prefix_tokens, []
+    for i in range(steps):
+        tok = feed[i][rows].to(dev)
+        t0 = time.perf_counter()
+        logits, _, cache = decode(params, cache, tok, pos + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        res["logits"].append(logits.float().cpu())
+    res.update(decode_s=times, decode_stats=decode.stats,
+               decode_peak=torch.cuda.max_memory_allocated(), decode_launches=launches())
+    return res
+
+
+def grid_serve_checks(case, outs, want):
+    """Phase 42's checks of one case (every rank's result in ``outs``)
+    against the single device's (``want``): the failed ones, and the
+    worst logits reading of each call (rel L2, max abs)."""
+    label, _, _, _, dtype, per_prefill, per_decode, _ = case
+    cfg, steps = serve_case_cfg(case)
+    failed, worst = [], [(0.0, 0.0)] * (steps + 1)
+    for o in outs:
+        got = o[label]
+        if got["cache_bytes"] != got["cache_closed"]:
+            failed.append(f"rank {got['coord']}'s cache bytes the closed form")
+        for i, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+            b = b[got["rows"]]
+            rel = float((a - b).norm() / b.norm())
+            mx = float((a - b).abs().max())
+            worst[i] = (max(worst[i][0], rel), max(worst[i][1], mx))
+            limit = want["limits"][i]
+            if not bool(a.isfinite().all()) or not rel <= limit:
+                failed.append(f"rank {got['coord']}'s "
+                              + ("prefill" if i == 0 else f"decode step {i - 1}")
+                              + f" logits within rel L2 {limit:.0e}")
+        for name, n in per_prefill.items():
+            if got["prefill_launches"][name] != n:
+                failed.append(f"{name} launched {got['prefill_launches'][name]} times in a "
+                              f"prefill on rank {got['coord']}, not {n}")
+        for name, n in per_decode.items():
+            if got["decode_launches"][name] != n * steps:
+                failed.append(f"{name} launched {got['decode_launches'][name]} times in "
+                              f"{steps} decode steps on rank {got['coord']}, not {n} a step")
+    return failed, worst
+
+
+def serve_report(case, outs, want, worst, smi):
+    """Phase 42's readings of one case, beside the card's name and limit."""
+    label, arch, layers, full, dtype, per_prefill, per_decode, held = case
+    log(f"  42 {label}: {arch} at full width, {layers} of {full} layers, {dtype}; a member "
+        f"holds {held}; cache bytes by rank "
+        + ", ".join(f"{o[label]['cache_bytes'] / 2**20:.2f}" for o in outs)
+        + " MiB = the rules' blocks' closed form, exactly")
+    log(f"  42 {label}: logits against the single device{want['how']}, worst over the "
+        "ranks: " + "; ".join(
+            ("prefill" if i == 0 else f"step {i - 1}") + f" rel L2 {r:.3e} (limit "
+            f"{lim:.2e}; max abs {m:.3e})"
+            for i, ((r, m), lim) in enumerate(zip(worst, want["limits"]))))
+    log(f"  42 {label}: launches a rank: " + ", ".join(
+        f"{k} {outs[0][label]['prefill_launches'][k]} a prefill" for k in per_prefill)
+        + "".join(f", {k} {outs[0][label]['decode_launches'][k]} in "
+                  f"{len(outs[0][label]['decode_s'])} decode steps" for k in per_decode))
+    log(f"  42 {label} [{smi}]: prefill by rank "
+        + ", ".join(f"{o[label]['prefill_s'] * 1e3:.1f}" for o in outs)
+        + f" ms (the single device {want['prefill_s'] * 1e3:.1f} ms); decode p50 by rank "
+        + ", ".join(f"{steady(o[label]['decode_s']) * 1e3:.1f}" for o in outs)
+        + f" ms (the single device {steady(want['decode_s']) * 1e3:.1f} ms); peak memory by "
+        "rank, prefill " + ", ".join(f"{o[label]['prefill_peak'] / 2**30:.3f}" for o in outs)
+        + ", decode " + ", ".join(f"{o[label]['decode_peak'] / 2**30:.3f}" for o in outs)
+        + " GiB")
+    for what in ("prefill", "decode"):
+        log(f"  42 {label} [{smi}]: rank 0's collectives a {what} call: "
+            + collectives_line([outs[0][label][f"{what}_stats"]]))
+
+
+def serve_reference(case):
+    """The single device's run of a ``GRID_SERVE`` case and its limits on
+    each call's logits (rel L2): fp32 ``GRID_SERVE_FP32_RTOL``; bf16 phase
+    5's, or for an ssm model the larger of it and ``E2E_SPREAD`` x the
+    single device's own spread fed the same tokens: at SSD chunk / 2 and /
+    4 (phase 14's), and in fp32 (how far bf16's roundings move the logits,
+    phases 37-40's); a moe model's routing recorded for the ranks to
+    replay (phase 22's)."""
+    cfg, steps = serve_case_cfg(case)
+    routes = [] if cfg.family == "moe" else None
+    want = single_serve(case, routes=routes)
+    want["routes"] = [r.cpu() for r in routes] if routes else []
+    base = GRID_SERVE_FP32_RTOL if case[4] == "float32" else E2E_REL_L2
+    want["limits"], want["how"] = [base] * (steps + 1), ""
+    if routes:
+        want["how"] = " (its routing replayed)"
+    if cfg.family == "ssm" and case[4] == "bfloat16":
+        others = {f"SSD chunk / {d}": dict(ssm_chunk=cfg.ssm_chunk // d)
+                  for d in TRAIN_BF16_CHUNK_DIVISORS}
+        others["fp32"] = dict(dtype="float32")
+        spreads = {}
+        for what, fields in others.items():
+            other = single_serve(case, feed=want["feed"], **fields)
+            spreads[what] = [float((a - b).norm() / b.norm())
+                             for a, b in zip(other["logits"], want["logits"])]
+        want["limits"] = [max([base] + [E2E_SPREAD * x[i] for x in spreads.values()])
+                          for i in range(steps + 1)]
+        want["how"] = " (its own spread by call, " + "; ".join(
+            f"{what}: " + ", ".join(f"{x:.3e}" for x in xs)
+            for what, xs in spreads.items()) + ")"
+    return want
+
+
+def grid_serve_run(cases, fault=None, name="grid_serve"):
+    """The single device's serve runs of ``cases`` (made once in the
+    process) and the grid's, in one call of four ranks (the phase's
+    ``rank_pool``, or a spawn of its own)."""
+    want = {}
+    for case in cases:
+        key = ("serve",) + tuple(case[:5])
+        if key not in _SINGLE:
+            _SINGLE[key] = serve_reference(case)
+        want[case[0]] = _SINGLE[key]
+    feeds = {label: w["feed"] for label, w in want.items()}
+    routes = {label: w["routes"] for label, w in want.items() if w["routes"]}
+    t0 = time.perf_counter()
+    outs = spawn_ranks(_grid_serve_rank, 4, (cases, feeds, routes, fault),
+                       workdir=os.path.join(ROOT, "build", "chip_smoke", name), timeout=900)
+    return want, outs, time.perf_counter() - t0
+
+
+def phase_grid_serve(smi):
+    """Phase 42: every ``GRID_SERVE`` case held to the single device.
+    Returns the launches of the bf16 cases (the main path)."""
+    want, outs, wall = grid_serve_run(GRID_SERVE)
+    failed, launches = [], {}
+    for case in GRID_SERVE:
+        bad, worst = grid_serve_checks(case, outs, want[case[0]])
+        serve_report(case, outs, want[case[0]], worst, smi)
+        failed += [f"42 {case[0]}: {b}" for b in bad]
+        if case[4] == "bfloat16":
+            for o in outs:
+                for key in ("prefill_launches", "decode_launches"):
+                    for k, v in o[case[0]][key].items():
+                        launches[k] = launches.get(k, 0) + v
+        _SERVE_RUNS[case[0]] = [o[case[0]] for o in outs]
+    log(f"  42: four ranks, one call: {wall:.1f} s of wall time")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
+
+def serve_estimate_cases():
+    """Phase 41 (e)'s estimates: each bf16 case of 42, its prefill and a
+    decode step, as ``dryrun.estimate_serve`` takes them."""
+    out = []
+    for case in GRID_SERVE:
+        if case[4] != "bfloat16":
+            continue
+        cfg, _ = serve_case_cfg(case)
+        cache_len = GRID_SERVE_PROMPT + GRID_SERVE_GEN
+        out.append((case[0], case[1], case[2], case[4], "prefill", GRID_SERVE_PROMPT,
+                    cache_len))
+        out.append((case[0], case[1], case[2], case[4], "decode",
+                    cache_len + cfg.num_prefix_tokens, None))
+    return out
+
+
+def hold_serve_estimate(label, kind, est, got, smi):
+    """41 (e) for one call of a 42 case: the estimate's argument bytes and
+    collectives' bytes and calls against rank 0's, exactly, and its peak
+    within ``PEAK_BAND`` of each rank's.  Returns the failed checks."""
+    from repro_torch.launch import dryrun
+    if "error" in est:
+        return [f"41 (e) {label} {kind}: the estimate failed: "
+                f"{est['error'].strip().splitlines()[-1]}"]
+    failed = []
+    if est["argument_bytes"] != got[0][f"{kind}_args"]:
+        failed.append(f"41 (e) {label} {kind}: rank 0's arguments {got[0][f'{kind}_args']} "
+                      f"bytes, the estimate {est['argument_bytes']}")
+    measured = dryrun.collectives(got[0][f"{kind}_stats"])
+    if measured != est["collectives"]:
+        failed.append(f"41 (e) {label} {kind}: rank 0's collectives {measured}, the "
+                      f"estimate {est['collectives']}")
+    ratios = [est["peak_bytes"] / g[f"{kind}_peak"] for g in got]
+    if not all(PEAK_BAND[0] <= x <= PEAK_BAND[1] for x in ratios):
+        failed.append(f"41 (e) {label} {kind}: the estimated peak over the measured ones "
+                      f"{', '.join(f'{x:.3f}' for x in ratios)}, outside {PEAK_BAND}")
+    coll = "; ".join(f"{axis} " + ", ".join(
+        f"{kind_} {v['bytes'] / 2**20:.1f} MiB in {v['calls']}" for kind_, v in kinds.items())
+        for axis, kinds in est["collectives"].items())
+    log(f"  41 (e) 42 {label} {kind} [{smi}]: arguments {est['argument_bytes'] / 2**20:.1f} "
+        f"MiB, rank 0's collectives {coll}: "
+        + ("the estimate's, exactly" if not failed else "see below")
+        + f"; peak: estimate {est['peak_bytes'] / 2**30:.3f} GiB, measured by rank "
+        + ", ".join(f"{g[f'{kind}_peak'] / 2**30:.3f}" for g in got) + " GiB (ratios "
+        + ", ".join(f"{x:.3f}" for x in ratios) + f"); {est['flops'] / 1e9:.1f} GFLOP, "
+        f"{est['bytes'] / 1e9:.2f} GB of operand traffic; {est['host_s']:.1f} s on the host")
+    return failed
+
+
+def phase_serve_estimates(smi):
+    """41 (e): the serve estimates of 42 (a)-(d) held to the ranks'."""
+    est = _ESTIMATOR.result()
+    failed = []
+    for label, _, _, _, kind, _, _ in serve_estimate_cases():
+        failed += hold_serve_estimate(label, kind, est[f"42 {label} {kind}"],
+                                      _SERVE_RUNS[label], smi)
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def phase_serve_faults(smi):
+    """``--grid-faults``' controls of phase 42's checks: case (a) (the
+    cache sharded over its sequence) without a fault and with each serve
+    fault of ``GRID_FAULTS`` planted in the ranks.  Returns the failures:
+    the run without a fault refused, or a faulty run passing every check."""
+    case = GRID_SERVE[0]
+    bad = []
+    for fault in [None] + [f for f, (_, phases) in GRID_FAULTS.items() if "42" in phases]:
+        want, outs, wall = grid_serve_run([case], fault)
+        failed, worst = grid_serve_checks(case, outs, want[case[0]])
+        what = "no fault" if fault is None else f"{fault} ({GRID_FAULTS[fault][0]})"
+        log(f"  42 {case[0]}, {what} [{smi}]: logits rel L2 (worst over the ranks) "
+            + ", ".join(f"{r:.3e}" for r, _ in worst) + " (limits " + ", ".join(
+                f"{x:.2e}" for x in want[case[0]]["limits"]) + f"); {wall:.1f} s")
+        log(f"  42 {case[0]}, {fault or 'no fault'}: refused by: "
+            f"{'; '.join(failed) or 'nothing'}")
+        if (fault is None) == bool(failed):
+            bad.append(f"42 {fault or 'without a fault'}: "
+                       + ("refused" if failed else "passes every check"))
+    return bad
+
+
 def phase_transports():
     """``--transports``: phase 16 (a)'s qwen1.5-0.5b plan under 1f1b with
     one card a rank, through NCCL (traced: the tracer's object gather on
@@ -4433,7 +5030,10 @@ def main() -> int:
             log("== 16 (a) by transport: qwen1.5-0.5b 3 / 5, 1f1b, one card a rank")
             phase_transports()
         else:
-            phase_grid_faults(smi)
+            try:
+                phase_grid_faults(smi)
+            finally:
+                close_pools()
         print(smi_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4445,6 +5045,7 @@ def main() -> int:
     try:
         return main_phases(smi)
     finally:
+        close_pools()
         _ESTIMATOR.close()
 
 
@@ -4510,7 +5111,7 @@ def main_phases(smi) -> int:
 
     log("== 16. HeteroPP on one card: 2 ranks, --p2p host; qwen1.5-0.5b 3 / 5 "
         "(1f1b, zb_v), mamba2-780m 6 / 10, parity at 4 layers")
-    with rank_pool(2, "pipeline"):
+    with rank_pool(2):
         pipeline_launches, qwen_1f1b_per_step = phase_pipeline()
     for name in ("flash_attention", "ssd_scan"):
         launches[name] += pipeline_launches[name]
@@ -4518,19 +5119,19 @@ def main_phases(smi) -> int:
     log(f"== 17. HeteroPP tp and dp on one card: 4 ranks, --p2p host; qwen1.5-0.5b 3 / 5 "
         f"x tp {GRID_TP}, qwen1.5-0.5b 8 layers dp {GRID_DP} ZeRO-1, mamba2-780m 8 layers dp "
         f"{GRID_DP} bucketed psum, parity at 4 layers")
-    with rank_pool(4, "grid"):
+    with rank_pool(4):
         grid_launches = phase_grid(qwen_1f1b_per_step)
     for name in ("flash_attention", "ssd_scan"):
         launches[name] += grid_launches[name]
 
     log("== 18. HeteroPP grouped tp on one card: 3 ranks, --p2p host; qwen1.5-0.5b "
         "5 / 3 at tp (2, 1) (sr_ag, naive) and (1, 2), parity at 4 layers")
-    with rank_pool(3, "hetero"):
+    with rank_pool(3):
         hetero_launches = phase_hetero()
         phase_hetero_parity()
     log(f"== 19. HeteroPP uneven batch domain {DOMAIN} on one card: 4 ranks, --p2p host; "
         f"mamba2-780m 8 layers dp 2 x pipe 2 in each dp sync mode, parity at 4 layers")
-    with rank_pool(4, "domain"):
+    with rank_pool(4):
         domain_launches = phase_domain()
         phase_domain_parity()
     for name in ("flash_attention", "ssd_scan"):
@@ -4556,7 +5157,7 @@ def main_phases(smi) -> int:
 
     log("== 24. HeteroPP with moe stages on one card: 2 ranks, --p2p host; qwen3-moe "
         f"{MOE_PP_LAYERS} layers 1 / 1 (1f1b, traced), parity at 2 layers")
-    with rank_pool(2, "moe_pipeline"):
+    with rank_pool(2):
         moe_pipeline_launches = phase_moe_pipeline()
         phase_moe_pipeline_parity()
     for name in ("flash_attention", "flash_decode", "rmsnorm"):
@@ -4600,23 +5201,31 @@ def main_phases(smi) -> int:
     for name, n in phase_precision_model().items():
         launches[name] += n
 
-    with rank_pool(4, "gspmd"):
+    with rank_pool(4):
         for name, n in phase_gspmd(smi).items():
             launches[name] += n
-    arch, layers, grid_args, args = GSPMD_SSM
-    log(f"== 36. the (data, model) grid, model axis 1: {arch} at full size, "
-        f"{' '.join(grid_args)}, {' '.join(args)}, 2 ranks sharing the card")
-    with rank_pool(2, "gspmd_ssm"):
+    arch, layers, full, grid_args, args = GSPMD_SSM
+    log(f"== 36. the (data, model) grid, model axis 1: {arch} at full width, {layers} of "
+        f"{full} layers, {' '.join(grid_args)}, {' '.join(args)}, 2 ranks sharing the card")
+    with rank_pool(2):
         for name, n in phase_gspmd_ssm(smi).items():
             launches[name] += n
-    with rank_pool(4, "gspmd_families"):
+    with rank_pool(4):
         for name, n in phase_gspmd_families(smi).items():
             launches[name] += n
 
-    log("== 41. the dry-run against the card: the estimates of phases 33-40 (made on the "
-        "host beside them) and remat_policy dots on qwen1.5-0.5b, b2 x S1024")
-    for name, n in phase_dryrun(smi).items():
-        launches[name] += n
+        log("== 41. the dry-run against the card: the estimates of phases 33-40 (made on "
+            "the host beside them) and remat_policy dots on qwen1.5-0.5b, b2 x S1024")
+        for name, n in phase_dryrun(smi).items():
+            launches[name] += n
+
+        log(f"== 42. the grid's serve steps: data 2 x model 2 on 4 ranks sharing the card, "
+            f"--p2p host; b{GRID_SERVE_BATCH} x {GRID_SERVE_PROMPT} + {GRID_SERVE_GEN}: "
+            + "; ".join(f"{c[0]} {c[1]} {c[2]} layers" for c in GRID_SERVE))
+        for name, n in phase_grid_serve(smi).items():
+            launches[name] += n
+    log("== 41 (e). the serve estimates of 42 (a)-(d), made on the host, against the ranks")
+    phase_serve_estimates(smi)
 
     log("== done")
     kernels = []

@@ -42,3 +42,12 @@ def train_state_from_numpy(params, opt_state, step, device):
     from .training.train_step import train_state_from
     return train_state_from(params_from_numpy(params, device),
                             params_from_numpy(opt_state, device), int(step))
+
+
+def cache_blocks_from_numpy(tree: PyTree, layout, specs, device) -> PyTree:
+    """A JAX serve cache as numpy (``jax.tree.map(np.asarray, cache)``)
+    cut into one rank's blocks under the copied cache rules
+    (``sharding.spmd.cache_specs``: a flat dict of specs by path), as the
+    grid's serve steps hold it, so that a test compares blocks."""
+    from .sharding import spmd
+    return spmd.tree_blocks(params_from_numpy(tree, device), layout, specs)

@@ -221,12 +221,14 @@ def measure_layer_profile(cfg: ModelConfig, seq_len: int, *, iters: int = 3,
     timed without it), so that a stall of the host does not count: one
     block forward (``t_fwd``, also ``t_recomp``); forward plus the
     gradient with respect to the block's parameters and its input
-    (``t_bwd``, as the reference's ``jax.grad`` of both); forward plus
-    the gradient with respect to the input alone, its calls alternating
-    with ``t_bwd``'s; ``t_wgrad``, the median of the differences of those
-    pairs, clamped at 0, and ``t_dgrad = t_bwd − t_wgrad`` (the reference
-    takes ``t_wgrad = max(t_bwd − t_dgrad, 0)`` from two means); and
-    ``wgrad_frac`` clamped to [0.05, 0.95], as in the reference.
+    (``t_bwd``, as the reference's ``jax.grad`` of both); ``t_wgrad``,
+    the median over ``iters`` pairs of the full backward's time less the
+    input-only backward's, both run on one retained graph, the pair's
+    order alternating and each timed on the device's clock where there is
+    one, clamped at 0; ``t_dgrad = t_bwd − t_wgrad`` (the reference
+    takes ``t_wgrad = max(t_bwd − t_dgrad, 0)`` from two means of forward
+    plus backward); and ``wgrad_frac`` clamped to [0.05, 0.95], as in the
+    reference.
     Then attention, rmsnorm and (ssm/hybrid configs) the SSD scan alone
     at ``seq_len``, and one single-token decode step of the whole model
     against a cache of ``min(max(seq_len, 32), 1024)`` slots
@@ -276,23 +278,47 @@ def measure_layer_profile(cfg: ModelConfig, seq_len: int, *, iters: int = 3,
     def grad(p, x, wrt):
         return torch.autograd.grad(block(p, x).float().sum(), wrt)
 
+    def span(fn, *args):
+        # one call's time on the device's own clock where it has one: the
+        # host's clock adds the jitter of a shared CPU to the difference
+        if dev.type != "cuda":
+            return once(fn, *args)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        devices.synchronize(dev)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
     t_fwd = timed(fwd, blk, x)
     pg = tree_map(lambda t: t.detach().requires_grad_(), blk)
     xg = x.detach().requires_grad_()
     full = tree_leaves(pg) + [xg]
-    once(grad, pg, xg, full)                      # warm
-    once(grad, blk, xg, [xg])
-    # wgrad time is the FULL backward minus the dgrad-only pass.  The two
-    # passes alternate and the median is taken of each pair's difference,
-    # so that a stall of the host or a drift of the clock falls on both
-    # passes of a pair; a host-bound block's wgrad is a few percent of
-    # its backward, and the difference of two medians is noisier than
-    # that.  Clamped, as noise can still push it slightly past either end
-    samples = [(once(grad, pg, xg, full), once(grad, blk, xg, [xg]))
-               for _ in range(iters)]
-    t_bwd = statistics.median(b for b, _ in samples)
-    t_wgrad = max(statistics.median(b - d for b, d in samples), 0.0)
+    t_bwd = timed(grad, pg, xg, full)
+    # wgrad time is the FULL backward minus the dgrad-only one, both run
+    # on one retained graph: the forward, the same in both, stays out of
+    # the difference, and the dgrad-only backward skips the weights'
+    # products (autograd computes only what its inputs need).  A block's
+    # wgrad is a few percent of its backward (a moe block's ~3%), below the
+    # spread of two whole steps, so the median is taken of each pair's
+    # difference, the pair's order alternating so that neither pass always
+    # runs first.  Clamped, as noise can still push it past either end
+    y = block(pg, xg).float().sum()
+    back = lambda wrt: torch.autograd.grad(y, wrt, retain_graph=True)
+    back(full), back([xg])                        # warm
+    diffs = []
+    for i in range(iters):
+        if i % 2:
+            d = span(back, [xg])
+            b = span(back, full)
+        else:
+            b = span(back, full)
+            d = span(back, [xg])
+        diffs.append(b - d)
+    t_wgrad = max(statistics.median(diffs), 0.0)
     t_dgrad = t_bwd - t_wgrad
+    del y, back
     frac = t_wgrad / t_bwd if t_bwd > 0 else 0.5
 
     prof = {"t_fwd": t_fwd, "t_bwd": t_bwd, "t_recomp": t_fwd,

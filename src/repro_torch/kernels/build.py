@@ -32,7 +32,7 @@ ENTRY_POINTS = {
     "flash_attention": ("repro_flash_attention",
                         (P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P)),
     "flash_decode": ("repro_flash_decode",
-                     (P, P, P, P, P, I, I, I, I, I, I, LL, I, I, F, I, P)),
+                     (P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, I, I, I, F, I, P)),
     "ssd_scan": ("repro_ssd_scan",
                  (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL,
                   LL, I, P)),

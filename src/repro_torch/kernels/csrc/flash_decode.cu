@@ -12,6 +12,13 @@
 // ref.decode_slot_positions / decode_valid, so no bias row is built or read.
 // Any S works: the last page is ragged and masked here, so the TPU
 // wrapper's padding of S to whole pages and of G to MIN_GROUP are gone.
+// k/v may also be a block of a longer cache, one model member's slots of
+// a cache sharded over its sequence: slot0 is the whole cache's index of
+// the block's first slot and `total` the whole cache's length, so the
+// page skip and the mask read whole-cache slots, and the combine can
+// write each head's log-sum-exp M + log(den) (-inf, with an output of 0,
+// where the block holds no live slot), from which the members' partial
+// softmaxes are combined.
 //
 // What bounds it on the card: memory.  A call must read the live part of
 // K and V, 2*B*KV*S*hd*2 bytes in bf16: about 8.9 MB at B=4, KV=8, S=544,
@@ -128,6 +135,7 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) {
 // (negative: never written).  ref.decode_slot_positions / decode_valid.
 __device__ __forceinline__ bool slot_valid(long long i, long long pos, int S,
                                            int window, int ring) {
+  // i: the whole cache's slot; S: the whole cache's length
   long long kp = i;
   if (ring) {
     long long r = (pos - i) % S;     // floored, as Python's %
@@ -161,8 +169,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 decode_split(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, float* __restrict__ part, int G, int S,
-             int n_split, long long pos, int window, int ring, float scale,
-             float softcap) {
+             int n_split, long long pos, long long slot0, int total, int window,
+             int ring, float scale, float softcap) {
   using P = Split<T, HD>;
   using Raw = typename Vec<T>::Raw;
   constexpr int VEC = P::VEC, NV = P::NV, SUBS = P::SUBS, JV = P::JV;
@@ -199,7 +207,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
     const int p0 = pg * PAGE, n = min(PAGE, S - p0);
     // a page whose every slot is masked contributes nothing: skip it (the
     // barrier also retires the previous page's readers of p_s and a_s)
-    const bool live = tid < n && slot_valid(p0 + tid, pos, S, window, ring);
+    const bool live = tid < n && slot_valid(slot0 + p0 + tid, pos, total, window, ring);
     if (!__syncthreads_or(live)) continue;
 
     // every K and V load of the page in flight at once, into registers:
@@ -227,7 +235,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // scores of slot j for the heads g = tid / PAGE, + THREADS / PAGE, ...
-    const bool ok = j < n && slot_valid(p0 + j, pos, S, window, ring);
+    const bool ok = j < n && slot_valid(slot0 + p0 + j, pos, total, window, ring);
     for (int g = tid / PAGE; g < G; g += THREADS / PAGE) {
       const float4* qg = reinterpret_cast<const float4*>(q_s + g * HD);
       float dot0 = 0.f, dot1 = 0.f;
@@ -326,11 +334,12 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// One block of HD threads per (batch row, query head).
+// One block of HD threads per (batch row, query head); lse, where given,
+// gets the head's log-sum-exp.
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD)
-decode_combine(const float* __restrict__ part, T* __restrict__ out, int G,
-               int n_split) {
+decode_combine(const float* __restrict__ part, T* __restrict__ out,
+               float* __restrict__ lse, int G, int n_split) {
   const int bkv = blockIdx.x / G, g = blockIdx.x % G, d = threadIdx.x;
   const long long step = (long long)G * (HD + 2);
   const float* p = part + (long long)bkv * n_split * step + g * (HD + 2);
@@ -347,12 +356,15 @@ decode_combine(const float* __restrict__ part, T* __restrict__ out, int G,
     }
   }
   out[(long long)blockIdx.x * HD + d] = from_f<T>(num / fmaxf(den, 1e-20f));
+  if (lse != nullptr && d == 0)
+    lse[blockIdx.x] = M > -INFINITY ? M + logf(den) : -INFINITY;
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* part, void* out,
-           int B, int KV, int G, int S, int n_split, long long pos, int window,
-           int ring, float softcap, cudaStream_t stream) {
+           void* lse, int B, int KV, int G, int S, int n_split, long long pos,
+           long long slot0, int total, int window, int ring, float softcap,
+           cudaStream_t stream) {
   using P = Split<T, HD>;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16)
@@ -366,29 +378,30 @@ int launch(const void* q, const void* k, const void* v, void* part, void* out,
   decode_split<T, HD><<<dim3(B * KV, n_split), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(part), G, S, n_split, pos,
-      window, ring, 1.0f / sqrtf((float)HD), softcap);
+      slot0, total, window, ring, 1.0f / sqrtf((float)HD), softcap);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_combine<T, HD><<<B * KV * G, HD, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<T*>(out), G, n_split);
+      static_cast<const float*>(part), static_cast<T*>(out),
+      static_cast<float*>(lse), G, n_split);
   return (int)cudaGetLastError();
 }
 
 // The head dim's instantiation, for elements of type T.
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* part,
-              void* out, int B, int KV, int G, int S, int hd, int n_split,
-              long long pos, int window, int ring, float softcap,
-              cudaStream_t s) {
+              void* out, void* lse, int B, int KV, int G, int S, int hd,
+              int n_split, long long pos, long long slot0, int total, int window,
+              int ring, float softcap, cudaStream_t s) {
   switch (hd) {
     case 64:
-      return launch<T, 64>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
+      return launch<T, 64>(q, k, v, part, out, lse, B, KV, G, S, n_split, pos, slot0, total, window, ring, softcap, s);
     case 80:
-      return launch<T, 80>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
+      return launch<T, 80>(q, k, v, part, out, lse, B, KV, G, S, n_split, pos, slot0, total, window, ring, softcap, s);
     case 128:
-      return launch<T, 128>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
+      return launch<T, 128>(q, k, v, part, out, lse, B, KV, G, S, n_split, pos, slot0, total, window, ring, softcap, s);
     case 256:
-      return launch<T, 256>(q, k, v, part, out, B, KV, G, S, n_split, pos, window, ring, softcap, s);
+      return launch<T, 256>(q, k, v, part, out, lse, B, KV, G, S, n_split, pos, slot0, total, window, ring, softcap, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -397,25 +410,29 @@ int launch_hd(const void* q, const void* k, const void* v, void* part,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  part: fp32 scratch of
-// B * KV * n_split * G * (hd + 2) floats.  ring: 0 linear cache, 1 ring
+// B * KV * n_split * G * (hd + 2) floats.  lse: null, or B * KV * G fp32
+// log-sum-exps.  k/v hold S slots from slot0 of a cache of `total` slots
+// (slot0 0, total S: the whole cache).  ring: 0 linear cache, 1 ring
 // buffer.  hd 64, 80, 128 or 256; G * hd above 2048 is refused (paligemma's
 // G 8 at hd 256 is exactly 2048).  Launches both passes; returns a
 // cudaError_t (0 = launched).
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
-                                  void* part, void* out, int B, int KV, int G,
-                                  int S, int hd, int n_split, long long pos,
+                                  void* part, void* out, void* lse, int B,
+                                  int KV, int G, int S, int hd, int n_split,
+                                  long long pos, long long slot0, int total,
                                   int window, int ring, float softcap,
                                   int dtype, void* stream) {
-  if (B <= 0 || KV <= 0 || G <= 0 || S <= 0 || n_split <= 0 || G * hd > 2048)
+  if (B <= 0 || KV <= 0 || G <= 0 || S <= 0 || n_split <= 0 || G * hd > 2048 ||
+      slot0 < 0 || slot0 + S > total)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_hd<float>(q, k, v, part, out, B, KV, G, S, hd, n_split, pos, window, ring, softcap, s);
+      return launch_hd<float>(q, k, v, part, out, lse, B, KV, G, S, hd, n_split, pos, slot0, total, window, ring, softcap, s);
     case 1:
-      return launch_hd<__nv_bfloat16>(q, k, v, part, out, B, KV, G, S, hd, n_split, pos, window, ring, softcap, s);
+      return launch_hd<__nv_bfloat16>(q, k, v, part, out, lse, B, KV, G, S, hd, n_split, pos, slot0, total, window, ring, softcap, s);
     case 2:
-      return launch_hd<__half>(q, k, v, part, out, B, KV, G, S, hd, n_split, pos, window, ring, softcap, s);
+      return launch_hd<__half>(q, k, v, part, out, lse, B, KV, G, S, hd, n_split, pos, slot0, total, window, ring, softcap, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

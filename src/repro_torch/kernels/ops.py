@@ -236,7 +236,8 @@ def _sm_count(device_index):
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def flash_decode(q, k, v, pos, *, window=0, softcap=0.0, ring=False):
+def flash_decode(q, k, v, pos, *, window=0, softcap=0.0, ring=False, slot0=0,
+                 cache_len=None, return_lse=False):
     """Single-token decode attention against the resident KV cache.
 
     q: (B, 1, H, hd) or (B, H, hd) — the current token's query heads;
@@ -245,7 +246,16 @@ def flash_decode(q, k, v, pos, *, window=0, softcap=0.0, ring=False):
     ``ring=True`` applies the ring-buffer slot → position mapping.  The
     kernel computes the mask from (pos, S, window, ring) itself and runs
     split over the cache (``decode_splits``) with a combine pass; its
-    fp32 partials go to a scratch tensor.  Returns (B, H, hd)."""
+    fp32 partials go to a scratch tensor.  Returns (B, H, hd).
+
+    k/v may be a block of a longer cache (one model member's slots of a
+    cache sharded over its sequence): ``slot0`` is the whole cache's
+    index of the block's first slot and ``cache_len`` the whole cache's
+    length (by default S), so the ring map and the mask are computed on
+    the whole cache's slots (``ref.decode_valid``).  ``return_lse`` also
+    returns the fp32 log-sum-exp of the kept scores, (B, H): -inf, with
+    an output of 0, where the block holds no live slot
+    (``ref.decode_attention_ref``)."""
     if q.dim() == 4:
         q = q[:, 0]
     B, H, hd = q.shape
@@ -255,9 +265,14 @@ def flash_decode(q, k, v, pos, *, window=0, softcap=0.0, ring=False):
     KV, S = k.shape[1], k.shape[2]
     if H % KV:
         raise ValueError(f"flash_decode: {H} heads over {KV} kv heads")
+    total = S if cache_len is None else int(cache_len)
+    if slot0 < 0 or slot0 + S > total:
+        raise ValueError(f"flash_decode: a block of {S} slots at {slot0} of a "
+                         f"{total}-slot cache")
+    kw = dict(window=window, softcap=softcap, ring=ring)
     if q.device.type == "cpu":
-        return _ref.decode_attention_ref(q, k, v, pos, window=window,
-                                         softcap=softcap, ring=ring)
+        return _ref.decode_attention_ref(q, k, v, pos, slot0=slot0, cache_len=total,
+                                         return_lse=return_lse, **kw)
     G = H // KV
     q = q.contiguous()
     _check("flash_decode", (q, k, v))
@@ -268,17 +283,19 @@ def flash_decode(q, k, v, pos, *, window=0, softcap=0.0, ring=False):
     part = torch.empty((B * KV, n_split, G, hd + 2), dtype=torch.float32,
                        device=q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     if estimate:
-        live = int(_ref.decode_valid(pos, S, window=window, ring=ring).sum())
+        live = int(_ref.decode_valid(pos, total, window=window, ring=ring, slot0=slot0,
+                                     n=S).sum())
         _ESTIMATE("flash_decode", *_cost.flash_decode_cost(B, KV, G, hd, live,
                                                            q.element_size()))
-        return out
+        return (out, lse) if return_lse else out
     _launch("flash_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            part.data_ptr(), out.data_ptr(), B, KV, G, S, hd, n_split,
-            int(pos), int(window), int(bool(ring)), float(softcap or 0.0),
-            DTYPE_CODES[q.dtype], _stream())
+            part.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+            B, KV, G, S, hd, n_split, int(pos), int(slot0), total, int(window),
+            int(bool(ring)), float(softcap or 0.0), DTYPE_CODES[q.dtype], _stream())
     flash_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_decode.launches = 0

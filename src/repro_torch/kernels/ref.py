@@ -56,7 +56,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0,
                          q_offset=q_offset, prefix_len=prefix_len)
 
 
-def decode_slot_positions(pos, cache_len, *, ring=False, device=None):
+def decode_slot_positions(pos, cache_len, *, ring=False, device=None, slot0=0,
+                          n=None):
     """Position held by each cache slot at decode step ``pos``.
 
     Linear cache: slot i holds position i.  Ring cache (sliding-window
@@ -64,28 +65,43 @@ def decode_slot_positions(pos, cache_len, *, ring=False, device=None):
     slots not yet written come out negative and must be masked.  Shared
     by the einsum decode path, the flash_decode wrapper and this oracle,
     so the three can never disagree on ring semantics.  (``torch``'s
-    ``%`` floors like Python's and ``jnp``'s.)"""
-    idx = torch.arange(cache_len, dtype=torch.int64, device=device)
+    ``%`` floors like Python's and ``jnp``'s.)  ``slot0`` and ``n`` (by
+    default all ``cache_len`` slots) ask for the slots ``slot0`` …
+    ``slot0 + n - 1`` of the whole cache only: a block of a cache sharded
+    over its sequence."""
+    n = cache_len - slot0 if n is None else n
+    idx = torch.arange(slot0, slot0 + n, dtype=torch.int64, device=device)
     if ring:
         return pos - ((pos - idx) % cache_len)
     return idx
 
 
-def decode_valid(pos, cache_len, *, window=0, ring=False, device=None):
-    """(S,) bool: cache slots the query at ``pos`` may attend to."""
-    k_pos = decode_slot_positions(pos, cache_len, ring=ring, device=device)
+def decode_valid(pos, cache_len, *, window=0, ring=False, device=None, slot0=0,
+                 n=None):
+    """(n,) bool: cache slots ``slot0`` … the query at ``pos`` may attend
+    to (every slot of the cache by default)."""
+    k_pos = decode_slot_positions(pos, cache_len, ring=ring, device=device, slot0=slot0,
+                                  n=n)
     valid = (k_pos >= 0) & (k_pos <= pos)
     if window:
         valid = valid & (k_pos > pos - window)
     return valid
 
 
-def decode_attention_ref(q, k, v, pos, *, window=0, softcap=0.0,
-                         ring=False):
+def decode_attention_ref(q, k, v, pos, *, window=0, softcap=0.0, ring=False,
+                         slot0=0, cache_len=None, return_lse=False):
     """Single-query decode attention (the ``flash_decode`` ground truth).
     q: (B, H, hd) — ONE query token per sequence; k/v: (B, KV, S, hd)
     cache layout (kv head i serves q heads [i·G, (i+1)·G)); pos: int
-    position of the query token.  Returns (B, H, hd)."""
+    position of the query token.  Returns (B, H, hd).
+
+    ``k``/``v`` may be a block of a cache of ``cache_len`` slots (by
+    default S) whose first slot is the whole cache's ``slot0``: the ring
+    map and the mask are then those of the whole cache's slots.  With
+    ``return_lse`` it also returns the fp32 log-sum-exp of the kept
+    scores, (B, H), -inf (and an output of 0) where the block holds no
+    slot the query may attend to; the partials of the blocks of one cache
+    combine into its attention as Σ e^lse_k out_k / Σ e^lse_k."""
     B, H, hd = q.shape
     KV, S = k.shape[1], k.shape[2]
     rep = H // KV
@@ -95,11 +111,17 @@ def decode_attention_ref(q, k, v, pos, *, window=0, softcap=0.0,
     s = torch.einsum("bhd,bhsd->bhs", q.float(), kk) * scale
     if softcap:
         s = torch.tanh(s / softcap) * softcap
-    valid = decode_valid(pos, S, window=window, ring=ring, device=q.device)
+    valid = decode_valid(pos, S if cache_len is None else cache_len, window=window,
+                         ring=ring, device=q.device, slot0=slot0, n=S)
     s = torch.where(valid[None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhs,bhsd->bhd", p, vv)
-    return out.to(q.dtype)
+    if not return_lse:
+        return out.to(q.dtype)
+    live = bool(valid.any())
+    lse = torch.logsumexp(s, dim=-1) if live else torch.full(
+        (B, H), float("-inf"), device=q.device)
+    return (out if live else torch.zeros_like(out)).to(q.dtype), lse
 
 
 def ssd_ref(x, dt, A, Bm, Cm, initial_state=None):

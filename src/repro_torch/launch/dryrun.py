@@ -1,6 +1,6 @@
 """The meta-device dry-run: what one rank of a production mesh holds and
-does in a train step, estimated without a card (the counterpart of
-``repro/launch/dryrun.py``).
+does in a train step, a prefill or a decode step, estimated without a
+card (the counterpart of ``repro/launch/dryrun.py``).
 
     python -m repro_torch.launch.dryrun --arch all --shape train_4k --both-meshes
 
@@ -30,9 +30,22 @@ to ``--out``:
   replicated over the model axis, not GSPMD's sequence-parallel
   activations.
 
+The serve shapes (``prefill_32k``, ``decode_32k``, ``long_500k``) run
+the grid's serve steps (``spmd.make_prefill_step`` /
+``make_decode_step``) once the same way (:func:`estimate_serve`): the
+rank's blocks of the weights (FSDP, as the reference's
+``tree_param_shardings``), its rows of the prompts or of the decode
+tokens, and for decode its block of ``abstract_serve_cache`` under
+``rules.cache_shardings`` at the shape's last position.  Their record
+has ``argument_bytes`` (weights, cache, tokens and the reference's int32
+position), ``cache_bytes`` beside ``cache_block_bytes``, the closed
+form (equal, or the combination fails), the step's peak, FLOPs,
+HBM-proxy bytes and collectives.
+
 A combination is ``ok``, ``refused`` (with the reason: a grid
-``spmd.check_grid`` refuses, naming the count; a serve shape, which
-needs the sharded serve step, ROADMAP A16c) or ``failed`` (with the
+``spmd.check_grid`` refuses, naming the count; a decode the cache plan
+refuses, full attention at 500k, as the reference skips it; a hybrid or
+audio model on the grid's serve, ROADMAP A16d) or ``failed`` (with the
 traceback); the process exits non-zero only on ``failed``.  The
 reference's environment knobs are flags: ``--cfg-set``, ``--accum``,
 ``--accum-dtype``, ``--dp-mode`` and ``--remat-policy``.  The numbers
@@ -56,6 +69,8 @@ from ..configs import ASSIGNED, canonical, get_config
 from ..models.config import ModelConfig
 from ..sharding import rules, spmd
 from ..training import manual_dp
+from ..models import model as M
+from ..training.serve_step import abstract_serve_cache
 from ..training.train_step import abstract_train_state, make_train_step, train_state_from
 from ..tree import tree_leaves
 from . import shapes as SH
@@ -64,8 +79,6 @@ from .meta_analysis import MetaAnalysis
 
 ACTIVATIONS = ("the port's: whole rows of the rank's batch, replicated over the model "
                "axis (not GSPMD's sequence-parallel activations)")
-SERVE_REFUSAL = ("{shape}: the port's grid trains but does not serve; the sharded "
-                 "prefill and decode steps and their cache layout are ROADMAP A16c")
 DP_MODES = ("gspmd", "manual")
 REMAT = {"full": None, "dots": "dots"}
 KINDS = ("gather", "scatter", "reduce")
@@ -209,6 +222,59 @@ def estimate(cfg: ModelConfig, mesh: Mesh, shape: SH.InputShape, *,
     return rec
 
 
+def estimate_serve(cfg: ModelConfig, mesh: Mesh, shape: SH.InputShape, *,
+                   rank: Tuple[int, int] = (0, 0), backend: str = "auto",
+                   cache_len: Optional[int] = None) -> Dict[str, object]:
+    """One prefill (``shape.kind`` ``"prefill"``: the prompts of
+    ``shape.seq_len`` into a cache of as many slots, or of ``cache_len``
+    where given, a vlm model's prefix besides) or decode step (the token at the shape's last position
+    against ``abstract_serve_cache``) of ``cfg`` as rank ``rank`` of
+    ``mesh`` on the meta device: the record's numbers (see the module's
+    docstring).  Raises what the steps raise (``spmd.check_serve``'s
+    refusals, the cache plan's)."""
+    layout = standin_layout(mesh, rank)
+    spmd.check_serve(cfg, layout.model)
+    B = shape.global_batch
+    params = spmd.tree_blocks(M.abstract_params(cfg), layout, spmd.param_specs(cfg, mesh))
+    rows = len(spmd.local_rows(B, layout, serving=True))
+    if shape.kind == "prefill":
+        cache_len = shape.seq_len if cache_len is None else cache_len
+        step = spmd.make_prefill_step(cfg, layout, cache_len, backend=backend)
+        inputs = {k: v.new_empty((rows, *v.shape[1:]))
+                  for k, v in SH.input_specs(cfg, shape).items()}
+        args, cache = (params, inputs), None
+        closed = spmd.cache_block_bytes(cfg, layout, B, cache_len + cfg.num_prefix_tokens)
+    else:
+        step = spmd.make_decode_step(cfg, layout, shape.seq_len, backend=backend)
+        specs = spmd.cache_specs(cfg, mesh, B, shape.seq_len)
+        cache = spmd.tree_blocks(abstract_serve_cache(cfg, B, shape.seq_len), layout, specs)
+        tokens = SH.decode_specs(cfg, shape)["tokens"]
+        inputs = {"tokens": tokens.new_empty((rows, 1))}
+        args = (params, cache, inputs["tokens"], shape.seq_len - 1)
+        closed = spmd.cache_block_bytes(cfg, layout, B, max(step.plan["cache_len"], 1))
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    batch_bytes = sum(t.numel() * t.element_size() for t in inputs.values())
+    mode = MetaAnalysis()
+    t0 = time.perf_counter()
+    with mode:
+        mode.track(tree_leaves(params) + list(inputs.values())
+                   + (tree_leaves(cache) if cache is not None else []))
+        _, _, out = step(*args)
+    wall = time.perf_counter() - t0
+    cache_bytes = spmd.cache_bytes(out)
+    # the reference's decode also takes the position, an int32 scalar, which
+    # its compiled step keeps where it reads it (an ssm model's does not)
+    pos_bytes = 4 if shape.kind == "decode" and cfg.family != "ssm" else 0
+    return {"rank": list(rank), "n_devices": mesh.size, "accum": 1, "kind": shape.kind,
+            "argument_bytes": param_bytes + batch_bytes + pos_bytes
+            + (cache_bytes if cache is not None else 0),
+            "param_bytes": param_bytes, "batch_bytes": batch_bytes,
+            "cache_bytes": cache_bytes, "cache_block_bytes": closed,
+            **mode.report(), "collectives": collectives(step.stats),
+            "collective_total": sum(step.stats[f"{a}_{k}_bytes"] for a in AXES for k in KINDS),
+            "step_s": wall, "activations": ACTIVATIONS}
+
+
 def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
                out_dir: Optional[str] = None, *, mesh: Optional[Mesh] = None,
                cfg: Optional[ModelConfig] = None, shape: Optional[SH.InputShape] = None,
@@ -231,7 +297,17 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
         cfg = apply_overrides(cfg or get_config(arch), cfg_set)
         shape = shape or SH.SHAPES[shape_name]
         if shape.kind != "train":
-            rec.update(status="refused", reason=SERVE_REFUSAL.format(shape=shape_name))
+            try:
+                rec.update(estimate_serve(cfg, mesh, shape, rank=rank))
+            except (ValueError, NotImplementedError) as e:
+                if not any(w in str(e) for w in ("does not divide", "out of scope", "A16d")):
+                    raise
+                rec.update(status="refused", reason=str(e))
+            else:
+                rec["status"] = "ok"
+                if rec["cache_bytes"] != rec["cache_block_bytes"]:
+                    raise AssertionError(f"cache bytes {rec['cache_bytes']} are not the "
+                                         f"rules' blocks {rec['cache_block_bytes']}")
         else:
             n = adaptive_accum(cfg, shape, mesh, accum)
             try:
@@ -268,24 +344,26 @@ def table_row(rec) -> str:
     if rec["status"] != "ok":
         why = rec.get("reason") or rec.get("error", "").strip().splitlines()[-1:]
         return (f"| {rec['arch']} | {rec['mesh']} | {rec['remat_policy']} | "
-                f"{rec['status']}: {why} |" + " |" * 7)
+                f"{rec['status']}: {why} |" + " |" * 7 + f" {rec['shape']} |")
     coll = rec["collectives"]
     by_axis = " / ".join(_gib(sum(coll[a][k]["bytes"] for k in KINDS)) for a in AXES)
     fits = "yes" if rec["peak_bytes"] <= H100_BYTES else "no"
     return (f"| {rec['arch']} | {rec['mesh']} | {rec['remat_policy']} | ok | "
             f"{rec['accum']} | {_gib(rec['argument_bytes'])} | {_gib(rec['peak_bytes'])} | "
-            f"{rec['flops'] / 1e12:.1f} | {rec['bytes'] / 1e12:.2f} | {by_axis} | {fits} |")
+            f"{rec['flops'] / 1e12:.4g} | {rec['bytes'] / 1e12:.4g} | {by_axis} | {fits} | "
+            f"{rec['shape']} |")
 
 
 TABLE_HEAD = ("| arch | mesh | remat | status | accum | argument GiB | peak GiB | TFLOP | "
-              "HBM-proxy TB | collective GiB data / model / world | fits 80 GB |\n"
-              "|---|---|---|---|---|---|---|---|---|---|---|")
+              "HBM-proxy TB | collective GiB data / model / world | fits 80 GB | shape |\n"
+              "|---|---|---|---|---|---|---|---|---|---|---|---|")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="all", help="arch id or 'all' (the assigned archs)")
-    ap.add_argument("--shape", default="all", help="input shape name or 'all'")
+    ap.add_argument("--shape", default="all",
+                    help="input shape name, a comma list of them, or 'all'")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default="artifacts/dryrun_torch")
@@ -304,7 +382,7 @@ def main(argv=None) -> int:
     torch.set_num_threads(min(torch.get_num_threads(), 4))
 
     archs = ASSIGNED if args.arch == "all" else [canonical(args.arch)]
-    shape_names = list(SH.SHAPES) if args.shape == "all" else [args.shape]
+    shape_names = list(SH.SHAPES) if args.shape == "all" else args.shape.split(",")
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     rank = tuple(int(x) for x in args.rank.split(","))
     counts = {"ok": 0, "refused": 0, "failed": 0}

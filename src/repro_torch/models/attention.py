@@ -161,12 +161,16 @@ def self_attention(params, cfg, x, *, positions=None, causal=True,
                    prefix_len=0, rope=True, window=None, backend="auto",
                    kv_cache=None):
     """``kv_cache``: a layer's {"k", "v"} cache to fill with this call's
-    K/V from slot 0 (prefill), so K/V are projected once per layer."""
+    K/V from slot 0 (prefill), so K/V are projected once per layer; or a
+    callable given (k, v) (B, S, KV, hd) that writes them itself (a
+    model member's block of a sharded cache, ``sharding.spmd``)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, cfg, x, positions, rope=rope)
-    if kv_cache is not None:
+    if callable(kv_cache):
+        kv_cache(k, v)
+    elif kv_cache is not None:
         prefill_into_cache(kv_cache, k, v)
     win = cfg.sliding_window if window is None else window
     out = attend(q, k, v, q_pos=positions, k_pos=positions, causal=causal,
@@ -219,13 +223,7 @@ def decode_self_attention(params, cfg, x, cache, pos, *, ring=False,
     hd = cfg.head_dim
     pos = int(pos)
     S_cache = cache["k"].shape[2]
-    if ring:
-        slot = pos % S_cache
-    elif not 0 <= pos < S_cache:
-        raise ValueError(f"decode position {pos} outside a linear cache of "
-                         f"{S_cache} slots")
-    else:
-        slot = pos
+    slot = _cache_slot(pos, S_cache, ring)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, cfg, x, positions, rope=rope)
     cache["k"][:, :, slot] = k[:, 0]
@@ -255,6 +253,80 @@ def decode_self_attention(params, cfg, x, cache, pos, *, ring=False,
     out = torch.einsum("bhqs,bhsd->bqhd", probs, vv)
     out = out.reshape(B, 1, cfg.num_heads * hd) @ params["wo"]
     return out, cache
+
+
+def _cache_slot(pos: int, cache_len: int, ring: bool) -> int:
+    """The cache slot of position ``pos``; past the last slot of a linear
+    cache this raises."""
+    if ring:
+        return pos % cache_len
+    if not 0 <= pos < cache_len:
+        raise ValueError(f"decode position {pos} outside a linear cache of "
+                         f"{cache_len} slots")
+    return pos
+
+
+def every_kv_head(t, gather_heads, num_kv_heads):
+    """Every kv head of a model member's ``t`` (B, S, KV_m, hd): the model
+    group's all-gather along the heads, each kv head taken once where
+    several members hold it (fewer kv heads than members)."""
+    if t.shape[2] == num_kv_heads:
+        return t
+    full = gather_heads(t)
+    return full[:, :, ::full.shape[2] // num_kv_heads]
+
+
+def write_block(cache, k, v, slot0: int, cache_len: int):
+    """Prefill of a block of a cache sharded over its sequence: of the
+    prompt's K/V (B, S, KV, hd), at slots 0 … S-1 of a whole cache of
+    ``cache_len`` slots, the rows that fall in the block's slots
+    ``slot0`` … written in place."""
+    S, n = k.shape[1], cache["k"].shape[2]
+    if S > cache_len:
+        raise ValueError(f"prefill of {S} positions overflows a cache of "
+                         f"{cache_len} slots")
+    hi = min(slot0 + n, S)
+    if hi > slot0:
+        cache["k"][:, :, :hi - slot0] = k[:, slot0:hi].transpose(1, 2)
+        cache["v"][:, :, :hi - slot0] = v[:, slot0:hi].transpose(1, 2)
+    return cache
+
+
+def decode_on_block(params, cfg, lcfg, x, cache, pos, *, slot0, cache_len, heads,
+                    gather_heads, combine=None, ring=False, rope=True, window=0):
+    """One model member's share of a decode step where its cache block
+    holds every kv head: a cache sharded over its sequence (the block's
+    slots ``slot0`` … of a whole cache of ``cache_len``), or the whole
+    cache on every member.  ``params`` are the member's Megatron shards
+    (``lcfg``'s heads; ``heads`` = (first, n) of the whole model's query
+    heads).  Every head's query and the new token's every kv head reach
+    the member (``gather_heads``, the model group's all-gather along the
+    heads); only the member whose block holds the token's slot writes it.
+    ``flash_decode`` then runs every head over the block on the whole
+    cache's slots, and ``combine(out, lse)`` (sequence-sharded) merges the
+    members' partial softmaxes.  Returns (the member's heads' output
+    through its ``wo`` rows, (B, 1, d): a part of the model group's sum,
+    cache)."""
+    B = x.shape[0]
+    pos = int(pos)
+    slot = _cache_slot(pos, cache_len, ring)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, lcfg, x, positions, rope=rope)
+    q = gather_heads(q)                                           # (B, 1, H, hd)
+    k = every_kv_head(k, gather_heads, cfg.num_kv_heads)
+    v = every_kv_head(v, gather_heads, cfg.num_kv_heads)
+    if slot0 <= slot < slot0 + cache["k"].shape[2]:
+        cache["k"][:, :, slot - slot0] = k[:, 0]
+        cache["v"][:, :, slot - slot0] = v[:, 0]
+    out = kops.flash_decode(q[:, 0], cache["k"], cache["v"], pos, window=window,
+                            softcap=cfg.attn_logit_softcap or 0.0, ring=ring,
+                            slot0=slot0, cache_len=cache_len,
+                            return_lse=combine is not None)
+    if combine is not None:
+        out = combine(*out)
+    first, n = heads
+    out = out[:, first:first + n].reshape(B, 1, n * cfg.head_dim)
+    return out @ params["wo"], cache
 
 
 # ---------------------------------------------------------------------------

@@ -343,10 +343,17 @@ def init_cache(cfg, batch: int, cache_len: int, *, device, ring: bool = False):
     return kv
 
 
-def _prefill_ssm(blocks, cfg, x, cache, backend):
+def _prefill_ssm(blocks, cfg, x, cache, backend, gather=None):
     """Each layer's mamba2 forward; its cache gets the final ssm state and
-    the last W-1 positions of the conv input (before the conv)."""
+    the last W-1 positions of the conv input (before the conv).  With a
+    sharded step's ``gather``, the rank's share of each layer
+    (``gather.prefill_ssm``) on its gathered leaves fills its cache
+    blocks."""
     for i, p in enumerate(tfm.unstack(blocks)):
+        if gather is not None:
+            x = gather.prefill_ssm(gather(p, "blocks"), cfg, x, tfm.layer(cache, i),
+                                   backend=backend)
+            continue
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
         y, final, conv_tail = ssm_lib.mamba2_forward(p["ssm"], cfg, h,
                                                      backend=backend)
@@ -357,7 +364,7 @@ def _prefill_ssm(blocks, cfg, x, cache, backend):
 
 
 def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache_len: int, *,
-            ring: bool = False, backend: str = "auto"):
+            ring: bool = False, backend: str = "auto", gather=None):
     """Run the prompt through the model, filling caches.
 
     Returns (cache, logits of the last position (B, V), prompt_len): a
@@ -365,15 +372,24 @@ def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache_len: int, *,
     cache needs ``cache_len`` >= P + S.
     For ring caches the prompt must fit in the window (serving code feeds
     the window tail only) — standard SWA semantics.
+
+    With a sharded serve step's ``gather`` (``sharding.spmd``; dense,
+    moe, ssm and vlm) the parameters are one rank's blocks, gathered as
+    ``forward`` gathers them, and the cache is the rank's block of the
+    whole cache (``gather.init_cache``), which each layer's share fills.
     """
     tokens = batch["tokens"]
     B = tokens.shape[0]
-    cache = init_cache(cfg, B, cache_len, device=tokens.device)
+    if gather is not None:
+        params = _gathered(params, gather)
+        cache = gather.init_cache(B, cache_len, device=tokens.device)
+    else:
+        cache = init_cache(cfg, B, cache_len, device=tokens.device)
     x, prefix_len = _embed_inputs(params, cfg, batch)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     if cfg.family == "ssm":
-        x = _prefill_ssm(params["blocks"], cfg, x, cache, backend)
+        x = _prefill_ssm(params["blocks"], cfg, x, cache, backend, gather)
     elif cfg.family == "audio":
         enc = _encode(params, cfg, batch["audio_embeds"], x.dtype, remat=False,
                       backend=backend)
@@ -392,21 +408,25 @@ def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache_len: int, *,
     else:
         x, _ = tfm.run_stacked(params["blocks"], cfg, x, cfg.block_kind,
                                positions=positions, prefix_len=prefix_len,
-                               backend=backend, caches=cache)
+                               backend=backend, caches=cache, gather=gather)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     logits = layers.unembed(params["embed"], x[:, -1:])[:, 0]
     return cache, logits, S
 
 
 def decode_step(params, cfg, tokens, cache, pos: int, *, ring: bool = False,
-                window: int = 0, backend: str = "auto"):
+                window: int = 0, backend: str = "auto", gather=None):
     """One decode step.  tokens: (B, 1) int; pos: int position of this
     token.  ``backend`` routes the per-layer attention to the
     ``flash_decode`` kernel (``"kernel"``, or ``"auto"`` on the card) or
     the einsum cache path; ssm layers take the recurrent update; an audio
     model's cross-attention runs ``attend`` non-causal at Sq = 1 against
     the cross cache (``flash_attention`` on the card).  The cache is
-    updated in place.  Returns (logits (B, V), cache)."""
+    updated in place.  Returns (logits (B, V), cache).  ``gather`` as
+    :func:`prefill`'s: the parameters and the cache are one rank's
+    blocks, each layer's leaves gathered for it and freed after it."""
+    if gather is not None:
+        params = _gathered(params, gather)
     x = layers.embed_tokens(params["embed"], tokens)
     kw = dict(ring=ring, window=window, backend=backend)
     if cfg.family == "audio":
@@ -426,7 +446,7 @@ def decode_step(params, cfg, tokens, cache, pos: int, *, ring: bool = False,
                                     **kw)
     else:
         x, cache = tfm.run_stacked_decode(params["blocks"], cfg, x, cache, pos,
-                                          cfg.block_kind, **kw)
+                                          cfg.block_kind, gather=gather, **kw)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     logits = layers.unembed(params["embed"], x)[:, 0]
     return logits, cache

@@ -237,17 +237,33 @@ def init_ssm_cache(cfg, batch, dtype, *, device, stack=()):
     }
 
 
-def mamba2_decode_step(params, cfg, u, cache):
+def mamba2_decode_step(params, cfg, u, cache, *, mean_sq=None, gather_x=None):
     """u: (B, 1, d); cache: {conv, state} -> (y (B,1,d), new cache).  The
-    new cache holds new tensors, as in JAX (the conv window shifts)."""
+    new cache holds new tensors, as in JAX (the conv window shifts).
+
+    As in :func:`mamba2_forward`, ``params`` may be one model member's
+    heads, with ``mean_sq`` the gated norm's mean of squares over every
+    member's channels; its state is then the member's heads' block.  The
+    conv cache stays every channel's on every member: ``gather_x(x)``
+    returns every member's x channels of the new token in order (the
+    model group's all-gather) and the member's first one, so each member
+    shifts the same whole window and convolves its own channels of it."""
     B = u.shape[0]
-    dinner, nh, hp = cfg.ssm_dinner, cfg.ssm_nheads, cfg.ssm_headdim
-    ng, st = cfg.ssm_ngroups, cfg.ssm_state
+    nh, hp = params["A_log"].shape[-1], cfg.ssm_headdim
+    dinner, ng, st = nh * hp, cfg.ssm_ngroups, cfg.ssm_state
     zxbcdt = u[:, 0] @ params["in_proj"]                       # (B, in_dim)
     z, x, Bm, Cm, dt = _split_in_proj(cfg, zxbcdt, nh)
-    xBC = torch.cat([x, Bm, Cm], dim=-1)                       # (B, conv_dim)
-    window = torch.cat([cache["conv"], xBC[:, None]], dim=1)   # (B, W, conv)
-    conv_out = torch.sum(window * params["conv_w"][None], dim=1) + params["conv_b"]
+    if gather_x is None:
+        xBC = torch.cat([x, Bm, Cm], dim=-1)                   # (B, conv_dim)
+        window = torch.cat([cache["conv"], xBC[:, None]], dim=1)   # (B, W, conv)
+        mine = window
+    else:
+        x_all, first = gather_x(x)
+        window = torch.cat([cache["conv"], torch.cat([x_all, Bm, Cm], dim=-1)[:, None]],
+                           dim=1)
+        mine = torch.cat([window[..., first:first + dinner],
+                          window[..., x_all.shape[-1]:]], dim=-1)
+    conv_out = torch.sum(mine * params["conv_w"][None], dim=1) + params["conv_b"]
     xBC = F.silu(conv_out)
     new_conv = window[:, 1:]
 
@@ -263,6 +279,6 @@ def mamba2_decode_step(params, cfg, u, cache):
     y, new_state = ssd_recurrent_step(cache["state"], xh, dt, A, Bg, Cg)
     y = y + xh.float() * params["D"][None, :, None]
     y = y.reshape(B, dinner).to(u.dtype)
-    y = layers.apply_norm(params["norm"], y * F.silu(z), "rmsnorm")
+    y = _gated_norm(params["norm"], y * F.silu(z), mean_sq)
     out = (y @ params["out_proj"])[:, None]
     return out, {"conv": new_conv, "state": new_state}

@@ -172,7 +172,9 @@ def run_stacked(blocks: PyTree, cfg, x, kind: str, *, remat=False, remat_policy=
     (:func:`rematted`), which returns its metrics beside x.  With a
     sharded step's ``gather`` the blocks are
     one rank's (``where`` their path in the params): each layer runs
-    ``gather.block`` on ``gather(layer, where)``, inside its checkpoint."""
+    ``gather.block`` on ``gather(layer, where)``, inside its checkpoint;
+    ``caches`` are then the rank's blocks, which ``gather.cache_writer``
+    fills."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(unstack(blocks)):
         kv = layer(caches, i) if caches is not None else None
@@ -180,8 +182,9 @@ def run_stacked(blocks: PyTree, cfg, x, kind: str, *, remat=False, remat_policy=
             fn = lambda x, p=p, kv=kv: block_forward(
                 p, cfg, x, kind, backend=backend, kv_cache=kv, **fwd_kw)
         else:
-            fn = lambda x, p=p: gather.block(gather(p, where), cfg, x, kind,
-                                             backend=backend, **fwd_kw)
+            kw = fwd_kw if kv is None else dict(fwd_kw, kv_cache=gather.cache_writer(kv))
+            fn = lambda x, p=p, kw=kw: gather.block(gather(p, where), cfg, x, kind,
+                                                    backend=backend, **kw)
         x, m = rematted(fn, x, policy=remat_policy) if remat else fn(x)
         if m:
             aux = aux + (m["moe_aux_loss"] + m["moe_z_loss"])
@@ -215,16 +218,24 @@ def block_decode(p, cfg, x, cache, pos, kind: str, *, ring=False, window=0,
 
 
 def run_stacked_decode(blocks, cfg, x, caches, pos, kind: str, *, ring=False,
-                       window=0, enc_kv=None, backend="auto"):
+                       window=0, enc_kv=None, backend="auto", gather=None):
     """Loop over (stacked blocks, stacked caches); each layer's cache is
     written back into the stack in place.  ``enc_kv``: the stacked cross
-    K/V pair, (L, B, Se, KV, hd) each, read layer by layer."""
+    K/V pair, (L, B, Se, KV, hd) each, read layer by layer.  With a
+    sharded step's ``gather`` the blocks and caches are one rank's: each
+    layer's leaves are gathered (``gather(layer, "blocks")``), run as the
+    rank's share of the block (``gather.block_decode``) and freed."""
     for i in range(depth(blocks)):
         c = layer(caches, i)
         ekv = None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i])
-        x, new = block_decode(layer(blocks, i), cfg, x, c, pos, kind,
-                              ring=ring, window=window, enc_kv=ekv,
-                              backend=backend)
+        if gather is not None:
+            x, new = gather.block_decode(gather(layer(blocks, i), "blocks"), cfg, x, c,
+                                         pos, kind, ring=ring, window=window,
+                                         backend=backend)
+        else:
+            x, new = block_decode(layer(blocks, i), cfg, x, c, pos, kind,
+                                  ring=ring, window=window, enc_kv=ekv,
+                                  backend=backend)
         for key, t in new.items():
             if t is not c[key]:
                 c[key].copy_(t)

@@ -86,6 +86,22 @@ On a grid of counting stand-ins (``comm.p2p.Grid.standin``) the same
 step runs on meta tensors (:func:`abstract_state`, ``read_metrics``
 False) and counts each collective without moving it: the dry-run's
 estimate (``launch/dryrun.py``).
+
+**Serving.**  :func:`make_prefill_step` and :func:`make_decode_step` are
+the JAX dry-run's sharded serve steps (``repro/launch/dryrun.py:171-191``)
+on the same grid: the weights are the rank's blocks under the FSDP
+placement (:func:`param_specs`), gathered layer by layer as in training;
+a batch the data axes do not divide is replicated over them; and each
+rank holds exactly its block of the cache as ``rules.cache_shardings``
+places it (:class:`KVCut`): an attention cache's kv heads over the model
+axis (each member decodes its own heads' block), else its sequence (each
+member holds a slot range of every kv head, decodes every head over it
+with ``flash_decode``'s slot offset and log-sum-exp, and the members'
+partials are combined, :func:`combine_partials`), else the whole cache
+on every member; an ssm state's heads over the model axis, its conv
+window whole on every member (:class:`ServeGather`).  Hybrid and audio
+models, whose caches the rule places on the wrong dims, are refused by
+name (:func:`check_serve`).
 """
 from __future__ import annotations
 
@@ -101,6 +117,7 @@ from ..models import attention, layers, moe as moe_lib, ssm as ssm_lib, transfor
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optim import adamw
+from ..training.serve_step import abstract_serve_cache, cache_plan
 from ..training.train_step import TrainState, abstract_train_state, train_state_from
 from ..tree import flatten, tree_leaves
 from . import rules
@@ -510,16 +527,18 @@ def init_state(cfg: ModelConfig, layout: Layout, specs: TrainState,
     return train_state_from(params, {"master": master, "m": zeros(), "v": zeros()}, 0)
 
 
+def tree_blocks(tree: PyTree, layout: Layout, specs: Dict[str, Any]) -> PyTree:
+    """This rank's blocks of a whole tree (meta tensors too: the
+    dry-run's), ``specs`` a flat dict of specs by path."""
+    return _unflatten({p: layout.block(t, specs[p]) for p, t in sorted(flatten(tree).items())})
+
+
 def abstract_state(cfg: ModelConfig, layout: Layout, specs: TrainState) -> TrainState:
     """This rank's blocks of the state on the meta device, nothing drawn
     or allocated: ``abstract_train_state`` cut by ``specs`` as
     :func:`init_state` cuts the drawn one."""
     whole = abstract_train_state(cfg)
-
-    def cut(tree, spec):
-        sp = flatten(spec)
-        return _unflatten({p: layout.block(t, sp[p]) for p, t in sorted(flatten(tree).items())})
-
+    cut = lambda tree, spec: tree_blocks(tree, layout, flatten(spec))
     return train_state_from(cut(whole.params, specs.params),
                             {k: cut(whole.opt_state[k], specs.opt_state[k])
                              for k in ("master", "m", "v")}, 0)
@@ -577,16 +596,21 @@ def shard_state(read, layout: Layout, specs: TrainState, *, device) -> TrainStat
 # the batch
 # ---------------------------------------------------------------------------
 
-def local_rows(batch_size: int, layout: Layout, accum_steps: int = 1) -> torch.Tensor:
+def local_rows(batch_size: int, layout: Layout, accum_steps: int = 1, *,
+               serving: bool = False) -> torch.Tensor:
     """The global batch rows this rank takes, microbatch-major: of each of
     the ``accum_steps`` microbatches (consecutive row blocks, as the
     single device splits them), the block ``rules.batch_shardings`` gives
-    this rank's data index."""
+    this rank's data index.  ``serving``: a batch the rules do not split
+    over the data axes is replicated over them (every row on every rank),
+    as GSPMD replicates it; training refuses it."""
     if batch_size % accum_steps:
         raise ValueError(f"batch {batch_size} does not split into {accum_steps} "
                          f"microbatches")
     mb = batch_size // accum_steps
     spec = rules.batch_shardings(torch.empty((mb,), device="meta"), layout.mesh)
+    if serving and spec[0] is None:
+        return torch.arange(batch_size)
     if layout.data > 1 and layout.units(spec[0]) != ("data",):
         raise NotImplementedError(
             f"a microbatch of {mb} rows does not split over the data axes "
@@ -690,3 +714,295 @@ def make_train_step(cfg: ModelConfig, layout: Layout,
     train_step.stats = {}
     train_step.specs = specs
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# serving: the sharded prefill and decode steps
+# ---------------------------------------------------------------------------
+
+SERVE_FAMILIES = ("dense", "moe", "ssm", "vlm")
+SERVE_REFUSALS = {
+    "hybrid": "the copied cache rule puts its ssm conv cache's batch on the model axis "
+              "and replicates its state (the (G, per) stacking shifts the batch dim)",
+    "audio": "the copied cache rule puts its cross cache's encoder sequence on the "
+             "model axis",
+}
+
+
+def check_serve(cfg: ModelConfig, model: int) -> None:
+    """Refuse what the grid does not serve: the hybrid and audio families,
+    whose caches the copied rule places on the wrong dims (ROADMAP A16d),
+    and what :func:`check_grid` refuses."""
+    if cfg.family not in SERVE_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the grid serves the {SERVE_FAMILIES} families; for "
+            f"{cfg.family}, {SERVE_REFUSALS[cfg.family]}, which GSPMD reshards around "
+            f"(ROADMAP A16d)")
+    check_grid(cfg, model)
+
+
+def param_specs(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """The JAX dry-run's placement of the served weights, by path:
+    ``rules.tree_param_shardings`` (FSDP, so the weights are sharded over
+    the data axes in serving too)."""
+    return flatten(rules.tree_param_specs(M.abstract_params(cfg), mesh,
+                                          hybrid=cfg.family == "hybrid", fsdp=True))
+
+
+def init_params(cfg: ModelConfig, layout: Layout, generator: torch.Generator, *,
+                device) -> PyTree:
+    """This rank's blocks of the seeded single-device parameters
+    (``M.init_params(cfg, generator)``), each leaf cut as it is drawn."""
+    specs = param_specs(cfg, layout.mesh)
+    order = iter(_creation_order(cfg))
+    with layers.leaf_hook(lambda t: layout.block(t, specs[next(order)])):
+        return M.init_params(cfg, generator, device=device)
+
+
+def cache_specs(cfg: ModelConfig, mesh, batch: int, seq_len: int) -> Dict[str, Any]:
+    """The JAX dry-run's placement of the decode cache, by path:
+    ``rules.cache_shardings`` of ``abstract_serve_cache(cfg, batch,
+    seq_len)``."""
+    return flatten(rules.cache_shardings(abstract_serve_cache(cfg, batch, seq_len), mesh))
+
+
+def _whole_cache_specs(cfg, mesh, batch, cache_len):
+    """The rule's specs of a cache of ``cache_len`` slots (a prefill's)."""
+    whole = M.init_cache(cfg, batch, cache_len, device=torch.device("meta"))
+    return flatten(rules.cache_shardings(whole, mesh)), flatten(whole)
+
+
+def cache_block_bytes(cfg: ModelConfig, layout: Layout, batch: int, cache_len: int) -> int:
+    """The closed form of a rank's cache bytes: each leaf's bytes over the
+    number of blocks its spec makes."""
+    specs, whole = _whole_cache_specs(cfg, layout.mesh, batch, cache_len)
+    return sum(t.numel() * t.element_size() * layout.copies(specs[p])
+               // (layout.data * layout.model) for p, t in whole.items())
+
+
+def cache_bytes(cache: PyTree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+
+
+class KVCut:
+    """Where a rank's block of an attention cache (L, B, KV, S, hd) lies
+    under the rule's spec: ``mode`` ``"heads"`` (its members' kv heads,
+    every slot: the Megatron block's own), ``"seq"`` (every kv head,
+    slots ``slot0`` … ``slot0 + slots - 1`` of ``cache_len``) or
+    ``"whole"`` (every kv head and slot on every member).  A spec that
+    puts the model axis on the head dim is refused."""
+
+    def __init__(self, layout: Layout, spec, shape):
+        self.cache_len, self.slot0, self.slots, self.mode = shape[3], 0, shape[3], "whole"
+        for dim, start, w in layout.block_slices(spec, shape):
+            if "model" not in layout.units(spec[dim]):
+                continue
+            if dim == 2:
+                self.mode = "heads"
+            elif dim == 3:
+                self.mode, self.slot0, self.slots = "seq", start, w
+            else:
+                raise NotImplementedError(
+                    f"a cache of shape {tuple(shape)} sharded over its head dim "
+                    f"({spec!r}): the grid shards a cache's kv heads or its sequence")
+
+
+def combine_partials(out: torch.Tensor, lse: torch.Tensor, tp) -> torch.Tensor:
+    """Attention over a cache sharded over its sequence, from each model
+    member's partial over its block ``out`` (B, H, hd) and its fp32
+    log-sum-exp ``lse`` (B, H; -inf where the block holds no live slot):
+    Σ e^(lse_k - m) out_k / Σ e^(lse_k - m) over the members, through
+    one all-gather of the (B, H, hd + 1) partials over the model group."""
+    part = torch.cat([out.float(), lse[..., None]], dim=-1)[None]
+    every = _all_gather(tp, part, 0)                       # (M, B, H, hd + 1)
+    lses = every[..., -1]
+    m = lses.max(dim=0).values
+    w = torch.exp(lses - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    num = (w[..., None] * every[..., :-1]).sum(dim=0)
+    return (num / w.sum(dim=0)[..., None]).to(out.dtype)
+
+
+class ServeGather(Gather):
+    """:class:`Gather` for the serve steps: a rank's blocks of the served
+    weights gathered layer by layer as the train step gathers them, its
+    block of the cache (``rules.cache_shardings``; :class:`KVCut`), and
+    each block's member share at decode and at prefill:
+
+    - attention, kv-head-sharded cache: the Megatron block's decode on its
+      heads' block (``attention.decode_self_attention`` on ``lcfg``);
+    - attention, cache sharded over its sequence or whole on every member:
+      ``attention.decode_on_block``, every head over the block's slots,
+      the members' partials combined (:func:`combine_partials`) where the
+      sequence is sharded; at prefill each member writes every kv head's
+      rows of its slots (``attention.write_block``), the kv heads it does
+      not compute gathered over the model group;
+    - moe: the member's E / M experts on the replicated tokens;
+    - ssm: the member's heads and its heads' block of the state; the conv
+      cache is every channel's on every member, so the members' x
+      channels of it are gathered over the model group.
+
+    Each part of a block's output is summed over the model group before
+    its residual add, as in training."""
+
+    def __init__(self, cfg: ModelConfig, layout: Layout, specs, shapes, cache_len: int):
+        super().__init__(cfg, layout, specs, shapes)
+        self.cache_len = cache_len
+        self.cspecs, whole = _whole_cache_specs(cfg, layout.mesh, layout.data, cache_len)
+        self.kv = KVCut(layout, self.cspecs["k"], whole["k"].shape) \
+            if "k" in self.cspecs else None
+        M_, k = layout.model, layout.grid.k
+        self.heads = (k * cfg.num_heads // M_, cfg.num_heads // M_)
+
+    def init_cache(self, batch: int, cache_len: int, *, device) -> PyTree:
+        """Zeros of this rank's block of a cache for its ``batch`` rows."""
+        if cache_len != self.cache_len:
+            raise ValueError(f"a cache of {cache_len} slots for a step of {self.cache_len}")
+        whole = flatten(M.init_cache(self.cfg, batch, cache_len, device=torch.device("meta")))
+        out = {}
+        for path, t in whole.items():
+            spec = tuple(None if e is not None and "data" in self.layout.units(e) else e
+                         for e in self.cspecs[path])
+            shape = list(t.shape)
+            for dim, _, w in self.layout.block_slices(spec, shape):
+                shape[dim] = w
+            out[path] = torch.zeros(shape, dtype=t.dtype, device=device)
+        return _unflatten(out)
+
+    def _gather_heads(self, t):
+        return _all_gather(self.layout.grid.tp, t, 2)
+
+    def cache_writer(self, kv):
+        """What a layer's prefill writes its K/V with: its block of the
+        cache (``attention.prefill_into_cache``) where it holds its own
+        kv heads, else a writer of every kv head's rows of its slots."""
+        if self.kv.mode == "heads":
+            return kv
+        cfg, cut = self.cfg, self.kv
+
+        def write(k, v):
+            every = lambda t: attention.every_kv_head(t, self._gather_heads,
+                                                      cfg.num_kv_heads)
+            attention.write_block(kv, every(k), every(v), cut.slot0, cut.cache_len)
+
+        return write
+
+    def prefill_ssm(self, p, cfg, x, cache, *, backend="auto"):
+        """One ssm layer's prefill: its output, its final state (the
+        member's heads) and conv tail (every channel) written to ``cache``."""
+        h = layers.apply_norm(p["ln1"], x, cfg.norm)
+        if not self.tp:
+            y, final, tail = ssm_lib.mamba2_forward(p["ssm"], cfg, h, backend=backend)
+        else:
+            tp = self.layout.grid.tp
+            y, final, tail = ssm_lib.mamba2_forward(
+                p["ssm"], cfg, _TPCopy.apply(h, tp), backend=backend,
+                mean_sq=lambda xf: _norm_mean_sq(xf, tp))
+            y = _TPReduce.apply(y, tp)
+            ch = p["ssm"]["A_log"].shape[-1] * cfg.ssm_headdim
+            tail = torch.cat([_all_gather(tp, tail[..., :ch], 2), tail[..., ch:]], dim=-1)
+        cache["conv"].copy_(tail)
+        cache["state"].copy_(final)
+        return x + y
+
+    def _gather_x(self, x):
+        return _all_gather(self.layout.grid.tp, x, 1), self.layout.grid.k * x.shape[-1]
+
+    def block_decode(self, p, cfg, x, cache, pos, kind, *, ring=False, window=0,
+                     backend="auto"):
+        """The rank's share of one block for one token (``transformer.
+        block_decode``'s contract)."""
+        if not self.tp:
+            return tfm.block_decode(p, cfg, x, cache, pos, kind, ring=ring, window=window,
+                                    backend=backend)
+        tp = self.layout.grid.tp
+        total = lambda t: _TPReduce.apply(t, tp)
+        h = layers.apply_norm(p["ln1"], x, cfg.norm)
+        if kind == "ssm":
+            y, cache = ssm_lib.mamba2_decode_step(
+                p["ssm"], cfg, h, cache, mean_sq=lambda xf: _norm_mean_sq(xf, tp),
+                gather_x=self._gather_x)
+            return x + total(y), cache
+        kw = dict(ring=ring, rope=cfg.family != "audio", window=window)
+        if self.kv.mode == "heads":
+            a, cache = attention.decode_self_attention(p["attn"], self.lcfg, h, cache, pos,
+                                                       backend=backend, **kw)
+        else:
+            cut = self.kv
+            a, cache = attention.decode_on_block(
+                p["attn"], cfg, self.lcfg, h, cache, pos, slot0=cut.slot0,
+                cache_len=cut.cache_len, heads=self.heads, gather_heads=self._gather_heads,
+                combine=(lambda out, lse: combine_partials(out, lse, tp))
+                if cut.mode == "seq" else None, **kw)
+        x = x + total(a)
+        h = layers.apply_norm(p["ln2"], x, cfg.norm)
+        if kind == "moe":
+            y, _ = moe_lib.moe_block(p["moe"], cfg, h, experts=self.experts)
+            return x + _experts_sum(y, tp), cache
+        return x + total(layers.apply_mlp(p["mlp"], h, cfg.mlp)), cache
+
+
+def _serve_gather(cfg, layout, cache_len):
+    check_serve(cfg, layout.model)
+    specs = param_specs(cfg, layout.mesh)
+    shapes = {p: tuple(t.shape) for p, t in flatten(M.abstract_params(cfg)).items()}
+    return ServeGather(cfg, layout, specs, shapes, cache_len)
+
+
+def _next_token(logits):
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+
+def make_prefill_step(cfg: ModelConfig, layout: Layout, cache_len: int, *,
+                      backend: str = "auto"):
+    """``prefill_step(params, batch) -> (logits, next token, cache)`` on
+    this rank's blocks of the weights (:func:`init_params`) and its rows
+    of the prompts (``local_rows(..., serving=True)``): the JAX dry-run's
+    ``jit(make_prefill_step)`` with the weights and batch sharded
+    (``repro/launch/dryrun.py:176-181``).  The cache it returns is the
+    rank's block of the rules' placement of the whole cache of
+    ``cache_len`` + the prefix's slots, where the JAX prefill leaves its
+    output's layout to GSPMD.  ``prefill_step.stats`` holds the call's
+    collectives (:meth:`Layout.counts`)."""
+    eff = cache_len + cfg.num_prefix_tokens
+    gather = _serve_gather(cfg, layout, eff)
+
+    def prefill_step(params, batch):
+        layout.reset_counts()
+        with torch.no_grad():
+            cache, logits, _ = M.prefill(params, cfg, batch, eff, backend=backend,
+                                         gather=gather)
+        prefill_step.stats = layout.counts()
+        return logits, _next_token(logits), cache
+
+    prefill_step.stats = {}
+    prefill_step.specs = gather.specs
+    prefill_step.cache_specs = gather.cspecs
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, layout: Layout, seq_len: int, *,
+                     backend: str = "auto"):
+    """``decode_step(params, cache, tokens, pos) -> (logits, next token,
+    cache)`` on this rank's blocks of the weights and of the cache
+    (``rules.cache_shardings``, :func:`cache_specs`) and its rows of
+    ``tokens``: the JAX dry-run's ``jit(make_decode_step)`` with the cache
+    in and out under the rules, donated (``repro/launch/dryrun.py:
+    183-191``); the cache is updated in place.  ``decode_step.plan`` is
+    ``cache_plan(cfg, seq_len)``; ``.stats`` the call's collectives."""
+    plan = cache_plan(cfg, seq_len)
+    gather = _serve_gather(cfg, layout, max(plan["cache_len"], 1))
+
+    def decode_step(params, cache, tokens, pos):
+        layout.reset_counts()
+        with torch.no_grad():
+            logits, cache = M.decode_step(params, cfg, tokens, cache, pos,
+                                          ring=plan["ring"], window=plan["window"],
+                                          backend=backend, gather=gather)
+        decode_step.stats = layout.counts()
+        return logits, _next_token(logits), cache
+
+    decode_step.stats = {}
+    decode_step.plan = plan
+    decode_step.specs = gather.specs
+    decode_step.cache_specs = gather.cspecs
+    return decode_step

@@ -71,6 +71,19 @@ MEMORY_CASES = [("granite", "granite_8b", 2, 2, 1, "gspmd"),
                 ("mamba2", "mamba2_780m", 2, 2, 1, "gspmd"),
                 ("mamba2-zero1", "mamba2_780m", 2, 2, 1, "manual"),
                 ("whisper", "whisper_base", 2, 2, 1, "gspmd")]
+# (name, arch, config overrides, kind, batch, seq): the serve steps'
+# argument-bytes and FLOPs cases, each on the 2 x 2 mesh
+SERVE_CASES = [("granite-prefill", "granite_8b", {}, "prefill", 8, 32),
+               ("granite-decode", "granite_8b", {}, "decode", 8, 64),
+               ("granite-sequence-decode", "granite_8b", {"num_kv_heads": 1}, "decode", 8,
+                128),
+               ("paligemma-prefill", "paligemma_3b", {}, "prefill", 8, 64),
+               ("paligemma-decode", "paligemma_3b", {}, "decode", 8, 128),
+               ("qwen3-moe-prefill", "qwen3_moe_30b_a3b", {}, "prefill", 8, 32),
+               ("qwen3-moe-decode", "qwen3_moe_30b_a3b", {}, "decode", 8, 64),
+               ("mamba2-prefill", "mamba2_780m", {}, "prefill", 8, 32),
+               ("mamba2-decode", "mamba2_780m", {}, "decode", 8, 64),
+               ("granite-batch1-decode", "granite_8b", {}, "decode", 1, 64)]
 
 
 @pytest.fixture(autouse=True)
@@ -385,6 +398,10 @@ def test_kernels_on_meta_allocate_count_and_launch_nothing(monkeypatch):
 # the dry-run
 # ---------------------------------------------------------------------------
 
+def _serve_cfg(arch, over):
+    return dataclasses.replace(exact_cfg(arch), **over)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _jax_memory_run(tmp_path_factory):
     """The helper's subprocess, started with the module's first test so
@@ -393,6 +410,8 @@ def _jax_memory_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dryrun_memory")
     cases = [(name, dataclasses.asdict(exact_cfg(arch)), data, model, B, SEQ, accum, mode)
              for name, arch, data, model, accum, mode in MEMORY_CASES]
+    cases += [(name, dataclasses.asdict(_serve_cfg(arch, over)), 2, 2, batch, seq, 1, kind)
+              for name, arch, over, kind, batch, seq in SERVE_CASES]
     src, dst = tmp / "in.pkl", tmp / "out.pkl"
     with open(src, "wb") as f:
         pickle.dump(cases, f)
@@ -431,6 +450,67 @@ def test_argument_bytes_equal_jax_memory_analysis(jax_arguments, name):
         assert rec["optimizer_bytes"] == rec["optimizer_closed"]
 
 
+def _serve_estimate(name, backend="auto"):
+    _, arch, over, kind, batch, seq = next(c for c in SERVE_CASES if c[0] == name)
+    cfg = TConfig(**dataclasses.asdict(_serve_cfg(arch, over)))
+    return cfg, dryrun.estimate_serve(cfg, Mesh.of((2, 2), ("data", "model")),
+                                      TSH.InputShape(name, kind, seq, batch), backend=backend)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in SERVE_CASES])
+def test_serve_argument_bytes_equal_jax_memory_analysis(jax_arguments, name):
+    """Rank (0, 0)'s serve arguments (its blocks of the weights, of the
+    decode cache under ``rules.cache_shardings``, its rows of the prompts
+    or tokens, and the decode's int32 position where the step reads it)
+    equal JAX's per-device ``argument_size_in_bytes`` of the JAX
+    dry-run's prefill and donated decode step compiled on a 2 x 2 mesh;
+    the cache's bytes are its closed form."""
+    _, rec = _serve_estimate(name)
+    assert rec["argument_bytes"] == jax_arguments[name]
+    assert rec["cache_bytes"] == rec["cache_block_bytes"]
+
+
+def _structural_flops(cfg, name):
+    """The two products the port and the reference's GSPMD step do not
+    share, by their closed forms on the 2 x 2 mesh (rank (0, 0)'s rows):
+    (the port's extra unembedding: it gathers the embedding whole where
+    GSPMD shards the vocabulary over the model axis; the reference's
+    second K and V projection a layer for its cache, ``repro/models/
+    model.py:334`` beside ``block_forward``'s, which XLA keeps where the
+    rules shard the cache over its kv heads and merges where one kv head
+    is replicated, read from the compiled HLO's dots)."""
+    _, _, _, kind, batch, seq = next(c for c in SERVE_CASES if c[0] == name)
+    rows = batch // 2 if batch % 2 == 0 else batch     # a batch of one is replicated
+    unembed = 2 * rows * cfg.d_model * cfg.vocab_size // 2
+    twice = 0
+    if kind == "prefill" and cfg.family != "ssm" and cfg.num_kv_heads >= 2:
+        tokens = rows * (seq + cfg.num_prefix_tokens)
+        twice = cfg.num_layers * 2 * 2 * tokens * cfg.num_kv_heads * cfg.head_dim \
+            * cfg.d_model // 2
+    return unembed, twice
+
+
+@pytest.mark.parametrize("name", [c[0] for c in SERVE_CASES])
+def test_serve_flops_against_hlo_analysis(jax_arguments, name, capsys):
+    """A prefill's FLOPs on rank (0, 0) (the einsum paths) within 2% of
+    ``analyze_hlo`` of the JAX dry-run's step compiled on the 2 x 2 mesh,
+    once the two named products the steps do not share are taken into
+    account (:func:`_structural_flops`).  A decode step's are printed
+    beside it (the gaps, PERF.md §6: the unembedding, and where one kv
+    head or a row is replicated the products GSPMD splits over the
+    members where the port repeats them)."""
+    cfg, rec = _serve_estimate(name, backend="einsum")
+    want = jax_arguments[name + "/flops"]
+    unembed, twice = _structural_flops(cfg, name)
+    with capsys.disabled():
+        print(f"\n{name}: port {rec['flops']} FLOPs, analyze_hlo {want:.0f}, unembedding "
+              f"{unembed}, K/V again {twice}")
+    if rec["kind"] == "prefill":
+        assert abs(rec["flops"] - unembed + twice - want) <= FLOPS_RTOL * want
+    else:
+        assert rec["flops"] - unembed >= want * (1 - FLOPS_RTOL)
+
+
 def test_dryrun_one_records_ok_and_refusals(tmp_path):
     """``dryrun_one`` on a 2 x 2 mesh records ``ok`` with every field; an
     undivided count and a serve shape are ``refused`` with their reason;
@@ -451,20 +531,33 @@ def test_dryrun_one_records_ok_and_refusals(tmp_path):
     bad = dataclasses.replace(tsmoke("granite_8b"), num_heads=3, num_kv_heads=1)
     rec = dryrun.dryrun_one("granite_8b", "train_small", mesh=mesh, cfg=bad, shape=shape)
     assert rec["status"] == "refused" and "num_heads=3" in rec["reason"]
-    for serve in ("prefill_32k", "decode_32k", "long_500k"):
-        rec = dryrun.dryrun_one("granite_8b", serve, mesh=mesh, cfg=tsmoke("granite_8b"))
-        assert rec["status"] == "refused" and "A16c" in rec["reason"]
+    for kind, seq in (("prefill", 64), ("decode", 128)):
+        rec = dryrun.dryrun_one("granite_8b", kind, mesh=mesh, cfg=tsmoke("granite_8b"),
+                                shape=TSH.InputShape(kind, kind, seq, 4))
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["cache_bytes"] == rec["cache_block_bytes"] > 0
+        assert rec["collectives"]["model"]["reduce"]["calls"] > 0
+    full = dataclasses.replace(tsmoke("granite_8b"), long_context_window=0)
+    rec = dryrun.dryrun_one("granite_8b", "long_500k", mesh=mesh, cfg=full)
+    assert rec["status"] == "refused" and "out of scope" in rec["reason"]
+    rec = dryrun.dryrun_one("zamba2_2p7b", "decode_32k", mesh=mesh,
+                            cfg=tsmoke("zamba2_2p7b"))
+    assert rec["status"] == "refused" and "A16d" in rec["reason"]
 
 
 def test_dryrun_cli_on_the_production_mesh(tmp_path, capsys):
     """``python -m repro_torch.launch.dryrun`` for qwen1.5-0.5b on the
     16 x 16 mesh: ``train_4k`` ok (the adaptive accumulation's 1
-    microbatch of 16 rows a rank), the three serve shapes refused, exit
-    0; the record's state bytes are the rules' blocks over 256 devices."""
+    microbatch of 16 rows a rank) and the three serve shapes ok, exit 0;
+    the record's state bytes are the rules' blocks over 256 devices, a
+    decode's cache bytes their closed form."""
     code = dryrun.main(["--arch", "qwen1p5_0p5b", "--shape", "all", "--out", str(tmp_path),
                         "--table"])
     text = capsys.readouterr().out
-    assert code == 0 and "1 ok, 3 refused, 0 failed" in text
+    assert code == 0 and "4 ok, 0 refused, 0 failed" in text
+    rec = json.loads((tmp_path / "qwen1p5_0p5b__decode_32k__pod16x16.json").read_text())
+    assert rec["status"] == "ok" and rec["cache_bytes"] == rec["cache_block_bytes"]
+    assert rec["batch_bytes"] == 8 * 4
     rec = json.loads((tmp_path / "qwen1p5_0p5b__train_4k__pod16x16.json").read_text())
     assert rec["status"] == "ok" and rec["accum"] == 1 and rec["n_devices"] == 256
     assert rec["state_bytes"] == rec["block_bytes"]

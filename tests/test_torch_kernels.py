@@ -556,8 +556,9 @@ def test_flash_decode_kernel_path_builds_no_bias(monkeypatch):
     assert tops.flash_decode.launches == before + 1
     (name, *args), = calls
     assert name == "flash_decode"
-    assert args[5:17] == [B, KV, G, S, hd, 9, 543, 100, 1, 30.0,
-                          tops.DTYPE_CODES[torch.bfloat16], 0]
+    # no log-sum-exp pointer; the whole cache: slot 0 of S
+    assert args[5] == 0 and args[6:20] == [B, KV, G, S, hd, 9, 543, 0, S, 100, 1, 30.0,
+                                           tops.DTYPE_CODES[torch.bfloat16], 0]
 
 
 @pytest.mark.parametrize("dtype,code", [(torch.float32, 0), (torch.bfloat16, 1),

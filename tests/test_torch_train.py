@@ -259,6 +259,11 @@ def test_checkpoints_cross_load(tmp_path):
 def _env(**extra):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    # a launcher subprocess takes two threads, as the tests' own process
+    # does: without a cap torch takes every core, and beside the other
+    # test workers its many small ops crawl (~50x slower at 8 threads
+    # beside four busy workers than at 2), past the subprocess's timeout
+    env["OMP_NUM_THREADS"] = "2"
     env.update(extra)
     return env
 

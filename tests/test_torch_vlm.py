@@ -285,7 +285,7 @@ def test_kernel_paths_launch_with_prefix_and_hd256(monkeypatch):
     assert out.shape == (B, H, hd)
     (name, *args), = calls
     assert name == "flash_decode" and len(args) == len(tops.build.ENTRY_POINTS[name][1])
-    assert args[5:10] == [B, KV, H // KV, 800, hd] and (H // KV) * hd == 2048
+    assert args[6:11] == [B, KV, H // KV, 800, hd] and (H // KV) * hd == 2048
 
 
 # ---------------------------------------------------------------------------
