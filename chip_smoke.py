@@ -22,7 +22,8 @@ result.  Phases, each of which fails the run by raising:
      ragged prefixes at hd 64 and 128, a prefix under a window, a prefix
      given to a non-causal call; a grid member's decode on its block of a
      longer cache, with the block's slot offset and each head's
-     log-sum-exp, at phase 42 (a)'s sequence-sharded and (b)'s shapes,
+     log-sum-exp, at phase 42 (a)'s sequence-sharded, (b)'s and (f)'s
+     cross-attention shapes,
      linear, ring and with no live slot, bf16 and fp32, and two members'
      partials combined against the whole cache) and
      at edge cases, in fp32, bf16 and fp16 (``TOL``; fp16 ``ssd_scan``
@@ -328,11 +329,17 @@ result.  Phases, each of which fails the run by raising:
      member, the partial softmaxes combined); (b) granite-8b cut to 4 of 36, the cache's 8 kv
      heads 4 a member; (c) mamba2-780m cut to 8 of 48, 24 of 48 heads'
      state a member, the conv cache whole; (d) qwen3-moe cut to 2 of 48,
-     64 experts a member; (a) and (c) again in fp32 at 1 layer (1 decode
-     step).  Each held to the single device at the same cut in the phase,
+     64 experts a member; (e) zamba2-2.7b cut to one group of 6 ssm layers
+     and the shared block, the rule's ssm cache (its per over data, its
+     batch over model) moved to the blocks the group computes on and back;
+     (f) whisper-base at full depth (6 + 6 layers, a prompt of 440), the
+     cross cache over its encoder sequence (750 of 1500 slots a member,
+     decoded through ``flash_decode``'s slot offset and log-sum-exp); (a)
+     and (c) again in fp32 at 1 layer, (e) at one group of 2 and (f) at 1
+     + 1 layers (1 decode step).  Each held to the single device at the same cut in the phase,
      on the same seed and prompts, each decode step fed its tokens: every
      rank's cache bytes the closed form exactly; its logits within phase
-     5's bf16 limit (an ssm case: or ``E2E_SPREAD`` x the single device's
+     5's bf16 limit (an ssm or hybrid case: or ``E2E_SPREAD`` x the single device's
      own spread at other SSD chunks and in fp32; a moe case with the single
      device's routing replayed), fp32 within ``GRID_SERVE_FP32_RTOL``;
      launches pinned a rank a call; prefill ms, decode p50, peak memory by
@@ -366,14 +373,17 @@ with three cards or more also phase 18 (a) through ``--p2p device``,
 needs one card and runs phases 1, 2 and the controls of phases 33, 36,
 37, 38 and 42's checks: phase 33's grid (qwen1.5-0.5b, 2 x 2, its batches
 and steps), phase 36's (mamba2-780m, 1 x 2), phase 37's (qwen3-moe, 2
-layers, 2 x 2), phase 38's (mamba2-780m, 2 x 2) and phase 42 (a)'s serve
-steps (paligemma-3b, 2 layers, the cache sharded over its sequence) with
+layers, 2 x 2), phase 38's (mamba2-780m, 2 x 2) and phase 42 (a)'s, (e)'s
+and (f)'s serve steps (paligemma-3b, 2 layers, the cache sharded over its
+sequence; zamba2-2.7b, one group of 6; whisper-base, 6 + 6 layers) with
 no fault and then with each fault of ``GRID_FAULTS`` planted in the
 ranks' processes (the data axis's gradient sum dropped, every data rank
 training on data rank 0's rows, the Megatron all-reduce dropped; in 37
 the expert combine's model all-reduce dropped; in 38 the gated norm's
-model sum of squares dropped; in 42 the members' partial softmaxes kept
-uncombined, and the decode's slot offset dropped to 0), each held to the
+model sum of squares dropped; in 42 (a) the members' partial softmaxes
+kept uncombined, and the decode's slot offset dropped to 0; in (e) the
+hybrid ssm cache never moved back to the rule's placement; in (f) the
+members' cross partials summed without their log-sum-exp weights), each held to the
 single device by those phases' checks (38's fp32 model-axis check among
 them); it prints each check's reading and limit and which checks refuse
 the run, and fails if a faulty run passes them all or the run without a
@@ -517,10 +527,11 @@ RN_GRAD = [("grad: 512 x 4096", 512, 4096, False), ("grad: 37 x 1001", 37, 1001,
 # Phase 12: the profiler at the main path's model, and the plan it prices:
 # the A:4 + B:4 two-type plan of tests/test_dataparallel.py:351 at tp 1,
 # granite-8b's 36 layers split 18 / 18 over two stages a type, dp 2.
-# t_wgrad is t_bwd - t_dgrad, two means of ~50 ms calls on the host clock
-# that differ by the weight-gradient GEMMs (a few ms); one call stalled by
-# a busy host inflates one mean.  With 5 timed calls t_wgrad read 0.2 ms
-# in one run (PERF.md); 20 keep a stall well inside the margin.
+# t_wgrad is the median of iters pairs of backward passes on one graph,
+# the full one less the input-only one, each timed on the card's clock
+# behind a sleep of the card that outlasts the host's launches, so that
+# neither a stalled host nor the host's launch cadence (which hid a small
+# block's weight-gradient GEMMs and read t_wgrad 0.0) enters the difference.
 PROFILE_ARCH, PROFILE_SEQ, PROFILE_ITERS = "granite_8b", 4096, 20
 
 # (label, b, S, h, p, g, n, chunk)
@@ -679,8 +690,11 @@ FD_PALIGEMMA_RING = ("paligemma ring + window 300: hd256 S800", 4, 1, 8, 800, 25
 # + 8 slots sharded over its sequence, 388 of 776 slots a member, every one
 # of its 8 heads over the one kv head; (b) granite-8b at 2 x 2: 4 of 8 kv
 # heads a member, 16 / 4 heads, the whole 520 slots (and, for the offset,
-# half of them).  Each at the block's last decode position, in a ring with
-# a window, and where the block holds no live slot (out 0, lse -inf).
+# half of them); (f) whisper-base at 2 x 2: the cross cache over its 1500
+# encoder slots, 750 a member, every one of its 8 heads over the 8 kv heads
+# at the last slot's position (every slot live).  Each at the block's last
+# decode position, in a ring with a window, and where the block holds no
+# live slot (out 0, lse -inf).
 FD_MEMBERS = [
     ("paligemma member: 388 of 776 at 388", 2, 1, 8, 388, 256, 775, 0, 0.0, False, 1.0,
      388, 776),
@@ -695,8 +709,12 @@ FD_MEMBERS = [
      260, 520),
     ("granite member ring + window 300", 2, 4, 4, 260, 128, 1000, 300, 0.0, True, 1.0,
      260, 520),
+    ("whisper cross member: 750 of 1500 at 750", 2, 8, 1, 750, 64, 1499, 0, 0.0, False,
+     1.0, 750, 1500),
+    ("whisper cross member 0: 750 of 1500 at 0", 2, 8, 1, 750, 64, 1499, 0, 0.0, False,
+     1.0, 0, 1500),
 ]
-FD_MEMBER_ROWS = (FD_MEMBERS[0], FD_MEMBERS[4])          # timed: (a)'s and (b)'s
+FD_MEMBER_ROWS = (FD_MEMBERS[0], FD_MEMBERS[4], FD_MEMBERS[7])   # timed: (a)'s, (b)'s, (f)'s
 # the log-sum-exp against the plain version's: both fp32 from the same
 # inputs, summed in another order (the kernel's splits); ~10 in size
 LSE_TOL = (1e-4, 1e-5)
@@ -995,9 +1013,13 @@ GRID_FAULTS = {
     "ssm-norm": ("the gated norm's model sum of squares dropped: each member "
                  "normalises by its own heads' channels", ("38",)),
     "combine": ("the serve decode's combine of the members' partial softmaxes skipped: "
-                "each member keeps its own block's", ("42",)),
+                "each member keeps its own block's", ("42 (a)",)),
     "slot0": ("the serve decode's slot offset dropped to 0: each member masks its block "
-              "as the cache's first slots", ("42",)),
+              "as the cache's first slots", ("42 (a)",)),
+    "ssm-out": ("the hybrid ssm cache never moved back to the rule's placement after a "
+                "group: the cache keeps its zeros", ("42 (e)",)),
+    "cross-lse": ("the whisper members' cross-attention partials summed without their "
+                  "log-sum-exp weights", ("42 (f)",)),
 }
 
 # Phase 41: the dry-run (repro_torch.launch.dryrun: the port's train step
@@ -1018,9 +1040,10 @@ DOTS_LOSS_RTOL = 1e-6
 # rules) on four ranks sharing the card (data 2 x model 2, --p2p host), in
 # one call, each case at full width from the single device's seeded weights
 # and prompts: (label, arch, layers, the config's depth, dtype, launches a
-# rank a prefill, a rank a decode step, what a member holds).  Batch 4 x
-# prompt 512 (a vlm model behind its 256 image tokens), a cache of prompt +
-# 8 slots, GRID_SERVE_STEPS of the 8 decode steps run (fp32:
+# rank a prefill, a rank a decode step, what a member holds; a hybrid model
+# cut to one group of its layers, an audio model's encoder to as many).
+# Batch 4 x prompt 512 (a vlm model behind its 256 image tokens; whisper
+# 440, its positions ending at 448), a cache of prompt + 8 slots, GRID_SERVE_STEPS of the 8 decode steps run (fp32:
 # GRID_SERVE_FP32_STEPS), each fed the single device's token.  The weights
 # are gathered through host memory on every step (FSDP over data, as the
 # rules place them), so a step moves 0.2-1.6 GiB a rank and takes 1-8 s
@@ -1034,7 +1057,7 @@ DOTS_LOSS_RTOL = 1e-6
 # not: on an H100, mamba2 (c) read 3.0e-2 to 5.9e-2 rel L2 over its 8 layers
 # and qwen3-moe (d) 5.8e-2 and 6.9e-2 at two decode steps, a routing flip
 # (max abs 0.43).  So, as phases 14 and 22 hold those families' kernel paths:
-# an ssm case's bf16 limit is the larger of phase 5's and E2E_SPREAD x the
+# an ssm or hybrid case's bf16 limit is the larger of phase 5's and E2E_SPREAD x the
 # single device's own spread at SSD chunk / 2 and / 4 (the same sums in
 # another order) and in fp32 (bf16's reach, as phases 37-40 take it), and a
 # moe case is held with the single device's routing replayed on the ranks
@@ -1049,9 +1072,21 @@ GRID_SERVE = [
      "24 of 48 heads' state, the conv cache whole"),
     ("(d)", MOE_ARCH, 2, 48, "bfloat16", {"flash_attention": 2}, {"flash_decode": 2},
      "64 of 128 experts; the cache's kv heads 2 of 4, 16 of 32 heads"),
+    ("(e)", "zamba2_2p7b", 6, 54, "bfloat16", {"ssd_scan": 6, "flash_attention": 1},
+     {"flash_decode": 1}, "one group of 6 ssm layers: the rule's ssm cache, its per over "
+     "data and its batch over model, moved to the member's rows, 40 of 80 heads' state and "
+     "every conv channel for the group and back; the shared block's cache 16 of 32 kv heads"),
+    ("(f)", WHISPER_ARCH, 6, 6, "bfloat16", {"flash_attention": 18}, {"flash_decode": 12},
+     "the cross cache over its encoder sequence: 750 of 1500 slots, all 8 kv heads (every "
+     "head over the member's slots through flash_decode, the partials combined); the self "
+     "cache 4 of 8 kv heads"),
     ("(a) fp32", PALIGEMMA_ARCH, 1, PALIGEMMA_LAYERS, "float32", {"flash_attention": 1},
      {"flash_decode": 1}, "as (a)"),
     ("(c) fp32", "mamba2_780m", 1, 48, "float32", {"ssd_scan": 1}, {}, "as (c)"),
+    ("(e) fp32", "zamba2_2p7b", 2, 54, "float32", {"ssd_scan": 2, "flash_attention": 1},
+     {"flash_decode": 1}, "as (e), one group of 2 (per 2 over data)"),
+    ("(f) fp32", WHISPER_ARCH, 1, 6, "float32", {"flash_attention": 3}, {"flash_decode": 2},
+     "as (f), 1 encoder and 1 decoder layer"),
 ]
 GRID_SERVE_BATCH, GRID_SERVE_PROMPT, GRID_SERVE_GEN = 4, 512, 8
 GRID_SERVE_STEPS, GRID_SERVE_FP32_STEPS = 2, 1
@@ -4339,6 +4374,12 @@ def planted(fault):
         real = attention.decode_on_block
         owner, name = attention, "decode_on_block"
         new = lambda *a, slot0, **kw: real(*a, slot0=0, **kw)
+    elif fault == "ssm-out":
+        owner, name, new = spmd.ServeGather, "ssm_out", lambda self, blocks, cache: None
+    elif fault == "cross-lse":
+        owner, name = spmd, "combine_partials"
+        new = lambda out, lse, tp: spmd._all_gather(tp, out.float()[None], 0).sum(0).to(
+            out.dtype)
     else:
         raise ValueError(f"unknown fault {fault!r}")
     old = owner.__dict__[name]
@@ -4415,9 +4456,10 @@ def phase_grid_faults(smi):
             want, limits = family_reference(label, arch, cut, args, None)
             bad += grid_fault_controls(label, arch, GSPMD_FAMILY_GRID, args, want, limits,
                                        smi, layers=cut)
-    log(f"== 42 (controls): {GRID_SERVE[0][1]} at full width, {GRID_SERVE[0][2]} layers, "
-        "data 2 x model 2, the cache sharded over its sequence, 4 ranks sharing the card, "
-        "with each serve fault planted")
+    log("== 42 (controls): " + "; ".join(
+        f"{c[0]} {c[1]} at full width, {c[2]} layers" for c in GRID_SERVE
+        if c[0] in SERVE_FAULT_CASES) + ", data 2 x model 2, 4 ranks sharing the card, with "
+        "each serve fault planted")
     with rank_pool(4):
         bad += phase_serve_faults(smi)
     if bad:
@@ -4481,10 +4523,11 @@ def _estimate_cases(path):
         with open(path + ".tmp", "w") as f:
             json.dump(out, f)
         os.replace(path + ".tmp", path)
-    for label, arch, layers, dtype, kind, seq, cache_len in serve_estimate_cases():
+    for case, kind, seq, cache_len in serve_estimate_cases():
+        label = case[0]
         t0 = time.perf_counter()
         try:
-            cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
+            cfg, _ = serve_case_cfg(case)
             rec = dryrun.estimate_serve(cfg, Mesh.of((2, 2), ("data", "model")),
                                         shapes.InputShape(label, kind, seq, GRID_SERVE_BATCH),
                                         cache_len=cache_len)
@@ -4607,20 +4650,33 @@ def phase_dryrun(smi):
 
 def serve_case_cfg(case):
     """(config, steps) of a ``GRID_SERVE`` case: the arch at full width cut
-    to its layers, in its dtype."""
+    to its layers (a hybrid model's in one group, an audio model's
+    encoder to as many), in its dtype."""
     from repro_torch.configs import get_config
     _, arch, layers, _, dtype, *_ = case
     steps = GRID_SERVE_FP32_STEPS if dtype == "float32" else GRID_SERVE_STEPS
-    return dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype), steps
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, hybrid_attn_every=layers)
+    if cfg.family == "audio":
+        cfg = dataclasses.replace(cfg, num_encoder_layers=layers)
+    return cfg, steps
+
+
+def serve_prompt(cfg):
+    """Phase 42's prompt length: ``GRID_SERVE_PROMPT``, or where the model's
+    positions end sooner (whisper's 448) what leaves room for the
+    ``GRID_SERVE_GEN`` tokens."""
+    return min(GRID_SERVE_PROMPT, cfg.max_seq_len - GRID_SERVE_GEN)
 
 
 def serve_prompts(cfg, dev):
-    """The seeded prompts of phase 42 (a vlm model's image embeddings from
-    the same stream), on ``dev``."""
+    """The seeded prompts of phase 42 (a vlm model's image embeddings and
+    an audio model's frames from the same stream), on ``dev``."""
     import torch
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     toks = SyntheticTokens(cfg, DataConfig(batch_size=GRID_SERVE_BATCH,
-                                           seq_len=GRID_SERVE_PROMPT)).next_batch()
+                                           seq_len=serve_prompt(cfg))).next_batch()
     return {k: torch.from_numpy(v).to(dev) for k, v in toks.items()}
 
 
@@ -4641,14 +4697,14 @@ def single_serve(case, feed=None, routes=None, **fields):
     with torch.inference_mode(), record:
         params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
         batch = serve_prompts(cfg, dev)
-        cache_len = GRID_SERVE_PROMPT + GRID_SERVE_GEN
+        cache_len = serve_prompt(cfg) + GRID_SERVE_GEN
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cache, logits = SS.make_prefill_step(cfg, cache_len)(params, batch)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         decode, _ = SS.make_decode_step(cfg, cache_len + cfg.num_prefix_tokens)
-        pos = GRID_SERVE_PROMPT + cfg.num_prefix_tokens
+        pos = serve_prompt(cfg) + cfg.num_prefix_tokens
         out, times = [logits.float().cpu()], []
         own, feed = feed, []
         for i in range(steps):
@@ -4703,12 +4759,13 @@ def serve_on_rank(case, layout, rows, feed):
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
     launches = lambda: {fn.__name__: fn.launches for fn in ops.KERNELS}
     cfg, steps = serve_case_cfg(case)
-    cache_len = GRID_SERVE_PROMPT + GRID_SERVE_GEN
+    cache_len = serve_prompt(cfg) + GRID_SERVE_GEN
     params = spmd.init_params(cfg, layout, torch.Generator(device=dev).manual_seed(0),
                               device=dev)
     batch = {k: v[rows.to(dev)] for k, v in serve_prompts(cfg, dev).items()}
-    prefill = spmd.make_prefill_step(cfg, layout, cache_len)
-    decode = spmd.make_decode_step(cfg, layout, cache_len + cfg.num_prefix_tokens)
+    prefill = spmd.make_prefill_step(cfg, layout, cache_len, batch=GRID_SERVE_BATCH)
+    decode = spmd.make_decode_step(cfg, layout, cache_len + cfg.num_prefix_tokens,
+                                   batch=GRID_SERVE_BATCH)
     res = {"coord": (layout.grid.d, layout.grid.k), "rows": rows.tolist(),
            "prefill_args": nbytes(tree_leaves(params)) + nbytes(batch.values())}
     torch.cuda.synchronize()
@@ -4722,15 +4779,16 @@ def serve_on_rank(case, layout, rows, feed):
                logits=[logits.float().cpu()], cache_bytes=spmd.cache_bytes(cache),
                cache_closed=spmd.cache_block_bytes(cfg, layout, GRID_SERVE_BATCH,
                                                    max(decode.plan["cache_len"], 1)))
-    # the decode's arguments: the reference's also hold the int32 position
-    # where its step reads it (not an ssm model's)
-    res["decode_args"] = nbytes(tree_leaves(params)) + res["cache_bytes"] + \
-        nbytes([feed[0][rows]]) + (4 if cfg.family != "ssm" else 0)
+    # the decode's arguments: the weights it reads (spmd.decode_params) and,
+    # as the reference's, the int32 position where its step reads it (not an
+    # ssm model's)
+    res["decode_args"] = nbytes(tree_leaves(spmd.decode_params(cfg, params))) + \
+        res["cache_bytes"] + nbytes([feed[0][rows]]) + (4 if cfg.family != "ssm" else 0)
     del logits
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    pos, times = GRID_SERVE_PROMPT + cfg.num_prefix_tokens, []
+    pos, times = serve_prompt(cfg) + cfg.num_prefix_tokens, []
     for i in range(steps):
         tok = feed[i][rows].to(dev)
         t0 = time.perf_counter()
@@ -4802,6 +4860,13 @@ def serve_report(case, outs, want, worst, smi):
     for what in ("prefill", "decode"):
         log(f"  42 {label} [{smi}]: rank 0's collectives a {what} call: "
             + collectives_line([outs[0][label][f"{what}_stats"]]))
+        st = outs[0][label][f"{what}_stats"]
+        if st["reblock_data_calls"] + st["reblock_model_calls"] or st["copy_bytes"]:
+            log(f"  42 {label}: of them the ssm cache's moves, data "
+                f"{st['reblock_data_bytes'] / 2**20:.2f} MiB in {st['reblock_data_calls']}, "
+                f"model {st['reblock_model_bytes'] / 2**20:.2f} MiB in "
+                f"{st['reblock_model_calls']}; the cross cache's blocks copied for "
+                f"flash_decode {st['copy_bytes'] / 2**20:.2f} MiB")
 
 
 def serve_reference(case):
@@ -4820,7 +4885,7 @@ def serve_reference(case):
     want["limits"], want["how"] = [base] * (steps + 1), ""
     if routes:
         want["how"] = " (its routing replayed)"
-    if cfg.family == "ssm" and case[4] == "bfloat16":
+    if cfg.family in ("ssm", "hybrid") and case[4] == "bfloat16":
         others = {f"SSD chunk / {d}": dict(ssm_chunk=cfg.ssm_chunk // d)
                   for d in TRAIN_BF16_CHUNK_DIVISORS}
         others["fp32"] = dict(dtype="float32")
@@ -4884,11 +4949,9 @@ def serve_estimate_cases():
         if case[4] != "bfloat16":
             continue
         cfg, _ = serve_case_cfg(case)
-        cache_len = GRID_SERVE_PROMPT + GRID_SERVE_GEN
-        out.append((case[0], case[1], case[2], case[4], "prefill", GRID_SERVE_PROMPT,
-                    cache_len))
-        out.append((case[0], case[1], case[2], case[4], "decode",
-                    cache_len + cfg.num_prefix_tokens, None))
+        cache_len = serve_prompt(cfg) + GRID_SERVE_GEN
+        out.append((case, "prefill", serve_prompt(cfg), cache_len))
+        out.append((case, "decode", cache_len + cfg.num_prefix_tokens, None))
     return out
 
 
@@ -4926,35 +4989,42 @@ def hold_serve_estimate(label, kind, est, got, smi):
 
 
 def phase_serve_estimates(smi):
-    """41 (e): the serve estimates of 42 (a)-(d) held to the ranks'."""
+    """41 (e): the serve estimates of 42's bf16 cases held to the ranks'."""
     est = _ESTIMATOR.result()
     failed = []
-    for label, _, _, _, kind, _, _ in serve_estimate_cases():
-        failed += hold_serve_estimate(label, kind, est[f"42 {label} {kind}"],
-                                      _SERVE_RUNS[label], smi)
+    for case, kind, _, _ in serve_estimate_cases():
+        failed += hold_serve_estimate(case[0], kind, est[f"42 {case[0]} {kind}"],
+                                      _SERVE_RUNS[case[0]], smi)
     if failed:
         raise AssertionError("; ".join(failed))
 
 
-def phase_serve_faults(smi):
-    """``--grid-faults``' controls of phase 42's checks: case (a) (the
-    cache sharded over its sequence) without a fault and with each serve
-    fault of ``GRID_FAULTS`` planted in the ranks.  Returns the failures:
-    the run without a fault refused, or a faulty run passing every check."""
-    case = GRID_SERVE[0]
+SERVE_FAULT_CASES = ("(a)", "(e)", "(f)")
+
+
+def phase_serve_faults(smi, labels=SERVE_FAULT_CASES):
+    """``--grid-faults``' controls of phase 42's checks: each case of
+    ``labels`` ((a) the cache sharded over its sequence, (e) the hybrid
+    ssm cache moved between placements, (f) whisper's cross cache over
+    its sequence) without a fault and with each serve fault of
+    ``GRID_FAULTS`` that names it planted in the ranks.  Returns the
+    failures: the run without a fault refused, or a faulty run passing
+    every check."""
     bad = []
-    for fault in [None] + [f for f, (_, phases) in GRID_FAULTS.items() if "42" in phases]:
-        want, outs, wall = grid_serve_run([case], fault)
-        failed, worst = grid_serve_checks(case, outs, want[case[0]])
-        what = "no fault" if fault is None else f"{fault} ({GRID_FAULTS[fault][0]})"
-        log(f"  42 {case[0]}, {what} [{smi}]: logits rel L2 (worst over the ranks) "
-            + ", ".join(f"{r:.3e}" for r, _ in worst) + " (limits " + ", ".join(
-                f"{x:.2e}" for x in want[case[0]]["limits"]) + f"); {wall:.1f} s")
-        log(f"  42 {case[0]}, {fault or 'no fault'}: refused by: "
-            f"{'; '.join(failed) or 'nothing'}")
-        if (fault is None) == bool(failed):
-            bad.append(f"42 {fault or 'without a fault'}: "
-                       + ("refused" if failed else "passes every check"))
+    for case in [c for c in GRID_SERVE if c[0] in labels]:
+        faults = [f for f, (_, phases) in GRID_FAULTS.items() if f"42 {case[0]}" in phases]
+        for fault in [None] + faults:
+            want, outs, wall = grid_serve_run([case], fault)
+            failed, worst = grid_serve_checks(case, outs, want[case[0]])
+            what = "no fault" if fault is None else f"{fault} ({GRID_FAULTS[fault][0]})"
+            log(f"  42 {case[0]}, {what} [{smi}]: logits rel L2 (worst over the ranks) "
+                + ", ".join(f"{r:.3e}" for r, _ in worst) + " (limits " + ", ".join(
+                    f"{x:.2e}" for x in want[case[0]]["limits"]) + f"); {wall:.1f} s")
+            log(f"  42 {case[0]}, {fault or 'no fault'}: refused by: "
+                f"{'; '.join(failed) or 'nothing'}")
+            if (fault is None) == bool(failed):
+                bad.append(f"42 {case[0]} {fault or 'without a fault'}: "
+                           + ("refused" if failed else "passes every check"))
     return bad
 
 
@@ -5224,7 +5294,7 @@ def main_phases(smi) -> int:
             + "; ".join(f"{c[0]} {c[1]} {c[2]} layers" for c in GRID_SERVE))
         for name, n in phase_grid_serve(smi).items():
             launches[name] += n
-    log("== 41 (e). the serve estimates of 42 (a)-(d), made on the host, against the ranks")
+    log("== 41 (e). the serve estimates of 42 (a)-(f), made on the host, against the ranks")
     phase_serve_estimates(smi)
 
     log("== done")

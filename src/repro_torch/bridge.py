@@ -30,9 +30,12 @@ def tensor_from_numpy(arr, device, dtype: Optional[torch.dtype] = None):
 
 
 def params_from_numpy(tree: PyTree, device, dtype: Optional[torch.dtype] = None) -> PyTree:
-    """Convert every leaf; ``dtype`` casts floating leaves when given."""
+    """Convert every leaf; ``dtype`` casts floating leaves when given.  A
+    tuple (a whisper serve cache's cross (k, v) pair) stays a tuple."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(params_from_numpy(v, device, dtype) for v in tree)
     return tensor_from_numpy(tree, device, dtype)
 
 

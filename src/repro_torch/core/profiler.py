@@ -221,14 +221,19 @@ def measure_layer_profile(cfg: ModelConfig, seq_len: int, *, iters: int = 3,
     timed without it), so that a stall of the host does not count: one
     block forward (``t_fwd``, also ``t_recomp``); forward plus the
     gradient with respect to the block's parameters and its input
-    (``t_bwd``, as the reference's ``jax.grad`` of both); ``t_wgrad``,
-    the median over ``iters`` pairs of the full backward's time less the
-    input-only backward's, both run on one retained graph, the pair's
-    order alternating and each timed on the device's clock where there is
-    one, clamped at 0; ``t_dgrad = t_bwd − t_wgrad`` (the reference
-    takes ``t_wgrad = max(t_bwd − t_dgrad, 0)`` from two means of forward
-    plus backward); and ``wgrad_frac`` clamped to [0.05, 0.95], as in the
-    reference.
+    (``t_bwd``, as the reference's ``jax.grad`` of both); and from
+    ``iters`` pairs of backward passes run on one retained graph (the
+    pair's order alternating, each timed on the device's clock where
+    there is one, its launches queued behind a sleep of the device so
+    that the host's launch cadence stays out of it), ``t_dgrad``, the median of the input-only backward,
+    and ``t_wgrad``, the median of each pair's full backward less its
+    input-only one, clamped to [0, ``t_bwd``]: both from the same
+    passes, so that a stall of the host in another measurement cannot
+    drive ``t_dgrad`` to 0 or below (the reference takes ``t_wgrad =
+    max(t_bwd − t_dgrad, 0)`` from two means of forward plus backward,
+    its ``t_dgrad`` the forward and the input-only backward); and
+    ``wgrad_frac`` = ``t_wgrad / t_bwd`` clamped to [0.05, 0.95], as in
+    the reference.
     Then attention, rmsnorm and (ssm/hybrid configs) the SSD scan alone
     at ``seq_len``, and one single-token decode step of the whole model
     against a cache of ``min(max(seq_len, 32), 1024)`` slots
@@ -278,18 +283,49 @@ def measure_layer_profile(cfg: ModelConfig, seq_len: int, *, iters: int = 3,
     def grad(p, x, wrt):
         return torch.autograd.grad(block(p, x).float().sum(), wrt)
 
-    def span(fn, *args):
-        # one call's time on the device's own clock where it has one: the
-        # host's clock adds the jitter of a shared CPU to the difference
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def span(fn, *args, hold=0):
+        # one call's time on the device's own clock where it has one, its
+        # launches queued behind ``hold`` cycles of a sleeping device: the
+        # host's clock adds the jitter of a shared CPU to the difference,
+        # and so does the device's where it waits on the host's launches
+        # (a small block's backward, whose weight-gradient products then
+        # hide in the host's cadence)
         if dev.type != "cuda":
             return once(fn, *args)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start, end = events()
         devices.synchronize(dev)
+        torch.cuda._sleep(hold)
         start.record()
         fn(*args)
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / 1e3
+
+    def holding(fn, *args):
+        # the sleep that outlasts the host's launches of ``fn``: twice its
+        # slower warm call's launch time on the host, plus 1 ms, in cycles
+        # of the sleep kernel as this device runs them (none on the CPU,
+        # warmed by one call)
+        if dev.type != "cuda":
+            fn(*args)
+            return 0
+        launch = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn(*args)
+            launch.append(time.perf_counter() - t0)
+            devices.synchronize(dev)
+        probe = 10_000_000
+        start, end = events()
+        start.record()
+        torch.cuda._sleep(probe)
+        end.record()
+        end.synchronize()
+        rate = probe / (start.elapsed_time(end) / 1e3)
+        return int(rate * (2 * max(launch) + 1e-3))
 
     t_fwd = timed(fwd, blk, x)
     pg = tree_map(lambda t: t.detach().requires_grad_(), blk)
@@ -303,21 +339,24 @@ def measure_layer_profile(cfg: ModelConfig, seq_len: int, *, iters: int = 3,
     # wgrad is a few percent of its backward (a moe block's ~3%), below the
     # spread of two whole steps, so the median is taken of each pair's
     # difference, the pair's order alternating so that neither pass always
-    # runs first.  Clamped, as noise can still push it past either end
+    # runs first.  Clamped, as noise can still push it past either end.
+    # t_dgrad is the input-only backward of the same pairs
     y = block(pg, xg).float().sum()
     back = lambda wrt: torch.autograd.grad(y, wrt, retain_graph=True)
-    back(full), back([xg])                        # warm
-    diffs = []
+    hold = holding(back, full)                    # warm
+    back([xg])
+    diffs, dgrads = [], []
     for i in range(iters):
         if i % 2:
-            d = span(back, [xg])
-            b = span(back, full)
+            d = span(back, [xg], hold=hold)
+            b = span(back, full, hold=hold)
         else:
-            b = span(back, full)
-            d = span(back, [xg])
+            b = span(back, full, hold=hold)
+            d = span(back, [xg], hold=hold)
         diffs.append(b - d)
-    t_wgrad = max(statistics.median(diffs), 0.0)
-    t_dgrad = t_bwd - t_wgrad
+        dgrads.append(d)
+    t_wgrad = min(max(statistics.median(diffs), 0.0), t_bwd)
+    t_dgrad = statistics.median(dgrads)
     del y, back
     frac = t_wgrad / t_bwd if t_bwd > 0 else 0.5
 

@@ -34,19 +34,23 @@ The serve shapes (``prefill_32k``, ``decode_32k``, ``long_500k``) run
 the grid's serve steps (``spmd.make_prefill_step`` /
 ``make_decode_step``) once the same way (:func:`estimate_serve`): the
 rank's blocks of the weights (FSDP, as the reference's
-``tree_param_shardings``), its rows of the prompts or of the decode
+``tree_param_shardings``; of them a decode reads all but a whisper
+model's encoder, ``spmd.decode_params``), its rows of the prompts or of the decode
 tokens, and for decode its block of ``abstract_serve_cache`` under
 ``rules.cache_shardings`` at the shape's last position.  Their record
 has ``argument_bytes`` (weights, cache, tokens and the reference's int32
 position), ``cache_bytes`` beside ``cache_block_bytes``, the closed
 form (equal, or the combination fails), the step's peak, FLOPs,
-HBM-proxy bytes and collectives.
+HBM-proxy bytes and collectives (a hybrid model's ssm cache moved
+between the rule's blocks and the blocks its layers compute on among
+them, ``spmd.Layout.reblock``; ``reblock`` has their bytes and calls by
+axis), and ``copy_bytes``, the bytes of a whisper cross cache's blocks
+copied into ``flash_decode``'s layout.
 
 A combination is ``ok``, ``refused`` (with the reason: a grid
 ``spmd.check_grid`` refuses, naming the count; a decode the cache plan
-refuses, full attention at 500k, as the reference skips it; a hybrid or
-audio model on the grid's serve, ROADMAP A16d) or ``failed`` (with the
-traceback); the process exits non-zero only on ``failed``.  The
+refuses, full attention at 500k, as the reference skips it) or
+``failed`` (with the traceback); the process exits non-zero only on ``failed``.  The
 reference's environment knobs are flags: ``--cfg-set``, ``--accum``,
 ``--accum-dtype``, ``--dp-mode`` and ``--remat-policy``.  The numbers
 are estimates made on the host; they state no time.
@@ -230,35 +234,36 @@ def estimate_serve(cfg: ModelConfig, mesh: Mesh, shape: SH.InputShape, *,
     where given, a vlm model's prefix besides) or decode step (the token at the shape's last position
     against ``abstract_serve_cache``) of ``cfg`` as rank ``rank`` of
     ``mesh`` on the meta device: the record's numbers (see the module's
-    docstring).  Raises what the steps raise (``spmd.check_serve``'s
+    docstring).  Raises what the steps raise (``spmd.check_grid``'s
     refusals, the cache plan's)."""
     layout = standin_layout(mesh, rank)
-    spmd.check_serve(cfg, layout.model)
+    spmd.check_grid(cfg, layout.model)
     B = shape.global_batch
     params = spmd.tree_blocks(M.abstract_params(cfg), layout, spmd.param_specs(cfg, mesh))
     rows = len(spmd.local_rows(B, layout, serving=True))
     if shape.kind == "prefill":
         cache_len = shape.seq_len if cache_len is None else cache_len
-        step = spmd.make_prefill_step(cfg, layout, cache_len, backend=backend)
+        step = spmd.make_prefill_step(cfg, layout, cache_len, batch=B, backend=backend)
         inputs = {k: v.new_empty((rows, *v.shape[1:]))
                   for k, v in SH.input_specs(cfg, shape).items()}
         args, cache = (params, inputs), None
         closed = spmd.cache_block_bytes(cfg, layout, B, cache_len + cfg.num_prefix_tokens)
     else:
-        step = spmd.make_decode_step(cfg, layout, shape.seq_len, backend=backend)
+        step = spmd.make_decode_step(cfg, layout, shape.seq_len, batch=B, backend=backend)
         specs = spmd.cache_specs(cfg, mesh, B, shape.seq_len)
         cache = spmd.tree_blocks(abstract_serve_cache(cfg, B, shape.seq_len), layout, specs)
         tokens = SH.decode_specs(cfg, shape)["tokens"]
         inputs = {"tokens": tokens.new_empty((rows, 1))}
         args = (params, cache, inputs["tokens"], shape.seq_len - 1)
         closed = spmd.cache_block_bytes(cfg, layout, B, max(step.plan["cache_len"], 1))
-    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    read = params if shape.kind == "prefill" else spmd.decode_params(cfg, params)
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(read))
     batch_bytes = sum(t.numel() * t.element_size() for t in inputs.values())
     mode = MetaAnalysis()
     t0 = time.perf_counter()
     with mode:
         mode.track(tree_leaves(params) + list(inputs.values())
-                   + (tree_leaves(cache) if cache is not None else []))
+                   + (list(spmd.cache_leaves(cache).values()) if cache is not None else []))
         _, _, out = step(*args)
     wall = time.perf_counter() - t0
     cache_bytes = spmd.cache_bytes(out)
@@ -272,7 +277,9 @@ def estimate_serve(cfg: ModelConfig, mesh: Mesh, shape: SH.InputShape, *,
             "cache_bytes": cache_bytes, "cache_block_bytes": closed,
             **mode.report(), "collectives": collectives(step.stats),
             "collective_total": sum(step.stats[f"{a}_{k}_bytes"] for a in AXES for k in KINDS),
-            "step_s": wall, "activations": ACTIVATIONS}
+            "reblock": {a: {w: step.stats[f"reblock_{a}_{w}"] for w in ("bytes", "calls")}
+                        for a in ("data", "model")},
+            "copy_bytes": step.stats["copy_bytes"], "step_s": wall, "activations": ACTIVATIONS}
 
 
 def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
@@ -300,7 +307,7 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
             try:
                 rec.update(estimate_serve(cfg, mesh, shape, rank=rank))
             except (ValueError, NotImplementedError) as e:
-                if not any(w in str(e) for w in ("does not divide", "out of scope", "A16d")):
+                if not any(w in str(e) for w in ("does not divide", "out of scope")):
                     raise
                 rec.update(status="refused", reason=str(e))
             else:

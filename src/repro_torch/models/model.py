@@ -239,8 +239,12 @@ def _decode_stack(params, cfg, x, enc, positions, *, remat, backend,
             if gather is not None:
                 p = gather(p, "dec_blocks")
                 ekv = gather.cross_kv(p["xattn"], cfg, enc)
+                kw = {}
+                if cache is not None:
+                    gather.write_cross(ekv, (cache["cross"][0][i], cache["cross"][1][i]))
+                    kw["kv_cache"] = gather.cache_writer(kv)
                 return gather.block(p, cfg, x, "dec_cross", positions=positions,
-                                    enc_kv=ekv, backend=backend)[0]
+                                    enc_kv=ekv, backend=backend, **kw)[0]
             ekv = attention.encode_cross_kv(p["xattn"], cfg, enc)
             if cache is not None:
                 cache["cross"][0][i].copy_(ekv[0])
@@ -373,10 +377,12 @@ def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache_len: int, *,
     For ring caches the prompt must fit in the window (serving code feeds
     the window tail only) — standard SWA semantics.
 
-    With a sharded serve step's ``gather`` (``sharding.spmd``; dense,
-    moe, ssm and vlm) the parameters are one rank's blocks, gathered as
-    ``forward`` gathers them, and the cache is the rank's block of the
-    whole cache (``gather.init_cache``), which each layer's share fills.
+    With a sharded serve step's ``gather`` (``sharding.spmd``) the
+    parameters are one rank's blocks, gathered as ``forward`` gathers
+    them, and the cache is the rank's block of the whole cache
+    (``gather.init_cache``), which each layer's share fills: a hybrid
+    group's ssm layers through ``gather.prefill_group``, a whisper
+    decoder layer's cross K/V through ``gather.write_cross``.
     """
     tokens = batch["tokens"]
     B = tokens.shape[0]
@@ -392,19 +398,27 @@ def prefill(params, cfg, batch: Dict[str, torch.Tensor], cache_len: int, *,
         x = _prefill_ssm(params["blocks"], cfg, x, cache, backend, gather)
     elif cfg.family == "audio":
         enc = _encode(params, cfg, batch["audio_embeds"], x.dtype, remat=False,
-                      backend=backend)
+                      backend=backend, gather=gather)
         x = _decode_stack(params, cfg, x, enc, positions, remat=False,
-                          backend=backend, cache=cache)
+                          backend=backend, cache=cache, gather=gather)
     elif cfg.family == "hybrid":
         # the shared block fills group g's KV cache.  No window is passed,
         # so it attends within cfg.sliding_window as the JAX prefill does
         # (repro/models/model.py:303), where forward switches to the
         # long-context window past max_seq_len
         for g, gp in enumerate(tfm.unstack(params["blocks"])):
+            kv = tfm.layer(cache["attn"], g)
+            if gather is not None:
+                x = gather.prefill_group(gp, cfg, x, tfm.layer(cache["ssm"], g),
+                                         backend=backend)
+                x, _ = gather.block(params["shared_attn"], cfg, x, "dense",
+                                    positions=positions, backend=backend,
+                                    kv_cache=gather.cache_writer(kv))
+                continue
             x = _prefill_ssm(gp, cfg, x, tfm.layer(cache["ssm"], g), backend)
             x, _ = tfm.block_forward(params["shared_attn"], cfg, x, "dense",
                                      positions=positions, backend=backend,
-                                     kv_cache=tfm.layer(cache["attn"], g))
+                                     kv_cache=kv)
     else:
         x, _ = tfm.run_stacked(params["blocks"], cfg, x, cfg.block_kind,
                                positions=positions, prefix_len=prefix_len,
@@ -424,7 +438,8 @@ def decode_step(params, cfg, tokens, cache, pos: int, *, ring: bool = False,
     the cross cache (``flash_attention`` on the card).  The cache is
     updated in place.  Returns (logits (B, V), cache).  ``gather`` as
     :func:`prefill`'s: the parameters and the cache are one rank's
-    blocks, each layer's leaves gathered for it and freed after it."""
+    blocks, each layer's leaves gathered for it and freed after it (a
+    hybrid group's as one, ``gather.decode_group``)."""
     if gather is not None:
         params = _gathered(params, gather)
     x = layers.embed_tokens(params["embed"], tokens)
@@ -433,11 +448,18 @@ def decode_step(params, cfg, tokens, cache, pos: int, *, ring: bool = False,
         where = torch.full((1,), int(pos), dtype=torch.int32, device=x.device)
         x = x + _sinusoidal(where, cfg.d_model).to(x.dtype)
         x, _ = tfm.run_stacked_decode(params["dec_blocks"], cfg, x, cache["self"],
-                                      pos, "dec_cross", enc_kv=cache["cross"], **kw)
+                                      pos, "dec_cross", enc_kv=cache["cross"],
+                                      gather=gather, where="dec_blocks", **kw)
     elif cfg.family == "hybrid":
         # each group's recurrent ssm steps, then the shared block against
         # the group's KV cache (both updated in place)
         for g in range(tfm.depth(params["blocks"])):
+            if gather is not None:
+                x = gather.decode_group(tfm.layer(params["blocks"], g), cfg, x,
+                                        tfm.layer(cache["ssm"], g), pos, backend=backend)
+                x, _ = gather.block_decode(params["shared_attn"], cfg, x,
+                                           tfm.layer(cache["attn"], g), pos, "dense", **kw)
+                continue
             x, _ = tfm.run_stacked_decode(tfm.layer(params["blocks"], g), cfg, x,
                                           tfm.layer(cache["ssm"], g), pos,
                                           "ssm", **kw)

@@ -218,20 +218,21 @@ def block_decode(p, cfg, x, cache, pos, kind: str, *, ring=False, window=0,
 
 
 def run_stacked_decode(blocks, cfg, x, caches, pos, kind: str, *, ring=False,
-                       window=0, enc_kv=None, backend="auto", gather=None):
+                       window=0, enc_kv=None, backend="auto", gather=None,
+                       where="blocks"):
     """Loop over (stacked blocks, stacked caches); each layer's cache is
     written back into the stack in place.  ``enc_kv``: the stacked cross
     K/V pair, (L, B, Se, KV, hd) each, read layer by layer.  With a
     sharded step's ``gather`` the blocks and caches are one rank's: each
-    layer's leaves are gathered (``gather(layer, "blocks")``), run as the
+    layer's leaves are gathered (``gather(layer, where)``), run as the
     rank's share of the block (``gather.block_decode``) and freed."""
     for i in range(depth(blocks)):
         c = layer(caches, i)
         ekv = None if enc_kv is None else (enc_kv[0][i], enc_kv[1][i])
         if gather is not None:
-            x, new = gather.block_decode(gather(layer(blocks, i), "blocks"), cfg, x, c,
+            x, new = gather.block_decode(gather(layer(blocks, i), where), cfg, x, c,
                                          pos, kind, ring=ring, window=window,
-                                         backend=backend)
+                                         enc_kv=ekv, backend=backend)
         else:
             x, new = block_decode(layer(blocks, i), cfg, x, c, pos, kind,
                                   ring=ring, window=window, enc_kv=ekv,

@@ -99,9 +99,16 @@ member holds a slot range of every kv head, decodes every head over it
 with ``flash_decode``'s slot offset and log-sum-exp, and the members'
 partials are combined, :func:`combine_partials`), else the whole cache
 on every member; an ssm state's heads over the model axis, its conv
-window whole on every member (:class:`ServeGather`).  Hybrid and audio
-models, whose caches the rule places on the wrong dims, are refused by
-name (:func:`check_serve`).
+window whole on every member (:class:`ServeGather`).  Where the rule
+places a cache by other dims than the step computes on (a hybrid
+model's stacked (G, per, B, ...) ssm cache: its ``per`` over data, its
+batch or conv channels over model, or its state whole), each rank still
+stores the rule's block and the step moves it to the block its layers
+compute on and back once a group (:meth:`Layout.reblock`), counted as
+every collective is: what GSPMD does implicitly.  A whisper cross cache
+(L, B, S_enc, KV, hd) carries its sequence at dim 2, which :class:`KVCut`
+is told.  The weights a decode step takes are :func:`decode_params`.
+A model :func:`check_grid` refuses is refused here too.
 """
 from __future__ import annotations
 
@@ -110,10 +117,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..comm.p2p import CountingComm
 from ..core.dataparallel.grad_sync import replica_grad_norm
 from ..core.heteropp import (_TPCopy, _TPReduce, _tp_block_forward, _tp_local_cfg,
                              refuse_undivided)
 from ..models import attention, layers, moe as moe_lib, ssm as ssm_lib, transformer as tfm
+from ..kernels import ops as kops
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optim import adamw
@@ -160,10 +169,13 @@ class Layout:
         if self.data * self.model != grid.D * grid.T or grid.S != 1:
             raise ValueError(f"a mesh of {dict(mesh.shape)} on a grid of (dp {grid.D}, "
                              f"pipe {grid.S}, tp {grid.T})")
+        self._subs: Dict[str, Any] = {}
 
     def units(self, entry) -> Tuple[str, ...]:
         """An entry's axes as the groups that hold them, major to minor:
-        ``"model"`` or ``"data"`` (every data axis, in order)."""
+        ``"model"``, ``"data"`` (every data axis, in order) or, for one
+        data axis named without the others (the cache rule's fallback
+        onto the first, ``pod`` on a two-pod mesh), ``"data.<axis>"``."""
         axes, out, i = rules.entry_axes(entry), [], 0
         while i < len(axes):
             if axes[i] == self.model_axis:
@@ -171,22 +183,54 @@ class Layout:
                 i += 1
                 continue
             run = tuple(axes[i:i + len(self.data_axes)])
-            if run != self.data_axes:
-                raise NotImplementedError(
-                    f"spec entry {entry!r}: the grid holds the data axes "
-                    f"{self.data_axes} as one group; {run} alone has none")
-            out.append("data")
-            i += len(run)
+            if run == self.data_axes:
+                out.append("data")
+                i += len(run)
+            elif axes[i] in self.data_axes:
+                out.append("data." + axes[i])
+                i += 1
+            else:
+                raise NotImplementedError(f"spec entry {entry!r}: the mesh {dict(self.mesh.shape)} "
+                                          f"has no axis {axes[i]!r}")
         return tuple(out)
 
     def comm(self, unit):
-        return self.grid.tp if unit == "model" else self.grid.dp
+        if unit == "model":
+            return self.grid.tp
+        if unit == "data":
+            return self.grid.dp
+        return self._sub(unit[len("data."):])
+
+    def _sub(self, axis):
+        """The group of the ranks that differ in data axis ``axis`` alone:
+        a counting stand-in on a stand-in grid; a live grid's local meshes
+        name one data axis, so there it raises."""
+        if axis not in self._subs:
+            if self.mesh.shape[axis] == 1:
+                self._subs[axis] = None
+            elif not isinstance(self.grid.dp, CountingComm):
+                raise NotImplementedError(
+                    f"the data axis {axis!r} alone of {self.data_axes}: a live grid holds "
+                    f"the data axes as one group")
+            else:
+                self._subs[axis] = CountingComm(self.mesh.shape[axis],
+                                                self.index("data." + axis))
+        return self._subs[axis]
 
     def size(self, unit) -> int:
-        return self.model if unit == "model" else self.data
+        if unit == "model":
+            return self.model
+        return self.data if unit == "data" else self.mesh.shape[unit[len("data."):]]
 
     def index(self, unit) -> int:
-        return self.grid.k if unit == "model" else self.grid.d
+        if unit == "model":
+            return self.grid.k
+        if unit == "data":
+            return self.grid.d
+        axis = unit[len("data."):]               # the data axes' index, pod major
+        inner = math.prod(self.mesh.shape[a]
+                          for a in self.data_axes[self.data_axes.index(axis) + 1:])
+        return self.grid.d // inner % self.mesh.shape[axis]
 
     def block_slices(self, spec, shape):
         """(dim, start, length) of this rank's block of a leaf."""
@@ -225,6 +269,20 @@ class Layout:
                 if comm is not None:
                     x = _all_gather(comm, x, dim)
         return x
+
+    def reblock(self, block: torch.Tensor, from_spec, to_spec, shape) -> torch.Tensor:
+        """This rank's ``to_spec`` block of a leaf of whole shape ``shape``
+        whose ``from_spec`` block it holds: the all-gathers over the axes
+        ``from_spec`` names (:meth:`gather`, counted as every collective
+        is), narrowed to the ``to_spec`` block, a new tensor (``block``
+        itself where the specs agree).  What GSPMD does implicitly between
+        two placements of a leaf."""
+        if tuple(from_spec) == tuple(to_spec):
+            return block
+        x = self.gather(block, from_spec)
+        for dim, start, w in self.block_slices(to_spec, shape):
+            x = x.narrow(dim, start, w)
+        return x.clone(memory_format=torch.contiguous_format)
 
     def reduce(self, full: torch.Tensor, spec, *, model: str = "sum",
                data: bool = True) -> torch.Tensor:
@@ -267,24 +325,30 @@ class Layout:
         return self.grid.dp.all_reduce_(counts.clone()), n * self.data
 
     def groups(self):
-        return {"data": self.grid.dp, "model": self.grid.tp, "world": self.grid.world}
+        """The groups of each axis the counts are given by: a data axis
+        alone (:meth:`_sub`) counts as ``data``."""
+        subs = [c for c in self._subs.values() if c is not None]
+        return {"data": [self.grid.dp] + subs, "model": [self.grid.tp],
+                "world": [self.grid.world]}
 
     def reset_counts(self) -> None:
-        for comm in self.groups().values():
-            if comm is not None:
-                comm.reset_counts()
+        for comms in self.groups().values():
+            for comm in comms:
+                if comm is not None:
+                    comm.reset_counts()
 
     def counts(self) -> Dict[str, float]:
         """The collectives since :meth:`reset_counts`, by axis: bytes
         (all-gathers: what arrives; reduce-scatters and all-reduces: the
         tensors given), calls and wall ms."""
         out = {}
-        for axis, comm in self.groups().items():
+        for axis, comms in self.groups().items():
+            comms = [c for c in comms if c is not None]
             for kind in ("gather", "scatter", "reduce"):
-                out[f"{axis}_{kind}_bytes"] = getattr(comm, kind + "_bytes") if comm else 0
-                out[f"{axis}_{kind}_calls"] = getattr(comm, kind + "_calls") if comm else 0
-                out[f"{axis}_{kind}_ms"] = getattr(comm, kind + "_seconds") * 1e3 \
-                    if comm else 0.0
+                out[f"{axis}_{kind}_bytes"] = sum(getattr(c, kind + "_bytes") for c in comms)
+                out[f"{axis}_{kind}_calls"] = sum(getattr(c, kind + "_calls") for c in comms)
+                out[f"{axis}_{kind}_ms"] = sum(getattr(c, kind + "_seconds")
+                                               for c in comms) * 1e3
         return out
 
 
@@ -528,9 +592,10 @@ def init_state(cfg: ModelConfig, layout: Layout, specs: TrainState,
 
 
 def tree_blocks(tree: PyTree, layout: Layout, specs: Dict[str, Any]) -> PyTree:
-    """This rank's blocks of a whole tree (meta tensors too: the
-    dry-run's), ``specs`` a flat dict of specs by path."""
-    return _unflatten({p: layout.block(t, specs[p]) for p, t in sorted(flatten(tree).items())})
+    """This rank's blocks of a whole tree of weights or of a serve cache
+    (meta tensors too: the dry-run's), ``specs`` a flat dict of specs by
+    path (:func:`cache_leaves`' paths)."""
+    return cache_tree({p: layout.block(t, specs[p]) for p, t in cache_leaves(tree).items()})
 
 
 def abstract_state(cfg: ModelConfig, layout: Layout, specs: TrainState) -> TrainState:
@@ -720,27 +785,6 @@ def make_train_step(cfg: ModelConfig, layout: Layout,
 # serving: the sharded prefill and decode steps
 # ---------------------------------------------------------------------------
 
-SERVE_FAMILIES = ("dense", "moe", "ssm", "vlm")
-SERVE_REFUSALS = {
-    "hybrid": "the copied cache rule puts its ssm conv cache's batch on the model axis "
-              "and replicates its state (the (G, per) stacking shifts the batch dim)",
-    "audio": "the copied cache rule puts its cross cache's encoder sequence on the "
-             "model axis",
-}
-
-
-def check_serve(cfg: ModelConfig, model: int) -> None:
-    """Refuse what the grid does not serve: the hybrid and audio families,
-    whose caches the copied rule places on the wrong dims (ROADMAP A16d),
-    and what :func:`check_grid` refuses."""
-    if cfg.family not in SERVE_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the grid serves the {SERVE_FAMILIES} families; for "
-            f"{cfg.family}, {SERVE_REFUSALS[cfg.family]}, which GSPMD reshards around "
-            f"(ROADMAP A16d)")
-    check_grid(cfg, model)
-
-
 def param_specs(cfg: ModelConfig, mesh) -> Dict[str, Any]:
     """The JAX dry-run's placement of the served weights, by path:
     ``rules.tree_param_shardings`` (FSDP, so the weights are sharded over
@@ -759,17 +803,47 @@ def init_params(cfg: ModelConfig, layout: Layout, generator: torch.Generator, *,
         return M.init_params(cfg, generator, device=device)
 
 
+def cache_leaves(tree: PyTree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``{path: tensor}`` of a serve cache: dicts by key, a whisper cache's
+    cross (k, v) pair by index (``cross/0``, ``cross/1``)."""
+    if isinstance(tree, (dict, tuple)):
+        items = sorted(tree.items()) if isinstance(tree, dict) else enumerate(tree)
+        out: Dict[str, torch.Tensor] = {}
+        for k, v in items:
+            out.update(cache_leaves(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def cache_tree(flat: Dict[str, torch.Tensor]) -> PyTree:
+    """:func:`cache_leaves`' inverse."""
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: fix(v) for k, v in node.items()}
+        if all(k.isdigit() for k in node):
+            return tuple(node[str(i)] for i in range(len(node)))
+        return node
+
+    return fix(_unflatten(flat))
+
+
+def _cache_specs(cache: PyTree, mesh) -> Dict[str, Any]:
+    return {p: rules.cache_shardings(t, mesh) for p, t in cache_leaves(cache).items()}
+
+
 def cache_specs(cfg: ModelConfig, mesh, batch: int, seq_len: int) -> Dict[str, Any]:
     """The JAX dry-run's placement of the decode cache, by path:
     ``rules.cache_shardings`` of ``abstract_serve_cache(cfg, batch,
     seq_len)``."""
-    return flatten(rules.cache_shardings(abstract_serve_cache(cfg, batch, seq_len), mesh))
+    return _cache_specs(abstract_serve_cache(cfg, batch, seq_len), mesh)
 
 
 def _whole_cache_specs(cfg, mesh, batch, cache_len):
-    """The rule's specs of a cache of ``cache_len`` slots (a prefill's)."""
+    """The rule's specs of a cache of ``cache_len`` slots (a prefill's) and
+    its leaves on the meta device, by path."""
     whole = M.init_cache(cfg, batch, cache_len, device=torch.device("meta"))
-    return flatten(rules.cache_shardings(whole, mesh)), flatten(whole)
+    return _cache_specs(whole, mesh), cache_leaves(whole)
 
 
 def cache_block_bytes(cfg: ModelConfig, layout: Layout, batch: int, cache_len: int) -> int:
@@ -781,29 +855,31 @@ def cache_block_bytes(cfg: ModelConfig, layout: Layout, batch: int, cache_len: i
 
 
 def cache_bytes(cache: PyTree) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+    return sum(t.numel() * t.element_size() for t in cache_leaves(cache).values())
 
 
 class KVCut:
-    """Where a rank's block of an attention cache (L, B, KV, S, hd) lies
-    under the rule's spec: ``mode`` ``"heads"`` (its members' kv heads,
-    every slot: the Megatron block's own), ``"seq"`` (every kv head,
-    slots ``slot0`` … ``slot0 + slots - 1`` of ``cache_len``) or
-    ``"whole"`` (every kv head and slot on every member).  A spec that
-    puts the model axis on the head dim is refused."""
+    """Where a rank's block of an attention cache lies under the rule's
+    spec, the cache's kv heads at dim ``heads`` of ``shape`` and its
+    slots at dim ``seq`` (a self cache (L, B, KV, S, hd): 2 and 3; a
+    whisper cross cache (L, B, S_enc, KV, hd): 3 and 2): ``mode``
+    ``"heads"`` (its members' kv heads, every slot: the Megatron block's
+    own), ``"seq"`` (every kv head, slots ``slot0`` … ``slot0 + slots -
+    1`` of ``cache_len``) or ``"whole"`` (every kv head and slot on every
+    member).  A spec that puts the model axis on another dim is refused."""
 
-    def __init__(self, layout: Layout, spec, shape):
-        self.cache_len, self.slot0, self.slots, self.mode = shape[3], 0, shape[3], "whole"
+    def __init__(self, layout: Layout, spec, shape, *, heads: int = 2, seq: int = 3):
+        self.cache_len, self.slot0, self.slots, self.mode = shape[seq], 0, shape[seq], "whole"
         for dim, start, w in layout.block_slices(spec, shape):
             if "model" not in layout.units(spec[dim]):
                 continue
-            if dim == 2:
+            if dim == heads:
                 self.mode = "heads"
-            elif dim == 3:
+            elif dim == seq:
                 self.mode, self.slot0, self.slots = "seq", start, w
             else:
                 raise NotImplementedError(
-                    f"a cache of shape {tuple(shape)} sharded over its head dim "
+                    f"a cache of shape {tuple(shape)} sharded over its dim {dim} "
                     f"({spec!r}): the grid shards a cache's kv heads or its sequence")
 
 
@@ -825,8 +901,9 @@ def combine_partials(out: torch.Tensor, lse: torch.Tensor, tp) -> torch.Tensor:
 class ServeGather(Gather):
     """:class:`Gather` for the serve steps: a rank's blocks of the served
     weights gathered layer by layer as the train step gathers them, its
-    block of the cache (``rules.cache_shardings``; :class:`KVCut`), and
-    each block's member share at decode and at prefill:
+    block of the cache of a ``batch`` of rows (``rules.cache_shardings``;
+    :class:`KVCut`), and each block's member share at decode and at
+    prefill:
 
     - attention, kv-head-sharded cache: the Megatron block's decode on its
       heads' block (``attention.decode_self_attention`` on ``lcfg``);
@@ -839,34 +916,75 @@ class ServeGather(Gather):
     - moe: the member's E / M experts on the replicated tokens;
     - ssm: the member's heads and its heads' block of the state; the conv
       cache is every channel's on every member, so the members' x
-      channels of it are gathered over the model group.
+      channels of it are gathered over the model group;
+    - hybrid (zamba2): the rule stacks the ssm cache (G, per, B, ...) and
+      so places it by other dims than an ssm cache's (the conv cache's
+      ``per`` over data and its batch or channels over model, the state's
+      ``per`` over data, or the state whole).  Each rank stores its rule
+      block; before a group's ssm layers run, the group's blocks move to
+      the block they compute on (the rank's data rows, the member's heads
+      of the state, every conv channel: ``ssm_in``, :meth:`Layout.reblock`)
+      and after them back (``ssm_out``), once a group, counted as every
+      collective is.  The shared block's cache is an attention cache;
+    - audio (whisper): the encoder and decoder layers as the member's
+      Megatron share; the cross cache (L, B, S_enc, KV, hd) carries its
+      sequence at dim 2, so :class:`KVCut` is told so.  Over its
+      sequence, each member writes every kv head's rows of its encoder
+      slots at prefill and at decode attends every head over them through
+      ``flash_decode`` (the last slot the position, every slot live) with
+      each head's log-sum-exp, the partials combined; whole or over its
+      kv heads, the member's heads attend their kv heads.
 
     Each part of a block's output is summed over the model group before
-    its residual add, as in training."""
+    its residual add, as in training.  ``moved`` counts the bytes and
+    calls of the hybrid ssm cache's moves by axis (among the step's
+    collectives), ``copied`` the bytes of the cross cache's blocks
+    transposed into ``flash_decode``'s layout."""
 
-    def __init__(self, cfg: ModelConfig, layout: Layout, specs, shapes, cache_len: int):
+    def __init__(self, cfg: ModelConfig, layout: Layout, specs, shapes, cache_len: int,
+                 batch: int):
         super().__init__(cfg, layout, specs, shapes)
         self.cache_len = cache_len
-        self.cspecs, whole = _whole_cache_specs(cfg, layout.mesh, layout.data, cache_len)
-        self.kv = KVCut(layout, self.cspecs["k"], whole["k"].shape) \
-            if "k" in self.cspecs else None
-        M_, k = layout.model, layout.grid.k
+        self.rows = len(local_rows(batch, layout, serving=True))
+        self.cspecs, self.whole = _whole_cache_specs(cfg, layout.mesh, batch, cache_len)
+        kv = {"hybrid": "attn/k", "audio": "self/k"}.get(cfg.family, "k")
+        self.kv = KVCut(layout, self.cspecs[kv], self.whole[kv].shape) \
+            if kv in self.cspecs else None
+        self.xkv = KVCut(layout, self.cspecs["cross/0"], self.whole["cross/0"].shape,
+                         heads=3, seq=2) if cfg.family == "audio" else None
+        M_, k, KV = layout.model, layout.grid.k, cfg.num_kv_heads
         self.heads = (k * cfg.num_heads // M_, cfg.num_heads // M_)
+        self.kv_heads = (k * KV // M_, max(1, KV // M_))
+        if cfg.family == "hybrid":
+            rows = rules.batch_shardings(torch.empty((batch,), device="meta"), layout.mesh)[0]
+            heads = layout.model_axis if M_ > 1 else None
+            # by leaf of a group's (per, B, ...) slice: the rule's spec, the
+            # block the layers compute on, the slice's whole shape
+            self.ssm = {key: (self.cspecs["ssm/" + key][1:], compute,
+                              tuple(self.whole["ssm/" + key].shape[1:]))
+                        for key, compute in (("conv", (None, rows, None, None)),
+                                             ("state", (None, rows, heads, None, None)))}
+        self.reset()
+
+    def reset(self):
+        self.moved = {f"{a}_{w}": 0 for a in ("data", "model") for w in ("bytes", "calls")}
+        self.copied = 0
+
+    def _zeros(self, spec, shape, like):
+        shape = list(shape)
+        for dim, _, w in self.layout.block_slices(spec, shape):
+            shape[dim] = w
+        return torch.zeros(shape, dtype=like.dtype, device=like.device)
 
     def init_cache(self, batch: int, cache_len: int, *, device) -> PyTree:
-        """Zeros of this rank's block of a cache for its ``batch`` rows."""
-        if cache_len != self.cache_len:
-            raise ValueError(f"a cache of {cache_len} slots for a step of {self.cache_len}")
-        whole = flatten(M.init_cache(self.cfg, batch, cache_len, device=torch.device("meta")))
-        out = {}
-        for path, t in whole.items():
-            spec = tuple(None if e is not None and "data" in self.layout.units(e) else e
-                         for e in self.cspecs[path])
-            shape = list(t.shape)
-            for dim, _, w in self.layout.block_slices(spec, shape):
-                shape[dim] = w
-            out[path] = torch.zeros(shape, dtype=t.dtype, device=device)
-        return _unflatten(out)
+        """Zeros of this rank's block of the cache of the step's batch
+        (``batch`` its rows)."""
+        if (batch, cache_len) != (self.rows, self.cache_len):
+            raise ValueError(f"a cache of {batch} rows and {cache_len} slots for a step of "
+                             f"{self.rows} and {self.cache_len}")
+        return cache_tree({p: self._zeros(self.cspecs[p], t.shape,
+                                          torch.empty((), dtype=t.dtype, device=device))
+                           for p, t in self.whole.items()})
 
     def _gather_heads(self, t):
         return _all_gather(self.layout.grid.tp, t, 2)
@@ -886,6 +1004,19 @@ class ServeGather(Gather):
 
         return write
 
+    def write_cross(self, ekv, cross):
+        """A decoder layer's prefill of its cross cache blocks ``cross``
+        (k, v) from its cross K/V ``ekv`` (B, S_enc, KV or this member's kv
+        heads, hd): its own kv heads where the rule shards them, else
+        every kv head of its encoder slots, the heads it does not compute
+        gathered over the model group."""
+        cut = self.xkv
+        for t, block in zip(ekv, cross):
+            if cut.mode != "heads":
+                t = attention.every_kv_head(t, self._gather_heads, self.cfg.num_kv_heads)
+                t = t.narrow(1, cut.slot0, cut.slots)
+            block.copy_(t)
+
     def prefill_ssm(self, p, cfg, x, cache, *, backend="auto"):
         """One ssm layer's prefill: its output, its final state (the
         member's heads) and conv tail (every channel) written to ``cache``."""
@@ -904,16 +1035,91 @@ class ServeGather(Gather):
         cache["state"].copy_(final)
         return x + y
 
+    def _reblock(self, t, src, dst, shape):
+        """:meth:`Layout.reblock`, its gathers' bytes and calls by axis
+        also added to ``moved``."""
+        before = self.layout.counts()
+        out = self.layout.reblock(t, src, dst, shape)
+        after = self.layout.counts()
+        for axis in ("data", "model"):
+            for what in ("bytes", "calls"):
+                key = f"{axis}_gather_{what}"
+                self.moved[f"{axis}_{what}"] += after[key] - before[key]
+        return out
+
+    def ssm_in(self, cache):
+        """A hybrid group's ssm cache blocks (its slice of the rule's
+        placement) moved to the blocks its layers compute on."""
+        return {key: self._reblock(cache[key], rule, compute, shape)
+                for key, (rule, compute, shape) in self.ssm.items()}
+
+    def ssm_out(self, blocks, cache):
+        """``ssm_in``'s inverse: the compute ``blocks`` moved back to the
+        rule's placement, written into the group's ``cache`` in place."""
+        for key, (rule, compute, shape) in self.ssm.items():
+            new = self._reblock(blocks[key], compute, rule, shape)
+            if new is not cache[key]:
+                cache[key].copy_(new)
+
+    def prefill_group(self, gp, cfg, x, cache, *, backend="auto"):
+        """A hybrid group's ssm layers at prefill on the group's gathered
+        leaves, their final states and conv tails written to compute
+        blocks, which then move to the group's ``cache`` (``ssm_out``)."""
+        c = {key: self._zeros(compute, shape, cache[key])
+             for key, (_, compute, shape) in self.ssm.items()}
+        for i, p in enumerate(tfm.unstack(self(gp, "blocks"))):
+            x = self.prefill_ssm(p, cfg, x, tfm.layer(c, i), backend=backend)
+        self.ssm_out(c, cache)
+        return x
+
+    def decode_group(self, gp, cfg, x, cache, pos, *, backend="auto"):
+        """A hybrid group's ssm layers for one token: the group's ``cache``
+        moved to the compute blocks (``ssm_in``), each layer's recurrent
+        step on them, and back (``ssm_out``)."""
+        c = self.ssm_in(cache)
+        for i, p in enumerate(tfm.unstack(self(gp, "blocks"))):
+            ci = tfm.layer(c, i)
+            x, new = self.block_decode(p, cfg, x, ci, pos, "ssm", backend=backend)
+            for key, t in new.items():
+                ci[key].copy_(t)
+        self.ssm_out(c, cache)
+        return x
+
     def _gather_x(self, x):
         return _all_gather(self.layout.grid.tp, x, 1), self.layout.grid.k * x.shape[-1]
 
+    def cross_decode(self, p, cfg, h, enc_kv, *, backend="auto"):
+        """The member's share of a decoder layer's cross-attention for one
+        token on its cross cache blocks ``enc_kv`` (the single device's
+        ``cross_attention`` at Sq 1), through its ``wo`` rows: a part of
+        the model group's sum."""
+        cut, (k, v) = self.xkv, enc_kv
+        if cut.mode != "seq":
+            if cut.mode == "whole":
+                first, n = self.kv_heads
+                k, v = k[:, :, first:first + n], v[:, :, first:first + n]
+            return attention.cross_attention(p, self.lcfg, h, (k, v), backend)
+        B, hd = h.shape[0], cfg.head_dim
+        q = h @ p["wq"]
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        q = self._gather_heads(q.reshape(B, 1, -1, hd))               # (B, 1, H, hd)
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))    # (B, KV, slots, hd)
+        self.copied += 2 * kt.numel() * kt.element_size()
+        out, lse = kops.flash_decode(q[:, 0], kt, vt, cut.cache_len - 1, slot0=cut.slot0,
+                                     cache_len=cut.cache_len, return_lse=True)
+        out = combine_partials(out, lse, self.layout.grid.tp)
+        first, n = self.heads
+        return out[:, first:first + n].reshape(B, 1, n * hd) @ p["wo"]
+
     def block_decode(self, p, cfg, x, cache, pos, kind, *, ring=False, window=0,
-                     backend="auto"):
+                     enc_kv=None, backend="auto"):
         """The rank's share of one block for one token (``transformer.
-        block_decode``'s contract)."""
+        block_decode``'s contract; ``enc_kv`` a decoder layer's cross
+        cache blocks)."""
         if not self.tp:
             return tfm.block_decode(p, cfg, x, cache, pos, kind, ring=ring, window=window,
-                                    backend=backend)
+                                    enc_kv=enc_kv, backend=backend)
         tp = self.layout.grid.tp
         total = lambda t: _TPReduce.apply(t, tp)
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
@@ -934,6 +1140,9 @@ class ServeGather(Gather):
                 combine=(lambda out, lse: combine_partials(out, lse, tp))
                 if cut.mode == "seq" else None, **kw)
         x = x + total(a)
+        if kind == "dec_cross":
+            h = layers.apply_norm(p["ln3"], x, cfg.norm)
+            x = x + total(self.cross_decode(p["xattn"], cfg, h, enc_kv, backend=backend))
         h = layers.apply_norm(p["ln2"], x, cfg.norm)
         if kind == "moe":
             y, _ = moe_lib.moe_block(p["moe"], cfg, h, experts=self.experts)
@@ -941,37 +1150,59 @@ class ServeGather(Gather):
         return x + total(layers.apply_mlp(p["mlp"], h, cfg.mlp)), cache
 
 
-def _serve_gather(cfg, layout, cache_len):
-    check_serve(cfg, layout.model)
+def decode_params(cfg: ModelConfig, params: PyTree) -> PyTree:
+    """The weights a decode step reads: all but a whisper model's encoder
+    and its decoder's cross K/V projections, which run at prefill only
+    (JAX's jit leaves the arguments a step does not read out of the
+    compiled step, so its decode takes none of them)."""
+    if cfg.family != "audio":
+        return params
+    unread = lambda p: p.split("/")[0] in ("enc_blocks", "enc_pos", "enc_final_norm") or \
+        p.split("/")[1:2] == ["xattn"] and p.split("/")[-1] in ("wk", "wv", "bk", "bv")
+    return _unflatten({p: t for p, t in flatten(params).items() if not unread(p)})
+
+
+def _serve_gather(cfg, layout, cache_len, batch):
+    check_grid(cfg, layout.model)
     specs = param_specs(cfg, layout.mesh)
     shapes = {p: tuple(t.shape) for p, t in flatten(M.abstract_params(cfg)).items()}
-    return ServeGather(cfg, layout, specs, shapes, cache_len)
+    return ServeGather(cfg, layout, specs, shapes, cache_len, batch)
 
 
 def _next_token(logits):
     return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
 
 
-def make_prefill_step(cfg: ModelConfig, layout: Layout, cache_len: int, *,
+def _serve_stats(layout, gather):
+    """A serve call's collectives (:meth:`Layout.counts`), of them the
+    hybrid ssm cache's moves (``reblock_<axis>_bytes`` and ``_calls``),
+    and the bytes its cross caches' blocks were copied in
+    (``copy_bytes``)."""
+    return dict(layout.counts(), copy_bytes=gather.copied,
+                **{f"reblock_{k}": v for k, v in gather.moved.items()})
+
+
+def make_prefill_step(cfg: ModelConfig, layout: Layout, cache_len: int, *, batch: int,
                       backend: str = "auto"):
     """``prefill_step(params, batch) -> (logits, next token, cache)`` on
     this rank's blocks of the weights (:func:`init_params`) and its rows
-    of the prompts (``local_rows(..., serving=True)``): the JAX dry-run's
-    ``jit(make_prefill_step)`` with the weights and batch sharded
-    (``repro/launch/dryrun.py:176-181``).  The cache it returns is the
-    rank's block of the rules' placement of the whole cache of
-    ``cache_len`` + the prefix's slots, where the JAX prefill leaves its
+    of the ``batch`` prompts (``local_rows(batch, ..., serving=True)``):
+    the JAX dry-run's ``jit(make_prefill_step)`` with the weights and
+    batch sharded (``repro/launch/dryrun.py:176-181``).  The cache it
+    returns is the rank's block of the rules' placement of the whole cache
+    of ``cache_len`` + the prefix's slots, where the JAX prefill leaves its
     output's layout to GSPMD.  ``prefill_step.stats`` holds the call's
-    collectives (:meth:`Layout.counts`)."""
+    collectives (:func:`_serve_stats`)."""
     eff = cache_len + cfg.num_prefix_tokens
-    gather = _serve_gather(cfg, layout, eff)
+    gather = _serve_gather(cfg, layout, eff, batch)
 
     def prefill_step(params, batch):
         layout.reset_counts()
+        gather.reset()
         with torch.no_grad():
             cache, logits, _ = M.prefill(params, cfg, batch, eff, backend=backend,
                                          gather=gather)
-        prefill_step.stats = layout.counts()
+        prefill_step.stats = _serve_stats(layout, gather)
         return logits, _next_token(logits), cache
 
     prefill_step.stats = {}
@@ -980,25 +1211,27 @@ def make_prefill_step(cfg: ModelConfig, layout: Layout, cache_len: int, *,
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, layout: Layout, seq_len: int, *,
+def make_decode_step(cfg: ModelConfig, layout: Layout, seq_len: int, *, batch: int,
                      backend: str = "auto"):
     """``decode_step(params, cache, tokens, pos) -> (logits, next token,
     cache)`` on this rank's blocks of the weights and of the cache
-    (``rules.cache_shardings``, :func:`cache_specs`) and its rows of
-    ``tokens``: the JAX dry-run's ``jit(make_decode_step)`` with the cache
-    in and out under the rules, donated (``repro/launch/dryrun.py:
-    183-191``); the cache is updated in place.  ``decode_step.plan`` is
-    ``cache_plan(cfg, seq_len)``; ``.stats`` the call's collectives."""
+    (``rules.cache_shardings``, :func:`cache_specs`) of ``batch`` rows and
+    its rows of ``tokens``: the JAX dry-run's ``jit(make_decode_step)``
+    with the cache in and out under the rules, donated
+    (``repro/launch/dryrun.py:183-191``); the cache is updated in place.
+    ``decode_step.plan`` is ``cache_plan(cfg, seq_len)``; ``.stats`` the
+    call's collectives (:func:`_serve_stats`)."""
     plan = cache_plan(cfg, seq_len)
-    gather = _serve_gather(cfg, layout, max(plan["cache_len"], 1))
+    gather = _serve_gather(cfg, layout, max(plan["cache_len"], 1), batch)
 
     def decode_step(params, cache, tokens, pos):
         layout.reset_counts()
+        gather.reset()
         with torch.no_grad():
             logits, cache = M.decode_step(params, cfg, tokens, cache, pos,
                                           ring=plan["ring"], window=plan["window"],
                                           backend=backend, gather=gather)
-        decode_step.stats = layout.counts()
+        decode_step.stats = _serve_stats(layout, gather)
         return logits, _next_token(logits), cache
 
     decode_step.stats = {}

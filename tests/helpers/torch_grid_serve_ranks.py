@@ -12,7 +12,6 @@ from repro_torch import bridge
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import spmd
-from repro_torch.tree import flatten
 
 CPU = torch.device("cpu")
 
@@ -34,23 +33,45 @@ def serve_cases(rank, world, cases):
         B = batch["tokens"].shape[0]
         rows = spmd.local_rows(B, layout, serving=True)
         mine = {k: torch.from_numpy(v)[rows] for k, v in batch.items()}
-        prefill = spmd.make_prefill_step(cfg, layout, cache_len)
+        prefill = spmd.make_prefill_step(cfg, layout, cache_len, batch=B)
         params = spmd.tree_blocks(bridge.params_from_numpy(tree, CPU), layout, prefill.specs)
         logits, tok, cache = prefill(params, mine)
         res = {"coord": (grid.d, grid.k), "rows": rows, "logits": [logits], "tokens": [tok],
                "stats": [prefill.stats]}
         pos = mine["tokens"].shape[1] + cfg.num_prefix_tokens
-        decode = spmd.make_decode_step(cfg, layout, seq_len)
+        decode = spmd.make_decode_step(cfg, layout, seq_len, batch=B)
         for i in range(steps):
             logits, tok, cache = decode(params, cache, tok, pos + i)
             res["logits"].append(logits)
             res["tokens"].append(tok)
             res["stats"].append(decode.stats)
-        res["cache"] = flatten(cache)
+        res["cache"] = spmd.cache_leaves(cache)
         res["cache_bytes"] = spmd.cache_bytes(cache)
         res["cache_block_bytes"] = spmd.cache_block_bytes(cfg, layout, B, decode.plan[
             "cache_len"] or 1)
         out[name] = res
+    return out
+
+
+def reblock_cases(rank, world, cases):
+    """Each case ``(name, shape, from spec, to spec, seed)`` on the (data
+    2, model 2) grid: the rank's ``from`` block of a seeded whole leaf
+    moved to its ``to`` block (``spmd.Layout.reblock``) and back.
+    Returns per case the rank's grid coordinate, both results and the
+    collectives of each move."""
+    mesh, grid = make_local_mesh(model=2, data=2, transport="host", device=CPU)
+    layout = spmd.Layout(mesh, grid)
+    out = {}
+    for name, shape, src, dst, seed in cases:
+        whole = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+        layout.reset_counts()
+        there = layout.reblock(layout.block(whole, src), src, dst, shape)
+        stats = [layout.counts()]
+        layout.reset_counts()
+        back = layout.reblock(there, dst, src, shape)
+        stats.append(layout.counts())
+        out[name] = {"coord": (grid.d, grid.k), "there": there, "back": back,
+                     "stats": stats}
     return out
 
 

@@ -13,7 +13,9 @@ the same weights (biases and scales perturbed) and prompts.  Each rank's
 prefill logits and 4 decode steps' logits of its rows within 1e-5, its
 greedy tokens equal, and its cache blocks after the last step equal to
 the rules' blocks (``rules.cache_shardings``) of the JAX cache within
-1e-5, their bytes the closed form.  Cases, at data 2 x model 2 unless
+1e-5, their bytes the closed form; a hybrid model's logits and cache
+within 2e-4, the tolerance ``tests/test_torch_hybrid.py`` holds the
+port's single device to (its caches lie 2e-5 to 5e-5 from JAX's here).  Cases, at data 2 x model 2 unless
 named: granite's smoke width (kv heads over the model axis); with one kv
 head (the cache sharded over its sequence: each member's slots, the
 partial softmaxes combined through ``flash_decode``'s slot offset and
@@ -22,10 +24,21 @@ decode; an odd cache length the model axis divides in no dim (the
 whole cache on every member); qwen3-moe (expert parallelism), mamba2
 (head sharding, the conv cache whole) and paligemma (one kv head behind
 its image prefix); a batch of one replicated over the data axis; mamba2
-at data 4 x model 1.  The plain ``flash_decode`` with ``slot0``,
-``cache_len`` and ``return_lse`` is held, blocks combined, to
-``repro.kernels.ref``'s decode over the whole cache.  Hybrid and audio
-models are refused by name (ROADMAP A16d).  Two torch threads.
+at data 4 x model 1; zamba2 in the three placements the rule gives its
+stacked (G, per, B, ...) ssm cache (per 1: the conv cache's batch over
+the model axis, the state whole; per 2: per over data and the batch
+over model; per 2 at batch 1: the conv channels over model), each moved
+to the blocks its layers compute on and back once a group; whisper (the
+cross cache over its encoder sequence, decoded through ``flash_decode``'s
+slot offset and log-sum-exp, the self cache over its kv heads).  The
+plain ``flash_decode`` with ``slot0``, ``cache_len`` and ``return_lse``
+is held, blocks combined, to ``repro.kernels.ref``'s decode over the
+whole cache.  ``spmd.Layout.reblock`` is held on the same ranks to the
+blocks of a whole leaf, both ways, at 2 x 2 for each spec pattern of the
+rule's zamba2 and whisper placements, and on counting stand-ins at the
+full configs' shapes and meshes (16 x 16 included) to the rule's specs,
+the blocks' shapes and the closed form of the bytes it gathers.  Two
+torch threads.
 """
 import dataclasses
 import pathlib
@@ -39,6 +52,7 @@ import pytest
 import torch
 
 from conftest import exact_cfg
+from test_torch_hybrid import SERVE_TOL
 from repro.kernels import ref as jref
 from repro.models import model as JM
 from repro.training import serve_step as JSS
@@ -48,6 +62,7 @@ from repro_torch.launch import dryrun, ranks
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.config import ModelConfig as TConfig
 from repro_torch.sharding import spmd
+from repro_torch.training import serve_step as TSS
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tests" / "helpers"))
@@ -55,7 +70,9 @@ import torch_grid_serve_ranks as W  # noqa: E402
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=1e-5, atol=1e-5)
+HYBRID_TOL = SERVE_TOL
 STEPS = 4
+PER2 = {"num_layers": 4, "hybrid_attn_every": 2}
 # (name, arch, config overrides, data, model, batch, prompt, the cache's
 # placement over the model axis: KVCut's mode, None for an ssm cache)
 CASES = [
@@ -69,6 +86,30 @@ CASES = [
     ("paligemma", "paligemma_3b", {}, 2, 2, 8, 64, "seq"),
     ("granite-batch1", "granite_8b", {}, 2, 2, 1, 64, "heads"),
     ("mamba2-data4", "mamba2_780m", {}, 4, 1, 8, 64, None),
+    ("zamba2", "zamba2_2p7b", {}, 2, 2, 8, 64, "heads"),
+    ("zamba2-per2", "zamba2_2p7b", PER2, 2, 2, 4, 64, "heads"),
+    ("zamba2-per2-batch1", "zamba2_2p7b", PER2, 2, 2, 1, 64, "heads"),
+    ("whisper", "whisper_base", {}, 2, 2, 8, 64, "heads"),
+]
+# the self-attention cache's path by family (the others' "k")
+KV_PATH = {"hybrid": "attn/k", "audio": "self/k"}
+# (name, whole shape, the rule's spec, the block computed on, seed): the
+# spec patterns of the rule's zamba2 and whisper placements at 2 x 2 that
+# Layout.reblock moves between, on small shapes
+D, MD = "data", "model"
+REBLOCK = [
+    ("conv per over data, batch over model", (2, 4, 3, 8), (D, MD, None, None),
+     (None, D, None, None)),
+    ("conv batch over model, per whole", (1, 4, 3, 8), (None, MD, None, None),
+     (None, D, None, None)),
+    ("conv channels over model, one row", (2, 1, 3, 8), (D, None, None, MD),
+     (None, None, None, None)),
+    ("state per over data", (2, 4, 4, 2, 3), (D, None, None, None, None),
+     (None, D, MD, None, None)),
+    ("state whole", (1, 4, 4, 2, 3), (None, None, None, None, None),
+     (None, D, MD, None, None)),
+    ("cross over its sequence", (2, 4, 6, 2, 3), (None, D, MD, None, None),
+     (None, D, None, MD, None)),
 ]
 
 
@@ -112,6 +153,9 @@ def _case(name, arch, over, data, model, B, prompt, seed):
     if jcfg.family == "vlm":
         batch["image_embeds"] = rng.standard_normal(
             (B, jcfg.num_prefix_tokens, jcfg.d_model)).astype(np.float32)
+    if jcfg.family == "audio":
+        batch["audio_embeds"] = rng.standard_normal(
+            (B, jcfg.encoder_seq_len, jcfg.d_model)).astype(np.float32)
     cache_len, seq_len = _lengths(jcfg, prompt)
     return jcfg, _weights(jcfg, seed), batch, cache_len, seq_len
 
@@ -150,7 +194,11 @@ def served(tmp_path_factory):
 
     def spawn():
         try:
-            result["outs"] = ranks.spawn(W.run_all, 4, ([("cases", "serve_cases", (jobs,))],),
+            rjobs = [(name, shape, src, dst, seed) for seed, (name, shape, src, dst)
+                     in enumerate(REBLOCK)]
+            result["outs"] = ranks.spawn(W.run_all, 4, ([("cases", "serve_cases", (jobs,)),
+                                                         ("reblock", "reblock_cases",
+                                                          (rjobs,))],),
                                          workdir=str(tmp_path_factory.mktemp("serve")),
                                          timeout=300, threads=1)
         except BaseException as e:          # re-raised in the test's thread
@@ -167,11 +215,17 @@ def served(tmp_path_factory):
 
 @pytest.mark.parametrize("name", [c[0] for c in CASES])
 def test_grid_serve_matches_jax_single_device(served, name):
+    """A hybrid case is held at ``HYBRID_TOL``, the port's single device's
+    own tolerance against the JAX package in serving
+    (``tests/test_torch_hybrid.py``: its chunked SSD sums in another
+    order; at these weights its caches lie 2e-5 to 5e-5 from JAX's), the
+    others at 1e-5."""
     outs, cases, refs = served
     jcfg, _, batch, cache_len, seq_len = cases[name]
     want_logits, want_tokens, want_cache = refs[name]
     _, _, _, data, model, B, _, mode = next(c for c in CASES if c[0] == name)
     tcfg = TConfig(**dataclasses.asdict(jcfg))
+    tol = HYBRID_TOL if tcfg.family == "hybrid" else TOL
     mesh = Mesh.of((data, model), ("data", "model"))
     specs = spmd.cache_specs(tcfg, mesh, B, seq_len)
     coords = set()
@@ -181,21 +235,27 @@ def test_grid_serve_matches_jax_single_device(served, name):
         coords.add(tuple(got["coord"]))
         assert len(rows) == (B if B % data else B // data)
         for step, (a, b) in enumerate(zip(got["logits"], want_logits)):
-            np.testing.assert_allclose(a.numpy(), b[rows], **TOL, err_msg=f"{name} {step}")
+            np.testing.assert_allclose(a.numpy(), b[rows], **tol, err_msg=f"{name} {step}")
         for step, (a, b) in enumerate(zip(got["tokens"], want_tokens)):
             np.testing.assert_array_equal(a.numpy(), b[rows], err_msg=f"{name} {step}")
         layout = dryrun.standin_layout(mesh, got["coord"])
-        blocks = bridge.cache_blocks_from_numpy(want_cache, layout, specs, CPU)
+        blocks = spmd.cache_leaves(bridge.cache_blocks_from_numpy(want_cache, layout, specs,
+                                                                  CPU))
         assert set(blocks) == set(got["cache"])
         for path, t in blocks.items():
-            np.testing.assert_allclose(got["cache"][path].numpy(), t.numpy(), **TOL,
+            np.testing.assert_allclose(got["cache"][path].numpy(), t.numpy(), **tol,
                                        err_msg=f"{name} {path}")
         assert got["cache_bytes"] == got["cache_block_bytes"] == \
             spmd.cache_bytes(blocks)
         if mode is not None:
-            whole = {"k": (1, B, tcfg.num_kv_heads, seq_len if mode != "seq" or not
-                           jcfg.sliding_window else cache_len, tcfg.head_dim)}
-            assert spmd.KVCut(layout, specs["k"], whole["k"]).mode == mode
+            whole = (1, B, tcfg.num_kv_heads, seq_len if mode != "seq" or not
+                     jcfg.sliding_window else cache_len, tcfg.head_dim)
+            kv = KV_PATH.get(tcfg.family, "k")
+            assert spmd.KVCut(layout, specs[kv], whole).mode == mode
+        if tcfg.family == "audio":
+            cross = (1, B, tcfg.encoder_seq_len, tcfg.num_kv_heads, tcfg.head_dim)
+            cut = spmd.KVCut(layout, specs["cross/0"], cross, heads=3, seq=2)
+            assert (cut.mode, cut.slots) == ("seq", tcfg.encoder_seq_len // model)
         model_calls = [s["model_gather_calls"] + s["model_reduce_calls"] for s in got["stats"]]
         assert all(n > 0 for n in model_calls) == (model > 1), model_calls
     assert len(coords) == 4
@@ -255,11 +315,110 @@ def test_flash_decode_blocks_combine_to_the_whole_cache(blocks, pos, window, sof
                        ops.flash_decode(q, k, v, pos, slot0=0, cache_len=S, **kw))
 
 
-@pytest.mark.parametrize("arch", ["zamba2_2p7b", "whisper_base"])
-def test_hybrid_and_audio_serving_refused_by_name(arch):
-    cfg = TConfig(**dataclasses.asdict(exact_cfg(arch)))
-    layout = dryrun.standin_layout(Mesh.of((2, 2), ("data", "model")))
-    for make in (lambda: spmd.make_prefill_step(cfg, layout, 16),
-                 lambda: spmd.make_decode_step(cfg, layout, 16)):
-        with pytest.raises(NotImplementedError, match=f"{cfg.family}.*A16d"):
-            make()
+def test_hybrid_ssm_cache_moves_once_a_group(served):
+    """Each of zamba2's groups moves its ssm cache (conv and state) from
+    the rule's blocks to the blocks its layers compute on and back once a
+    decode step, counted among the step's collectives: per 2 at 2 x 2
+    (the conv cache's per over data and its batch over model, the
+    state's per over data) gathers over data four times a group (each
+    leaf each way) and over model twice (the conv cache in, the state's
+    heads out), the bytes each move's whole group slice less the block
+    it started from.  Whisper's decode copies each layer's cross cache
+    blocks into ``flash_decode``'s layout, its prefill nothing."""
+    outs, cases, _ = served
+    jcfg = cases["zamba2-per2"][0]
+    tcfg = TConfig(**dataclasses.asdict(jcfg))
+    mesh = Mesh.of((2, 2), ("data", "model"))
+    groups = PER2["num_layers"] // PER2["hybrid_attn_every"]
+    for o in outs:
+        layout = dryrun.standin_layout(mesh, o["cases"]["zamba2-per2"]["coord"])
+        gather = spmd.ServeGather(tcfg, layout, {}, {}, 68, 4)
+        want = 0
+        for rule, compute, shape in gather.ssm.values():
+            whole = torch.empty(shape, device="meta").numel() * 4
+            for spec in (rule, compute):
+                want += whole - layout.block(torch.empty(shape, device="meta"), spec).numel() * 4
+        for stats in o["cases"]["zamba2-per2"]["stats"][1:]:
+            assert stats["reblock_data_calls"] == groups * 4, stats
+            assert stats["reblock_model_calls"] == groups * 2, stats
+            assert stats["reblock_data_bytes"] + stats["reblock_model_bytes"] == \
+                groups * want
+            assert stats["copy_bytes"] == 0
+    whisper = outs[0]["cases"]["whisper"]["stats"]
+    wcfg = exact_cfg("whisper_base")
+    assert whisper[0]["copy_bytes"] == whisper[0]["reblock_data_calls"] == 0
+    assert whisper[1]["copy_bytes"] == wcfg.num_layers * 2 * 4 * wcfg.num_kv_heads * \
+        wcfg.encoder_seq_len // 2 * wcfg.head_dim * 4
+
+
+@pytest.mark.parametrize("name", [c[0] for c in REBLOCK])
+def test_reblock_moves_between_blocks(served, name):
+    """``Layout.reblock`` on the four gloo ranks: the rank's ``to`` block
+    of a whole leaf from its ``from`` block, and back, exactly; its
+    gathers counted, their bytes the whole leaf's less the block it
+    started from."""
+    outs = served[0]
+    _, shape, src, dst = next(c for c in REBLOCK if c[0] == name)
+    seed = [c[0] for c in REBLOCK].index(name)
+    whole = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+    mesh = Mesh.of((2, 2), ("data", "model"))
+    for o in outs:
+        got = o["reblock"][name]
+        layout = dryrun.standin_layout(mesh, got["coord"])
+        assert torch.equal(got["there"], layout.block(whole, dst))
+        assert torch.equal(got["back"], layout.block(whole, src))
+        for stats, spec in zip(got["stats"], (src, dst)):
+            gathered = sum(stats[f"{a}_gather_bytes"] for a in ("data", "model"))
+            assert gathered == 4 * (whole.numel() - layout.block(whole, spec).numel())
+
+
+# (arch, overrides, (data, model), batch, leaf, the rule's spec): the
+# rule's zamba2 and whisper placements that the grid reblocks or reads
+M16 = (16, 16)
+TABLE = [
+    ("zamba2_2p7b", {}, (2, 2), 4, "ssm/conv", (None, D, MD, None, None)),
+    ("zamba2_2p7b", {}, (2, 2), 4, "ssm/state", (None, D, None, None, None, None)),
+    ("zamba2_2p7b", {}, M16, 128, "ssm/conv", (None, None, MD, None, None)),
+    ("zamba2_2p7b", {}, M16, 128, "ssm/state", (None,) * 6),
+    ("zamba2_2p7b", {"num_layers": 4, "hybrid_attn_every": 2}, (2, 2), 1, "ssm/conv",
+     (None, D, None, None, MD)),
+    ("whisper_base", {}, (2, 2), 4, "cross/0", (None, D, MD, None, None)),
+    ("whisper_base", {}, M16, 128, "cross/0", (None, D, None, None, None)),
+]
+
+
+@pytest.mark.parametrize("case", TABLE, ids=lambda c: f"{c[0]}-{c[2][0]}x{c[2][1]}-B{c[3]}-"
+                         f"{c[4]}")
+def test_reblock_takes_every_rule_placement(case):
+    """At each full config's shapes on its mesh (counting stand-ins, meta
+    tensors): the rule's spec of the leaf is the one the grid was built
+    for, and ``reblock`` moves rank (0, 0)'s and the last rank's block of
+    it to the compute placement (the batch over data, heads over model)
+    and back, each result its block's shape, the bytes gathered the whole
+    leaf's less the block it started from, in one call an axis named."""
+    from repro_torch.configs import get_config
+    arch, over, (data, model), B, path, want = case
+    cfg = dataclasses.replace(get_config(arch), **over)
+    mesh = Mesh.of((data, model), ("data", "model"))
+    spec = spmd.cache_specs(cfg, mesh, B, 64)[path]
+    assert spec == want
+    leaf = spmd.cache_leaves(TSS.abstract_serve_cache(cfg, B, 64))[path]
+    rows = D if B % data == 0 else None
+    heads = MD if cfg.num_kv_heads % model == 0 else None
+    compute = {"ssm/conv": (None, None, rows, None, None),
+               "ssm/state": (None, None, rows, MD, None, None),
+               "cross/0": (None, rows, None, heads, None)}[path]
+    nbytes = lambda t: t.numel() * t.element_size()
+    for coord in ((0, 0), (data - 1, model - 1)):
+        layout = dryrun.standin_layout(mesh, coord)
+        for src, dst in ((spec, compute), (compute, spec)):
+            block = layout.block(leaf, src)
+            layout.reset_counts()
+            got = layout.reblock(block, src, dst, leaf.shape)
+            stats = layout.counts()
+            assert got.shape == layout.block(leaf, dst).shape
+            gathered = sum(stats[f"{a}_gather_bytes"] for a in ("data", "model"))
+            assert gathered == (0 if src == dst else nbytes(leaf) - nbytes(block))
+            named = {u for e in src for u in layout.units(e) if layout.size(u) > 1}
+            calls = sum(stats[f"{a}_gather_calls"] for a in ("data", "model"))
+            assert calls == (0 if src == dst else len(named))

@@ -70,12 +70,39 @@ def test_measured_profile_fields_match_jax(arch):
     for key, value in got.items():
         if key not in ("backend", "t_wgrad"):
             assert value > 0, (key, got)
-    assert got["t_wgrad"] >= 0.0             # t_bwd − t_dgrad, noise-clamped
+    assert got["t_wgrad"] >= 0.0             # the pairs' median difference, noise-clamped
     assert 0.05 <= got["wgrad_frac"] <= 0.95
     assert got["t_recomp"] == got["t_fwd"]
     auto = tprof.measure_layer_profile(reduced(tconfigs.get_config(arch)), 32, iters=1,
                                        device="cpu")
     assert auto["backend"] == "einsum"       # "auto" on CPU tensors
+
+
+def test_host_stall_in_a_full_backward_keeps_dgrad_positive(monkeypatch):
+    """A host stall planted in one timed full backward of the wgrad pairs
+    (0.3 s, far past the block's backward at this size) leaves every
+    field finite: ``t_dgrad`` the input-only backward of the same pairs,
+    above 0, and ``t_wgrad`` within [0, ``t_bwd``]."""
+    import math
+    import time
+
+    import torch
+    grad, seen = torch.autograd.grad, []
+
+    def stalled(outputs, inputs, *a, **kw):
+        if kw.get("retain_graph") and len(inputs) > 1:
+            seen.append(1)
+            if len(seen) == 2:                # the first timed one, after the warm call
+                time.sleep(0.3)
+        return grad(outputs, inputs, *a, **kw)
+
+    monkeypatch.setattr(torch.autograd, "grad", stalled)
+    got = _measure_cpu("granite_8b")
+    assert len(seen) == 2
+    assert all(math.isfinite(v) for k, v in got.items() if k != "backend"), got
+    assert got["t_dgrad"] > 0, got
+    assert 0.0 <= got["t_wgrad"] <= got["t_bwd"], got
+    assert 0.05 <= got["wgrad_frac"] <= 0.95
 
 
 def test_reference_times_a_cut_block_the_port_times_what_it_is_given(monkeypatch):
