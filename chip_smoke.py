@@ -345,10 +345,43 @@ result.  Phases, each of which fails the run by raising:
      launches pinned a rank a call; prefill ms, decode p50, peak memory by
      rank and each call's collectives by axis printed beside the card's
      name and power limit.
+ 43. the examples and the card rules (``repro_torch.examples``,
+     ``repro_torch.analysis.card_lint``): (a) ``quickstart`` on the card
+     for granite-8b and mamba2-780m (smoke configs, bf16): its forward
+     logits held to the same call through ``--backend einsum`` at phase
+     5's limits (an ssm model's: or ``E2E_SPREAD`` x the einsum path's own
+     spread at other SSD chunks), its loss finite, its launches pinned
+     (granite: 3 x L ``flash_attention`` for the forward, the step and
+     the prefill, 7 x L ``flash_decode``; mamba2: 3 x L ``ssd_scan``);
+     (b) ``serve_batch`` at its defaults (mamba2-780m smoke, 8 x 64 + 48)
+     and on granite-8b: its prefill logits held as (a)'s, its greedy
+     tokens to ``E2E_MIN_AGREE`` of the first 4 against the einsum path
+     where the einsum path meets that against itself (its keys reversed,
+     or other SSD chunks), launches pinned (L ``ssd_scan``; L
+     ``flash_attention`` and 47 x L ``flash_decode``), prefill ms and
+     decode tok/s printed beside the card's name and power limit; (c)
+     ``train_e2e --full-100m`` (e2e-100m, 12 layers, fp32 with TF32 off,
+     its own b8 x 256 batches, 120 steps, checkpoints every 50 steps and
+     the resume check): every loss finite, the first within
+     ``TRAIN_LOSS_RTOL`` of the einsum path's first loss, the example's
+     own drop above its 0.5, the resume check within its 1e-5,
+     2 x 12 ``flash_attention`` a step (forward and recompute; the
+     resume check's two steps too); step ms, tokens/s, peak memory
+     printed; and the fp32 ``flash_attention`` (the CUDA-core
+     ``attn_fwd``) timed at its shape, B8 S256 H12/4 hd64 causal, beside
+     its plain version, SDPA in fp32 and its bound; (d) the card rules
+     against the card: each shape ``CARD_PLANTED`` plants (hd 96, hd 32,
+     a decode group G 16 x hd 256, an ``ssd_scan`` of p 128, n 256,
+     chunk 512, a bf16 ``ssd_scan`` of p 60) named by the lint's code and
+     refused by the kernel's wrapper on the card with the lint's message,
+     no launch counted; every catalog config, full and smoke, at 1, 2 and
+     4 members' shapes, clean in the lint and one small launch of each
+     kernel on its path held to its plain version (``TOL``,
+     ``SSD_TOL``); both verdicts printed side by side.
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
 over the main paths that run it, phases 4, 7, 12, 13, 15–21, 23–26, 28,
-29 and 32–42 (42's bf16 cases), each kernel's fp16 row under ``"float16"``,
+29, 32–42 (42's bf16 cases) and 43 (a)–(c), each kernel's fp16 row under ``"float16"``,
 each counted from 0; the pipeline phases in each rank's own process,
 summed over the ranks), the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Each phase's heading carries the
@@ -393,6 +426,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -1091,6 +1125,28 @@ GRID_SERVE = [
 GRID_SERVE_BATCH, GRID_SERVE_PROMPT, GRID_SERVE_GEN = 4, 512, 8
 GRID_SERVE_STEPS, GRID_SERVE_FP32_STEPS = 2, 1
 GRID_SERVE_FP32_RTOL = 1e-4
+# Phase 43: the examples (``repro_torch.examples``) and the card rules.
+EXAMPLE_ARCHS = ("granite_8b", "mamba2_780m")        # (a) quickstart
+SERVE_BATCH_ARCHS = (None, "granite_8b")             # (b): its default arch, then granite
+E2E_ARGV = ["--full-100m", "--steps", "120"]        # (c): its own b8 x 256 batches
+EXAMPLE_AGREE_STEPS = 4                              # the first tokens held, as phase 5
+FA_E2E = ("train_e2e fp32: B8 S256 H12 KV4 hd64", 8, 256, 256, 12, 4, 64, True, 0, 0, 0)
+CARD_MEMBERS = (1, 2, 4)
+CARD_SEQ = 64                                        # (d)'s small launches
+CARD_SSD_SEQ = 128
+# (d): shapes the card rules refuse, at a tiny B and S: (label, the smoke
+# config whose fields are replaced, the replacement, the sequence the lint
+# is given, the lint's code)
+CARD_PLANTED = [
+    ("hd 96", "granite_8b", dict(head_dim=96), None, "H2E511"),
+    ("hd 32", "granite_8b", dict(head_dim=32), None, "H2E511"),
+    ("decode G 16 x hd 256 = 4096", "granite_8b",
+     dict(num_heads=16, num_kv_heads=1, head_dim=256), None, "H2E512"),
+    ("ssd_scan p 128, n 256, chunk 512", "mamba2_780m",
+     dict(ssm_headdim=128, ssm_state=256, ssm_chunk=512), 512, "H2E513"),
+    ("bf16 ssd_scan p 60", "mamba2_780m", dict(ssm_headdim=60), 64, "H2E514"),
+]
+
 _SERVE_RUNS = {}              # phase 42's ranks' results by case, for 41 (e)
 _GRID_RUNS = {}               # what each grid phase measured, by phase
 _PEAKS = {}                   # train_and_check's peak memory, by run
@@ -1310,7 +1366,8 @@ def phase_kernels():
 
 def fa_timed(case, gen, dtype=None):
     """``flash_attention``'s row of times at ``case`` (bf16 unless
-    ``dtype`` says otherwise; the bound is the same for fp16), beside its
+    ``dtype`` says otherwise; the bound is the same for fp16, fp32's reads
+    twice the bytes at the CUDA cores' peak), beside its
     plain version, ``scaled_dot_product_attention`` and the bound, and its
     error against the plain version.  The bound is the package's closed
     form (``kernels/cost.py``, which the dry-run counts with too): the
@@ -1350,7 +1407,8 @@ def fa_timed(case, gen, dtype=None):
     log(f"  scaled_dot_product_attention vs plain [{label}, {dname}]: "
         f"max_abs_err={lib_err:.3e}")
     del lib, want
-    b_ms, b_by = cost.bound(*cost.flash_attention_cost(q.shape, k.shape, 2, **kw))
+    b_ms, b_by = cost.bound(*cost.flash_attention_cost(q.shape, k.shape, q.element_size(),
+                                                       **kw), dname)
     if n > 1:
         log(f"  flash_attention [{label}]: K/V taken in turn from {n} sets "
             f"({n * kv_bytes / 1e6:.1f} MB)")
@@ -5028,6 +5086,334 @@ def phase_serve_faults(smi, labels=SERVE_FAULT_CASES):
     return bad
 
 
+# ---------------------------------------------------------------------------
+# phase 43: the examples and the card rules
+# ---------------------------------------------------------------------------
+
+def counted(fn):
+    """``fn()`` with the kernels' launch counts from 0: (its result, the
+    counts by kernel)."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    out = fn()
+    return out, {f.__name__: f.launches for f in ops.KERNELS}
+
+
+def hold_launches(label, got, want):
+    """Each kernel launched exactly ``want[name]`` times (0 where absent)."""
+    want = {name: want.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    log(f"  {label}: launches {got}")
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its printed lines dropped (a yardstick's run)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+@contextlib.contextmanager
+def example_config(module, **fields):
+    """While the context lasts, the smoke configs of the example
+    ``module`` have ``fields`` replaced."""
+    from unittest import mock
+    get = module.get_smoke_config
+    with mock.patch.object(module, "get_smoke_config",
+                           lambda name: dataclasses.replace(get(name), **fields)):
+        yield
+
+
+def einsum_spreads(module, run, cfg):
+    """The example's einsum path at other summation orders, by label (phase
+    5's yardsticks): an ssm or hybrid model's at chunk / 2 and / 4, any
+    other's with its keys reversed.  ``run(backend)`` runs the example."""
+    out = {}
+    if cfg.family in ("ssm", "hybrid"):
+        for d in TRAIN_BF16_CHUNK_DIVISORS:
+            with example_config(module, ssm_chunk=cfg.ssm_chunk // d):
+                out[f"einsum at chunk {cfg.ssm_chunk // d}"] = quiet(run, "einsum")
+    else:
+        with keys_reversed():
+            out["einsum with its keys reversed"] = quiet(run, "einsum")
+    return out
+
+
+def hold_logits(label, key, got, want, spreads):
+    """``got[key]`` against the einsum path's ``want[key]``: relative L2 and
+    largest absolute error within phase 5's limits, or ``E2E_SPREAD`` x the
+    einsum path's own distance in each of ``spreads`` where that is wider."""
+    def diff(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm()), float((a - b).abs().max())
+    rel, mx = diff(got[key], want[key])
+    own = {c: diff(s[key], want[key]) for c, s in spreads.items()}
+    lim_rel = max([E2E_REL_L2] + [E2E_SPREAD * r for r, _ in own.values()])
+    lim_mx = max([E2E_MAX_ABS] + [E2E_SPREAD * m for _, m in own.values()])
+    good = bool(got[key].float().isfinite().all()) and rel <= lim_rel and mx <= lim_mx
+    log(f"  {label} {key}: kernel vs einsum rel L2 {rel:.3e} (limit {lim_rel:.3e}), max abs "
+        f"{mx:.3e} (limit {lim_mx:.3e})"
+        + "".join(f"; {c}: {r:.3e}, {m:.3e}" for c, (r, m) in own.items())
+        + ("" if good else "  OVER"))
+    if not good:
+        raise AssertionError(f"{label}: the kernel path's {key} are off the einsum path's")
+
+
+def tokens_agree(a, b):
+    """On how many of the first ``EXAMPLE_AGREE_STEPS`` generated tokens
+    every request of ``a`` and ``b`` agrees."""
+    import torch
+    return sum(int(torch.equal(a[:, i], b[:, i])) for i in range(EXAMPLE_AGREE_STEPS))
+
+
+def example_quickstart():
+    """43 (a): ``quickstart`` on the card for ``EXAMPLE_ARCHS``."""
+    from repro_torch.examples import quickstart
+
+    total = {}
+    for arch in EXAMPLE_ARCHS:
+        cfg = quickstart.get_smoke_config(arch)
+        ssm = cfg.family == "ssm"
+
+        def run(backend):
+            return quickstart.run(quickstart.parse_args(["--arch", arch, "--backend", backend]))
+        out, got = counted(lambda: run("auto"))
+        L, label = out["num_layers"], f"(a) quickstart {arch}"
+        # the forward, the step (its backward recomputes the plain version)
+        # and the prefill a layer each; 7 decode calls
+        hold_launches(label, got, {"ssd_scan": 3 * L} if ssm else
+                      {"flash_attention": 3 * L, "flash_decode": 7 * L})
+        ref = quiet(run, "einsum")
+        hold_logits(label, "logits", out, ref, einsum_spreads(quickstart, run, cfg) if ssm else {})
+        rel = abs(out["loss"] - ref["loss"]) / abs(ref["loss"])
+        toks = out["tokens"]
+        log(f"  {label}: loss {out['loss']:.5f}, einsum {ref['loss']:.5f} (rel {rel:.2e}, limit "
+            f"{TRAIN_BF16_LOSS_RTOL}); tokens {toks[0].tolist()}, einsum "
+            f"{ref['tokens'][0].tolist()}")
+        if not math.isfinite(out["loss"]) or rel > TRAIN_BF16_LOSS_RTOL \
+                or toks.shape != (2, 8) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{label}: loss or tokens off")
+        for name, n in got.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def example_serve_batch(smi):
+    """43 (b): ``serve_batch`` on the card at its defaults and on granite-8b."""
+    from repro_torch.examples import serve_batch
+
+    total = {}
+    for arch in SERVE_BATCH_ARCHS:
+        argv = [] if arch is None else ["--arch", arch]
+        args = serve_batch.parse_args(argv)
+        cfg = serve_batch.get_smoke_config(args.arch)
+        ssm = cfg.family in ("ssm", "hybrid")
+
+        def run(backend):
+            return serve_batch.run(serve_batch.parse_args(argv + ["--backend", backend]))
+        out, got = counted(lambda: run("auto"))
+        L, label = out["num_layers"], f"(b) serve_batch {args.arch}"
+        hold_launches(label, got, {"ssd_scan": L} if cfg.family == "ssm" else
+                      {"flash_attention": L, "flash_decode": L * (args.gen - 1)})
+        ref = quiet(run, "einsum")
+        spreads = einsum_spreads(serve_batch, run, cfg)
+        hold_logits(label, "prefill_logits", out, ref, spreads if ssm else {})
+        toks, n = out["tokens"], tokens_agree(out["tokens"], ref["tokens"])
+        own = {c: tokens_agree(s["tokens"], ref["tokens"]) for c, s in spreads.items()}
+        # a token criterion the plain path fails against itself judges nothing
+        gated = min([EXAMPLE_AGREE_STEPS] + list(own.values())) >= E2E_MIN_AGREE
+        log(f"  {label}: greedy tokens of all {args.requests} requests agree on {n} of the "
+            f"first {EXAMPLE_AGREE_STEPS} ("
+            + (f"limit {E2E_MIN_AGREE}" if gated else "not held: the einsum path agrees "
+               f"with itself on fewer than {E2E_MIN_AGREE}")
+            + "".join(f"; {c}: {k}" for c, k in own.items()) + ")")
+        if toks.shape != (args.requests, args.gen) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab_size or (gated and n < E2E_MIN_AGREE):
+            raise AssertionError(f"{label}: tokens off the einsum path's")
+        log(f"  {label}: {args.requests} x {args.prompt_len} + {args.gen}: prefill "
+            f"{out['prefill_s'] * 1e3:.2f} ms, decode {out['decode_s'] * 1e3:.1f} ms "
+            f"({out['decode_tok_per_s']:.1f} tok/s); {smi}")
+        for name, k in got.items():
+            total[name] = total.get(name, 0) + k
+    return total
+
+
+def example_train_e2e(smi):
+    """43 (c): ``train_e2e --full-100m`` on the card, then the fp32
+    ``flash_attention`` at its shape timed."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, make_loader
+    from repro_torch.examples import train_e2e
+    from repro_torch.training.train_step import make_train_state, make_train_step
+
+    args = train_e2e.parse_args(E2E_ARGV)
+    out, got = counted(lambda: train_e2e.run(args))
+    losses, L = out["losses"], out["num_layers"]
+    label = f"(c) train_e2e {out['name']}"
+    # each layer's forward and its recompute, every step and the resume
+    # check's two (their backward recomputes the plain version)
+    hold_launches(label, got, {"flash_attention": 2 * L * (len(losses) + 2)})
+    (l1, l2), drop = out["resume"], out["drop"]
+    if len(losses) != args.steps or not all(map(math.isfinite, losses)) \
+            or not drop > train_e2e.MIN_DROP or not abs(l1 - l2) < train_e2e.RESUME_ATOL:
+        raise AssertionError(f"{label}: losses {losses[:3]} ... {losses[-3:]}, drop {drop}, "
+                             f"resume {l1} vs {l2}")
+    # the einsum path's first step: the same seed, weights and batch
+    dev = torch.device("cuda")
+    cfg = train_e2e.model_config(args.full_100m)
+    state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    step = make_train_step(cfg, train_e2e.optimizer_config(args.steps), remat=True,
+                           backend="einsum")
+    loader = make_loader(cfg, DataConfig(batch_size=args.batch, seq_len=args.seq), device=dev)
+    try:
+        batch = next(loader)
+    finally:
+        loader.close()
+    first = float(step(state, batch)[1]["loss"])
+    del state, step, batch
+    torch.cuda.empty_cache()
+    rel = abs(losses[0] - first) / abs(first)
+    log(f"  {label}: first loss {losses[0]:.6f}, einsum {first:.6f} (rel {rel:.2e}, limit "
+        f"{TRAIN_LOSS_RTOL}); every loss finite; {losses[0]:.4f} -> {losses[-1]:.4f}, drop "
+        f"{drop:.3f} (> {train_e2e.MIN_DROP}); resume check {l1:.6f} == {l2:.6f} "
+        f"(|diff| {abs(l1 - l2):.1e} < {train_e2e.RESUME_ATOL})")
+    if rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{label}: the first loss is off the einsum path's")
+    p50 = steady(out["step_times_s"])
+    log(f"  {label}: {len(losses)} steps of {args.batch} x {args.seq}: step p50 over steps "
+        f"2-{len(losses)} {p50 * 1e3:.2f} ms, {args.batch * args.seq / p50:.0f} tok/s "
+        f"({out['tokens_per_s']:.0f} over all steps), peak memory "
+        f"{out['peak_mem_bytes'] / 2**30:.2f} GiB; {smi}")
+    row, err = fa_timed(FA_E2E, torch.Generator(device="cuda").manual_seed(43), torch.float32)
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    log(f"  flash_attention per call [{FA_E2E[0]}], CUDA events: kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, SDPA fp32 {row['library_ms']:.4f} ms; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); max_abs_err {err:.3e}")
+    log(f"  flash_attention per call [{FA_E2E[0]}], device time (profiler): kernel "
+        f"{fmt(row['device_ms'])}, whole wrapper {fmt(row['wrapper_device_ms'])}, plain "
+        f"{fmt(row['plain_device_ms'])}, SDPA fp32 {fmt(row['library_device_ms'])}; "
+        f"{2 * L} launches a step")
+    return got
+
+
+def phase_examples(smi):
+    """Phase 43 (a)-(c): the examples through the port on the card.
+    Returns their launches by kernel."""
+    total = {}
+    for got in (example_quickstart(), example_serve_batch(smi), example_train_e2e(smi)):
+        for name, n in got.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def planted_call(kernel, cfg, seq, gen):
+    """A call of ``kernel``'s wrapper on card tensors of ``cfg``'s shapes
+    at a tiny batch and sequence (phase 43 (d))."""
+    import torch
+    from repro_torch.kernels import ops
+    dtype = getattr(torch, cfg.dtype)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if kernel == "flash_attention":
+        q, k, v = fa_inputs(("planted", 1, 8, 8, H, KV, hd, True, 0, 0, 0), dtype, gen)
+        return lambda: ops.flash_attention(q, k, v, causal=True)
+    if kernel == "flash_decode":
+        q, [(k, v)] = fd_inputs(("planted", 1, KV, H // KV, 64, hd, 63, 0, 0.0, False, 1.0),
+                                dtype, gen)
+        return lambda: ops.flash_decode(q, k, v, 63)
+    case = ("planted", 1, seq, 2, cfg.ssm_headdim, 1, cfg.ssm_state, cfg.ssm_chunk)
+    x, dt, A, Bm, Cm = ssd_inputs(case, dtype, gen)
+    return lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+
+
+def card_launches(cfg, members, gen):
+    """One small launch of each kernel on ``cfg``'s path at a member's
+    shapes, each held to its plain version; (kernel, max abs error) pairs."""
+    import torch
+    from repro_torch.analysis import card_lint
+    from repro_torch.kernels import ops, ref
+    dtype, out = getattr(torch, cfg.dtype), []
+    if cfg.family != "ssm":
+        H, KV = card_lint.member_heads(cfg, members)
+        q, k, v = fa_inputs(("catalog", 1, CARD_SEQ, CARD_SEQ, H, KV, cfg.head_dim, True, 0, 0,
+                             0), dtype, gen)
+        out.append(("flash_attention", compare(
+            ops.flash_attention(q, k, v, causal=True),
+            ref.flash_attention_ref(q, k, v, causal=True), cfg.dtype,
+            f"flash_attention [{cfg.name}, member of {members}]")))
+        pos = CARD_SEQ - 1
+        q, [(k, v)] = fd_inputs(("catalog", 1, KV, H // KV, CARD_SEQ, cfg.head_dim, pos, 0,
+                                 0.0, False, 1.0), dtype, gen)
+        out.append(("flash_decode", compare(
+            ops.flash_decode(q, k, v, pos), ref.decode_attention_ref(q, k, v, pos), cfg.dtype,
+            f"flash_decode [{cfg.name}, member of {members}]")))
+    if cfg.family in ("ssm", "hybrid"):
+        nh = cfg.ssm_nheads
+        h = nh // members if nh % members == 0 else nh
+        chunk = min(cfg.ssm_chunk, CARD_SSD_SEQ)
+        x, dt, A, Bm, Cm = ssd_inputs(("catalog", 1, CARD_SSD_SEQ, h, cfg.ssm_headdim,
+                                       cfg.ssm_ngroups, cfg.ssm_state, chunk), dtype, gen)
+        y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        yr, fr = ref.ssd_ref(x, dt, A, Bm, Cm)
+        what = f"ssd_scan [{cfg.name}, member of {members}]"
+        out.append(("ssd_scan", max(compare(y, yr, cfg.dtype, what, tol=SSD_TOL),
+                                    compare(fin, fr, cfg.dtype, what, tol=SSD_TOL))))
+    return out
+
+
+def phase_card_rules():
+    """Phase 43 (d): the card rules against the card.  Each shape of
+    ``CARD_PLANTED``: the lint names it by its code, and the kernel's
+    wrapper on the card raises the lint's message before any launch.
+    Every catalog config, full and smoke, at ``CARD_MEMBERS``' shapes:
+    the lint is clean and a small launch of each kernel on its path holds
+    to its plain version."""
+    import torch
+    from repro_torch.analysis import card_lint
+    from repro_torch.configs import get_config, get_smoke_config, list_configs
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    for label, arch, fields, seq, code in CARD_PLANTED:
+        cfg = dataclasses.replace(get_smoke_config(arch), **fields)
+        diags = card_lint.check_card_kernels(cfg, seq_len=seq)
+        if {d.code for d in diags} != {code}:
+            raise AssertionError(f"(d) {label}: lint {[d.format() for d in diags]}, "
+                                 f"expected {code}")
+        for d in diags:
+            kernel = d.message.split(":", 1)[0]
+            call = planted_call(kernel, cfg, seq, gen)
+            before = {f.__name__: f.launches for f in ops.KERNELS}
+            try:
+                call()
+                torch.cuda.synchronize()
+            except ValueError as e:
+                card = str(e)
+            else:
+                raise AssertionError(f"(d) {label}: {kernel} took a shape the lint refuses")
+            if {f.__name__: f.launches for f in ops.KERNELS} != before or card != d.message:
+                raise AssertionError(f"(d) {label}: the card said {card!r} (launches "
+                                     f"counted or a message other than the lint's)")
+            log(f"  (d) {label:32s} lint: {d.code} {d.message} | card: ValueError: {card}")
+    n = 0
+    for arch in list_configs():
+        for kind, cfg in (("full", get_config(arch)), ("smoke", get_smoke_config(arch))):
+            for m in CARD_MEMBERS:
+                diags = card_lint.check_card_kernels(cfg, seq_len=CARD_SSD_SEQ,
+                                                     heads_per_member=m)
+                ran = card_launches(cfg, m, gen)
+                n += len(ran)
+                log(f"  (d) {arch} {kind} at {m} member(s): lint "
+                    + ("clean" if not diags else "; ".join(d.format() for d in diags))
+                    + " | card: " + ", ".join(f"{k} ok ({e:.1e})" for k, e in ran))
+                if diags:
+                    raise AssertionError(f"(d) {arch} {kind}: the lint refuses what the "
+                                         f"card takes")
+    log(f"  (d) the catalog: {len(list_configs())} configs x full and smoke x "
+        f"{len(CARD_MEMBERS)} member counts, lint clean, {n} launches held to their plain "
+        f"versions")
+
+
 def phase_transports():
     """``--transports``: phase 16 (a)'s qwen1.5-0.5b plan under 1f1b with
     one card a rank, through NCCL (traced: the tracer's object gather on
@@ -5120,7 +5506,7 @@ def main() -> int:
 
 
 def main_phases(smi) -> int:
-    """Phases 3-41, the kernels line and the last lines."""
+    """Phases 3-43, the kernels line and the last lines."""
     import torch
     log("== 3. kernels vs plain versions, fp32, bf16 and fp16")
     rows, rows16 = phase_kernels()
@@ -5296,6 +5682,14 @@ def main_phases(smi) -> int:
             launches[name] += n
     log("== 41 (e). the serve estimates of 42 (a)-(f), made on the host, against the ranks")
     phase_serve_estimates(smi)
+
+    log("== 43. the examples and the card rules: quickstart, serve_batch, train_e2e "
+        "(e2e-100m, fp32, 120 steps); planted shapes and the catalog against the card")
+    t43 = time.perf_counter()
+    for name, n in phase_examples(smi).items():
+        launches[name] += n
+    phase_card_rules()
+    log(f"  phase 43: {time.perf_counter() - t43:.1f} s")
 
     log("== done")
     kernels = []

@@ -10,13 +10,15 @@ gate prints and proceeds).  The hundreds digit names the pass family:
     2xx  schedule safety   (op-list invariants — DESIGN.md §3, §7)
     3xx  collective safety (divergence across participants — §12, §13)
     4xx  resource bounds   (per-stage memory vs chip HBM)
-    5xx  kernel lint       (Pallas grid/block/page/group preconditions)
+    5xx  kernel lint       (Pallas grid/block/page/group preconditions;
+                            51x: the card's kernels, ``card_lint``)
 
 The table below is the registry; tests assert every emitted code is in
 it, so a new check must register its code here.
 
 A copy of the JAX package's ``analysis/diagnostics.py``,
-held equal to it by ``tests/test_torch_planning.py``.
+held equal to it by ``tests/test_torch_planning.py``, with the card's
+codes H2E511-516 (``analysis/card_lint.py``) added to the registry.
 """
 from __future__ import annotations
 
@@ -71,6 +73,16 @@ CODES = {
               "of the lane tile)",
     "H2E504": "tensor parallelism on a block kind the tp runtime does "
               "not shard (non-dense family)",
+    # --- the card's kernels (analysis/card_lint.py; the port's own) ------
+    "H2E511": "head_dim the card's attention kernels are not built for "
+              "(flash_attention, flash_decode)",
+    "H2E512": "GQA group wider than flash_decode holds (G * hd above "
+              "2048)",
+    "H2E513": "ssd_scan head dim, state or chunk past the kernel's tiles",
+    "H2E514": "bf16 ssd_scan head dim or state off its 16-byte copies "
+              "(multiples of 8)",
+    "H2E515": "sequence not a whole number of ssd_scan chunks",
+    "H2E516": "dtype the card's kernels do not take",
     # --- warnings ---------------------------------------------------------
     "H2W201": "closed-form alpha disagrees with the simulator-derived "
               "value",

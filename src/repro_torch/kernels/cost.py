@@ -16,15 +16,18 @@ from typing import Tuple
 import torch
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores (fp16's peak is
-# the same) and HBM3 bandwidth
+# the same), fp32 outside the tensor cores (the fp32 kernels run on the
+# CUDA cores) and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def bound(flops: float, nbytes: float) -> Tuple[float, str]:
+def bound(flops: float, nbytes: float, dtype: str = "bfloat16") -> Tuple[float, str]:
     """(the least ms the card could take, what bounds it: ``"operations"``
-    or ``"bytes"``)."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    or ``"bytes"``), the operations at the peak for ``dtype``."""
+    peak = PEAK_FP32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 

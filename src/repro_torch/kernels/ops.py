@@ -8,7 +8,10 @@ raises on CPU tensors (``resolve_backend``).
 
 A wrapper given CPU tensors computes its kernel's plain version from
 ``ref``; given CUDA tensors it launches the kernel or raises — there is
-no fallback.  It checks device, dtype, shape and contiguity, allocates
+no fallback.  It checks device, dtype, shape and contiguity, and what
+the kernel takes (``card_rules``: head dims, the decode group, the
+scan's tiles; the static lint ``analysis.card_lint`` applies the same
+rules before a run starts, with the same messages), allocates
 the output with ``torch.empty``, launches on PyTorch's current stream
 and raises if the launch returned a CUDA error.  Each wrapper counts its
 launches in a plain integer attribute (``flash_attention.launches``),
@@ -43,13 +46,15 @@ import functools
 import torch
 
 from . import build
+from . import card_rules
 from . import cost as _cost
 from . import ref as _ref
 
 NEG_INF = _ref.NEG_INF
 BACKENDS = ("auto", "einsum", "kernel")
-HEAD_DIMS = (64, 80, 128, 256)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HEAD_DIMS = card_rules.HEAD_DIMS
+# the kernels' dtype argument: the index in ``card_rules.DTYPES``
+DTYPE_CODES = {getattr(torch, name): i for i, name in enumerate(card_rules.DTYPES)}
 
 
 _ESTIMATE = None          # the dry-run's ``record(name, flops, nbytes)``
@@ -112,6 +117,13 @@ def _check(name, tensors):
                              "is not contiguous")
 
 
+def _refuse(name, problems):
+    """Raise ``ValueError`` with the first of a ``card_rules`` check's
+    messages, after the kernel's name; nothing where it found none."""
+    if problems:
+        raise ValueError(f"{name}: {problems[0]}")
+
+
 def _launch(name, *args):
     err = build.kernel(name)(*args)
     if err != 0:
@@ -164,8 +176,7 @@ def _flash_attention_kernel(q, k, v, *, causal, window, q_offset, prefix_len):
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     _check("flash_attention", (q, k, v))
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    _refuse("flash_attention", card_rules.check_head_dim(hd))
     out = torch.empty_like(q)
     if _estimating(q):
         _ESTIMATE("flash_attention", *_cost.flash_attention_cost(
@@ -276,8 +287,9 @@ def flash_decode(q, k, v, pos, *, window=0, softcap=0.0, ring=False, slot0=0,
     G = H // KV
     q = q.contiguous()
     _check("flash_decode", (q, k, v))
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_decode: head_dim {hd} not in {HEAD_DIMS}")
+    _refuse("flash_decode", card_rules.check_head_dim(hd))
+    # the source refuses it too, but only as a bare cudaErrorInvalidValue
+    _refuse("flash_decode", card_rules.check_decode_group(G, hd))
     estimate = _estimating(q)
     n_split = decode_splits(B * KV, S, H100_SMS if estimate else _sm_count(q.device.index))
     part = torch.empty((B * KV, n_split, G, hd + 2), dtype=torch.float32,
@@ -300,7 +312,9 @@ def flash_decode(q, k, v, pos, *, window=0, softcap=0.0, ring=False, slot0=0,
 
 flash_decode.launches = 0
 
-SSD_MAX_HEAD_DIM, SSD_MAX_STATE, SSD_MAX_CHUNK = 64, 128, 256
+SSD_MAX_HEAD_DIM = card_rules.SSD_MAX_HEAD_DIM
+SSD_MAX_STATE = card_rules.SSD_MAX_STATE
+SSD_MAX_CHUNK = card_rules.SSD_MAX_CHUNK
 
 
 def _ssd_chunked(x, dt, A, Bm, Cm, *, chunk):
@@ -326,17 +340,15 @@ def _row_strided(t):
     return t, t.stride(1)
 
 
-SSD_COPY_BYTES = 16                   # the bf16 kernels copy 16-byte pieces
+SSD_COPY_BYTES = card_rules.SSD_COPY_BYTES
 
 
 def _ssd_check_copies(p, n, operands):
     """The bf16 (tensor-core) kernels copy x, B and C rows in 16-byte
-    pieces: p and n must be multiples of 8, and each operand's base and
-    row stride multiples of 16 bytes.  Anything else raises (there is no
-    other path for bf16 on the card)."""
-    if p % 8 or n % 8:
-        raise ValueError(f"ssd_scan: bf16 needs head_dim {p} and state {n} "
-                         "to be multiples of 8")
+    pieces: p and n must be multiples of 8 (``card_rules``), and each
+    operand's base and row stride multiples of 16 bytes.  Anything else
+    raises (there is no other path for bf16 on the card)."""
+    _refuse("ssd_scan", card_rules.check_ssd_copies(p, n, "bfloat16"))
     for name, t, rs in operands:
         if t.data_ptr() % SSD_COPY_BYTES or rs * t.element_size() % SSD_COPY_BYTES:
             raise ValueError(
@@ -370,10 +382,7 @@ def _ssd_scan_kernel(x, dt, A, Bm, Cm, *, chunk):
                         f"{Cm.dtype}; expected one of {list(DTYPE_CODES)}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise TypeError(f"ssd_scan: dt {dt.dtype} and A {A.dtype} must be float32")
-    if p > SSD_MAX_HEAD_DIM or n > SSD_MAX_STATE or chunk > SSD_MAX_CHUNK:
-        raise ValueError(f"ssd_scan: head_dim {p}, state {n}, chunk {chunk} "
-                         f"exceed the kernel's {SSD_MAX_HEAD_DIM}, "
-                         f"{SSD_MAX_STATE}, {SSD_MAX_CHUNK}")
+    _refuse("ssd_scan", card_rules.check_ssd_dims(p, n, chunk))
     x, x_rs = _row_strided(x)
     Bm, b_rs = _row_strided(Bm)
     Cm, c_rs = _row_strided(Cm)
@@ -417,14 +426,11 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, initial_state=None):
         raise ValueError(f"ssd_scan: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
                          f"A {tuple(A.shape)}, B {tuple(Bm.shape)}, "
                          f"C {tuple(Cm.shape)}")
-    chunk = min(chunk, S)
-    if S % chunk:
-        raise ValueError(f"ssd_scan: sequence {S} is not a multiple of chunk {chunk}")
+    _refuse("ssd_scan", card_rules.check_ssd_sequence(S, chunk))
+    chunk = card_rules.ssd_chunk(S, chunk)
     if x.device.type == "cpu":
         return _ref.ssd_ref(x, dt, A, Bm, Cm, initial_state)
-    if initial_state is not None:
-        raise ValueError("ssd_scan: the kernel starts from a zero state; "
-                         "an initial_state goes through ssd_chunked")
+    _refuse("ssd_scan", card_rules.check_ssd_initial_state(initial_state is not None))
     return recompute_vjp("ssd_scan", _ssd_scan_kernel, _ssd_chunked,
                          (x, dt, A, Bm, Cm), chunk=chunk)
 

@@ -48,8 +48,10 @@ axis), and ``copy_bytes``, the bytes of a whisper cross cache's blocks
 copied into ``flash_decode``'s layout.
 
 A combination is ``ok``, ``refused`` (with the reason: a grid
-``spmd.check_grid`` refuses, naming the count; a decode the cache plan
-refuses, full attention at 500k, as the reference skips it) or
+``spmd.check_grid`` refuses, naming the count; shapes the card's kernels
+would refuse, ``analysis.card_lint``, with their codes in ``codes``; a
+decode the cache plan refuses, full attention at 500k, as the reference
+skips it) or
 ``failed`` (with the traceback); the process exits non-zero only on ``failed``.  The
 reference's environment knobs are flags: ``--cfg-set``, ``--accum``,
 ``--accum-dtype``, ``--dp-mode`` and ``--remat-policy``.  The numbers
@@ -68,6 +70,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..analysis import card_lint
 from ..comm.p2p import Grid
 from ..configs import ASSIGNED, canonical, get_config
 from ..models.config import ModelConfig
@@ -192,9 +195,12 @@ def estimate(cfg: ModelConfig, mesh: Mesh, shape: SH.InputShape, *,
     as rank ``rank`` = (d, k) of ``mesh``, on the meta device: the
     record's numbers (see the module's docstring).  A mesh of one device
     runs the single device's step, as the launcher does.  Raises what the
-    step raises (``spmd.check_grid``'s refusal included)."""
+    step raises (``spmd.check_grid``'s refusal included) and
+    ``card_lint.CardRefusal`` where the card's kernels would refuse a
+    member's shapes."""
     layout = standin_layout(mesh, rank)
     spmd.check_grid(cfg, layout.model)
+    card_lint.require(cfg, seq_len=shape.seq_len, heads_per_member=layout.model)
     kw = dict(accum_steps=accum, accum_dtype=accum_dtype, remat_policy=remat_policy)
     step, specs, state = _steps(cfg, layout, mesh, kw, dp_mode)
     rows = len(spmd.local_rows(shape.global_batch, layout, accum))
@@ -235,9 +241,13 @@ def estimate_serve(cfg: ModelConfig, mesh: Mesh, shape: SH.InputShape, *,
     against ``abstract_serve_cache``) of ``cfg`` as rank ``rank`` of
     ``mesh`` on the meta device: the record's numbers (see the module's
     docstring).  Raises what the steps raise (``spmd.check_grid``'s
-    refusals, the cache plan's)."""
+    refusals, the cache plan's) and ``card_lint.CardRefusal`` as
+    :func:`estimate` does."""
     layout = standin_layout(mesh, rank)
     spmd.check_grid(cfg, layout.model)
+    # a decode step runs no scan over the sequence
+    card_lint.require(cfg, seq_len=shape.seq_len if shape.kind == "prefill" else None,
+                      heads_per_member=layout.model)
     B = shape.global_batch
     params = spmd.tree_blocks(M.abstract_params(cfg), layout, spmd.param_specs(cfg, mesh))
     rows = len(spmd.local_rows(B, layout, serving=True))
@@ -282,6 +292,11 @@ def estimate_serve(cfg: ModelConfig, mesh: Mesh, shape: SH.InputShape, *,
             "copy_bytes": step.stats["copy_bytes"], "step_s": wall, "activations": ACTIVATIONS}
 
 
+def _card_refusal(e: card_lint.CardRefusal) -> Dict[str, object]:
+    return {"status": "refused", "reason": "; ".join(d.format() for d in e.diagnostics),
+            "codes": sorted({d.code for d in e.diagnostics})}
+
+
 def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
                out_dir: Optional[str] = None, *, mesh: Optional[Mesh] = None,
                cfg: Optional[ModelConfig] = None, shape: Optional[SH.InputShape] = None,
@@ -306,6 +321,8 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
         if shape.kind != "train":
             try:
                 rec.update(estimate_serve(cfg, mesh, shape, rank=rank))
+            except card_lint.CardRefusal as e:
+                rec.update(_card_refusal(e))
             except (ValueError, NotImplementedError) as e:
                 if not any(w in str(e) for w in ("does not divide", "out of scope")):
                     raise
@@ -321,6 +338,8 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
                 rec.update(estimate(cfg, mesh, shape, rank=rank, accum=n,
                                     accum_dtype=accum_dtype, dp_mode=dp_mode,
                                     remat_policy=REMAT[remat_policy]))
+            except card_lint.CardRefusal as e:
+                rec.update(_card_refusal(e))
             except ValueError as e:
                 if "does not divide" not in str(e):
                     raise

@@ -6,7 +6,9 @@ counterpart of ``repro/launch/serve.py``).
         [--device cuda|cpu] [--smoke]
 
 Runs on the card unless ``--device cpu`` is given; without a card and
-without ``--device cpu`` it raises.  ``--backend`` picks the attention
+without ``--device cpu`` it raises; on the card a model whose shapes the
+kernels would refuse exits naming the rule (``analysis.card_lint``)
+before any weights are built.  ``--backend`` picks the attention
 path for both prefill and decode: ``auto`` takes the CUDA kernels
 (``flash_attention``, ``flash_decode``; ``ssd_scan`` in an ssm prefill)
 on the card and the plain paths on the CPU; ``kernel`` forces the
@@ -31,6 +33,7 @@ import time
 import torch
 
 from .. import device as devices
+from ..analysis import card_lint
 from ..configs import canonical, get_config, get_smoke_config, list_configs
 from ..data.pipeline import DataConfig, SyntheticTokens
 from ..kernels import build as kbuild
@@ -68,6 +71,7 @@ def main(argv=None):
     dev = devices.resolve(args.device)
     name = canonical(args.arch)
     cfg = get_smoke_config(name) if args.smoke else get_config(name)
+    card_lint.refuse_on_card(cfg, dev, args.backend, seq_len=args.prompt_len)
     total = args.prompt_len + args.gen
     print(f"serving {cfg.name}: batch={args.batch} "
           f"prompt={args.prompt_len} gen={args.gen} backend={args.backend} "
@@ -84,7 +88,7 @@ def main(argv=None):
     return result
 
 
-def _cache_len(cfg, plan, total):
+def serve_cache_len(cfg, plan, total):
     """The prefill's cache length: the plan's, at least the prompt and the
     generated tokens, and on a linear cache a vlm model's image prefix
     too, as ``training/serve_step.py::make_prefill_step`` sizes it.  The
@@ -116,7 +120,7 @@ def _serve(args, dev, cfg, total, metrics):
 
         t0 = time.perf_counter()
         cache, logits, plen = M.prefill(params, cfg, batch,
-                                        cache_len=_cache_len(cfg, plan, total),
+                                        cache_len=serve_cache_len(cfg, plan, total),
                                         backend=args.backend)
         devices.synchronize(dev)
         t_prefill = time.perf_counter() - t0

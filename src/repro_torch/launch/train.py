@@ -14,7 +14,11 @@ device, or the HeteroPP pipeline with one process a stage.
          [--trace [--straggler-factor 1.5]]
 
 Runs on the card unless ``--device cpu`` is given; without a card and
-without ``--device cpu`` it raises.  ``--backend`` picks the kernel
+without ``--device cpu`` it raises.  On the card, a run whose shapes the
+kernels would refuse (``analysis.card_lint``: head dims, the decode
+group, the scan's tiles, the sequence in whole chunks) exits naming the
+rule before any weights are built, on each rank's share of the heads.
+``--backend`` picks the kernel
 path: ``auto`` takes the CUDA kernels (``flash_attention``,
 ``ssd_scan``) on the card and the plain paths on the CPU; ``kernel``
 forces them (and raises on the CPU).  Weights are random, drawn from
@@ -104,6 +108,7 @@ import time
 import torch
 
 from .. import device as devices
+from ..analysis import card_lint
 from ..checkpointing.io import (checkpoint_step, load_checkpoint,
                                 save_checkpoint)
 from ..comm import p2p as P2P
@@ -305,6 +310,7 @@ def main(argv=None):
     grid = gspmd_grid(args, dev)
     if grid != (1, 1):
         return run_gspmd(args, cfg, dev, *grid)
+    card_lint.refuse_on_card(cfg, dev, args.backend, seq_len=args.seq)
     print(f"arch={cfg.name} family={cfg.family} "
           f"params~{cfg.param_count() / 1e6:.1f}M devices=1 ({dev})", flush=True)
     if dev.type == "cuda" and args.backend != "einsum":
@@ -425,6 +431,7 @@ def run_gspmd(args, cfg, dev, D, M):
     world = D * M
     try:
         spmd.check_grid(cfg, M)
+        card_lint.refuse_on_card(cfg, dev, args.backend, seq_len=args.seq, members=(M,))
         P2P.check_transport(transport, dev, int(os.environ.get("LOCAL_WORLD_SIZE", world))
                             if _torchrun() else world)
     except (ValueError, NotImplementedError) as e:
@@ -701,6 +708,8 @@ def run_pipeline(args, cfg, dev):
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
     spec, grad_sync, plan = pipeline_spec(args, cfg)
+    card_lint.refuse_on_card(cfg, dev, args.backend, seq_len=args.seq,
+                             members=sorted(set(spec.stage_tps)))
     transport = args.p2p or "device"
     S, T, D = spec.num_stages, spec.tensor_parallel, spec.data_parallel
     # a grouped plan runs on Σ tp_s ranks, stage s on tp_s of them
