@@ -249,19 +249,21 @@ result.  Phases, each of which fails the run by raising:
      each rank's all-gather, reduce-scatter and all-reduce bytes and ms a
      step by axis and its step time outside them.
  34. the same grid on granite-8b at full width (32 / 8 heads of 128, GQA)
-     cut to 4 of 36 layers (``GSPMD_GQA``: at full depth its state does
-     not fit four ranks on one card), b 4 x 512, 2 steps at peak lr 1e-5;
+     cut to 2 of 36 layers (``GSPMD_GQA``: at full depth its state does
+     not fit four ranks on one card; 4 until phase 44 needed room under
+     the time limit), b 4 x 512, 2 steps at peak lr 1e-5;
      phase 33's checks against the single device at the same cut.
  35. ZeRO-1 (``training/manual_dp.py``) on the same four ranks:
      qwen1.5-0.5b at full size, data 2 x model 2, phase 33's batches, 2
      steps; each rank's optimizer bytes equal to the ``_scatter_dim``
      closed form, the losses within phase 33's limit of phase 33's,
      2 x 24 ``flash_attention`` a rank a step.
- 36. the grid at model axis 1: mamba2-780m at full width cut to 16 of 48
-     layers (to make room for phase 42), ``--model-parallel 1
+ 36. the grid at model axis 1: mamba2-780m at full width cut to 8 of 48
+     layers (16 until phase 44, 48 until phase 42 needed room under the
+     time limit), ``--model-parallel 1
      --data-parallel 2`` on two ranks, b 4 x 2048, 2 steps; phase 33's
      checks against the single device at the same cut in the phase (same
-     seed and batches); 2 x 16 ``ssd_scan`` a rank a step.
+     seed and batches); 2 x 8 ``ssd_scan`` a rank a step.
      Every time and size of phases 33-36 is printed beside the card's
      ``nvidia-smi`` name and power limit.
  37. the grid's model axis for moe (expert parallelism: each member
@@ -275,7 +277,7 @@ result.  Phases, each of which fails the run by raising:
      rank a step (16 / 2 heads).
  38. ssm (mamba2 head sharding: 24 of 48 heads a member, B and C whole,
      the gated norm's sum of squares over the model group): mamba2-780m
-     at full width cut to 16 of 48 layers (as 36), 2 x 2, b 4 x
+     at full width cut to 16 of 48 layers, 2 x 2, b 4 x
      2048, 2 steps, against the single device at the same cut in the
      phase; 2 x 16 ``ssd_scan`` a rank a step (h 24).
  39. hybrid: zamba2-2.7b at full width cut to one group of 6 (to make
@@ -326,9 +328,11 @@ result.  Phases, each of which fails the run by raising:
      at full width, b 4 x 512 (+ 256 image tokens) into a cache of 8 more
      slots, 2 of the 8 decode steps: (a) paligemma-3b cut to 2 of 18
      layers, the cache sharded over its sequence (388 of 776 slots a
-     member, the partial softmaxes combined); (b) granite-8b cut to 4 of 36, the cache's 8 kv
+     member, the partial softmaxes combined); (b) granite-8b cut to 2 of 36 (4
+     until phase 44 needed room under the time limit), the cache's 8 kv
      heads 4 a member; (c) mamba2-780m cut to 8 of 48, 24 of 48 heads'
-     state a member, the conv cache whole; (d) qwen3-moe cut to 2 of 48,
+     state a member, the conv cache whole; (d) qwen3-moe cut to 1 of 48 (2
+     until phase 44),
      64 experts a member; (e) zamba2-2.7b cut to one group of 6 ssm layers
      and the shared block, the rule's ssm cache (its per over data, its
      batch over model) moved to the blocks the group computes on and back;
@@ -378,10 +382,26 @@ result.  Phases, each of which fails the run by raising:
      4 members' shapes, clean in the lint and one small launch of each
      kernel on its path held to its plain version (``TOL``,
      ``SSD_TOL``); both verdicts printed side by side.
+ 44. a model axis that does not divide a block's count
+     (``sharding/spmd.py::whole_parts``; ``UNDIVIDED_SERVE``,
+     ``UNDIVIDED_TRAIN``): (a) starcoder2-7b (36 heads over 4 kv heads,
+     window 4096) served on the single device at full width and depth,
+     b4 x 512 + 32, through ``repro_torch.launch.serve``, and held to its
+     einsum path at phase 5's limits; (b) starcoder2-7b cut to 1 of 32
+     layers (its attention whole, its MLP sharded) and (c) whisper-base 6
+     + 6 (every part whole) on data 1 x model 3, three ranks sharing the
+     card: a prefill and 2 decode steps (fp32 cuts: 1) held as phase 42
+     holds its cases, one train step from the seeded state held to the
+     single device's loss and first gradient norm (bf16 at phases 33-40's
+     limits, fp32 at 1e-5 / 1e-4), the parts computed whole named, cache
+     and persistent bytes the closed forms; then (41 (f)) the dry-run's
+     estimates of (b), (c) held to the ranks' bytes and calls exactly and
+     their peaks to ``PEAK_BAND``.  Prints ``phase 44: <s> s``.
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` summed
 over the main paths that run it, phases 4, 7, 12, 13, 15–21, 23–26, 28,
-29, 32–42 (42's bf16 cases) and 43 (a)–(c), each kernel's fp16 row under ``"float16"``,
+29, 32–42 (42's bf16 cases), 43 (a)–(c) and 44 (bf16), each kernel's fp16 row under
+``"float16"``,
 each counted from 0; the pipeline phases in each rank's own process,
 summed over the ranks), the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Each phase's heading carries the
@@ -404,7 +424,7 @@ with three cards or more also phase 18 (a) through ``--p2p device``,
     python3 chip_smoke.py --grid-faults
 
 needs one card and runs phases 1, 2 and the controls of phases 33, 36,
-37, 38 and 42's checks: phase 33's grid (qwen1.5-0.5b, 2 x 2, its batches
+37, 38, 42 and 44's checks: phase 33's grid (qwen1.5-0.5b, 2 x 2, its batches
 and steps), phase 36's (mamba2-780m, 1 x 2), phase 37's (qwen3-moe, 2
 layers, 2 x 2), phase 38's (mamba2-780m, 2 x 2) and phase 42 (a)'s, (e)'s
 and (f)'s serve steps (paligemma-3b, 2 layers, the cache sharded over its
@@ -416,7 +436,9 @@ the expert combine's model all-reduce dropped; in 38 the gated norm's
 model sum of squares dropped; in 42 (a) the members' partial softmaxes
 kept uncombined, and the decode's slot offset dropped to 0; in (e) the
 hybrid ssm cache never moved back to the rule's placement; in (f) the
-members' cross partials summed without their log-sum-exp weights), each held to the
+members' cross partials summed without their log-sum-exp weights; in 44
+(b)'s train step, starcoder2-7b at 1 layer on data 1 x model 3, a whole
+part's gradient summed over the members instead of sliced), each held to the
 single device by those phases' checks (38's fp32 model-axis check among
 them); it prints each check's reading and limit and which checks refuse
 the run, and fails if a faulty run passes them all or the run without a
@@ -706,6 +728,14 @@ FA_MEMBERS = [
 ]
 FD_WHISPER = ("whisper decode: B8 KV8 G1 hd64 S448", 8, 8, 1, 448, 64, 447, 0, 0.0, False,
               1.0)
+# starcoder2-7b's shapes (phase 44 (a)): 36 query heads over 4 kv heads
+# (GQA 9) of 128 under its window of 4096, which the prefill of 512 never
+# reaches (so the library call's causal mask is the same mask) and the
+# decode against the 544-slot cache (512 + 32) takes as a window
+FA_STARCODER2 = ("starcoder2 prefill: B4 S512 H36 KV4 hd128 w4096", 4, 512, 512, 36, 4, 128,
+                 True, 4096, 0, 0)
+FD_STARCODER2 = ("starcoder2 decode: B4 KV4 G9 hd128 S544", 4, 4, 9, 544, 128, 543, 4096,
+                 0.0, False, 1.0)
 # paligemma-3b's shapes (phases 28-30): 8 query heads over one kv head of
 # 256, so G x hd = 2048, the most the decode kernel takes.  The prefill
 # (and the training batch): B 4 x (256 image + 512 text) positions, the
@@ -747,6 +777,13 @@ FD_MEMBERS = [
      1.0, 750, 1500),
     ("whisper cross member 0: 750 of 1500 at 0", 2, 8, 1, 750, 64, 1499, 0, 0.0, False,
      1.0, 0, 1500),
+    # phase 44 at model 3: (b) starcoder2's cache of 522 slots over its
+    # sequence, 174 a member, all 36 heads over the 4 kv heads under the
+    # window; (c) whisper's cross cache, 500 of 1500 a member
+    ("starcoder2 member: 174 of 522 at 348", 4, 4, 9, 174, 128, 521, 4096, 0.0, False, 1.0,
+     348, 522),
+    ("whisper cross member: 500 of 1500 at 1000", 4, 8, 1, 500, 64, 1499, 0, 0.0, False,
+     1.0, 1000, 1500),
 ]
 FD_MEMBER_ROWS = (FD_MEMBERS[0], FD_MEMBERS[4], FD_MEMBERS[7])   # timed: (a)'s, (b)'s, (f)'s
 # the log-sum-exp against the plain version's: both fp32 from the same
@@ -982,10 +1019,10 @@ GRID_LOSS_SPREAD = 3.5
 GSPMD_ARGS = ["--p2p", "host", "--backend", "auto", "--device", "cuda", "--log-every", "1"]
 GSPMD_DENSE = ("qwen1p5_0p5b", 24, ["--model-parallel", "2", "--data-parallel", "2"],
                ["--batch", "8", "--seq", "512", "--steps", "2"])
-GSPMD_GQA = ("granite_8b", 4, 36, ["--model-parallel", "2", "--data-parallel", "2"],
+GSPMD_GQA = ("granite_8b", 2, 36, ["--model-parallel", "2", "--data-parallel", "2"],
              ["--batch", "4", "--seq", "512", "--steps", "2", "--lr", "1e-5"])
 GSPMD_ZERO1 = ("qwen1p5_0p5b", 2, 2, 8, 512, 2)      # arch, model, data, b, seq, steps
-GSPMD_SSM = ("mamba2_780m", 16, 48, ["--model-parallel", "1", "--data-parallel", "2"],
+GSPMD_SSM = ("mamba2_780m", 8, 48, ["--model-parallel", "1", "--data-parallel", "2"],
              ["--batch", "4", "--seq", "2048", "--steps", "2"])
 # Phases 37-40: the model axis of the moe, ssm, hybrid and audio families
 # (each model member's share of a block: experts, mamba2 heads, attention
@@ -1003,7 +1040,14 @@ GSPMD_SSM = ("mamba2_780m", 16, 48, ["--model-parallel", "1", "--data-parallel",
 # cut to 16 of 48 layers and 39 zamba2 to one group of 6 (were 48, 48 and
 # 2 groups of 6: 47, 52 and 67 s of a run on an H100 at 700 W that
 # reached 1061.7 s with 42; 27, 23 and 31 s at the cut).
-# Each is held to single device runs at its cut made in the phase.
+# Each is held to single device runs at its cut made in the phase.  Since
+# phase 44 needed room as well, 34 runs granite-8b at 2 of 36 layers (was
+# 4), 36 mamba2 at 8 of 48 (was 16), and 42 (b) granite-8b at 2 and (d)
+# qwen3-moe at 1 (were 4 and 2): what a deeper cut adds is more of the same
+# layers, their bytes and their launches.  38 stays at 16: at 8 layers its
+# bf16 first gradient norm read 3.09e-2 from the single device's against a
+# limit of 4.25e-3 (the single device's own bf16 spread there, 1.21e-3, is
+# smaller than at 16), on an H100 at 700 W.
 GSPMD_FAMILY_GRID = ["--model-parallel", "2", "--data-parallel", "2"]
 GSPMD_FAMILIES = [
     ("37", MOE_ARCH, MOE_CUT_LAYERS, 48, ["--batch", "2", "--seq", "2048", "--steps", "2"],
@@ -1054,6 +1098,8 @@ GRID_FAULTS = {
                 "group: the cache keeps its zeros", ("42 (e)",)),
     "cross-lse": ("the whisper members' cross-attention partials summed without their "
                   "log-sum-exp weights", ("42 (f)",)),
+    "whole-sum": ("a whole part's gradient summed over the members instead of sliced to "
+                  "each member's block", ("44 (b)",)),
 }
 
 # Phase 41: the dry-run (repro_torch.launch.dryrun: the port's train step
@@ -1100,11 +1146,11 @@ GRID_SERVE = [
     ("(a)", PALIGEMMA_ARCH, 2, PALIGEMMA_LAYERS, "bfloat16", {"flash_attention": 2},
      {"flash_decode": 2}, "the cache sharded over its sequence: 388 of 776 slots of the one "
      "kv head, 4 of 8 heads (every head over the member's slots, the partials combined)"),
-    ("(b)", "granite_8b", 4, 36, "bfloat16", {"flash_attention": 4}, {"flash_decode": 4},
+    ("(b)", "granite_8b", 2, 36, "bfloat16", {"flash_attention": 2}, {"flash_decode": 2},
      "the cache sharded over its kv heads: 4 of 8, 16 of 32 heads"),
     ("(c)", "mamba2_780m", 8, 48, "bfloat16", {"ssd_scan": 8}, {},
      "24 of 48 heads' state, the conv cache whole"),
-    ("(d)", MOE_ARCH, 2, 48, "bfloat16", {"flash_attention": 2}, {"flash_decode": 2},
+    ("(d)", MOE_ARCH, 1, 48, "bfloat16", {"flash_attention": 1}, {"flash_decode": 1},
      "64 of 128 experts; the cache's kv heads 2 of 4, 16 of 32 heads"),
     ("(e)", "zamba2_2p7b", 6, 54, "bfloat16", {"ssd_scan": 6, "flash_attention": 1},
      {"flash_decode": 1}, "one group of 6 ssm layers: the rule's ssm cache, its per over "
@@ -1125,6 +1171,52 @@ GRID_SERVE = [
 GRID_SERVE_BATCH, GRID_SERVE_PROMPT, GRID_SERVE_GEN = 4, 512, 8
 GRID_SERVE_STEPS, GRID_SERVE_FP32_STEPS = 2, 1
 GRID_SERVE_FP32_RTOL = 1e-4
+# Phase 44: the grid at a model axis that does not divide a block's count
+# (sharding/spmd.py: whole_parts; each such part computed whole on every
+# member, the others sharded).  (a) starcoder2-7b (36 heads over 4 kv
+# heads, GQA 9, window 4096, qkv biases, LayerNorm, GELU; 32 layers, vocab
+# 49152 untied) served on the single device at full width and depth, b4 x
+# 512 + 32 tokens, held to its einsum path at phase 5's limits.  (b)
+# starcoder2-7b at full width cut to 1 of 32 layers and (c) whisper-base
+# at full width and depth (6 + 6) on data 1 x model 3, three ranks sharing
+# the card (--p2p host): a prefill and GRID_SERVE_STEPS decode steps (fp32:
+# GRID_SERVE_FP32_STEPS) as phase 42 runs them, and one train step from the
+# seeded state on a SyntheticTokens batch, each held to the single device
+# at the same cut: logits at phase 42's limits, the train step's loss and
+# first gradient norm at phases 33-40's (bf16: grid_limit of the single
+# device's spread at --accum 2; fp32: FP32_LIMITS' first two).  At 3,
+# starcoder2's kv heads (4) do not split, so its attention is whole while
+# its MLP (d_ff 18432) is sharded; its cache holds 512 + 10 = 522 = 3 x 174
+# slots, so the rule shards it over its sequence.  whisper-base's heads
+# (8) and d_ff (2048) do not split: every part is whole, its cross cache
+# over its 1500 = 3 x 500 encoder frames, its self cache (448 slots) whole.
+STARCODER_ARCH = "starcoder2_7b"
+STARCODER_LAYERS = 32
+STARCODER_SERVE_ARGS = ["--arch", STARCODER_ARCH, "--batch", "4", "--prompt-len", "512",
+                        "--gen", "32", "--backend", "auto", "--device", "cuda"]
+UNDIVIDED_MODEL = 3
+SERVE_GEN = {STARCODER_ARCH: 10}
+UNDIVIDED_SERVE = [
+    ("(b)", STARCODER_ARCH, 1, STARCODER_LAYERS, "bfloat16", {"flash_attention": 1},
+     {"flash_decode": 1}, "the attention whole (num_kv_heads=4): all 36 heads over 174 of 522 "
+     "slots of the 4 kv heads, the partials combined, wo whole; the MLP 6144 of 18432"),
+    ("(c)", WHISPER_ARCH, 6, 6, "bfloat16", {"flash_attention": 18}, {"flash_decode": 12},
+     "every part whole (num_heads=8, d_ff=2048): the cross cache over its encoder sequence, "
+     "500 of 1500 slots of all 8 kv heads; the self cache (448 slots) whole"),
+    ("(b) fp32", STARCODER_ARCH, 1, STARCODER_LAYERS, "float32", {"flash_attention": 1},
+     {"flash_decode": 1}, "as (b)"),
+    ("(c) fp32", WHISPER_ARCH, 1, 6, "float32", {"flash_attention": 3}, {"flash_decode": 2},
+     "as (c), 1 encoder and 1 decoder layer"),
+]
+# (label, arch, layers, dtype, batch, seq): the train step of each case
+UNDIVIDED_TRAIN = [("(b)", STARCODER_ARCH, 1, "bfloat16", 4, 512),
+                   ("(c)", WHISPER_ARCH, 6, "bfloat16", 4, WHISPER_SEQ),
+                   ("(b) fp32", STARCODER_ARCH, 1, "float32", 4, 512),
+                   ("(c) fp32", WHISPER_ARCH, 1, "float32", 4, WHISPER_SEQ)]
+UNDIVIDED_OPT = dict(lr=1e-4, warmup_steps=0, total_steps=10)
+# the parts each case computes whole, as whole_parts names them
+UNDIVIDED_WHOLE = {STARCODER_ARCH: {"attention": "num_kv_heads=4"},
+                   WHISPER_ARCH: {"attention": "num_heads=8", "mlp": "d_ff=2048"}}
 # Phase 43: the examples (``repro_torch.examples``) and the card rules.
 EXAMPLE_ARCHS = ("granite_8b", "mamba2_780m")        # (a) quickstart
 SERVE_BATCH_ARCHS = (None, "granite_8b")             # (b): its default arch, then granite
@@ -1149,6 +1241,7 @@ CARD_PLANTED = [
 
 _SERVE_RUNS = {}              # phase 42's ranks' results by case, for 41 (e)
 _GRID_RUNS = {}               # what each grid phase measured, by phase
+_UNDIVIDED_TRAINS = {}        # phase 44's ranks' train steps by case, for 41 (f)
 _PEAKS = {}                   # train_and_check's peak memory, by run
 _ESTIMATOR = None             # phase 41's estimates, made beside phases 3-40
 
@@ -1302,7 +1395,7 @@ def phase_kernels():
     err16 = {"flash_attention": 0.0, "flash_decode": 0.0}
     fa_err = fd_err = 0.0
     for case in (FA_CASES + [FA_SERVE] + FA_ZAMBA2 + FA_QWEN3_MOE + FA_WHISPER
-                 + [FA_PALIGEMMA] + FA_MEMBERS):
+                 + [FA_PALIGEMMA, FA_STARCODER2] + FA_MEMBERS):
         label, kw = case[0], fa_kw(case)
         for dname, dt in dtypes.items():
             q, k, v = fa_inputs(case, dt, gen)
@@ -1315,7 +1408,7 @@ def phase_kernels():
             if dname == "float16":
                 err16["flash_attention"] = max(err16["flash_attention"], e)
     for case in FD_CASES + [FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE, FD_WHISPER, FD_PALIGEMMA,
-                            FD_PALIGEMMA_RING]:
+                            FD_PALIGEMMA_RING, FD_STARCODER2]:
         label, *_, pos, window, softcap, ring, _ = case
         for dname, dt in dtypes.items():
             q, [(k, v)] = fd_inputs(case, dt, gen)
@@ -1336,7 +1429,7 @@ def phase_kernels():
     rows = {}
     fa_rows = {}
     for case in (FA_SERVE, FA_PROFILE, *FA_ZAMBA2, *FA_QWEN3_MOE, *FA_WHISPER,
-                 FA_PALIGEMMA, *FA_MEMBERS):
+                 FA_PALIGEMMA, FA_STARCODER2, *FA_MEMBERS):
         fa_rows[case[0]], err = fa_timed(case, gen)
         fa_err = max(fa_err, err)
         torch.cuda.empty_cache()
@@ -1344,7 +1437,7 @@ def phase_kernels():
 
     fd_rows = {case[0]: fd_timed(case, gen, fd_err)
                for case in (FD_SERVE, FD_ZAMBA2, FD_QWEN3_MOE, FD_WHISPER, FD_PALIGEMMA,
-                            *FD_MEMBER_ROWS)}
+                            FD_STARCODER2, *FD_MEMBER_ROWS)}
     rows["flash_decode"] = fd_rows[FD_SERVE[0]]
     # the serving shapes in fp16
     row16, err = fa_timed(FA_SERVE, gen, torch.float16)
@@ -1380,7 +1473,9 @@ def fa_timed(case, gen, dtype=None):
     from repro_torch.kernels import cost, ops, ref
 
     label, B, Sq, Sk, H, KV, hd, causal, window, q_offset, prefix = case
-    if window or (causal and q_offset) or (prefix and Sq != Sk):
+    # a causal window that reaches every key masks what the causal mask does
+    if (window and not (causal and window >= Sk)) or (causal and q_offset) \
+            or (prefix and Sq != Sk):
         raise ValueError(f"fa_timed: no library mask for the mask of {label}")
     kw = fa_kw(case)
     dtype = dtype or torch.bfloat16
@@ -4438,6 +4533,16 @@ def planted(fault):
         owner, name = spmd, "combine_partials"
         new = lambda out, lse, tp: spmd._all_gather(tp, out.float()[None], 0).sum(0).to(
             out.dtype)
+    elif fault == "whole-sum":
+        real = spmd.member_cut
+
+        def summed(cfg, M, k):
+            cut, whole = real(cfg, M, k), spmd.whole_parts(cfg, M)
+            # the whole leaf as a member's "part": its gradient is summed
+            return lambda path, shape: (-1, [(0, shape[-1])]) \
+                if spmd.part_of(path) in whole else cut(path, shape)
+
+        owner, name, new = spmd, "member_cut", summed
     else:
         raise ValueError(f"unknown fault {fault!r}")
     old = owner.__dict__[name]
@@ -4520,6 +4625,10 @@ def phase_grid_faults(smi):
         "each serve fault planted")
     with rank_pool(4):
         bad += phase_serve_faults(smi)
+    log(f"== 44 (controls): {STARCODER_ARCH} at full width, 1 of {STARCODER_LAYERS} layers, "
+        f"data 1 x model {UNDIVIDED_MODEL}, one train step, with each fault planted")
+    with rank_pool(UNDIVIDED_MODEL):
+        bad += phase_undivided_faults(smi)
     if bad:
         raise AssertionError("grid fault controls: " + "; ".join(bad))
 
@@ -4596,6 +4705,33 @@ def _estimate_cases(path):
         with open(path + ".tmp", "w") as f:
             json.dump(out, f)
         os.replace(path + ".tmp", path)
+    # phase 44 (b), (c) on data 1 x model 3: the train step, the prefill and
+    # a decode step
+    mesh = Mesh.of((1, UNDIVIDED_MODEL), ("data", "model"))
+    jobs = [(f"44 {c[0]} train", c, "train", None) for c in UNDIVIDED_TRAIN
+            if c[3] == "bfloat16"]
+    jobs += [(f"44 {c[0]} {kind}", c, kind, (seq, cache_len))
+             for c, kind, seq, cache_len in undivided_serve_estimate_cases()]
+    for key, case, kind, serve in jobs:
+        t0 = time.perf_counter()
+        try:
+            if serve is None:
+                cfg = undivided_train_cfg(case)
+                rec = dryrun.estimate(cfg, mesh, shapes.InputShape(key, "train", case[5],
+                                                                   case[4]))
+                rec["ranks"] = {f"0,{k}": dryrun.rank_state_bytes(cfg, mesh, (0, k))
+                                for k in range(UNDIVIDED_MODEL)}
+            else:
+                cfg, _ = serve_case_cfg(case)
+                rec = dryrun.estimate_serve(cfg, mesh, shapes.InputShape(
+                    key, kind, serve[0], GRID_SERVE_BATCH), cache_len=serve[1])
+        except Exception:
+            rec = {"error": traceback.format_exc()}
+        rec["host_s"] = time.perf_counter() - t0
+        out[key] = rec
+        with open(path + ".tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(path + ".tmp", path)
 
 
 class Estimator:
@@ -4628,9 +4764,10 @@ class Estimator:
         self.proc.join(10)
 
 
-def hold_estimate(label, est, got, smi):
-    """Phase 41 (a) for one grid phase: the estimate ``est`` against what
-    the phase measured (``got``).  Returns the checks it fails."""
+def hold_estimate(label, est, got, smi, part="41 (a)"):
+    """Phase 41 (a) (or ``part``) for one grid phase: the estimate ``est``
+    against what the phase measured (``got``).  Returns the checks it
+    fails."""
     from repro_torch.launch import dryrun
     failed = []
     if "error" in est:
@@ -4656,13 +4793,13 @@ def hold_estimate(label, est, got, smi):
     coll = "; ".join(f"{axis} " + ", ".join(
         f"{kind} {v['bytes'] / 2**20:.1f} MiB in {v['calls']}" for kind, v in kinds.items())
         for axis, kinds in est["collectives"].items())
-    log(f"  41 (a) {label}: persistent bytes by rank "
+    log(f"  {part} {label}: persistent bytes by rank "
         + ", ".join(f"{b / 2**20:.1f}" for b in got["state"]) + " MiB"
         + ("; ZeRO-1 optimizer bytes by rank " + ", ".join(
             f"{b / 2**20:.1f}" for b in got["opt"]) + " MiB" if got["opt"] else "")
         + f"; rank 0's collectives a step: {coll}: "
         + ("the estimate's, exactly" if not failed else "see below"))
-    log(f"  41 (a) {label} [{smi}]: peak: estimate {est['peak_bytes'] / 2**30:.3f} GiB, "
+    log(f"  {part} {label} [{smi}]: peak: estimate {est['peak_bytes'] / 2**30:.3f} GiB, "
         f"measured by rank " + ", ".join(f"{p / 2**30:.3f}" for p in got["peaks"])
         + " GiB; ratios " + ", ".join(f"{x:.3f}" for x in ratios)
         + f" (band {PEAK_BAND[0]}-{PEAK_BAND[1]}); estimated {est['flops'] / 1e12:.2f} TFLOP "
@@ -4728,6 +4865,12 @@ def serve_prompt(cfg):
     return min(GRID_SERVE_PROMPT, cfg.max_seq_len - GRID_SERVE_GEN)
 
 
+def serve_gen(case):
+    """The decode slots a case's cache holds past its prompt:
+    ``GRID_SERVE_GEN``, or the arch's own in ``SERVE_GEN``."""
+    return SERVE_GEN.get(case[1], GRID_SERVE_GEN)
+
+
 def serve_prompts(cfg, dev):
     """The seeded prompts of phase 42 (a vlm model's image embeddings and
     an audio model's frames from the same stream), on ``dev``."""
@@ -4755,7 +4898,7 @@ def single_serve(case, feed=None, routes=None, **fields):
     with torch.inference_mode(), record:
         params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
         batch = serve_prompts(cfg, dev)
-        cache_len = serve_prompt(cfg) + GRID_SERVE_GEN
+        cache_len = serve_prompt(cfg) + serve_gen(case)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cache, logits = SS.make_prefill_step(cfg, cache_len)(params, batch)
@@ -4817,7 +4960,7 @@ def serve_on_rank(case, layout, rows, feed):
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
     launches = lambda: {fn.__name__: fn.launches for fn in ops.KERNELS}
     cfg, steps = serve_case_cfg(case)
-    cache_len = serve_prompt(cfg) + GRID_SERVE_GEN
+    cache_len = serve_prompt(cfg) + serve_gen(case)
     params = spmd.init_params(cfg, layout, torch.Generator(device=dev).manual_seed(0),
                               device=dev)
     batch = {k: v[rows.to(dev)] for k, v in serve_prompts(cfg, dev).items()}
@@ -4891,23 +5034,24 @@ def grid_serve_checks(case, outs, want):
     return failed, worst
 
 
-def serve_report(case, outs, want, worst, smi):
-    """Phase 42's readings of one case, beside the card's name and limit."""
+def serve_report(case, outs, want, worst, smi, phase="42"):
+    """Phase 42's (or ``phase``'s) readings of one case, beside the card's
+    name and limit."""
     label, arch, layers, full, dtype, per_prefill, per_decode, held = case
-    log(f"  42 {label}: {arch} at full width, {layers} of {full} layers, {dtype}; a member "
+    log(f"  {phase} {label}: {arch} at full width, {layers} of {full} layers, {dtype}; a member "
         f"holds {held}; cache bytes by rank "
         + ", ".join(f"{o[label]['cache_bytes'] / 2**20:.2f}" for o in outs)
         + " MiB = the rules' blocks' closed form, exactly")
-    log(f"  42 {label}: logits against the single device{want['how']}, worst over the "
+    log(f"  {phase} {label}: logits against the single device{want['how']}, worst over the "
         "ranks: " + "; ".join(
             ("prefill" if i == 0 else f"step {i - 1}") + f" rel L2 {r:.3e} (limit "
             f"{lim:.2e}; max abs {m:.3e})"
             for i, ((r, m), lim) in enumerate(zip(worst, want["limits"]))))
-    log(f"  42 {label}: launches a rank: " + ", ".join(
+    log(f"  {phase} {label}: launches a rank: " + ", ".join(
         f"{k} {outs[0][label]['prefill_launches'][k]} a prefill" for k in per_prefill)
         + "".join(f", {k} {outs[0][label]['decode_launches'][k]} in "
                   f"{len(outs[0][label]['decode_s'])} decode steps" for k in per_decode))
-    log(f"  42 {label} [{smi}]: prefill by rank "
+    log(f"  {phase} {label} [{smi}]: prefill by rank "
         + ", ".join(f"{o[label]['prefill_s'] * 1e3:.1f}" for o in outs)
         + f" ms (the single device {want['prefill_s'] * 1e3:.1f} ms); decode p50 by rank "
         + ", ".join(f"{steady(o[label]['decode_s']) * 1e3:.1f}" for o in outs)
@@ -4916,11 +5060,11 @@ def serve_report(case, outs, want, worst, smi):
         + ", decode " + ", ".join(f"{o[label]['decode_peak'] / 2**30:.3f}" for o in outs)
         + " GiB")
     for what in ("prefill", "decode"):
-        log(f"  42 {label} [{smi}]: rank 0's collectives a {what} call: "
+        log(f"  {phase} {label} [{smi}]: rank 0's collectives a {what} call: "
             + collectives_line([outs[0][label][f"{what}_stats"]]))
         st = outs[0][label][f"{what}_stats"]
         if st["reblock_data_calls"] + st["reblock_model_calls"] or st["copy_bytes"]:
-            log(f"  42 {label}: of them the ssm cache's moves, data "
+            log(f"  {phase} {label}: of them the ssm cache's moves, data "
                 f"{st['reblock_data_bytes'] / 2**20:.2f} MiB in {st['reblock_data_calls']}, "
                 f"model {st['reblock_model_bytes'] / 2**20:.2f} MiB in "
                 f"{st['reblock_model_calls']}; the cross cache's blocks copied for "
@@ -5007,36 +5151,37 @@ def serve_estimate_cases():
         if case[4] != "bfloat16":
             continue
         cfg, _ = serve_case_cfg(case)
-        cache_len = serve_prompt(cfg) + GRID_SERVE_GEN
+        cache_len = serve_prompt(cfg) + serve_gen(case)
         out.append((case, "prefill", serve_prompt(cfg), cache_len))
         out.append((case, "decode", cache_len + cfg.num_prefix_tokens, None))
     return out
 
 
-def hold_serve_estimate(label, kind, est, got, smi):
-    """41 (e) for one call of a 42 case: the estimate's argument bytes and
-    collectives' bytes and calls against rank 0's, exactly, and its peak
-    within ``PEAK_BAND`` of each rank's.  Returns the failed checks."""
+def hold_serve_estimate(label, kind, est, got, smi, part="41 (e) 42"):
+    """41 (e) for one call of a 42 case (``part`` names another): the
+    estimate's argument bytes and collectives' bytes and calls against
+    rank 0's, exactly, and its peak within ``PEAK_BAND`` of each rank's.
+    Returns the failed checks."""
     from repro_torch.launch import dryrun
     if "error" in est:
-        return [f"41 (e) {label} {kind}: the estimate failed: "
+        return [f"{part} {label} {kind}: the estimate failed: "
                 f"{est['error'].strip().splitlines()[-1]}"]
     failed = []
     if est["argument_bytes"] != got[0][f"{kind}_args"]:
-        failed.append(f"41 (e) {label} {kind}: rank 0's arguments {got[0][f'{kind}_args']} "
+        failed.append(f"{part} {label} {kind}: rank 0's arguments {got[0][f'{kind}_args']} "
                       f"bytes, the estimate {est['argument_bytes']}")
     measured = dryrun.collectives(got[0][f"{kind}_stats"])
     if measured != est["collectives"]:
-        failed.append(f"41 (e) {label} {kind}: rank 0's collectives {measured}, the "
+        failed.append(f"{part} {label} {kind}: rank 0's collectives {measured}, the "
                       f"estimate {est['collectives']}")
     ratios = [est["peak_bytes"] / g[f"{kind}_peak"] for g in got]
     if not all(PEAK_BAND[0] <= x <= PEAK_BAND[1] for x in ratios):
-        failed.append(f"41 (e) {label} {kind}: the estimated peak over the measured ones "
+        failed.append(f"{part} {label} {kind}: the estimated peak over the measured ones "
                       f"{', '.join(f'{x:.3f}' for x in ratios)}, outside {PEAK_BAND}")
     coll = "; ".join(f"{axis} " + ", ".join(
         f"{kind_} {v['bytes'] / 2**20:.1f} MiB in {v['calls']}" for kind_, v in kinds.items())
         for axis, kinds in est["collectives"].items())
-    log(f"  41 (e) 42 {label} {kind} [{smi}]: arguments {est['argument_bytes'] / 2**20:.1f} "
+    log(f"  {part} {label} {kind} [{smi}]: arguments {est['argument_bytes'] / 2**20:.1f} "
         f"MiB, rank 0's collectives {coll}: "
         + ("the estimate's, exactly" if not failed else "see below")
         + f"; peak: estimate {est['peak_bytes'] / 2**30:.3f} GiB, measured by rank "
@@ -5297,6 +5442,294 @@ def example_train_e2e(smi):
     return got
 
 
+def undivided_train_cfg(case, **fields):
+    """The config of a ``UNDIVIDED_TRAIN`` case: the arch at full width
+    cut to its layers (an audio model's encoder to as many), in its dtype,
+    ``fields`` replaced."""
+    from repro_torch.configs import get_config
+    _, arch, layers, dtype, _, _ = case
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype, **fields)
+    if cfg.family == "audio":
+        cfg = dataclasses.replace(cfg, num_encoder_layers=layers)
+    return cfg
+
+
+def undivided_batch(cfg, case, dev):
+    """A case's seeded ``SyntheticTokens`` batch (an audio model's frames
+    from the same stream), on ``dev``."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    _, _, _, _, B, S = case
+    toks = SyntheticTokens(cfg, DataConfig(batch_size=B, seq_len=S, seed=1234)).next_batch()
+    return {k: torch.from_numpy(v).to(dev) for k, v in toks.items()}
+
+
+def single_train_step(case, accum=1):
+    """The single device's first train step of a ``UNDIVIDED_TRAIN`` case
+    from the seeded state (``make_train_state``, the grid's
+    ``init_state`` cut of it): its loss and gradient norm as one-step
+    lists (``grid_diffs``' form) and its seconds."""
+    import torch
+    from repro_torch.optim import adamw
+    from repro_torch.training import train_step as TTS
+    dev = torch.device("cuda")
+    cfg = undivided_train_cfg(case)
+    state = TTS.make_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    step = TTS.make_train_step(cfg, adamw.AdamWConfig(**UNDIVIDED_OPT), accum_steps=accum)
+    batch = undivided_batch(cfg, case, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    out = {"losses": [float(m["loss"])], "grad_norms": [float(m["grad_norm"])],
+           "step_s": time.perf_counter() - t0}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_on_rank(case, layout):
+    """One ``UNDIVIDED_TRAIN`` case's train step on this rank: its blocks
+    of the seeded state, its rows of the batch.  Returns its coordinate,
+    loss, gradient norm, seconds, collectives, the parts computed whole,
+    persistent bytes beside their closed form, peak memory (from the
+    state's allocation on) and launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import spmd
+    dev = torch.device("cuda")
+    cfg = undivided_train_cfg(case)
+    step = spmd.make_train_step(cfg, layout, adamw.AdamWConfig(**UNDIVIDED_OPT))
+    state = spmd.init_state(cfg, layout, step.specs,
+                            torch.Generator(device=dev).manual_seed(0), device=dev)
+    rows = spmd.local_rows(case[4], layout).to(dev)
+    batch = {k: v[rows] for k, v in undivided_batch(cfg, case, dev).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    res = {"coord": (layout.grid.d, layout.grid.k), "loss": m["loss"],
+           "grad_norm": m["grad_norm"], "step_s": time.perf_counter() - t0,
+           "stats": dict(step.stats), "whole": step.whole,
+           "state": spmd.state_bytes(state),
+           "closed": sum(spmd.block_bytes(cfg, layout, step.specs).values()),
+           "peak": torch.cuda.max_memory_allocated(),
+           "launches": {fn.__name__: fn.launches for fn in ops.KERNELS}}
+    del state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def _undivided_rank(rank, world, serves, feeds, trains, fault=None):
+    """Phase 44 (b), (c) on one rank of the (data 1, model 3) grid: each
+    serve case's prefill and decode steps (``serve_on_rank``), then each
+    train case's step (``train_on_rank``), ``fault`` planted where
+    given."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding import spmd
+    dev = torch.device("cuda")
+    layout = spmd.Layout(*make_local_mesh(model=UNDIVIDED_MODEL, data=1, transport="host",
+                                          device=dev))
+    rows = spmd.local_rows(GRID_SERVE_BATCH, layout, serving=True)
+    out = {}
+    with planted(fault) if fault else contextlib.nullcontext():
+        for case in serves:
+            out[case[0]] = serve_on_rank(case, layout, rows, feeds[case[0]])
+            torch.cuda.empty_cache()
+        for case in trains:
+            out["train " + case[0]] = train_on_rank(case, layout)
+    return out
+
+
+def undivided_train_reference(case):
+    """The single device's step of a ``UNDIVIDED_TRAIN`` case and the
+    limits on (loss, first gradient norm): bf16 ``grid_limit`` of its
+    spread at ``--accum 2`` (phases 33-40's), fp32 ``FP32_LIMITS``' first
+    two (phases 38-40's)."""
+    key = ("undivided",) + tuple(case)
+    if key not in _SINGLE:
+        want = single_train_step(case)
+        if case[3] == "float32":
+            want["limits"] = FP32_LIMITS[:2]
+        else:
+            want["limits"] = grid_limit(f"44 {case[0]}", want, single_train_step(case, 2))
+        _SINGLE[key] = want
+    return _SINGLE[key]
+
+
+def undivided_train_checks(case, outs, want):
+    """44's train checks of one case: the failed ones.  Every rank's loss
+    and first gradient norm within the limits of the single device's, the
+    parts computed whole named as ``UNDIVIDED_WHOLE`` says, the
+    persistent bytes the closed form, ``flash_attention`` launched."""
+    label = case[0]
+    failed = []
+    for o in outs:
+        got = o["train " + label]
+        loss, gnorm = grid_diffs({"losses": [got["loss"]], "grad_norms": [got["grad_norm"]]},
+                                 want)
+        if not (math.isfinite(got["loss"]) and loss <= want["limits"][0]):
+            failed.append(f"rank {got['coord']}'s loss within {want['limits'][0]:.0e}")
+        if not gnorm <= want["limits"][1]:
+            failed.append(f"rank {got['coord']}'s first gradient norm within "
+                          f"{want['limits'][1]:.0e}")
+        if got["whole"] != UNDIVIDED_WHOLE[case[1]]:
+            failed.append(f"rank {got['coord']} computes {got['whole']} whole")
+        if got["state"] != got["closed"]:
+            failed.append(f"rank {got['coord']}'s persistent bytes the closed form")
+        if not got["launches"]["flash_attention"] > 0:
+            failed.append(f"no flash_attention launch on rank {got['coord']}")
+    return failed
+
+
+def undivided_train_report(case, outs, want, smi):
+    label = case[0]
+    rows = [o["train " + label] for o in outs]
+    loss, gnorm = grid_diffs({"losses": [rows[0]["loss"]],
+                              "grad_norms": [rows[0]["grad_norm"]]}, want)
+    log(f"  44 {label} train ({case[1]}, {case[2]} layers, {case[3]}, b{case[4]} x "
+        f"S{case[5]}): losses by rank " + ", ".join(f"{r['loss']:.6f}" for r in rows)
+        + f", single device {want['losses'][0]:.6f}, rel diff {loss:.2e} (limit "
+        f"{want['limits'][0]:.2e}); first gradient norm {rows[0]['grad_norm']:.7g} against "
+        f"{want['grad_norms'][0]:.7g}, rel diff {gnorm:.2e} (limit {want['limits'][1]:.2e}); "
+        f"whole: {rows[0]['whole']}")
+    log(f"  44 {label} train [{smi}]: step by rank "
+        + ", ".join(f"{r['step_s'] * 1e3:.1f}" for r in rows)
+        + f" ms (the single device {want['step_s'] * 1e3:.1f} ms); persistent bytes by rank "
+        + ", ".join(f"{r['state'] / 2**20:.1f}" for r in rows)
+        + " MiB = the rules' blocks; peak by rank "
+        + ", ".join(f"{r['peak'] / 2**30:.3f}" for r in rows) + " GiB; launches a rank "
+        + ", ".join(f"{k} {v}" for k, v in rows[0]["launches"].items() if v)
+        + f"; collectives: {collectives_line([rows[0]['stats']])}")
+
+
+def undivided_run(serves, trains, fault=None, name="undivided"):
+    """The single device's references of ``serves`` and ``trains`` (made
+    once in the process) and the grid's runs of both, in one call of
+    three ranks (the phase's ``rank_pool``)."""
+    want = {}
+    for case in serves:
+        key = ("serve",) + tuple(case[:5])
+        if key not in _SINGLE:
+            _SINGLE[key] = serve_reference(case)
+        want[case[0]] = _SINGLE[key]
+    for case in trains:
+        want["train " + case[0]] = undivided_train_reference(case)
+    feeds = {label: w["feed"] for label, w in want.items() if "feed" in w}
+    t0 = time.perf_counter()
+    outs = spawn_ranks(_undivided_rank, UNDIVIDED_MODEL, (serves, feeds, trains, fault),
+                       workdir=os.path.join(ROOT, "build", "chip_smoke", name), timeout=900)
+    return want, outs, time.perf_counter() - t0
+
+
+def phase_undivided(smi):
+    """Phase 44: (a) starcoder2-7b served on the single device at full
+    width and depth and held to its einsum path; (b), (c) the grid at
+    model 3 held to the single device.  Returns the launches of (a) and
+    of (b), (c) in bf16 (the main path)."""
+    import torch
+    L = STARCODER_LAYERS
+    log(f"  44 (a): {STARCODER_ARCH} at full width and depth ({L} layers), "
+        f"{' '.join(STARCODER_SERVE_ARGS[2:8])}")
+    launches = serve_and_check(STARCODER_SERVE_ARGS, "serve_starcoder2_7b", L,
+                               lambda calls: {"flash_attention": L, "flash_decode": L * calls})
+    log(f"  44 (a): kernel path vs einsum path at full depth, bf16, b4 x 512 + 4 steps")
+    phase_end_to_end(STARCODER_ARCH, L, "bfloat16")
+    torch.cuda.empty_cache()
+    log(f"  44 (b), (c): data 1 x model {UNDIVIDED_MODEL} on {UNDIVIDED_MODEL} ranks sharing "
+        f"the card, --p2p host; b{GRID_SERVE_BATCH} x {GRID_SERVE_PROMPT} (whisper "
+        f"{WHISPER_SEQ - GRID_SERVE_GEN}) prompts, then one train step")
+    want, outs, wall = undivided_run(UNDIVIDED_SERVE, UNDIVIDED_TRAIN)
+    failed = []
+    for case in UNDIVIDED_SERVE:
+        bad, worst = grid_serve_checks(case, outs, want[case[0]])
+        serve_report(case, outs, want[case[0]], worst, smi, phase="44")
+        whole = {o[case[0]]["prefill_stats"]["whole"] == UNDIVIDED_WHOLE[case[1]]
+                 for o in outs}
+        if whole != {True}:
+            bad.append(f"the prefill names {outs[0][case[0]]['prefill_stats']['whole']} whole")
+        failed += [f"44 {case[0]}: {b}" for b in bad]
+        if case[4] == "bfloat16":
+            for o in outs:
+                for key in ("prefill_launches", "decode_launches"):
+                    for k, v in o[case[0]][key].items():
+                        launches[k] = launches.get(k, 0) + v
+    for case in UNDIVIDED_TRAIN:
+        w = want["train " + case[0]]
+        undivided_train_report(case, outs, w, smi)
+        failed += [f"44 {case[0]} train: {b}" for b in undivided_train_checks(case, outs, w)]
+        if case[3] == "bfloat16":
+            for o in outs:
+                for k, v in o["train " + case[0]]["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+    _SERVE_RUNS.update({f"44 {c[0]}": [o[c[0]] for o in outs] for c in UNDIVIDED_SERVE})
+    _UNDIVIDED_TRAINS.update({c[0]: [o["train " + c[0]] for o in outs]
+                              for c in UNDIVIDED_TRAIN})
+    log(f"  44 (b), (c): three ranks, one call: {wall:.1f} s of wall time")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
+
+def phase_undivided_estimates(smi):
+    """41 (f): the estimates of 44 (b) and (c) in bf16, made on the host,
+    held to the ranks': each rank's persistent bytes and rank 0's
+    collectives exactly, the peaks within ``PEAK_BAND`` (train:
+    ``hold_estimate``; prefill and decode: ``hold_serve_estimate``)."""
+    est = _ESTIMATOR.result()
+    failed = []
+    for case in UNDIVIDED_TRAIN:
+        if case[3] != "bfloat16":
+            continue
+        rows = _UNDIVIDED_TRAINS[case[0]]
+        got = {"grid": [r["coord"] for r in rows], "state": [r["state"] for r in rows],
+               "opt": None, "stats": rows[0]["stats"], "peaks": [r["peak"] for r in rows]}
+        failed += hold_estimate(f"{case[0]} train", est[f"44 {case[0]} train"], got, smi,
+                                part="41 (f) 44")
+    for case, kind, _, _ in undivided_serve_estimate_cases():
+        failed += hold_serve_estimate(case[0], kind, est[f"44 {case[0]} {kind}"],
+                                      _SERVE_RUNS[f"44 {case[0]}"], smi, part="41 (f) 44")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def undivided_serve_estimate_cases():
+    """41 (f)'s serve estimates: each bf16 case of 44, its prefill and a
+    decode step."""
+    out = []
+    for case in UNDIVIDED_SERVE:
+        if case[4] != "bfloat16":
+            continue
+        cfg, _ = serve_case_cfg(case)
+        cache_len = serve_prompt(cfg) + serve_gen(case)
+        out.append((case, "prefill", serve_prompt(cfg), cache_len))
+        out.append((case, "decode", cache_len + cfg.num_prefix_tokens, None))
+    return out
+
+
+def phase_undivided_faults(smi):
+    """``--grid-faults``' control of 44 (b)'s train checks: the train step
+    without a fault and with each fault of ``GRID_FAULTS`` that names 44
+    (b) planted in the ranks.  Returns the failures: the run without a
+    fault refused, or a faulty run passing every check."""
+    bad = []
+    cases = [c for c in UNDIVIDED_TRAIN if c[0] == "(b)"]
+    for fault in [None] + [f for f, (_, ph) in GRID_FAULTS.items() if "44 (b)" in ph]:
+        want, outs, wall = undivided_run([], cases, fault=fault,
+                                         name=f"undivided_faults_{fault or 'none'}")
+        failed = undivided_train_checks(cases[0], outs, want["train (b)"])
+        what = "no fault" if fault is None else f"{fault} ({GRID_FAULTS[fault][0]})"
+        undivided_train_report(cases[0], outs, want["train (b)"], smi)
+        log(f"  44 (b), {what}: refused by: {'; '.join(failed) or 'nothing'}; {wall:.1f} s")
+        if (fault is None) == bool(failed):
+            bad.append(f"44 (b) {fault or 'without a fault'}: "
+                       + ("refused" if failed else "passes every check"))
+    return bad
+
+
 def phase_examples(smi):
     """Phase 43 (a)-(c): the examples through the port on the card.
     Returns their launches by kernel."""
@@ -5506,7 +5939,7 @@ def main() -> int:
 
 
 def main_phases(smi) -> int:
-    """Phases 3-43, the kernels line and the last lines."""
+    """Phases 3-44, the kernels line and the last lines."""
     import torch
     log("== 3. kernels vs plain versions, fp32, bf16 and fp16")
     rows, rows16 = phase_kernels()
@@ -5690,6 +6123,17 @@ def main_phases(smi) -> int:
         launches[name] += n
     phase_card_rules()
     log(f"  phase 43: {time.perf_counter() - t43:.1f} s")
+
+    log(f"== 44. a model axis that does not divide a block's count: (a) {STARCODER_ARCH} "
+        f"served at full width and depth; (b) {STARCODER_ARCH} 1 of {STARCODER_LAYERS} layers "
+        f"and (c) {WHISPER_ARCH} 6 + 6 on data 1 x model {UNDIVIDED_MODEL}, served and trained")
+    t44 = time.perf_counter()
+    with rank_pool(UNDIVIDED_MODEL):
+        for name, n in phase_undivided(smi).items():
+            launches[name] += n
+    log("== 41 (f). the estimates of 44 (b), (c), made on the host, against the ranks")
+    phase_undivided_estimates(smi)
+    print(f"phase 44: {time.perf_counter() - t44:.1f} s", flush=True)
 
     log("== done")
     kernels = []

@@ -17,7 +17,8 @@ Each rank's kernels see a model member's share of a block: the query
 heads over the members, each member's kv head whole where the kv heads
 are fewer (``sharding.spmd.member_cut``; a pipeline stage's tp block
 likewise, ``heteropp._tp_local_cfg``), an ssm layer's heads over the
-members.  A decode on a cache sharded over its sequence runs every head
+members; a part the members do not split, the whole model's
+(``sharding.spmd.whole_parts``).  A decode on a cache sharded over its sequence runs every head
 of the whole model on each member.  A config with no attention layer
 (the ssm family) has no attention shapes to check.
 """
@@ -29,6 +30,7 @@ from typing import List, Optional, Tuple
 
 from ..kernels import card_rules as rules
 from ..models.config import ModelConfig
+from ..sharding.spmd import whole_parts
 from .diagnostics import Diagnostic, error, format_report, split
 
 
@@ -45,10 +47,12 @@ class CardRefusal(ValueError):
 def member_heads(cfg: ModelConfig, members: int) -> Tuple[int, int]:
     """(query heads, kv heads) one member of ``members`` computes: H / M
     and KV / M, or one kv head where the kv heads are fewer than the
-    members.  The whole model's where the members do not divide the heads
-    (the grid refuses such a model, ``spmd.check_grid``)."""
+    members.  The whole model's where the grid computes attention whole
+    (``sharding.spmd.whole_parts``: the members do not divide the query
+    heads, or the kv heads neither divide the members nor are divided by
+    them)."""
     H, KV = cfg.num_heads, cfg.num_kv_heads
-    if members <= 1 or H % members:
+    if members <= 1 or "attention" in whole_parts(cfg, members):
         return H, KV
     return H // members, max(1, KV // members)
 

@@ -505,17 +505,22 @@ def validate_spec_tp(cfg: ModelConfig, spec: PipelineSpec) -> None:
         validate_tensor_parallel(cfg, t)
 
 
-def _tp_local_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
+def _tp_local_cfg(cfg: ModelConfig, tp: int, whole=()) -> ModelConfig:
     """The per-member view of the model: each tp member owns 1/tp of the
     heads, kv heads and ff width; everything else (d_model, head_dim,
     rope, norms) is unchanged.  Where the kv heads are fewer than the
     members, a member's query heads share one kv head (the sharded train
-    step's grid; the pipeline refuses such a tp)."""
+    step's grid; the pipeline refuses such a tp).  A part the grid
+    computes whole (``whole``: ``"attention"``, ``"mlp"``) keeps the whole
+    model's heads or ff width."""
     if tp == 1:
         return cfg
-    return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
-                               num_kv_heads=max(1, cfg.num_kv_heads // tp),
-                               d_ff=cfg.d_ff // tp)
+    kw = {}
+    if "attention" not in whole:
+        kw.update(num_heads=cfg.num_heads // tp, num_kv_heads=max(1, cfg.num_kv_heads // tp))
+    if "mlp" not in whole:
+        kw.update(d_ff=cfg.d_ff // tp)
+    return dataclasses.replace(cfg, **kw)
 
 
 class _TPCopy(torch.autograd.Function):
@@ -548,7 +553,7 @@ class _TPReduce(torch.autograd.Function):
 
 
 def _tp_block_forward(p, cfg: ModelConfig, lcfg: ModelConfig, x, tp, *,
-                      backend: str = "auto", enc_kv=None, ffn=None, **attn_kw):
+                      backend: str = "auto", enc_kv=None, ffn=None, whole=(), **attn_kw):
     """One block with manual Megatron tensor parallelism: ``p`` holds
     this member's shards (column-parallel wq/wk/wv/bq/bk/bv/wi/wg,
     row-parallel wo), so attention runs on its ``lcfg`` heads and the MLP
@@ -561,23 +566,31 @@ def _tp_block_forward(p, cfg: ModelConfig, lcfg: ModelConfig, x, tp, *,
     goes to the attention.  ``enc_kv`` (this member's cross K/V heads)
     adds a ``dec_cross`` block's cross-attention, sharded the same way;
     ``ffn(h)``, where given, takes the MLP's place and returns the
-    members' summed output and metrics (a moe block's experts).  Returns
-    (x, metrics) as ``transformer.block_forward``."""
+    members' summed output and metrics (a moe block's experts).  A
+    sub-block named in ``whole`` (``"attention"``, the self and cross
+    attention; ``"ffn"``, the MLP or ``ffn``) is the whole model's on
+    every member (the sharded step's grid, ``sharding.spmd.whole_parts``):
+    ``p`` holds its whole leaves, and it takes no :class:`_TPCopy` in and
+    no :class:`_TPReduce` out.  Returns (x, metrics) as
+    ``transformer.block_forward``."""
     copy = lambda t: _TPCopy.apply(t, tp)
     total = lambda t: _TPReduce.apply(t, tp)
-    h = copy(layers.apply_norm(p["ln1"], x, cfg.norm))
-    attn = {k: v if k in TP_COLUMN_PARAMS | TP_ROW_PARAMS else tree_map(copy, v)
+    same = lambda t: t
+    acopy, atotal = (same, same) if "attention" in whole else (copy, total)
+    fcopy, ftotal = (same, same) if "ffn" in whole else (copy, total)
+    h = acopy(layers.apply_norm(p["ln1"], x, cfg.norm))
+    attn = {k: v if k in TP_COLUMN_PARAMS | TP_ROW_PARAMS else tree_map(acopy, v)
             for k, v in p["attn"].items()}
-    x = x + total(attention.self_attention(attn, lcfg, h, backend=backend,
-                                           rope=cfg.family != "audio", **attn_kw))
+    x = x + atotal(attention.self_attention(attn, lcfg, h, backend=backend,
+                                            rope=cfg.family != "audio", **attn_kw))
     if enc_kv is not None:
-        h = copy(layers.apply_norm(p["ln3"], x, cfg.norm))
-        x = x + total(attention.cross_attention(p["xattn"], lcfg, h, enc_kv, backend))
-    h = copy(layers.apply_norm(p["ln2"], x, cfg.norm))
+        h = acopy(layers.apply_norm(p["ln3"], x, cfg.norm))
+        x = x + atotal(attention.cross_attention(p["xattn"], lcfg, h, enc_kv, backend))
+    h = fcopy(layers.apply_norm(p["ln2"], x, cfg.norm))
     if ffn is not None:
         y, metrics = ffn(h)
         return x + y, metrics
-    return x + total(layers.apply_mlp(p["mlp"], h, cfg.mlp)), {}
+    return x + ftotal(layers.apply_mlp(p["mlp"], h, cfg.mlp)), {}
 
 
 def _stage_forward(blocks, mask_row, cfg, x, kind: str, remat: bool, *,

@@ -28,7 +28,10 @@ to ``--out``:
 * ``n_devices``, ``wall_s`` and ``activations``, the activation layout
   the estimate reports: the port's, whole rows of the rank's batch
   replicated over the model axis, not GSPMD's sequence-parallel
-  activations.
+  activations;
+* ``whole``: the parts of a block each member computes whole, with the
+  count the model axis does not split (``spmd.whole_parts``), and beside
+  it ``whole_note``: such a part's FLOPs count on every member.
 
 The serve shapes (``prefill_32k``, ``decode_32k``, ``long_500k``) run
 the grid's serve steps (``spmd.make_prefill_step`` /
@@ -47,9 +50,8 @@ them, ``spmd.Layout.reblock``; ``reblock`` has their bytes and calls by
 axis), and ``copy_bytes``, the bytes of a whisper cross cache's blocks
 copied into ``flash_decode``'s layout.
 
-A combination is ``ok``, ``refused`` (with the reason: a grid
-``spmd.check_grid`` refuses, naming the count; shapes the card's kernels
-would refuse, ``analysis.card_lint``, with their codes in ``codes``; a
+A combination is ``ok``, ``refused`` (with the reason: a batch the data
+axes do not split; shapes the card's kernels would refuse, ``analysis.card_lint``, with their codes in ``codes``; a
 decode the cache plan refuses, full attention at 500k, as the reference
 skips it) or
 ``failed`` (with the traceback); the process exits non-zero only on ``failed``.  The
@@ -86,10 +88,15 @@ from .meta_analysis import MetaAnalysis
 
 ACTIVATIONS = ("the port's: whole rows of the rank's batch, replicated over the model "
                "axis (not GSPMD's sequence-parallel activations)")
+WHOLE_NOTE = ("each part in whole is computed whole on every member of the model axis, "
+              "its FLOPs counted on each")
 DP_MODES = ("gspmd", "manual")
 REMAT = {"full": None, "dots": "dots"}
 KINDS = ("gather", "scatter", "reduce")
 AXES = ("data", "model", "world")
+# the words of what a grid refuses: a batch the data axes do not split, a
+# serve shape out of scope
+REFUSED = ("does not divide", "does not split", "out of scope")
 H100_BYTES = 80e9               # an NVIDIA H100 80GB HBM3's memory
 
 
@@ -195,11 +202,10 @@ def estimate(cfg: ModelConfig, mesh: Mesh, shape: SH.InputShape, *,
     as rank ``rank`` = (d, k) of ``mesh``, on the meta device: the
     record's numbers (see the module's docstring).  A mesh of one device
     runs the single device's step, as the launcher does.  Raises what the
-    step raises (``spmd.check_grid``'s refusal included) and
+    step raises (a batch the data axes do not split) and
     ``card_lint.CardRefusal`` where the card's kernels would refuse a
     member's shapes."""
     layout = standin_layout(mesh, rank)
-    spmd.check_grid(cfg, layout.model)
     card_lint.require(cfg, seq_len=shape.seq_len, heads_per_member=layout.model)
     kw = dict(accum_steps=accum, accum_dtype=accum_dtype, remat_policy=remat_policy)
     step, specs, state = _steps(cfg, layout, mesh, kw, dp_mode)
@@ -224,7 +230,8 @@ def estimate(cfg: ModelConfig, mesh: Mesh, shape: SH.InputShape, *,
            sum(spmd.block_bytes(cfg, layout, specs).values()),
            **mode.report(), "collectives": collectives(stats),
            "collective_total": sum(stats[f"{a}_{k}_bytes"] for a in AXES for k in KINDS),
-           "step_s": wall, "activations": ACTIVATIONS}
+           "step_s": wall, "activations": ACTIVATIONS,
+           "whole": spmd.whole_parts(cfg, layout.model), "whole_note": WHOLE_NOTE}
     if dp_mode == "manual" and mesh.size > 1:
         rec["optimizer_bytes"] = sum(t.numel() * t.element_size()
                                      for t in tree_leaves(state.opt_state))
@@ -240,11 +247,9 @@ def estimate_serve(cfg: ModelConfig, mesh: Mesh, shape: SH.InputShape, *,
     where given, a vlm model's prefix besides) or decode step (the token at the shape's last position
     against ``abstract_serve_cache``) of ``cfg`` as rank ``rank`` of
     ``mesh`` on the meta device: the record's numbers (see the module's
-    docstring).  Raises what the steps raise (``spmd.check_grid``'s
-    refusals, the cache plan's) and ``card_lint.CardRefusal`` as
-    :func:`estimate` does."""
+    docstring).  Raises what the steps raise (the cache plan's refusals)
+    and ``card_lint.CardRefusal`` as :func:`estimate` does."""
     layout = standin_layout(mesh, rank)
-    spmd.check_grid(cfg, layout.model)
     # a decode step runs no scan over the sequence
     card_lint.require(cfg, seq_len=shape.seq_len if shape.kind == "prefill" else None,
                       heads_per_member=layout.model)
@@ -289,7 +294,8 @@ def estimate_serve(cfg: ModelConfig, mesh: Mesh, shape: SH.InputShape, *,
             "collective_total": sum(step.stats[f"{a}_{k}_bytes"] for a in AXES for k in KINDS),
             "reblock": {a: {w: step.stats[f"reblock_{a}_{w}"] for w in ("bytes", "calls")}
                         for a in ("data", "model")},
-            "copy_bytes": step.stats["copy_bytes"], "step_s": wall, "activations": ACTIVATIONS}
+            "copy_bytes": step.stats["copy_bytes"], "step_s": wall, "activations": ACTIVATIONS,
+            "whole": step.stats["whole"], "whole_note": WHOLE_NOTE}
 
 
 def _card_refusal(e: card_lint.CardRefusal) -> Dict[str, object]:
@@ -324,7 +330,7 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
             except card_lint.CardRefusal as e:
                 rec.update(_card_refusal(e))
             except (ValueError, NotImplementedError) as e:
-                if not any(w in str(e) for w in ("does not divide", "out of scope")):
+                if not any(w in str(e) for w in REFUSED):
                     raise
                 rec.update(status="refused", reason=str(e))
             else:
@@ -340,8 +346,8 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool = False,
                                     remat_policy=REMAT[remat_policy]))
             except card_lint.CardRefusal as e:
                 rec.update(_card_refusal(e))
-            except ValueError as e:
-                if "does not divide" not in str(e):
+            except (ValueError, NotImplementedError) as e:
+                if not any(w in str(e) for w in REFUSED):
                     raise
                 rec.update(status="refused", reason=str(e))
             else:
@@ -370,19 +376,20 @@ def table_row(rec) -> str:
     if rec["status"] != "ok":
         why = rec.get("reason") or rec.get("error", "").strip().splitlines()[-1:]
         return (f"| {rec['arch']} | {rec['mesh']} | {rec['remat_policy']} | "
-                f"{rec['status']}: {why} |" + " |" * 7 + f" {rec['shape']} |")
+                f"{rec['status']}: {why} |" + " |" * 8 + f" {rec['shape']} |")
     coll = rec["collectives"]
     by_axis = " / ".join(_gib(sum(coll[a][k]["bytes"] for k in KINDS)) for a in AXES)
     fits = "yes" if rec["peak_bytes"] <= H100_BYTES else "no"
+    whole = ", ".join(f"{k} ({v})" for k, v in rec["whole"].items()) or "-"
     return (f"| {rec['arch']} | {rec['mesh']} | {rec['remat_policy']} | ok | "
             f"{rec['accum']} | {_gib(rec['argument_bytes'])} | {_gib(rec['peak_bytes'])} | "
             f"{rec['flops'] / 1e12:.4g} | {rec['bytes'] / 1e12:.4g} | {by_axis} | {fits} | "
-            f"{rec['shape']} |")
+            f"{whole} | {rec['shape']} |")
 
 
 TABLE_HEAD = ("| arch | mesh | remat | status | accum | argument GiB | peak GiB | TFLOP | "
-              "HBM-proxy TB | collective GiB data / model / world | fits 80 GB | shape |\n"
-              "|---|---|---|---|---|---|---|---|---|---|---|---|")
+              "HBM-proxy TB | collective GiB data / model / world | fits 80 GB | whole | shape |\n"
+              "|---|---|---|---|---|---|---|---|---|---|---|---|---|")
 
 
 def main(argv=None) -> int:
@@ -425,6 +432,8 @@ def main(argv=None) -> int:
                 if rec["status"] == "ok":
                     what = (f"flops/dev={rec['flops']:.3e} peak={_gib(rec['peak_bytes'])}GiB "
                             f"coll/dev={rec['collective_total'] / 2**30:.2f}GiB")
+                    if rec["whole"]:
+                        what += " whole=" + ",".join(f"{k}:{v}" for k, v in rec["whole"].items())
                 else:
                     what = rec.get("reason") or rec["error"].strip().splitlines()[-1]
                 print(f"[{rec['status']:7s}] {arch:24s} {sn:12s} "

@@ -32,8 +32,11 @@ per-step losses and times to a caller in Python.
 trains on a (data, model) rank grid (``launch.mesh.make_local_mesh``:
 rank = d·N + m) through ``sharding.spmd``: the JAX launcher's GSPMD path,
 its state placed by the copied ``sharding`` rules (FSDP over data, one
-dim over model), its collectives written out (Megatron blocks at N > 1,
-dense and vlm models only).  The data degree D is the world over N: a
+dim over model), its collectives written out (at N > 1 Megatron blocks,
+expert parallelism and mamba2 head sharding; a part whose count N does
+not split, ``sharding.spmd.whole_parts``, computed whole on every member,
+printed on the ``arch=`` line and named under ``"whole"`` in the
+metadata row).  The data degree D is the world over N: a
 ``torchrun`` job's ``WORLD_SIZE``, or one rank a visible card under
 ``--p2p device`` (the default), the launcher spawning them.  JAX sees a
 host's devices from one process, torch needs a process a rank, so on the
@@ -430,7 +433,6 @@ def run_gspmd(args, cfg, dev, D, M):
     transport = args.p2p or "device"
     world = D * M
     try:
-        spmd.check_grid(cfg, M)
         card_lint.refuse_on_card(cfg, dev, args.backend, seq_len=args.seq, members=(M,))
         P2P.check_transport(transport, dev, int(os.environ.get("LOCAL_WORLD_SIZE", world))
                             if _torchrun() else world)
@@ -439,9 +441,12 @@ def run_gspmd(args, cfg, dev, D, M):
     if args.batch % (args.accum * D):
         raise SystemExit(f"--batch {args.batch} does not split into --accum {args.accum} "
                          f"microbatches over the {D} data ranks")
+    whole = spmd.whole_parts(cfg, M)
     print(f"arch={cfg.name} family={cfg.family} "
           f"params~{cfg.param_count() / 1e6:.1f}M devices={D}·{M} (data {D} x model "
-          f"{M}, {dev}, p2p {transport})", flush=True)
+          f"{M}, {dev}, p2p {transport})"
+          + "".join(f"; {part} whole on every member ({n})" for part, n in whole.items()),
+          flush=True)
     run_dir = args.run_dir or os.path.join("runs", cfg.name)
     os.makedirs(run_dir, exist_ok=True)
     job = (args, cfg, D, M, transport)
@@ -515,7 +520,8 @@ def _gspmd_rank(rank, world, args, cfg, D, M, transport, *, local_rank=None):
     meta = {"arch": cfg.name, "family": cfg.family, "mode": "gspmd", "devices": world,
             "data_parallel": D, "model_parallel": M, "accum": args.accum,
             "batch": args.batch, "seq": args.seq, "backend": args.backend,
-            "device": str(dev), "p2p": transport, "rank": rank, "grid": [grid.d, grid.k]}
+            "device": str(dev), "p2p": transport, "rank": rank, "grid": [grid.d, grid.k],
+            "whole": step_fn.whole}
 
     def save(step):
         full = spmd.full_state(state, layout, specs)
@@ -547,7 +553,7 @@ def _gspmd_rank(rank, world, args, cfg, D, M, transport, *, local_rank=None):
                 logger.log(step=i + 1, tokens_per_s=tps, tgs=tps / world,
                            step_time_s=(now - t_last) / (i + 1 - i_last),
                            peak_bytes_in_use=device_memory_highwater(dev), **m,
-                           **stats[-1])
+                           **{k: v for k, v in stats[-1].items() if k != "whole"})
                 t_last, i_last = now, i + 1
                 if rank == 0:
                     print(f"step {i + 1:5d} loss={m['loss']:.4f} lr={m['lr']:.2e} "
@@ -584,7 +590,8 @@ def _gspmd_rank(rank, world, args, cfg, D, M, transport, *, local_rank=None):
             "peak_mem_bytes": peak, "mode": "gspmd", "launches": launches,
             "state_bytes": spmd.state_bytes(state),
             "block_bytes": sum(spmd.block_bytes(cfg, layout, specs).values()),
-            "stats": stats, "rank": rank, "grid": [grid.d, grid.k], "device": str(dev)}
+            "stats": stats, "rank": rank, "grid": [grid.d, grid.k], "device": str(dev),
+            "whole": step_fn.whole}
 
 
 # ---------------------------------------------------------------------------

@@ -56,18 +56,32 @@ each block leaf a member uses:
   member computes them whole; the gated norm's mean of squares is the
   model group's sum (``models.ssm.mamba2_forward(mean_sq=)``).
 
+A part whose count the model axis does not split (:func:`whole_parts`:
+``attention`` where M does not divide the query heads, or the kv heads
+neither divide M nor are divided by it; ``mlp``, ``d_ff``; ``experts``;
+``ssm``, the mamba2 heads) is computed whole on every member, as the
+single device computes it, on the replicated activations: no
+``_TPCopy`` in, no ``_TPReduce`` out.  Its leaves are gathered whole
+(:func:`member_cut` gives them None), and the other parts of the same
+block keep their shards.  The parts a grid computes whole are named in
+each step's ``whole`` and ``stats["whole"]``, in the launcher's
+metadata and in the dry-run's record; nothing is replicated without a
+name.
+
 Where the rules put the model axis on a leaf's member dim and the
 member's part is its block, only the data axes are gathered; else the
 leaf is gathered whole and the member's part taken from it.  The backward
 sums each leaf's gradient over the members (each holds its part's, zero
 elsewhere, or, for a leaf every member uses in part, such as B and C's
 columns, the router or a shared kv head, a partial sum); a leaf every
-member computes alike (norms, embeddings) is sliced, or averaged where
-its spec does not name the model axis.  A moe block's auxiliary and z
-losses are alike on every member, so their gradient is scaled by 1 / M
-before the sums, which count it once.  A block count that does not
-divide the model axis is refused by name (:func:`check_grid`); nothing
-is quietly replicated.
+member computes alike (norms, embeddings, a whole part's leaves) is
+sliced to the member's rule block, or averaged where its spec does not
+name the model axis: each member holds the same whole gradient, which a
+sum would count M times.  A moe block's auxiliary and z losses are
+alike on every member, so where its experts are sharded their gradient
+is scaled by 1 / M before the sums, which count it once; with the
+experts whole the router is such an alike leaf and the losses keep
+their weight.
 
 **What is exact.**  The persistent state is exactly what the JAX rules
 give each device.  Only the transient activation layout departs from
@@ -98,8 +112,10 @@ axis (each member decodes its own heads' block), else its sequence (each
 member holds a slot range of every kv head, decodes every head over it
 with ``flash_decode``'s slot offset and log-sum-exp, and the members'
 partials are combined, :func:`combine_partials`), else the whole cache
-on every member; an ssm state's heads over the model axis, its conv
-window whole on every member (:class:`ServeGather`).  Where the rule
+on every member (the only placements of a whole attention's cache: kv
+heads the model axis divides would make it a sharded one); an ssm
+state's heads over the model axis, its conv window whole on every
+member (:class:`ServeGather`).  Where the rule
 places a cache by other dims than the step computes on (a hybrid
 model's stacked (G, per, B, ...) ssm cache: its ``per`` over data, its
 batch or conv channels over model, or its state whole), each rank still
@@ -108,7 +124,10 @@ compute on and back once a group (:meth:`Layout.reblock`), counted as
 every collective is: what GSPMD does implicitly.  A whisper cross cache
 (L, B, S_enc, KV, hd) carries its sequence at dim 2, which :class:`KVCut`
 is told.  The weights a decode step takes are :func:`decode_params`.
-A model :func:`check_grid` refuses is refused here too.
+A whole part runs as the single device runs it, over the rank's block
+of the cache: a whole attention decodes every head on its slots and
+applies ``wo`` whole, a whole ssm part's state is moved to every head
+of it and back where the rule shards it.
 """
 from __future__ import annotations
 
@@ -119,8 +138,7 @@ import torch
 
 from ..comm.p2p import CountingComm
 from ..core.dataparallel.grad_sync import replica_grad_norm
-from ..core.heteropp import (_TPCopy, _TPReduce, _tp_block_forward, _tp_local_cfg,
-                             refuse_undivided)
+from ..core.heteropp import _TPCopy, _TPReduce, _tp_block_forward, _tp_local_cfg
 from ..models import attention, layers, moe as moe_lib, ssm as ssm_lib, transformer as tfm
 from ..kernels import ops as kops
 from ..models import model as M
@@ -407,13 +425,55 @@ def _norm_mean_sq(xf, tp):
     return total / (xf.shape[-1] * tp.world_size)
 
 
+# the part of a block each leaf's path belongs to, by the key that names it
+_PART_KEYS = (("ssm", "ssm"), ("moe", "experts"), ("mlp", "mlp"), ("attn", "attention"),
+              ("xattn", "attention"))
+
+
+def whole_parts(cfg: ModelConfig, model: int) -> Dict[str, str]:
+    """The parts of a block that each member of a model axis of ``model``
+    computes whole, each with the count that does not split over the
+    members: ``attention`` (``num_heads`` the axis does not divide, or
+    ``num_kv_heads`` that neither divide it nor are divided by it; whisper's
+    encoder, decoder and cross attention and zamba2's shared block follow
+    it), ``mlp`` (``d_ff``), ``experts`` (``num_experts``) and ``ssm``
+    (``ssm_nheads``, mamba2's and zamba2's ssm blocks).  Empty where every
+    part splits.  ``analysis.card_lint.member_heads`` reads the heads a
+    member computes from it."""
+    out: Dict[str, str] = {}
+    if model == 1:
+        return out
+    if cfg.family != "ssm":
+        H, KV = cfg.num_heads, cfg.num_kv_heads
+        if H % model:
+            out["attention"] = f"num_heads={H}"
+        elif KV % model and model % KV:
+            out["attention"] = f"num_kv_heads={KV}"
+    if cfg.family not in ("ssm", "moe") and cfg.d_ff % model:
+        out["mlp"] = f"d_ff={cfg.d_ff}"
+    if cfg.family == "moe" and cfg.num_experts % model:
+        out["experts"] = f"num_experts={cfg.num_experts}"
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm_nheads % model:
+        out["ssm"] = f"ssm_nheads={cfg.ssm_nheads}"
+    return out
+
+
+def part_of(path: str) -> Optional[str]:
+    """The block part (:func:`whole_parts`' names) a parameter path lies in,
+    None for a norm, an embedding or a position table."""
+    keys = path.split("/")
+    return next((part for key, part in _PART_KEYS if key in keys), None)
+
+
 def member_cut(cfg: ModelConfig, M: int, k: int):
     """``cut(path, shape)`` for a leaf of whole shape ``shape``: None where
     member ``k`` of ``M`` uses it whole and alike with the others (norms,
-    embeddings, positions), else (dim, ranges): the ranges (start, length)
+    embeddings, positions, every leaf of a part it computes whole,
+    :func:`whole_parts`), else (dim, ranges): the ranges (start, length)
     of dim ``dim`` (counted from the end) it computes with, in order,
     gathered whole where they are not its block."""
     KV, hd = cfg.num_kv_heads, cfg.head_dim
+    whole = whole_parts(cfg, M)
 
     def ssm(name):
         di, nh = cfg.ssm_dinner, cfg.ssm_nheads
@@ -426,6 +486,8 @@ def member_cut(cfg: ModelConfig, M: int, k: int):
                 "scale": (-1, [x]), "out_proj": (-2, [x])}[name]
 
     def cut(path, shape):
+        if part_of(path) in whole:
+            return None
         parts = path.split("/")
         name = parts[-1]
         if "ssm" in parts:
@@ -464,10 +526,11 @@ class Gather:
         self.data, self.routing = data, routing
         M, k = layout.model, layout.grid.k
         self.tp = M > 1
-        self.lcfg = _tp_local_cfg(cfg, M)
+        self.whole = whole_parts(cfg, M)
+        self.lcfg = _tp_local_cfg(cfg, M, self.whole)
         self.cut = member_cut(cfg, M, k)
         self.experts = (k * cfg.num_experts // M, cfg.num_experts // M) \
-            if cfg.family == "moe" else None
+            if cfg.family == "moe" and "experts" not in self.whole else None
 
     def __call__(self, tree, where: str):
         layout = self.layout
@@ -500,51 +563,45 @@ class Gather:
         """A decoder layer's cross K/V (``attention.encode_cross_kv``): at
         model > 1 this member's kv heads, from the replicated encoder
         output, whose gradient is then the members' sum."""
-        if not self.tp:
+        if not self.tp or "attention" in self.whole:
             return attention.encode_cross_kv(p, cfg, enc)
         return attention.encode_cross_kv(p, self.lcfg, _TPCopy.apply(enc, self.layout.grid.tp))
+
+    def block_whole(self, kind) -> Tuple[str, ...]:
+        """The sub-blocks of a ``kind`` block computed whole
+        (``heteropp._tp_block_forward``'s ``whole``): ``"attention"``, and
+        ``"ffn"`` where its MLP (a moe block's experts) is whole."""
+        ffn = "experts" if kind == "moe" else "mlp"
+        return tuple(w for w, part in (("attention", "attention"), ("ffn", ffn))
+                     if part in self.whole)
 
     def member_block(self, p, cfg, x, kind, *, backend="auto", **kw):
         """This member's share of one block on the replicated ``x``, each
         part of an output summed over the model group before its residual
         add: the Megatron block (``heteropp._tp_block_forward``; a moe
-        block's experts in its MLP's place), or a mamba2 block's heads.
+        block's experts in its MLP's place), or a mamba2 block's heads; a
+        part computed whole (:func:`whole_parts`) is the single device's.
         Returns (x, metrics) as ``transformer.block_forward``."""
         tp, M = self.layout.grid.tp, self.layout.model
         if kind == "ssm":
+            if "ssm" in self.whole:
+                return tfm.block_forward(p, cfg, x, kind, backend=backend)
             h = _TPCopy.apply(layers.apply_norm(p["ln1"], x, cfg.norm), tp)
             y, _, _ = ssm_lib.mamba2_forward(p["ssm"], cfg, h, backend=backend,
                                              mean_sq=lambda xf: _norm_mean_sq(xf, tp))
             return x + _TPReduce.apply(y, tp), {}
         ffn = None
-        if kind == "moe":
+        if kind == "moe" and "experts" in self.whole:
+            def ffn(h):
+                return moe_lib.moe_block(p["moe"], cfg, h, self.routing)
+        elif kind == "moe":
             def ffn(h):
                 y, m = moe_lib.moe_block(p["moe"], cfg, h, self.routing, experts=self.experts)
                 return _experts_sum(y, tp), {
                     k: _ScaleGrad.apply(v, 1.0 / M) if k in ("moe_aux_loss", "moe_z_loss")
                     else v for k, v in m.items()}
-        return _tp_block_forward(p, cfg, self.lcfg, x, tp, backend=backend, ffn=ffn, **kw)
-
-
-def check_grid(cfg: ModelConfig, model: int) -> None:
-    """Refuse a model a grid of model axis ``model`` cannot run: a count
-    the members split (experts, mamba2 heads, attention heads, ff width)
-    that does not divide the model axis, or kv heads that neither divide
-    it nor are divided by it.  Names the count."""
-    if model == 1:
-        return
-    counts = []
-    if cfg.family == "moe":
-        counts.append(("num_experts", cfg.num_experts))
-    if cfg.family in ("ssm", "hybrid"):
-        counts.append(("ssm_nheads", cfg.ssm_nheads))
-    if cfg.family != "ssm":
-        counts.append(("num_heads", cfg.num_heads))
-        if model % cfg.num_kv_heads:          # fewer kv heads than members share them
-            counts.append(("num_kv_heads", cfg.num_kv_heads))
-    if cfg.family not in ("ssm", "moe"):          # a moe model's experts keep their ff
-        counts.append(("d_ff", cfg.d_ff))
-    refuse_undivided(cfg, model, counts, "--model-parallel", "the model members split it")
+        return _tp_block_forward(p, cfg, self.lcfg, x, tp, backend=backend, ffn=ffn,
+                                 whole=self.block_whole(kind), **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -742,11 +799,12 @@ def make_train_step(cfg: ModelConfig, layout: Layout,
     metrics are the single device's (the loss and each model metric the
     mean over the data ranks) as floats (0-d tensors with
     ``read_metrics`` False: :func:`read_out`); ``train_step.stats`` holds
-    the last step's collectives (:meth:`Layout.counts`) and
+    the last step's collectives (:meth:`Layout.counts`) and, under
+    ``"whole"``, the parts each member computes whole
+    (:func:`whole_parts`, also ``train_step.whole``);
     ``train_step.specs`` the state's specs.  ``remat_policy`` as
     ``models.model.loss_fn``'s, ``accum_dtype`` as the single device's
     ``make_train_step``'s."""
-    check_grid(cfg, layout.model)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     specs = state_specs(cfg, layout.mesh)
     pspecs = flatten(specs.params)
@@ -773,11 +831,12 @@ def make_train_step(cfg: ModelConfig, layout: Layout,
             _, _, opt_m = adamw.apply_update(opt_cfg, state.opt_state, gtree, state.step,
                                              state.params, grad_norm=gnorm)
         state.step += 1
-        train_step.stats = layout.counts()
+        train_step.stats = dict(layout.counts(), whole=dict(gather.whole))
         return state, read_out(names, vec, opt_m, read_metrics)
 
     train_step.stats = {}
     train_step.specs = specs
+    train_step.whole = dict(gather.whole)
     return train_step
 
 
@@ -935,9 +994,16 @@ class ServeGather(Gather):
       each head's log-sum-exp, the partials combined; whole or over its
       kv heads, the member's heads attend their kv heads.
 
+    - a part computed whole (:func:`whole_parts`): the single device's on
+      the rank's rows.  A whole attention's cache lies over its sequence
+      (every head over the block's slots, the partials combined, ``wo``
+      whole) or whole; a whole ssm part's state is the rule's block, moved
+      to every head and back where the rule shards it over the model axis
+      (an ssm model) or moved with the group's (zamba2).
+
     Each part of a block's output is summed over the model group before
     its residual add, as in training.  ``moved`` counts the bytes and
-    calls of the hybrid ssm cache's moves by axis (among the step's
+    calls of the ssm cache's moves by axis (among the step's
     collectives), ``copied`` the bytes of the cross cache's blocks
     transposed into ``flash_decode``'s layout."""
 
@@ -946,22 +1012,38 @@ class ServeGather(Gather):
         super().__init__(cfg, layout, specs, shapes)
         self.cache_len = cache_len
         self.rows = len(local_rows(batch, layout, serving=True))
-        self.cspecs, self.whole = _whole_cache_specs(cfg, layout.mesh, batch, cache_len)
+        self.cspecs, self.leaves = _whole_cache_specs(cfg, layout.mesh, batch, cache_len)
         kv = {"hybrid": "attn/k", "audio": "self/k"}.get(cfg.family, "k")
-        self.kv = KVCut(layout, self.cspecs[kv], self.whole[kv].shape) \
+        self.kv = KVCut(layout, self.cspecs[kv], self.leaves[kv].shape) \
             if kv in self.cspecs else None
-        self.xkv = KVCut(layout, self.cspecs["cross/0"], self.whole["cross/0"].shape,
+        self.xkv = KVCut(layout, self.cspecs["cross/0"], self.leaves["cross/0"].shape,
                          heads=3, seq=2) if cfg.family == "audio" else None
         M_, k, KV = layout.model, layout.grid.k, cfg.num_kv_heads
-        self.heads = (k * cfg.num_heads // M_, cfg.num_heads // M_)
-        self.kv_heads = (k * KV // M_, max(1, KV // M_))
+        if "attention" in self.whole:
+            # every head on every member: nothing to gather along the heads
+            self.heads, self.kv_heads, self.every_head = (0, cfg.num_heads), (0, KV), None
+            if "heads" in (getattr(self.kv, "mode", None), getattr(self.xkv, "mode", None)):
+                raise NotImplementedError("a whole attention's cache sharded over its kv heads")
+        else:
+            self.heads = (k * cfg.num_heads // M_, cfg.num_heads // M_)
+            self.kv_heads = (k * KV // M_, max(1, KV // M_))
+            self.every_head = self._gather_heads
+        # a whole ssm part's layer cache: by leaf, the rule's spec of a
+        # layer's slice, the block its layer computes on (the rule's less its
+        # model axis) and the slice's whole shape
+        self.ssm_model = {}
+        if cfg.family == "ssm" and "ssm" in self.whole:
+            for key in ("conv", "state"):
+                spec = self.cspecs[key][1:]
+                compute = tuple(None if "model" in layout.units(e) else e for e in spec)
+                self.ssm_model[key] = (spec, compute, tuple(self.leaves[key].shape[1:]))
         if cfg.family == "hybrid":
             rows = rules.batch_shardings(torch.empty((batch,), device="meta"), layout.mesh)[0]
-            heads = layout.model_axis if M_ > 1 else None
+            heads = layout.model_axis if M_ > 1 and "ssm" not in self.whole else None
             # by leaf of a group's (per, B, ...) slice: the rule's spec, the
             # block the layers compute on, the slice's whole shape
             self.ssm = {key: (self.cspecs["ssm/" + key][1:], compute,
-                              tuple(self.whole["ssm/" + key].shape[1:]))
+                              tuple(self.leaves["ssm/" + key].shape[1:]))
                         for key, compute in (("conv", (None, rows, None, None)),
                                              ("state", (None, rows, heads, None, None)))}
         self.reset()
@@ -984,7 +1066,7 @@ class ServeGather(Gather):
                              f"{self.rows} and {self.cache_len}")
         return cache_tree({p: self._zeros(self.cspecs[p], t.shape,
                                           torch.empty((), dtype=t.dtype, device=device))
-                           for p, t in self.whole.items()})
+                           for p, t in self.leaves.items()})
 
     def _gather_heads(self, t):
         return _all_gather(self.layout.grid.tp, t, 2)
@@ -1021,8 +1103,9 @@ class ServeGather(Gather):
         """One ssm layer's prefill: its output, its final state (the
         member's heads) and conv tail (every channel) written to ``cache``."""
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
-        if not self.tp:
+        if not self.tp or "ssm" in self.whole:
             y, final, tail = ssm_lib.mamba2_forward(p["ssm"], cfg, h, backend=backend)
+            final, tail = self._to_rule("state", final), self._to_rule("conv", tail)
         else:
             tp = self.layout.grid.tp
             y, final, tail = ssm_lib.mamba2_forward(
@@ -1034,6 +1117,21 @@ class ServeGather(Gather):
         cache["conv"].copy_(tail)
         cache["state"].copy_(final)
         return x + y
+
+    def _from_rule(self, key, t):
+        """A whole ssm part's layer cache ``t`` (the rule's block) moved to
+        the block its layer computes on: every head of the rank's rows."""
+        if key not in self.ssm_model:
+            return t
+        rule, compute, shape = self.ssm_model[key]
+        return self._reblock(t, rule, compute, shape)
+
+    def _to_rule(self, key, t):
+        """``_from_rule``'s inverse."""
+        if key not in self.ssm_model:
+            return t
+        rule, compute, shape = self.ssm_model[key]
+        return self._reblock(t, compute, rule, shape)
 
     def _reblock(self, t, src, dst, shape):
         """:meth:`Layout.reblock`, its gathers' bytes and calls by axis
@@ -1103,7 +1201,9 @@ class ServeGather(Gather):
         q = h @ p["wq"]
         if cfg.qkv_bias:
             q = q + p["bq"]
-        q = self._gather_heads(q.reshape(B, 1, -1, hd))               # (B, 1, H, hd)
+        q = q.reshape(B, 1, -1, hd)
+        if self.every_head is not None:
+            q = self.every_head(q)                                    # (B, 1, H, hd)
         kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))    # (B, KV, slots, hd)
         self.copied += 2 * kt.numel() * kt.element_size()
         out, lse = kops.flash_decode(q[:, 0], kt, vt, cut.cache_len - 1, slot0=cut.slot0,
@@ -1122,7 +1222,14 @@ class ServeGather(Gather):
                                     enc_kv=enc_kv, backend=backend)
         tp = self.layout.grid.tp
         total = lambda t: _TPReduce.apply(t, tp)
+        same = lambda t: t
+        whole = self.block_whole(kind)
+        atotal = same if "attention" in whole else total
         h = layers.apply_norm(p["ln1"], x, cfg.norm)
+        if kind == "ssm" and "ssm" in self.whole:
+            c = {key: self._from_rule(key, t) for key, t in cache.items()}
+            y, new = ssm_lib.mamba2_decode_step(p["ssm"], cfg, h, c)
+            return x + y, {key: self._to_rule(key, t) for key, t in new.items()}
         if kind == "ssm":
             y, cache = ssm_lib.mamba2_decode_step(
                 p["ssm"], cfg, h, cache, mean_sq=lambda xf: _norm_mean_sq(xf, tp),
@@ -1136,18 +1243,19 @@ class ServeGather(Gather):
             cut = self.kv
             a, cache = attention.decode_on_block(
                 p["attn"], cfg, self.lcfg, h, cache, pos, slot0=cut.slot0,
-                cache_len=cut.cache_len, heads=self.heads, gather_heads=self._gather_heads,
+                cache_len=cut.cache_len, heads=self.heads, gather_heads=self.every_head or same,
                 combine=(lambda out, lse: combine_partials(out, lse, tp))
                 if cut.mode == "seq" else None, **kw)
-        x = x + total(a)
+        x = x + atotal(a)
         if kind == "dec_cross":
             h = layers.apply_norm(p["ln3"], x, cfg.norm)
-            x = x + total(self.cross_decode(p["xattn"], cfg, h, enc_kv, backend=backend))
+            x = x + atotal(self.cross_decode(p["xattn"], cfg, h, enc_kv, backend=backend))
         h = layers.apply_norm(p["ln2"], x, cfg.norm)
+        ftotal = same if "ffn" in whole else total
         if kind == "moe":
             y, _ = moe_lib.moe_block(p["moe"], cfg, h, experts=self.experts)
-            return x + _experts_sum(y, tp), cache
-        return x + total(layers.apply_mlp(p["mlp"], h, cfg.mlp)), cache
+            return x + (y if "ffn" in whole else _experts_sum(y, tp)), cache
+        return x + ftotal(layers.apply_mlp(p["mlp"], h, cfg.mlp)), cache
 
 
 def decode_params(cfg: ModelConfig, params: PyTree) -> PyTree:
@@ -1163,7 +1271,6 @@ def decode_params(cfg: ModelConfig, params: PyTree) -> PyTree:
 
 
 def _serve_gather(cfg, layout, cache_len, batch):
-    check_grid(cfg, layout.model)
     specs = param_specs(cfg, layout.mesh)
     shapes = {p: tuple(t.shape) for p, t in flatten(M.abstract_params(cfg)).items()}
     return ServeGather(cfg, layout, specs, shapes, cache_len, batch)
@@ -1175,10 +1282,10 @@ def _next_token(logits):
 
 def _serve_stats(layout, gather):
     """A serve call's collectives (:meth:`Layout.counts`), of them the
-    hybrid ssm cache's moves (``reblock_<axis>_bytes`` and ``_calls``),
-    and the bytes its cross caches' blocks were copied in
-    (``copy_bytes``)."""
-    return dict(layout.counts(), copy_bytes=gather.copied,
+    ssm cache's moves (``reblock_<axis>_bytes`` and ``_calls``), the
+    bytes its cross caches' blocks were copied in (``copy_bytes``), and
+    the parts each member computes whole (``whole``)."""
+    return dict(layout.counts(), copy_bytes=gather.copied, whole=dict(gather.whole),
                 **{f"reblock_{k}": v for k, v in gather.moved.items()})
 
 
@@ -1206,6 +1313,7 @@ def make_prefill_step(cfg: ModelConfig, layout: Layout, cache_len: int, *, batch
         return logits, _next_token(logits), cache
 
     prefill_step.stats = {}
+    prefill_step.whole = dict(gather.whole)
     prefill_step.specs = gather.specs
     prefill_step.cache_specs = gather.cspecs
     return prefill_step
@@ -1235,6 +1343,7 @@ def make_decode_step(cfg: ModelConfig, layout: Layout, seq_len: int, *, batch: i
         return logits, _next_token(logits), cache
 
     decode_step.stats = {}
+    decode_step.whole = dict(gather.whole)
     decode_step.plan = plan
     decode_step.specs = gather.specs
     decode_step.cache_specs = gather.cspecs

@@ -85,8 +85,8 @@ def make_manual_dp_train_step(cfg: ModelConfig, layout: "spmd.Layout",
     sharded step's contract (``accum_dtype``, ``read_metrics`` and
     ``remat_policy`` as there), with the data-parallel reduction done by hand: one
     reduce-scatter + one all-gather per parameter per step.
-    ``train_step.stats`` holds the step's collectives by axis."""
-    spmd.check_grid(cfg, layout.model)
+    ``train_step.stats`` holds the step's collectives by axis and the
+    parts computed whole (``spmd.whole_parts``)."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     specs, dims = state_specs(cfg, layout.mesh)
     pspecs = flatten(specs.params)
@@ -135,11 +135,12 @@ def make_manual_dp_train_step(cfg: ModelConfig, layout: "spmd.Layout",
                 else:
                     comm.all_gather_(flat_params[p], new[p], dims[p])
         state.step += 1
-        train_step.stats = layout.counts()
+        train_step.stats = dict(layout.counts(), whole=dict(gather.whole))
         return state, spmd.read_out(metric_names, vec, opt_m, read_metrics)
 
     train_step.stats = {}
     train_step.specs = specs
+    train_step.whole = dict(gather.whole)
     return train_step, specs
 
 

@@ -169,7 +169,10 @@ def test_member_heads_follow_the_grids_cut():
     assert card_lint.member_heads(granite, 16) == (2, 1)  # each member's kv head whole
     pali = get_config("paligemma_3b")                     # 8 / 1
     assert card_lint.member_heads(pali, 2) == (4, 1)
-    assert card_lint.member_heads(pali, 16) == (8, 1)     # check_grid refuses it
+    assert card_lint.member_heads(pali, 16) == (8, 1)     # the grid computes it whole
+    starcoder = get_config("starcoder2_7b")               # 36 / 4: kv 4 does not split
+    assert card_lint.member_heads(starcoder, 3) == (36, 4)
+    assert card_lint.member_heads(starcoder, 4) == (9, 1)
 
 
 @pytest.mark.parametrize("arch,over,shape,code", [

@@ -89,6 +89,16 @@ SERVE_CASES = [("granite-prefill", "granite_8b", {}, "prefill", 8, 32),
                ("whisper-prefill", "whisper_base", {}, "prefill", 8, 32),
                ("whisper-decode", "whisper_base", {}, "decode", 8, 64)]
 
+# (name, arch, config overrides, kind, batch, seq): the argument-bytes
+# cases on the 2 x 3 mesh, whose model axis does not divide a block's
+# count: starcoder2 at 12 heads over 4 kv heads and d_ff 768 (attention
+# whole, the MLP over the members), whisper (every part whole), and
+# paligemma's decode (attention and MLP whole, the cache over its sequence)
+MIXED = {"num_heads": 12, "num_kv_heads": 4, "d_ff": 768}
+UNDIVIDED_CASES = [("mixed-2x3", "starcoder2_7b", MIXED, "gspmd", 8, SEQ),
+                   ("whisper-2x3", "whisper_base", {}, "gspmd", 8, SEQ),
+                   ("paligemma-decode-2x3", "paligemma_3b", {}, "decode", 8, 120)]
+
 
 @pytest.fixture(autouse=True)
 def _two_threads():
@@ -416,6 +426,8 @@ def _jax_memory_run(tmp_path_factory):
              for name, arch, data, model, accum, mode in MEMORY_CASES]
     cases += [(name, dataclasses.asdict(_serve_cfg(arch, over)), 2, 2, batch, seq, 1, kind)
               for name, arch, over, kind, batch, seq in SERVE_CASES]
+    cases += [(name, dataclasses.asdict(_serve_cfg(arch, over)), 2, 3, batch, seq, 1, kind)
+              for name, arch, over, kind, batch, seq in UNDIVIDED_CASES]
     src, dst = tmp / "in.pkl", tmp / "out.pkl"
     with open(src, "wb") as f:
         pickle.dump(cases, f)
@@ -452,6 +464,30 @@ def test_argument_bytes_equal_jax_memory_analysis(jax_arguments, name):
     assert rec["state_bytes"] == rec["block_bytes"]
     if mode == "manual":
         assert rec["optimizer_bytes"] == rec["optimizer_closed"]
+
+
+@pytest.mark.parametrize("name", [c[0] for c in UNDIVIDED_CASES])
+def test_undivided_argument_bytes_equal_jax_memory_analysis(jax_arguments, name):
+    """On the 2 x 3 mesh, where the model axis does not divide a count
+    the members would split and each such part is computed whole, every
+    rank's argument bytes equal JAX's per-device ``argument_size_in_bytes``
+    of the same step (a train step less JAX's int32 step counter): the
+    persistent blocks stay the rules' whatever the members compute."""
+    _, arch, over, kind, batch, seq = next(c for c in UNDIVIDED_CASES if c[0] == name)
+    cfg = TConfig(**dataclasses.asdict(_serve_cfg(arch, over)))
+    mesh = Mesh.of((2, 3), ("data", "model"))
+    for rank in ((0, 0), (1, 2)):
+        if kind == "gspmd":
+            rec = dryrun.estimate(cfg, mesh, TSH.InputShape(name, "train", seq, batch),
+                                  rank=rank)
+            assert rec["argument_bytes"] == jax_arguments[name] - 4
+            assert rec["state_bytes"] == rec["block_bytes"]
+        else:
+            rec = dryrun.estimate_serve(cfg, mesh, TSH.InputShape(name, kind, seq, batch),
+                                        rank=rank)
+            assert rec["argument_bytes"] == jax_arguments[name]
+            assert rec["cache_bytes"] == rec["cache_block_bytes"]
+        assert rec["whole"] and rec["whole"] == dryrun.spmd.whole_parts(cfg, 3)
 
 
 def _serve_estimate(name, backend="auto"):
@@ -520,8 +556,9 @@ def test_serve_flops_against_hlo_analysis(jax_arguments, name, capsys):
 
 def test_dryrun_one_records_ok_and_refusals(tmp_path):
     """``dryrun_one`` on a 2 x 2 mesh records ``ok`` with every field; an
-    undivided count and a serve shape are ``refused`` with their reason;
-    each record is written."""
+    undivided head count is ``ok``, the attention named whole; a serve
+    shape out of scope is ``refused`` with its reason; each record is
+    written."""
     mesh = Mesh.of((2, 2), ("data", "model"))
     shape = TSH.InputShape("train_small", "train", 64, 4)
     rec = dryrun.dryrun_one("granite_8b", "train_small", out_dir=str(tmp_path), mesh=mesh,
@@ -535,9 +572,9 @@ def test_dryrun_one_records_ok_and_refusals(tmp_path):
     assert "replicated over the model axis" in rec["activations"]
     on_disk = json.loads((tmp_path / "granite_8b__train_small__mesh2x2.json").read_text())
     assert on_disk["status"] == "ok"
-    bad = dataclasses.replace(tsmoke("granite_8b"), num_heads=3, num_kv_heads=1)
-    rec = dryrun.dryrun_one("granite_8b", "train_small", mesh=mesh, cfg=bad, shape=shape)
-    assert rec["status"] == "refused" and "num_heads=3" in rec["reason"]
+    odd = dataclasses.replace(tsmoke("granite_8b"), num_heads=3, num_kv_heads=1)
+    rec = dryrun.dryrun_one("granite_8b", "train_small", mesh=mesh, cfg=odd, shape=shape)
+    assert rec["status"] == "ok" and rec["whole"] == {"attention": "num_heads=3"}
     for kind, seq in (("prefill", 64), ("decode", 128)):
         rec = dryrun.dryrun_one("granite_8b", kind, mesh=mesh, cfg=tsmoke("granite_8b"),
                                 shape=TSH.InputShape(kind, kind, seq, 4))

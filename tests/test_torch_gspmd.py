@@ -21,11 +21,12 @@ initialisation equal the JAX rules' slices of the single-device state,
 and its bytes their closed form; a checkpoint written from the grid
 resumes on one device and on a (4, 1) grid to the same next loss; the
 ``DataLoader`` yields the JAX loader's batches and surfaces a worker's
-failure; the launcher's ``main`` trains the grid and refuses what it
-cannot run (a model axis that does not divide a count its members
-split).
+failure; the launcher's ``main`` trains the grid, at a model axis that does not
+divide a count its members split too (that part computed whole and
+named), and refuses what it cannot run.
 """
 import dataclasses
+import json
 import pathlib
 import sys
 import threading
@@ -379,15 +380,26 @@ def test_launcher_trains_the_grid(grid4, tmp_path):
         [(0, 0), (0, 1), (1, 0), (1, 1)]
 
 
-@pytest.mark.parametrize("arch,count", [
-    ("qwen3_moe_30b_a3b", "num_experts=4"), ("mamba2_780m", "ssm_nheads=16"),
-    ("zamba2_2p7b", "ssm_nheads=16"), ("whisper_base", "num_heads=2")])
-def test_launcher_refuses_model_parallel_without_sharded_blocks(arch, count):
+@pytest.mark.parametrize("arch,whole", [
+    ("qwen3_moe_30b_a3b", {"attention": "num_heads=2", "experts": "num_experts=4"}),
+    ("mamba2_780m", {"ssm": "ssm_nheads=16"}),
+    ("zamba2_2p7b", {"attention": "num_heads=2", "mlp": "d_ff=512", "ssm": "ssm_nheads=16"}),
+    ("whisper_base", {"attention": "num_heads=2", "mlp": "d_ff=512"}),
+    ("qwen1p5_0p5b", {"attention": "num_heads=2", "mlp": "d_ff=512"})])
+def test_launcher_refuses_model_parallel_without_sharded_blocks(arch, whole, tmp_path):
     """A model axis that does not divide the count its members split
-    (experts, mamba2 heads, attention heads) is refused by name."""
-    with pytest.raises(SystemExit, match=f"does not divide .*{count}"):
-        train.main(["--arch", arch, "--smoke", "--device", "cpu", "--model-parallel", "3",
-                    "--p2p", "host"])
+    (experts, mamba2 heads, attention heads, ff width) is no longer
+    refused: the launcher trains one step at ``--model-parallel 3``, each
+    such part computed whole on every member and named, on the ``arch=``
+    line, in the result and in the metadata row of ``metrics.jsonl``."""
+    res = train.main(["--arch", arch, "--smoke", "--device", "cpu", "--model-parallel", "3",
+                      "--p2p", "host", "--steps", "1", "--batch", "2", "--seq", "32",
+                      "--run-dir", str(tmp_path)])
+    assert res["mode"] == "gspmd" and res["whole"] == whole
+    assert len(res["losses"]) == 1 and np.isfinite(res["losses"][0])
+    assert res["state_bytes"] == res["block_bytes"]
+    meta = json.loads((tmp_path / "metrics.jsonl").read_text().splitlines()[0])
+    assert meta["whole"] == whole and meta["model_parallel"] == 3
 
 
 @pytest.mark.parametrize("extra,what", [
@@ -396,8 +408,7 @@ def test_launcher_refuses_model_parallel_without_sharded_blocks(arch, count):
     (["--pipeline-parallel", "2", "--model-parallel", "2"], "the pipeline takes"),
     (["--model-parallel", "2"], "--p2p host"),
     (["--model-parallel", "2", "--data-parallel", "3", "--p2p", "host", "--batch", "8"],
-     "does not split"),
-    (["--model-parallel", "3", "--p2p", "host"], "does not divide")])
+     "does not split")])
 def test_launcher_refusals_off_the_pipeline(extra, what):
     with pytest.raises(SystemExit, match=what):
         train.main(["--arch", "qwen1p5_0p5b", "--smoke", "--device", "cpu"] + extra)
